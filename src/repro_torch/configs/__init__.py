@@ -1,0 +1,37 @@
+"""Architecture registry: the configs whose model the port can build."""
+from __future__ import annotations
+
+import importlib
+
+from .base import ModelConfig, ParallelConfig
+
+# public arch id -> module name (the reference registers twelve; the port
+# adds an id once it runs that family -- ROADMAP Queue 1 item 14)
+_MODULES = {
+    "gemma2-2b": "gemma2_2b",
+}
+
+ARCH_IDS = list(_MODULES)
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    if arch_id not in _MODULES:
+        raise NotImplementedError(
+            f"{arch_id!r} is not ported yet (ported: {ARCH_IDS}); other "
+            f"families come with ROADMAP Queue 1 item 14")
+    mod = importlib.import_module(f".{_MODULES[arch_id]}", __package__)
+    return mod.CONFIG
+
+
+def build_model(cfg: ModelConfig):
+    from ..models.transformer import DecoderLM
+
+    if cfg.arch_type == "dense":
+        return DecoderLM(cfg)
+    raise NotImplementedError(
+        f"arch_type {cfg.arch_type!r} is not ported yet (ROADMAP Queue 1 "
+        f"item 14)")
+
+
+__all__ = ["ModelConfig", "ParallelConfig", "ARCH_IDS", "get_config",
+           "build_model"]

@@ -1,0 +1,338 @@
+"""veScale-FSDP runtime over ``torch.distributed`` (port of
+``repro/core/fsdp.py``: the ZeRO-3 train step on the fp32 store).
+
+``FSDPRuntime`` wraps a model for a process group.  Construction lowers the
+``ParallelConfig`` knobs (or ``schedule=``/``group_schedules=``/
+``policies=``) onto a ``ShardingPlan``: per communication group the
+planner's RaggedShard placements (Algorithm 1) over the group's ranks and a
+flat DBuffer.  Rank r holds columns ``[r*S, (r+1)*S)`` of each group's
+buffer (``(L, S)`` for the layer stack, ``(S,)`` otherwise), as fp32 leaf
+tensors.  The train step then:
+
+  * gathers ``globals`` once and, layer by layer, each layer's shard inside
+    one ``torch.utils.checkpoint`` (non-reentrant): forward all-gathers,
+    unpacks zero-copy views and computes; backward re-gathers the layer
+    (ZeRO-3) and its gather's backward reduce-scatters the gradient
+    straight into that layer's row of the stacked leaf's ``.grad``;
+  * all-reduces the token-sum loss and the token count over the batch
+    axes, scales the gradients by ``1/max(tokens, 1)``, runs the
+    optimizer (one fused kernel per group, in place) and reports the norm
+    of the scaled gradients -- the reference's order.
+
+Entry points run on the card unless the caller passes ``device="cpu"``;
+without a card and without that, construction raises.
+
+PARITY: ``init_params`` and the planned layouts are BITWISE the reference's;
+the train step is ALLCLOSE (tests/test_torch_train.py states the bounds).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import zlib
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch.utils.checkpoint import checkpoint
+
+from ..launch.mesh import mesh_axes
+from ..models.transformer import GroupDef
+from .dbuffer import DBuffer
+from .policy import PolicySet, ShardingPlan, plan as make_plan
+from .ragged import TensorSpec
+from .schedule import CommSchedule
+from .store import ParamStore
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupLayout:
+    name: str
+    gdef: GroupDef
+    local_specs: tuple[TensorSpec, ...]
+    plan: Any               # GroupPlan
+    buffer: DBuffer
+    fsdp_axes: tuple[str, ...]
+    fsdp_axis_sizes: tuple[int, ...]
+    n_layers: int | None
+    store: ParamStore = ParamStore()
+
+    def global_shape(self) -> tuple[int, ...]:
+        d = (self.plan.total,)
+        return (self.n_layers,) + d if self.n_layers else d
+
+    def local_shape(self) -> tuple[int, ...]:
+        d = (self.plan.shard_size,)
+        return (self.n_layers,) + d if self.n_layers else d
+
+
+def _resolve_device(device) -> torch.device:
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "FSDPRuntime runs on the card by default and no CUDA device "
+                "is available; pass device='cpu' to run on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+class FSDPRuntime:
+    def __init__(self, model, group=None, *, planner: str = "ragged",
+                 compute_dtype: torch.dtype = torch.bfloat16, device=None,
+                 schedule: CommSchedule | None = None,
+                 group_schedules: Mapping[str, Any] | None = None,
+                 policies=None):
+        self.device = _resolve_device(device)
+        if group is None:
+            if not dist.is_initialized():
+                raise RuntimeError(
+                    "FSDPRuntime needs a process group: pass one, or create "
+                    "the default group first (launch.mesh.init_local_group)")
+            group = dist.group.WORLD
+        self.group = group
+        self.rank = dist.get_rank(group)
+        self.model = model
+        self.cfg = model.cfg
+        self.compute_dtype = compute_dtype
+        par = self.cfg.parallel
+        if par.microbatches > 1:
+            raise NotImplementedError(
+                "microbatches > 1 (gradient accumulation) is not ported yet "
+                "(ROADMAP Queue 1 item 18)")
+        self.axis_sizes = mesh_axes(group)
+
+        if policies is None:
+            policies = PolicySet.from_parallel_config(
+                par, schedule=schedule, group_schedules=group_schedules)
+        elif schedule is not None or group_schedules is not None:
+            raise ValueError(
+                "pass either policies= or schedule=/group_schedules=, "
+                "not both")
+        plan: ShardingPlan = make_plan(model, self.axis_sizes, policies,
+                                       planner=planner,
+                                       compute_dtype=compute_dtype)
+        self.plan = plan
+        self.schedule = plan.base_schedule()
+        self._group_scheds = plan.schedules()
+        self.schedule.validate_for(compute_dtype)
+        for s in self._group_scheds.values():
+            s.validate_for(compute_dtype)
+
+        gdefs = model.groups()
+        self.layouts: dict[str, GroupLayout] = {
+            name: GroupLayout(
+                name=name, gdef=gdefs[name], local_specs=e.local_specs,
+                plan=e.plan, buffer=DBuffer(e.plan), fsdp_axes=e.fsdp_axes,
+                fsdp_axis_sizes=e.fsdp_axis_sizes, n_layers=e.n_layers,
+                store=e.store)
+            for name, e in plan.groups.items()
+        }
+        for lo in self.layouts.values():
+            if math.prod(lo.fsdp_axis_sizes) != self.axis_sizes["data"]:
+                raise ValueError(
+                    f"group {lo.name} shards over {lo.fsdp_axes}, not over "
+                    f"the process group's {self.axis_sizes['data']} ranks")
+        self.batch_axes = tuple(a for a in par.batch_axes
+                                if a in self.axis_sizes)
+
+    def sched_for(self, name: str) -> CommSchedule:
+        return self._group_scheds.get(name, self.schedule)
+
+    def _axis_index(self, axis: str) -> int:
+        return self.rank if axis == "data" else 0
+
+    def batch_slice(self, batch: int) -> tuple[int, int]:
+        """This rank's rows ``[lo, hi)`` of a global batch: sharded over
+        the longest run of batch axes that divides it, replicated on the
+        rest (the reference's ``_usable_batch_axes``/``batch_pspec``)."""
+        shards, idx, rem = 1, 0, batch
+        for a in self.batch_axes:
+            size = self.axis_sizes[a]
+            if rem % size == 0 and rem >= size:
+                idx = idx * size + self._axis_index(a)
+                shards *= size
+                rem //= size
+        per = batch // shards
+        return idx * per, (idx + 1) * per
+
+    # ------------------------------------------------------------------ #
+    # state construction
+    # ------------------------------------------------------------------ #
+    @staticmethod
+    def _init_tensor(spec: TensorSpec, seed: int, layer: int | None):
+        """Deterministic per-tensor init: identical values regardless of
+        how tensors are grouped/sharded (the reference's, line for line)."""
+        rng = np.random.default_rng(
+            [seed, zlib.crc32(spec.name.encode()),
+             0 if layer is None else layer + 1]
+        )
+        if len(spec.shape) >= 2:
+            fan_in = spec.shape[0]
+            a = rng.normal(0, 1.0 / math.sqrt(max(fan_in, 1)),
+                           size=spec.shape)
+        elif any(t in spec.name for t in ("ln", "norm", "skip", "scale")):
+            a = np.ones(spec.shape)
+        else:
+            a = np.zeros(spec.shape)
+        return a.astype(np.float32)
+
+    def _place(self, name: str, global_buf: np.ndarray,
+               requires_grad: bool = True) -> torch.Tensor:
+        """This rank's columns of a global host buffer, on the device.
+        Parameters are leaves that require grad: the gather's backward
+        fills their ``.grad``."""
+        S = self.layouts[name].plan.shard_size
+        local = global_buf[..., self.rank * S:(self.rank + 1) * S]
+        return torch.tensor(local, dtype=torch.float32,
+                            device=self.device).requires_grad_(requires_grad)
+
+    def init_params(self, seed: int = 0) -> dict[str, torch.Tensor]:
+        """Host-side init; every rank builds the global buffer and keeps
+        its shard.  PARITY: BITWISE vs the reference's ``init_params``."""
+        params = {}
+        for name, lo in self.layouts.items():
+            layers = list(range(lo.n_layers)) if lo.n_layers else [None]
+            flats = [lo.buffer.pack({s.name: self._init_tensor(s, seed, li)
+                                     for s in lo.gdef.specs})
+                     for li in layers]
+            arr = np.stack(flats) if lo.n_layers else flats[0]
+            params[name] = self._place(name, lo.store.create(arr))
+        return params
+
+    # ------------------------------------------------------------------ #
+    # train step
+    # ------------------------------------------------------------------ #
+    def make_train_step(self, optimizer):
+        """``step(params, opt_state, step, batch) -> (params, opt_state,
+        step + 1, metrics)``; ``step`` is a Python int (the host counter),
+        ``metrics`` holds 0-d device tensors ``loss``, ``tokens`` and
+        ``grad_norm`` (reading them is the only host sync).  Parameters and
+        optimizer state are updated in place."""
+
+        def step_fn(params, opt_state, step: int, batch):
+            if not isinstance(step, int):
+                raise TypeError(f"step must be a Python int, got {step!r}")
+            # the differentiable part of each store state (the buffer the
+            # reduce-scatter targets) and the rest; for fp32 the state
+            # itself and nothing
+            trainable = {n: self.layouts[n].store.trainable(s)
+                         for n, s in params.items()}
+            frozen = {n: self.layouts[n].store.frozen(s)
+                      for n, s in params.items()}
+            for p in trainable.values():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+                else:
+                    p.grad.zero_()
+            pg = _ParamGetter(self, {
+                n: self.layouts[n].store.combine(trainable[n], frozen[n])
+                for n in params})
+            nll, w = self.model.loss(pg, batch)
+            nll.backward()
+            with torch.no_grad():
+                stats = torch.stack([nll.detach(), w])
+                if self.batch_axes:
+                    dist.all_reduce(stats, group=self.group)
+                nll_g, w_g = stats.unbind()
+                grads = {n: p.grad for n, p in trainable.items()}
+                scale = 1.0 / torch.clamp(w_g, min=1.0)
+                for g in grads.values():
+                    g.mul_(scale)
+                params, opt_state = optimizer.update(self, params, grads,
+                                                     opt_state, step)
+                metrics = {
+                    "loss": nll_g / torch.clamp(w_g, min=1.0),
+                    "tokens": w_g,
+                    "grad_norm": _global_norm(self, grads),
+                }
+            return params, opt_state, step + 1, metrics
+
+        return step_fn
+
+
+def _global_norm(runtime: FSDPRuntime, grads) -> torch.Tensor:
+    """sqrt of the sum over groups of each group's all-reduced sum of
+    squares (groups added in the reference's order)."""
+    sq = torch.stack([g.float().square().sum() for g in grads.values()])
+    dist.all_reduce(sq, group=runtime.group)
+    return torch.sqrt(sum(sq.unbind()))
+
+
+def load_reference_state(runtime: FSDPRuntime, params: Mapping[str, Any],
+                         opt_state: Mapping[str, Mapping[str, Any]] | None
+                         = None):
+    """Carry the reference runtime's state across: ``params`` is
+    ``{group: global flat buffer}`` as numpy arrays (``(L, total)`` or
+    ``(total,)``), ``opt_state`` optionally ``{"m": {...}, "v": {...}}`` of
+    the same shapes.  Each shape is checked against the port's layouts
+    (which are bitwise the reference's, so no re-layout is needed); each
+    rank keeps its columns on the runtime's device.  Returns ``(params,
+    opt_state)`` in the port's form (``opt_state`` None when not given)."""
+
+    def place_all(tree, what, requires_grad):
+        if set(tree) != set(runtime.layouts):
+            raise ValueError(
+                f"{what} groups {sorted(tree)} do not match the runtime's "
+                f"{sorted(runtime.layouts)}")
+        out = {}
+        for name, lo in runtime.layouts.items():
+            a = np.asarray(tree[name], np.float32)
+            if a.shape != lo.global_shape():
+                raise ValueError(
+                    f"{what}[{name!r}] has shape {a.shape}, the port's "
+                    f"layout needs {lo.global_shape()}")
+            out[name] = runtime._place(name, a, requires_grad)
+        return out
+
+    new_params = place_all(params, "params", True)
+    if opt_state is None:
+        return new_params, None
+    return new_params, {k: place_all(opt_state[k], f"opt_state[{k!r}]",
+                                     False) for k in ("m", "v")}
+
+
+class _ParamGetter:
+    """What the model sees of the runtime: gathered, unpacked tensors."""
+
+    def __init__(self, runtime: FSDPRuntime, params):
+        self.rt = runtime
+        self.params = params
+        self.compute_dtype = runtime.compute_dtype
+
+    def _gather(self, name: str, layer: int | None = None) -> torch.Tensor:
+        p = self.params[name]
+        shard, sink = (p, p.grad) if layer is None \
+            else (p[layer], p.grad[layer])
+        return self.rt.layouts[name].store.gather(
+            shard, sink, self.rt.group, self.rt.sched_for(name),
+            self.compute_dtype)
+
+    def globals(self, group: str) -> dict[str, torch.Tensor]:
+        return self.rt.layouts[group].buffer.unpack(self._gather(group))
+
+    def scan(self, groups, body, carry, xs=None):
+        """The FSDP layer loop: for each layer, gather every group's layer
+        shard, unpack and run ``body(p, carry, x)`` -> ``(carry, y)``, all
+        inside one non-reentrant activation checkpoint, so backward
+        re-gathers the layer (ZeRO-3) and keeps only the layer inputs
+        alive between forward and backward.  Returns ``(carry, ys)``
+        (``ys`` None when every ``y`` is None)."""
+        n = self.rt.layouts[groups[0]].n_layers
+
+        def layer(i, c):
+            p = {}
+            for g in groups:
+                p.update(self.rt.layouts[g].buffer.unpack(self._gather(g, i)))
+            return body(p, c, None if xs is None else xs[i])
+
+        ys = []
+        for i in range(n):
+            carry, y = checkpoint(layer, i, carry, use_reentrant=False,
+                                  preserve_rng_state=False)
+            ys.append(y)
+        return carry, (None if all(y is None for y in ys) else ys)

@@ -1,0 +1,161 @@
+// Fused AdamW step + flat ParamStore epilogue for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel repro/kernels/fused_update.py::
+// _adamw_flat_kernel (with its math core _adam_math), launched by
+// adamw_store_update for the fp32 and bf16 store formats.
+//
+// What it computes, per element, in the reference's operation order:
+//   m'  = b1*m + (1-b1)*g
+//   v'  = b2*v + (1-b2)*g*g
+//   upd = (m'/c1) / (sqrt(v'/c2) + eps)
+//   w'  = w - lr*(upd + wd*mask*w)
+// and writes w' as fp32 or as bf16 (round to nearest even), m' and v' as
+// fp32.  Every operation is an explicitly rounded intrinsic (no FMA
+// contraction, IEEE division and square root), so the result is bitwise
+// equal to the plain PyTorch version (kernels/ref.py), which runs one eager
+// op per step.
+//
+// Bound: memory.  Each element reads w, g, m, v, mask (20 B) and writes w',
+// m', v' (12 B fp32 / 10 B bf16): 32 B or 30 B per element against ~15
+// flops, far below Hopper's flop-per-byte balance.  The design moves each
+// byte once: one grid-stride pass, 16-byte vector loads and stores when
+// every pointer is 16-byte aligned and n % 4 == 0, a scalar pass otherwise.
+// The reference pads the tail to 128 lanes (a TPU tiling artifact); here
+// the scalar path covers any n without padding.
+//
+// Outputs may alias inputs (w_out == w, m_out == m, v_out == v): every
+// element is read before it is written, by the same thread, so no pointer is
+// declared __restrict__.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+struct Scalars {
+  float lr, b1, b2, eps, wd, c1, c2, one_m_b1, one_m_b2;
+};
+
+__device__ __forceinline__ void adam_math(const Scalars& s, float w, float g,
+                                          float m, float v, float mask,
+                                          float& w2, float& m2, float& v2) {
+  m2 = __fadd_rn(__fmul_rn(s.b1, m), __fmul_rn(s.one_m_b1, g));
+  v2 = __fadd_rn(__fmul_rn(s.b2, v), __fmul_rn(__fmul_rn(s.one_m_b2, g), g));
+  const float upd = __fdiv_rn(__fdiv_rn(m2, s.c1),
+                              __fadd_rn(__fsqrt_rn(__fdiv_rn(v2, s.c2)), s.eps));
+  w2 = __fsub_rn(w, __fmul_rn(s.lr, __fadd_rn(upd,
+                                              __fmul_rn(__fmul_rn(s.wd, mask), w))));
+}
+
+template <bool kBf16>
+__device__ __forceinline__ void store_w(void* w_out, int64_t i, float x) {
+  if (kBf16) {
+    reinterpret_cast<__nv_bfloat16*>(w_out)[i] = __float2bfloat16_rn(x);
+  } else {
+    reinterpret_cast<float*>(w_out)[i] = x;
+  }
+}
+
+template <bool kBf16>
+__global__ void adamw_flat_scalar(const float* w, const float* g, const float* m,
+                                  const float* v, const float* mask, void* w_out,
+                                  float* m_out, float* v_out, int64_t n, Scalars s) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    float w2, m2, v2;
+    adam_math(s, w[i], g[i], m[i], v[i], mask[i], w2, m2, v2);
+    store_w<kBf16>(w_out, i, w2);
+    m_out[i] = m2;
+    v_out[i] = v2;
+  }
+}
+
+template <bool kBf16>
+__global__ void adamw_flat_vec4(const float4* w, const float4* g, const float4* m,
+                                const float4* v, const float4* mask, void* w_out,
+                                float4* m_out, float4* v_out, int64_t n4, Scalars s) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4; i += stride) {
+    const float4 wi = w[i], gi = g[i], mi = m[i], vi = v[i], ki = mask[i];
+    float4 wo, mo, vo;
+    adam_math(s, wi.x, gi.x, mi.x, vi.x, ki.x, wo.x, mo.x, vo.x);
+    adam_math(s, wi.y, gi.y, mi.y, vi.y, ki.y, wo.y, mo.y, vo.y);
+    adam_math(s, wi.z, gi.z, mi.z, vi.z, ki.z, wo.z, mo.z, vo.z);
+    adam_math(s, wi.w, gi.w, mi.w, vi.w, ki.w, wo.w, mo.w, vo.w);
+    if (kBf16) {
+      // four bf16 values in one 8-byte store
+      __nv_bfloat162 lo = __floats2bfloat162_rn(wo.x, wo.y);
+      __nv_bfloat162 hi = __floats2bfloat162_rn(wo.z, wo.w);
+      uint2 packed;
+      packed.x = *reinterpret_cast<uint32_t*>(&lo);
+      packed.y = *reinterpret_cast<uint32_t*>(&hi);
+      reinterpret_cast<uint2*>(w_out)[i] = packed;
+    } else {
+      reinterpret_cast<float4*>(w_out)[i] = wo;
+    }
+    m_out[i] = mo;
+    v_out[i] = vo;
+  }
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+constexpr int kThreads = 256;
+constexpr int64_t kMaxBlocks = 132 * 32;  // H100: 132 SMs, grid-stride beyond
+
+template <bool kBf16>
+void launch(const float* w, const float* g, const float* m, const float* v,
+            const float* mask, void* w_out, float* m_out, float* v_out,
+            int64_t n, const Scalars& s, cudaStream_t stream) {
+  const bool vec = (n % 4 == 0) && aligned16(w) && aligned16(g) && aligned16(m) &&
+                   aligned16(v) && aligned16(mask) && aligned16(m_out) &&
+                   aligned16(v_out) &&
+                   ((reinterpret_cast<uintptr_t>(w_out) & (kBf16 ? 7u : 15u)) == 0);
+  const int64_t work = vec ? n / 4 : n;
+  int64_t blocks = (work + kThreads - 1) / kThreads;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  if (blocks < 1) blocks = 1;
+  if (vec) {
+    adamw_flat_vec4<kBf16><<<(unsigned)blocks, kThreads, 0, stream>>>(
+        reinterpret_cast<const float4*>(w), reinterpret_cast<const float4*>(g),
+        reinterpret_cast<const float4*>(m), reinterpret_cast<const float4*>(v),
+        reinterpret_cast<const float4*>(mask), w_out,
+        reinterpret_cast<float4*>(m_out), reinterpret_cast<float4*>(v_out), work, s);
+  } else {
+    adamw_flat_scalar<kBf16><<<(unsigned)blocks, kThreads, 0, stream>>>(
+        w, g, m, v, mask, w_out, m_out, v_out, n, s);
+  }
+}
+
+}  // namespace
+
+// Plain C entry point, loaded with ctypes.  Pointers are device pointers of
+// contiguous tensors of n elements (w, g, m, v, mask, m_out, v_out fp32;
+// w_out fp32, or bf16 when out_bf16 != 0).  Launches on `stream` and returns
+// cudaGetLastError() (0 on success); it never synchronises.
+extern "C" int adamw_store_update_launch(const float* w, const float* g,
+                                         const float* m, const float* v,
+                                         const float* mask, void* w_out,
+                                         float* m_out, float* v_out,
+                                         long long n, float lr, float b1,
+                                         float b2, float eps, float wd,
+                                         float c1, float c2, int out_bf16,
+                                         void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  Scalars s;
+  s.lr = lr; s.b1 = b1; s.b2 = b2; s.eps = eps; s.wd = wd; s.c1 = c1; s.c2 = c2;
+  // host float arithmetic is IEEE single precision (SSE): the same fp32
+  // 1-b1 and 1-b2 the plain version forms on the device
+  s.one_m_b1 = 1.0f - b1;
+  s.one_m_b2 = 1.0f - b2;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (out_bf16) {
+    launch<true>(w, g, m, v, mask, w_out, m_out, v_out, (int64_t)n, s, st);
+  } else {
+    launch<false>(w, g, m, v, mask, w_out, m_out, v_out, (int64_t)n, s, st);
+  }
+  return (int)cudaGetLastError();
+}

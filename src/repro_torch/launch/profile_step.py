@@ -1,0 +1,115 @@
+"""Where a train step's device time goes: one profiled ZeRO-3 step.
+
+    PYTHONPATH=src python -m repro_torch.launch.profile_step
+
+Builds the configuration ``chip_smoke.py`` trains -- gemma2-2b at published
+width, depth cut to 4 layers, batch 2 x 2048, bf16 compute, fp32 store,
+AdamW -- runs two warm-up steps on one rank of a NCCL group, then one step
+under ``torch.profiler`` and prints JSON lines:
+the step's wall time, the summed device time of its kernels by category
+(matmul, optimizer kernel, collective, other) and the device's idle share
+of the step, then the kernels with the most device time.  Needs a CUDA
+card; it does not run on the CPU.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import time
+
+import torch
+
+from ..configs import build_model, get_config
+from ..core.fsdp import FSDPRuntime
+from ..data.pipeline import DataConfig, SyntheticStream
+from ..optim import make_optimizer
+from .mesh import init_local_group
+
+# kernel-name fragments -> category (cuBLAS/CUTLASS GEMM names, NCCL, ours)
+CATEGORIES = (
+    ("optimizer", ("adamw_flat",)),
+    ("collective", ("nccl",)),
+    ("matmul", ("gemm", "cutlass", "xmma", "nvjet", "cublas")),
+)
+
+
+def category(name: str) -> str:
+    low = name.lower()
+    for cat, keys in CATEGORIES:
+        if any(k in low for k in keys):
+            return cat
+    return "other"
+
+
+LAYERS, BATCH, SEQ, WARMUP, TOP = 4, 2, 2048, 2, 15
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    cfg = dataclasses.replace(get_config("gemma2-2b"), n_layers=LAYERS)
+    rt = FSDPRuntime(build_model(cfg), init_local_group("nccl"),
+                     compute_dtype=torch.bfloat16)
+    params = rt.init_params(0)
+    opt = make_optimizer(cfg)
+    opt_state = opt.init(rt)
+    step_fn = rt.make_train_step(opt)
+    stream = SyntheticStream(DataConfig(cfg.vocab, SEQ, BATCH), cfg)
+    step = 0
+    for i in range(WARMUP):
+        batch = stream.shard(stream.batch(i), rt)
+        params, opt_state, step, _ = step_fn(params, opt_state, step, batch)
+    batch = stream.shard(stream.batch(WARMUP), rt)
+    torch.cuda.synchronize()
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        params, opt_state, step, m = step_fn(params, opt_state, step, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise SystemExit("the profiler recorded no device activity")
+    # union of kernel intervals: the device's busy time in the step
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy_us, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy_us += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy_us += cur_e - cur_s
+    by_cat: dict[str, float] = {}
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        us = e.time_range.end - e.time_range.start
+        by_cat[category(e.name)] = by_cat.get(category(e.name), 0.0) + us
+        row = by_name.setdefault(e.name, [0.0, 0])
+        row[0] += us
+        row[1] += 1
+    print(json.dumps({
+        "phase": "profile", "model": cfg.name, "n_layers": LAYERS,
+        "batch": [BATCH, SEQ], "compute": "bf16",
+        "device": torch.cuda.get_device_name(0), "loss": float(m["loss"]),
+        "step_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
+        "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
+        "kernel_ms_by_category": {k: v / 1e3 for k, v in
+                                  sorted(by_cat.items())},
+        "kernel_launches": len(kernels)}), flush=True)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP]
+    for name, (us, count) in top:
+        print(json.dumps({"kernel": name[:120], "category": category(name),
+                          "ms": us / 1e3, "count": count}), flush=True)
+    torch.distributed.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

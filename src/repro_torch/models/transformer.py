@@ -1,0 +1,171 @@
+"""Decoder-only transformer LM, dense path (port of
+``repro/models/transformer.py``).
+
+The model is written against the ParamGetter protocol of
+``core.fsdp``: ``pg.globals(group)`` returns the gathered, unpacked tensors
+of an unstacked group; ``pg.scan(groups, body, carry, xs)`` runs the FSDP
+layer loop (per-layer all-gather -> zero-copy unpack -> body, with the
+gather inside the activation checkpoint), which is the ZeRO-3 schedule.
+
+Ported: the dense self-attention decoder with tp=1 -- the ``layers`` and
+``globals`` groups, gemma2's alternating local/global windows, softcaps,
+post-norms and tied embeddings, and the loss on the materialized-logits
+(``ce_chunk=0``) branch.  MoE, VLM cross-attention, tensor/expert
+parallelism, the vocab-chunked CE and the serving steps raise
+``NotImplementedError`` naming their ROADMAP item.  The MoE auxiliary loss
+term of the reference's ``loss`` is identically zero for a dense model and
+is not carried.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..core.ragged import ShardDim, TensorSpec
+from . import layers as L
+
+# window of a global-attention layer (the reference's 2**30 sentinel)
+GLOBAL_WINDOW = 2 ** 30
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupDef:
+    """One communication group: FULL logical tensor specs, stacked
+    ``n_layers`` times if part of the layer loop, with optional outer
+    (TP/EP) sharding applied before RaggedShard."""
+
+    specs: tuple[TensorSpec, ...]
+    n_layers: int | None = None
+    outer: dict[str, ShardDim] = dataclasses.field(default_factory=dict)
+    replicated_over_model: bool = False
+
+
+def _gran(cfg, shape) -> int:
+    """Granularity policy: block-quantized optimizers get quant_block-sized
+    blocks on big tensors; else element-wise."""
+    size = int(np.prod(shape))
+    if (cfg.optimizer == "adam8bit" and len(shape) >= 2
+            and size % cfg.quant_block == 0):
+        return cfg.quant_block
+    return 1
+
+
+def spec(cfg, name, shape) -> TensorSpec:
+    return TensorSpec(name, tuple(shape), granularity=_gran(cfg, shape))
+
+
+def _check_supported(cfg) -> None:
+    par = cfg.parallel
+    unported = (
+        (cfg.n_experts > 0, "MoE layers", "Queue 1 item 14"),
+        (cfg.cross_attn_interval > 0, "VLM cross-attention",
+         "Queue 1 item 14"),
+        (par.tp > 1, f"tp={par.tp}", "Queue 1 item 18"),
+        (par.ep > 1, f"ep={par.ep}", "Queue 1 item 18"),
+        (par.sequence_parallel, "sequence_parallel", "Queue 1 item 18"),
+        (cfg.qkv_bias, "qkv_bias", "Queue 1 item 14"),
+        (cfg.mlp != "geglu", f"mlp={cfg.mlp!r}", "Queue 1 item 14"),
+        (cfg.ce_chunk > 0, "ce_chunk (vocab-chunked CE)", "Queue 1 item 5"),
+    )
+    for hit, what, item in unported:
+        if hit:
+            raise NotImplementedError(
+                f"{what} is not ported yet (ROADMAP {item})")
+
+
+class DecoderLM:
+    def __init__(self, cfg):
+        _check_supported(cfg)
+        self.cfg = cfg
+        self.n_blocks = cfg.n_layers
+
+    # ---------------- specs ------------------------------------------------
+    def _self_layer_specs(self) -> list[TensorSpec]:
+        cfg = self.cfg
+        D, hd = cfg.d_model, cfg.hd
+        Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
+        specs = [spec(cfg, "ln1", (D,)),
+                 spec(cfg, "wq", (D, Hq * hd)),
+                 spec(cfg, "wk", (D, Hkv * hd)),
+                 spec(cfg, "wv", (D, Hkv * hd)),
+                 spec(cfg, "wo", (Hq * hd, D))]
+        if cfg.post_norms:
+            specs.append(spec(cfg, "post_ln1", (D,)))
+        specs += [spec(cfg, "ln2", (D,)), spec(cfg, "w1", (D, cfg.d_ff)),
+                  spec(cfg, "w3", (D, cfg.d_ff)),
+                  spec(cfg, "w2", (cfg.d_ff, D))]
+        if cfg.post_norms:
+            specs.append(spec(cfg, "post_ln2", (D,)))
+        return specs
+
+    def groups(self) -> dict[str, GroupDef]:
+        cfg = self.cfg
+        gl = [spec(cfg, "emb", (cfg.vocab, cfg.d_model)),
+              spec(cfg, "final_ln", (cfg.d_model,))]
+        if not cfg.tie_embeddings:
+            gl.append(spec(cfg, "head", (cfg.d_model, cfg.vocab)))
+        return {
+            "layers": GroupDef(tuple(self._self_layer_specs()),
+                               n_layers=self.n_blocks),
+            "globals": GroupDef(tuple(gl)),
+        }
+
+    # ---------------- forward ------------------------------------------------
+    def _layer_windows(self) -> list[int]:
+        """Per-layer attention window; gemma2 alternates local (sliding)
+        and global layers, starting with a local one."""
+        cfg = self.cfg
+        if cfg.local_global_alternate and cfg.sliding_window:
+            return [cfg.sliding_window if i % 2 == 0 else GLOBAL_WINDOW
+                    for i in range(cfg.n_layers)]
+        if cfg.sliding_window:
+            return [cfg.sliding_window] * cfg.n_layers
+        return [GLOBAL_WINDOW] * cfg.n_layers
+
+    def _self_block(self, p, x, q_pos, window):
+        cfg = self.cfg
+        h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+        out = L.attention(cfg, p, h, q_pos=q_pos, window=window)
+        if cfg.post_norms:
+            out = L.rms_norm(out, p["post_ln1"], cfg.norm_eps)
+        x = x + out
+        h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+        out = L.mlp(cfg, p, h)
+        if cfg.post_norms:
+            out = L.rms_norm(out, p["post_ln2"], cfg.norm_eps)
+        return x + out
+
+    def _backbone(self, pg, x, q_pos):
+        def body(p, x, window):
+            return self._self_block(p, x, q_pos, window), None
+
+        x, _ = pg.scan(["layers"], body, x, self._layer_windows())
+        return x
+
+    def _embed_in(self, pg, tokens):
+        g = pg.globals("globals")
+        x = L.embed(tokens, g["emb"].to(pg.compute_dtype))
+        return x, g
+
+    def _logits(self, g, x):
+        cfg = self.cfg
+        x = L.rms_norm(x, g["final_ln"], cfg.norm_eps)
+        head = g["emb"].T if cfg.tie_embeddings else g["head"]
+        return L.lm_logits(x, head, softcap=cfg.final_softcap)
+
+    # ---------------- public API ----------------------------------------------
+    def loss(self, pg, batch):
+        """(sum of next-token NLL, number of predicted tokens) of the local
+        batch; the runtime normalizes across ranks."""
+        tokens = batch["tokens"]
+        B, T = tokens.shape
+        q_pos = torch.arange(T, device=tokens.device)[None].expand(B, T)
+        x, g = self._embed_in(pg, tokens)
+        x = self._backbone(pg, x, q_pos)
+        logits = self._logits(g, x)
+        return L.vocab_parallel_ce(
+            logits[:, :-1], tokens[:, 1:],
+            torch.ones((B, T - 1), dtype=torch.float32,
+                       device=tokens.device))

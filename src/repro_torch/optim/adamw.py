@@ -1,0 +1,59 @@
+"""AdamW on flat DBuffer shards (port of ``repro/optim/adamw.py``).
+
+The whole per-group step -- moment update and weight write in the store's
+format -- is ONE fused kernel through the dispatch layer
+(``kernels.ops.adamw_store_update``: the hand-written CUDA kernel on the
+card, its plain PyTorch version on the CPU).  The update runs in place on
+the parameter and moment buffers.  ``lr``, ``c1`` and ``c2`` are float32
+scalars computed on the host from the Python step counter, so the loop
+never waits on the device for them.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..kernels import ops
+from .common import OptimizerBase, matrix_mask_local
+
+
+class AdamW(OptimizerBase):
+    b1, b2, eps, wd = 0.9, 0.95, 1e-8, 0.1
+
+    def __init__(self, cfg):
+        super().__init__(cfg)
+        self._masks: dict[str, torch.Tensor] = {}
+
+    def init(self, runtime):
+        """Zero moments, and the weight-decay masks of this rank (one fp32
+        buffer per group, shaped like the group's local shard)."""
+        self._masks = {
+            name: torch.from_numpy(matrix_mask_local(lo, runtime.rank))
+            .to(runtime.device).expand(lo.local_shape()).contiguous()
+            for name, lo in runtime.layouts.items()}
+        return {"m": self._zeros(runtime), "v": self._zeros(runtime)}
+
+    def host_scalars(self, step: int):
+        """(lr, c1, c2) in float32 for 0-based ``step``."""
+        lr = self.schedule(step)
+        t = np.float32(step) + np.float32(1.0)
+        c1 = np.float32(1.0) - np.float32(self.b1) ** t
+        c2 = np.float32(1.0) - np.float32(self.b2) ** t
+        return lr, c1, c2
+
+    @torch.no_grad()
+    def update(self, runtime, params, grads, state, step: int):
+        if set(self._masks) != set(params):
+            raise RuntimeError("AdamW.update before AdamW.init(runtime)")
+        lr, c1, c2 = self.host_scalars(step)
+        new_params = {}
+        for name, pstate in params.items():
+            store = runtime.layouts[name].store
+            buf = store.trainable(pstate)
+            m, v = state["m"][name], state["v"][name]
+            core, _, _ = ops.adamw_store_update(
+                buf, grads[name], m, v, self._masks[name], lr=lr, b1=self.b1,
+                b2=self.b2, eps=self.eps, wd=self.wd, c1=c1, c2=c2,
+                fmt=store.fmt, out=(buf, m, v))
+            new_params[name] = store.wrap_core(core)
+        return new_params, state

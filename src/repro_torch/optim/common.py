@@ -1,0 +1,52 @@
+"""Optimizer base utilities on flat DBuffer shards (port of
+``repro/optim/common.py``).
+
+Optimizers run on the rank-local slice of each group buffer, so every
+update is one group-fused elementwise pass.  Per-tensor behaviour (weight
+decay only on matrices) is recovered from the static plan as a position
+mask; the mask never changes, so it is built once per group and rank on
+the host from the plan's placements and kept on the device.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def matrix_mask_local(layout, rank: int) -> np.ndarray:
+    """(S,) fp32 0/1 mask of rank ``rank``'s shard of ``layout``'s group:
+    1 where the flat position belongs to a >=2-D tensor (weight-decay
+    eligible).  Host int64 arithmetic, so multi-billion-element groups need
+    no blocked coordinates.  PARITY: BITWISE vs the reference's traced
+    ``matrix_mask_local``."""
+    S = layout.plan.shard_size
+    lo, hi = rank * S, (rank + 1) * S
+    mask = np.zeros(S, np.float32)
+    for pl in layout.plan.placements:
+        if len(pl.spec.shape) >= 2:
+            a, b = max(pl.offset, lo), min(pl.end, hi)
+            if a < b:
+                mask[a - lo:b - lo] = 1.0
+    return mask
+
+
+class OptimizerBase:
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.lr = cfg.learning_rate
+
+    def schedule(self, step: int) -> np.float32:
+        """Linear warmup over 100 steps, in float32 on the host from the
+        Python step counter (the reference's ``schedule`` on a traced
+        int32 step)."""
+        warmup = np.float32(100.0)
+        return np.float32(self.lr) * np.minimum(
+            (np.float32(step) + np.float32(1.0)) / warmup, np.float32(1.0))
+
+    def _zeros(self, runtime) -> dict[str, torch.Tensor]:
+        return {name: torch.zeros(lo.local_shape(), dtype=torch.float32,
+                                  device=runtime.device)
+                for name, lo in runtime.layouts.items()}
+
+    def init(self, runtime):
+        raise NotImplementedError

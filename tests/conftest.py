@@ -6,3 +6,5 @@ import pytest
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: multi-device subprocess tests (still run by default)")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips without one")
