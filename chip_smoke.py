@@ -2,25 +2,38 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line (any failure exits non-zero):
+Phases, each printing one JSON line per result (any failure exits
+non-zero):
 
-  1. device  -- a CUDA card must be present; TF32 is switched off so fp32
-                matmuls are full fp32.
-  2. build   -- nvcc builds every kernel of the path from ``csrc/``.
-  3. kernel  -- ``adamw_store_update`` against its plain PyTorch version on
-                the card at the train step's group shapes (layers
-                (4, 77865984), globals (589826304,)) and a ragged length,
-                fp32 and bf16 epilogues: integer-view difference (expected
-                0, the kernel is bitwise), CUDA-event times (median of 20
-                after warm-up) and the memory bound.
-  4. train   -- the main path: gemma2-2b at published width cut to 4 layers
-                (two local/global pairs), ZeRO-3 train step through a
-                one-rank NCCL group, bf16 compute, fp32 store, AdamW, batch
-                2 x 2048 tokens; one warm-up step and three timed steps.
-                The kernel must launch once per group per step (8 times).
-  5. parity  -- gemma2-2b.reduced(), fp32 compute, two steps from the same
-                init and batches on the CPU (plain versions) and on the
-                card (kernel): losses and grad norms must agree.
+  1. device    -- a CUDA card must be present; TF32 is switched off so fp32
+                  matmuls are full fp32.
+  2. build     -- nvcc builds every kernel of the paths from ``csrc/``.
+  3. kernel    -- ``adamw_store_update``'s flat epilogue against its plain
+                  PyTorch version on the card at the fp32 train step's group
+                  shapes (layers (4, 77865984), globals (589826304,)) and a
+                  ragged length, fp32 and bf16 epilogues: integer-view
+                  difference (expected 0, the kernel is bitwise), CUDA-event
+                  times (median of 20 after warm-up) and the memory bound.
+  4. kernel_q8 -- the block-wise INT8 kernels (quantize, dequantize_into,
+                  encode_ef, the q8 epilogue of adamw_store_update) against
+                  their plain versions at the q8 plan's shard shapes (layers
+                  (77869056,) per layer, globals (589826048 + 1024,)) and a
+                  block-64 case, fp32 and bf16 where a kernel takes both:
+                  integer-view difference (expected 0), median times, bound.
+  5. train     -- the fp32 path: gemma2-2b at published width cut to 4
+                  layers (two local/global pairs), ZeRO-3 train step through
+                  a one-rank NCCL group, bf16 compute, fp32 store, AdamW,
+                  batch 2 x 2048 tokens; one warm-up step and three timed
+                  steps.  The flat kernel must launch once per group per
+                  step (8 times).
+  6. train_q8  -- the q8 path: the same model and batch with the q8_block
+                  store and the q8 gradient wire with error feedback on both
+                  groups (``q8_both_wires``).  Every q8 kernel must launch as
+                  often as the gathers, reduce-scatters and groups imply.
+  7. parity    -- gemma2-2b.reduced(), fp32 compute, two steps from the same
+                  init and batches on the CPU (plain versions) and on the
+                  card (kernels), fp32 store and ``q8_both_wires``: losses
+                  and grad norms must agree.
 
 Then the ``kernels`` line, the card's name and power limit as nvidia-smi
 reports them, and a last line ``{"ok": true, "device": {...}}``.  The
@@ -54,6 +67,14 @@ FLOPS_PER_ELEM = 16
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 4, 2, 2048
 TIMED_STEPS = 3
 PARITY_RTOL = 1e-4
+# q8 path: a code can flip where the CPU's and the card's masters straddle
+# a rounding boundary, so the two runs agree less closely than fp32's
+PARITY_Q8_RTOL = 1e-3
+Q8_SCHEDULE = {"param_store": "q8_block", "reduce_wire": "q8_block"}
+Q8_ITERS = 10
+# fp32 operations per element (beside the bytes they are far from binding)
+Q8_FLOPS = {"quantize": 6, "dequantize_into": 1, "encode_ef": 9,
+            "adamw_q8": FLOPS_PER_ELEM + 6}
 
 
 def emit(obj) -> None:
@@ -93,8 +114,52 @@ def median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 def int_view_diff(a, b) -> int:
     import torch
 
-    view = torch.int32 if a.dtype == torch.float32 else torch.int16
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return 1 << 62
+    if a.numel() == 0:
+        return 0
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+            torch.int8: torch.int8}[a.dtype]
     return int((a.view(view).long() - b.view(view).long()).abs().max())
+
+
+def flat_outputs(out) -> list:
+    """The tensors of a kernel's result, in order (dicts by key)."""
+    if isinstance(out, dict):
+        return [out[k] for k in sorted(out)]
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in flat_outputs(o)]
+    return [out]
+
+
+def hold(name: str, case: dict, run_kernel, run_plain, bytes_moved: float,
+         flops: float, iters: int = Q8_ITERS) -> dict:
+    """One kernel against its plain version on the same inputs: integer-view
+    difference (must be 0), max abs error, median times, bound."""
+    import torch
+
+    got, want = flat_outputs(run_kernel()), flat_outputs(run_plain())
+    torch.cuda.synchronize()
+    diff = max(int_view_diff(a, b) for a, b in zip(got, want))
+    abs_err = max(float((a.float() - b.float()).abs().max()) if a.numel()
+                  else 0.0 for a, b in zip(got, want))
+    del got, want
+    ms = median_ms(run_kernel, iters)
+    plain_ms = median_ms(run_plain, iters)
+    bound_ms = max(bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
+    row = {"phase": "kernel_q8", "name": name, **case,
+           "max_int_view_diff": diff, "max_abs_err": abs_err, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": "bytes" if bytes_moved / HBM_BYTES_PER_S
+           >= flops / FP32_FLOPS else "operations",
+           "bytes": bytes_moved, "achieved_GBps": bytes_moved / ms / 1e6,
+           "parity": "bitwise" if diff == 0 else "DIFFERS"}
+    emit(row)
+    if diff != 0:
+        fail(f"{name} differs from its plain version at {case}: {diff} "
+             f"integer-view steps")
+    torch.cuda.empty_cache()
+    return row
 
 
 def phase_kernel(fused_update, ref) -> dict:
@@ -154,6 +219,144 @@ def phase_kernel(fused_update, ref) -> dict:
     return step
 
 
+def phase_kernel_q8(ops, ref, layer_shard: int, globals_shard: int) -> dict:
+    """The q8 kernels at the q8 plan's shard shapes (one rank: a layer's
+    gathered buffer is its shard).  Returns per kernel the summary the
+    kernels line carries: one call at each group's main-path shape, summed
+    (init quantize of both groups, a bf16 gather and a bf16-cotangent
+    encode of each group, the update of each group)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    scalars = ref.scalar_stack(3e-4, 0.9, 0.95, 1e-8, 0.1,
+                               1 - 0.9 ** 3, 1 - 0.95 ** 3)
+    kw = dict(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, wd=0.1, c1=1 - 0.9 ** 3,
+              c2=1 - 0.95 ** 3)
+    L = TRAIN_LAYERS
+    reduced_layer = (2, 64 * 10256)   # gemma2-2b.reduced()'s q8 layer shard
+    summary = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                   "max_abs_err": 0.0} for k in Q8_FLOPS}
+
+    def rnd(shape, scale=1.0, dtype=torch.float32):
+        x = torch.randn(shape, generator=gen, device="cuda") * scale
+        x.view(-1)[:1024] = 0.0   # an all-zero quant block
+        return x.to(dtype)
+
+    def add(key, row, on_path):
+        s = summary[key]
+        s["max_abs_err"] = max(s["max_abs_err"], row["max_abs_err"])
+        if on_path:
+            for k in ("ms", "plain_ms", "bound_ms"):
+                s[k] += row[k]
+
+    # quantize: the store's init (fp32 masters), a bf16 input, block 64
+    for shape, dtype, block, on_path in (
+            ((L, layer_shard), torch.float32, 1024, True),
+            ((globals_shard,), torch.float32, 1024, True),
+            ((layer_shard,), torch.bfloat16, 1024, False),
+            (reduced_layer, torch.float32, 64, False)):
+        x = rnd(shape, 0.05, dtype)
+        n = x.numel()
+        row = hold("quantize", {"shape": list(shape), "in": str(dtype)[6:],
+                                "block": block},
+                   lambda: ops.quantize(x, block),
+                   lambda: ref.quantize_ref(x, block),
+                   n * (x.element_size() + 1) + 4 * n / block,
+                   Q8_FLOPS["quantize"] * n)
+        add("quantize", row, on_path)
+        del x
+    # dequantize_into: the bf16 gathers and the fp32 reduce route
+    for shape, dtype, block, on_path in (
+            ((layer_shard,), torch.bfloat16, 1024, True),
+            ((globals_shard,), torch.bfloat16, 1024, True),
+            ((layer_shard,), torch.float32, 1024, False),
+            ((globals_shard,), torch.float32, 1024, False),
+            (reduced_layer, torch.float32, 64, False)):
+        codes, scales = ops.quantize(rnd(shape, 0.05), block)
+        n = codes.numel()
+        out_bytes = torch.empty((), dtype=dtype).element_size()
+        row = hold("dequantize_into", {"shape": list(shape),
+                                       "out": str(dtype)[6:], "block": block},
+                   lambda: ops.dequantize_into(codes, scales, block,
+                                               out_dtype=dtype),
+                   lambda: ref.dequantize_into_ref(codes, scales, block,
+                                                   dtype),
+                   n * (1 + out_bytes) + 4 * n / block,
+                   Q8_FLOPS["dequantize_into"] * n)
+        add("dequantize_into", row, on_path)
+        del codes, scales
+    # encode_ef: the reduce wire's encode of a bf16 (or fp32) cotangent
+    for shape, dtype, block, on_path in (
+            ((layer_shard,), torch.bfloat16, 1024, True),
+            ((globals_shard,), torch.bfloat16, 1024, True),
+            ((layer_shard,), torch.float32, 1024, False),
+            (reduced_layer, torch.float32, 64, False)):
+        ct, ef = rnd(shape, 1e-3, dtype), rnd(shape, 1e-5)
+        n = ct.numel()
+        row = hold("encode_ef", {"shape": list(shape), "ct": str(dtype)[6:],
+                                 "block": block},
+                   lambda: ops.encode_ef(ct, ef, block),
+                   lambda: ref.encode_ef_ref(ct, ef, block),
+                   n * (ct.element_size() + 4 + 1 + 4) + 4 * n / block,
+                   Q8_FLOPS["encode_ef"] * n)
+        add("encode_ef", row, on_path)
+        del ct, ef
+    # the q8 epilogue of the AdamW update: each group's step
+    for shape, block, on_path in (((L, layer_shard), 1024, True),
+                                  ((globals_shard,), 1024, True),
+                                  (reduced_layer, 64, False)):
+        w, g, m = rnd(shape, 0.05), rnd(shape, 1e-3), rnd(shape, 1e-4)
+        v = rnd(shape, 1e-4).square_()
+        mask = (torch.rand(shape, generator=gen, device="cuda") < 0.8).float()
+        n = w.numel()
+        row = hold("adamw_q8", {"shape": list(shape), "block": block},
+                   lambda: ops.adamw_store_update(w, g, m, v, mask,
+                                                  fmt="q8_block", block=block,
+                                                  **kw),
+                   lambda: ref.adamw_store_update_ref(w, g, m, v, mask,
+                                                      scalars, "q8_block",
+                                                      block),
+                   n * (20 + 1 + 12) + 4 * n / block,
+                   Q8_FLOPS["adamw_q8"] * n)
+        add("adamw_q8", row, on_path)
+        del w, g, m, v, mask
+    torch.cuda.empty_cache()
+    return summary
+
+
+def launches_now(mods) -> dict:
+    return {"adamw_store_update": mods["fused_update"].adamw_store_update
+            .launches,
+            "adamw_q8": mods["fused_update"].adamw_q8_update.launches,
+            "quantize": mods["blockwise_quant"].quantize.launches,
+            "dequantize_into": mods["blockwise_quant"].dequantize_into
+            .launches,
+            "encode_ef": mods["encode_ef"].encode_ef.launches}
+
+
+def reset_launches(mods) -> None:
+    mods["fused_update"].adamw_store_update.launches = 0
+    mods["fused_update"].adamw_q8_update.launches = 0
+    mods["blockwise_quant"].quantize.launches = 0
+    mods["blockwise_quant"].dequantize_into.launches = 0
+    mods["encode_ef"].encode_ef.launches = 0
+
+
+def expected_q8_launches(rt, steps: int) -> dict:
+    """What the q8 path must launch: quantize once per group at init; per
+    step a dequantize_into per gather (a layer twice: forward and the
+    backward's re-gather; globals once) plus one per reduce-scatter (the
+    one-rank q8 route decodes the encoded cotangent), an encode_ef per
+    reduce-scatter (a layer once, globals once) and one update per group."""
+    gathers = sum(2 * lo.n_layers if lo.n_layers else 1
+                  for lo in rt.layouts.values())
+    reduces = sum(lo.n_layers or 1 for lo in rt.layouts.values())
+    groups = len(rt.layouts)
+    return {"adamw_store_update": 0, "adamw_q8": groups * steps,
+            "quantize": groups, "dequantize_into": (gathers + reduces) * steps,
+            "encode_ef": reduces * steps}
+
+
 def main() -> None:
     import torch
 
@@ -165,17 +368,24 @@ def main() -> None:
     sys.path.insert(0, str(SRC))
     from repro_torch.configs import build_model, get_config
     from repro_torch.core.fsdp import FSDPRuntime
+    from repro_torch.core.policy import plan
+    from repro_torch.core.schedule import CommSchedule
     from repro_torch.data.pipeline import DataConfig, SyntheticStream
-    from repro_torch.kernels import build, fused_update, ref
+    from repro_torch.kernels import (blockwise_quant, build, encode_ef,
+                                     fused_update, ops, ref)
     from repro_torch.launch.mesh import init_local_group
     from repro_torch.optim import make_optimizer
 
-    def train(cfg, device, compute_dtype, stream, steps):
+    mods = {"fused_update": fused_update, "blockwise_quant": blockwise_quant,
+            "encode_ef": encode_ef}
+
+    def train(cfg, device, compute_dtype, stream, steps, schedule=None):
         """The quickstart loop through the public API; returns (metrics
         per step, step ms, runtime).  Batches are made and placed outside
         the timed region."""
         rt = FSDPRuntime(build_model(cfg), group,
-                         compute_dtype=compute_dtype, device=device)
+                         compute_dtype=compute_dtype, device=device,
+                         schedule=schedule)
         params = rt.init_params(0)
         opt = make_optimizer(cfg)
         opt_state = opt.init(rt)
@@ -204,7 +414,8 @@ def main() -> None:
 
     # ---- 2. build ------------------------------------------------------
     t0 = time.perf_counter()
-    built = build.build([fused_update.KERNEL])
+    built = build.build([fused_update.KERNEL, blockwise_quant.KERNEL,
+                         encode_ef.KERNEL])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {k: {"seconds": v["seconds"],
                           "ptxas": [l for l in v["log"].splitlines()
@@ -214,9 +425,16 @@ def main() -> None:
     # ---- 3. kernel vs plain --------------------------------------------
     kstats = phase_kernel(fused_update, ref)
 
-    # ---- 4. main path: gemma2-2b at full width, depth cut to 4 ---------
+    # ---- 4. q8 kernels vs plain at the q8 plan's shard shapes ----------
     full = get_config("gemma2-2b")
     cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    q8_plan = plan(build_model(cfg), {"data": 1, "model": 1},
+                   CommSchedule(**Q8_SCHEDULE))
+    q8_shards = {n: e.plan.shard_size for n, e in q8_plan.groups.items()}
+    q8stats = phase_kernel_q8(ops, ref, q8_shards["layers"],
+                              q8_shards["globals"])
+
+    # ---- 5. fp32 path: gemma2-2b at full width, depth cut to 4 ---------
     group = init_local_group("cpu:gloo,cuda:nccl")
     stream = SyntheticStream(DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH),
                              cfg)
@@ -227,7 +445,7 @@ def main() -> None:
           "head_dim": cfg.hd, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
           "batch": [TRAIN_BATCH, TRAIN_SEQ]})
     torch.cuda.reset_peak_memory_stats()
-    fused_update.adamw_store_update.launches = 0
+    reset_launches(mods)
     metrics, times, rt = train(cfg, "cuda", torch.bfloat16, stream,
                                1 + TIMED_STEPS)
     launches = fused_update.adamw_store_update.launches
@@ -264,29 +482,87 @@ def main() -> None:
     del rt
     torch.cuda.empty_cache()
 
-    # ---- 5. CPU (plain versions) vs card (kernel) ----------------------
+    # ---- 6. q8 path: the same model and batch, q8_both_wires -----------
+    q8_sched = CommSchedule(**Q8_SCHEDULE)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(mods)
+    t0 = time.perf_counter()
+    q8_metrics, q8_times, rt = train(cfg, "cuda", torch.bfloat16, stream,
+                                     1 + TIMED_STEPS, q8_sched)
+    q8_launches = launches_now(mods)
+    q8_peak = torch.cuda.max_memory_allocated()
+    q8_want = expected_q8_launches(rt, len(q8_metrics))
+    shards = {n: lo.plan.shard_size for n, lo in rt.layouts.items()}
+    for i, (m, ms) in enumerate(zip(q8_metrics, q8_times)):
+        emit({"phase": "train_q8", "step": i, "warmup": i == 0,
+              "loss": m["loss"], "grad_norm": m["grad_norm"],
+              "tokens": m["tokens"], "step_ms": ms,
+              "tokens_per_s": tokens / (ms / 1e3)})
+    timed = q8_times[1:]
+    emit({"phase": "train_q8_summary", "schedule": Q8_SCHEDULE,
+          "shard_sizes": shards, "planned_shard_sizes": q8_shards,
+          "setup_and_steps_s": time.perf_counter() - t0,
+          "step_ms_median": statistics.median(timed),
+          "tokens_per_s": tokens / (statistics.median(timed) / 1e3),
+          "max_memory_allocated": q8_peak, "kernel_launches": q8_launches,
+          "expected_launches": q8_want})
+    if shards != q8_shards:
+        fail(f"q8 shard sizes {shards} differ from the plan's {q8_shards}")
+    if q8_launches != q8_want:
+        fail(f"q8 path launched {q8_launches}, expected {q8_want}")
+    for m in q8_metrics:
+        if not all(math.isfinite(m[k]) for k in ("loss", "grad_norm")):
+            fail(f"non-finite q8 train metrics {m}")
+    if abs(q8_metrics[0]["loss"] - math.log(cfg.vocab)) > 1.0:
+        fail(f"first q8 loss {q8_metrics[0]['loss']} far from ln(vocab) "
+             f"{math.log(cfg.vocab)}")
+    del rt
+    torch.cuda.empty_cache()
+
+    # ---- 7. CPU (plain versions) vs card (kernels) ---------------------
     small = get_config("gemma2-2b").reduced()
     sstream = SyntheticStream(DataConfig(small.vocab, 64, 8), small)
-    runs = {dev: train(small, dev, torch.float32, sstream, 2)[0]
-            for dev in ("cpu", "cuda")}
-    rel = max(abs(a[k] - b[k]) / abs(b[k])
-              for a, b in zip(runs["cuda"], runs["cpu"])
-              for k in ("loss", "grad_norm"))
-    emit({"phase": "parity", "config": "gemma2-2b.reduced()",
-          "compute": "float32", "cpu": runs["cpu"], "cuda": runs["cuda"],
-          "max_rel_diff": rel, "rtol": PARITY_RTOL})
-    if not rel <= PARITY_RTOL:
-        fail(f"CPU and card runs differ by {rel} > {PARITY_RTOL}")
+    for phase, sched, rtol in (("parity", None, PARITY_RTOL),
+                               ("parity_q8", CommSchedule(**Q8_SCHEDULE),
+                                PARITY_Q8_RTOL)):
+        runs = {dev: train(small, dev, torch.float32, sstream, 2, sched)[0]
+                for dev in ("cpu", "cuda")}
+        rel = max(abs(a[k] - b[k]) / abs(b[k])
+                  for a, b in zip(runs["cuda"], runs["cpu"])
+                  for k in ("loss", "grad_norm"))
+        emit({"phase": phase, "config": "gemma2-2b.reduced()",
+              "schedule": Q8_SCHEDULE if sched else "default",
+              "compute": "float32", "cpu": runs["cpu"], "cuda": runs["cuda"],
+              "max_rel_diff": rel, "rtol": rtol})
+        if not rel <= rtol:
+            fail(f"{phase}: CPU and card runs differ by {rel} > {rtol}")
 
-    # ---- 6. kernels line, card, last line ------------------------------
-    emit({"kernels": [{
-        "name": "adamw_store_update", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/adamw_store_update.cu",
-        "replaces": "src/repro/kernels/fused_update.py:85",
-        "launches": launches, "max_abs_err": kstats["max_abs_err"],
-        "ms": kstats["ms"], "plain_ms": kstats["plain_ms"],
-        "bound_ms": kstats["bound_ms"], "bound_by": "bytes",
-        "library_ms": None}]})
+    # ---- 8. kernels line, card, last line ------------------------------
+    csrc = "src/repro_torch/kernels/csrc/"
+
+    def entry(name, source, replaces, launches, st):
+        return {"name": name, "route": "cuda", "source": csrc + source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": st["max_abs_err"], "ms": st["ms"],
+                "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+                "bound_by": "bytes", "library_ms": None}
+
+    emit({"kernels": [
+        entry("adamw_store_update", "adamw_store_update.cu",
+              "src/repro/kernels/fused_update.py:85", launches, kstats),
+        entry("adamw_store_update_q8", "adamw_store_update.cu",
+              "src/repro/kernels/fused_update.py:102",
+              q8_launches["adamw_q8"], q8stats["adamw_q8"]),
+        entry("quantize", "blockwise_quant.cu",
+              "src/repro/kernels/blockwise_quant.py:56",
+              q8_launches["quantize"], q8stats["quantize"]),
+        entry("dequantize_into", "blockwise_quant.cu",
+              "src/repro/kernels/blockwise_quant.py:66",
+              q8_launches["dequantize_into"], q8stats["dequantize_into"]),
+        entry("encode_ef", "encode_ef.cu",
+              "src/repro/kernels/encode_ef.py:30",
+              q8_launches["encode_ef"], q8stats["encode_ef"]),
+    ]})
     torch.distributed.destroy_process_group()
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,23 +1,30 @@
 """veScale-FSDP runtime over ``torch.distributed`` (port of
-``repro/core/fsdp.py``: the ZeRO-3 train step on the fp32 store).
+``repro/core/fsdp.py``: the ZeRO-3 train step on the fp32 and q8_block
+stores, with cast or q8 gradient wires).
 
 ``FSDPRuntime`` wraps a model for a process group.  Construction lowers the
 ``ParallelConfig`` knobs (or ``schedule=``/``group_schedules=``/
 ``policies=``) onto a ``ShardingPlan``: per communication group the
 planner's RaggedShard placements (Algorithm 1) over the group's ranks and a
 flat DBuffer.  Rank r holds columns ``[r*S, (r+1)*S)`` of each group's
-buffer (``(L, S)`` for the layer stack, ``(S,)`` otherwise), as fp32 leaf
-tensors.  The train step then:
+buffer (``(L, S)`` for the layer stack, ``(S,)`` otherwise) as an fp32
+leaf tensor, the master; a q8_block store adds its int8 codes and fp32
+scales (``(L, S / block)``), and the q8 reduce wire an fp32 error-feedback
+residual ``reduce_ef`` (``(L, m * S)``).  The train step then:
 
   * gathers ``globals`` once and, layer by layer, each layer's shard inside
     one ``torch.utils.checkpoint`` (non-reentrant): forward all-gathers,
     unpacks zero-copy views and computes; backward re-gathers the layer
     (ZeRO-3) and its gather's backward reduce-scatters the gradient
-    straight into that layer's row of the stacked leaf's ``.grad``;
+    straight into that layer's row of the stacked leaf's ``.grad`` (the
+    q8 reduce wire also writes that layer's new residual into its row of
+    ``reduce_ef``);
   * all-reduces the token-sum loss and the token count over the batch
     axes, scales the gradients by ``1/max(tokens, 1)``, runs the
-    optimizer (one fused kernel per group, in place) and reports the norm
-    of the scaled gradients -- the reference's order.
+    optimizer (one fused kernel per group, in place: a q8 store's codes and
+    scales are rewritten in the same pass) and reports the norm of the
+    scaled gradients -- the reference's order.  The residual is never
+    scaled and never counted in the norm.
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 without a card and without that, construction raises.
@@ -43,7 +50,7 @@ from .dbuffer import DBuffer
 from .policy import PolicySet, ShardingPlan, plan as make_plan
 from .ragged import TensorSpec
 from .schedule import CommSchedule
-from .store import ParamStore
+from .store import EF_KEY, ParamStore, check_state
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,7 +109,8 @@ class FSDPRuntime:
         par = self.cfg.parallel
         if par.microbatches > 1:
             raise NotImplementedError(
-                "microbatches > 1 (gradient accumulation) is not ported yet "
+                "microbatches > 1 (gradient accumulation, with the deferred "
+                "error feedback of the q8 reduce wire) is not ported yet "
                 "(ROADMAP Queue 1 item 18)")
         self.axis_sizes = mesh_axes(group)
 
@@ -182,18 +190,21 @@ class FSDPRuntime:
         return a.astype(np.float32)
 
     def _place(self, name: str, global_buf: np.ndarray,
-               requires_grad: bool = True) -> torch.Tensor:
-        """This rank's columns of a global host buffer, on the device.
-        Parameters are leaves that require grad: the gather's backward
-        fills their ``.grad``."""
-        S = self.layouts[name].plan.shard_size
-        local = global_buf[..., self.rank * S:(self.rank + 1) * S]
-        return torch.tensor(local, dtype=torch.float32,
+               requires_grad: bool = True, dtype=torch.float32
+               ) -> torch.Tensor:
+        """This rank's columns of a global host buffer, on the device (its
+        equal share of the last axis).  Masters are leaves that require
+        grad: the gather's backward fills their ``.grad``."""
+        cols = global_buf.shape[-1] // dist.get_world_size(self.group)
+        local = global_buf[..., self.rank * cols:(self.rank + 1) * cols]
+        return torch.tensor(local, dtype=dtype,
                             device=self.device).requires_grad_(requires_grad)
 
-    def init_params(self, seed: int = 0) -> dict[str, torch.Tensor]:
-        """Host-side init; every rank builds the global buffer and keeps
-        its shard.  PARITY: BITWISE vs the reference's ``init_params``."""
+    def init_params(self, seed: int = 0) -> dict[str, Any]:
+        """Host-side init; every rank builds the global fp32 buffer, keeps
+        its shard on the device and builds its store state there (a q8
+        store quantizes it through ``ops.quantize``).  PARITY: BITWISE vs
+        the reference's ``init_params``."""
         params = {}
         for name, lo in self.layouts.items():
             layers = list(range(lo.n_layers)) if lo.n_layers else [None]
@@ -201,7 +212,7 @@ class FSDPRuntime:
                                      for s in lo.gdef.specs})
                      for li in layers]
             arr = np.stack(flats) if lo.n_layers else flats[0]
-            params[name] = self._place(name, lo.store.create(arr))
+            params[name] = lo.store.create(self._place(name, arr))
         return params
 
     # ------------------------------------------------------------------ #
@@ -213,13 +224,16 @@ class FSDPRuntime:
         ``metrics`` holds 0-d device tensors ``loss``, ``tokens`` and
         ``grad_norm`` (reading them is the only host sync).  Parameters and
         optimizer state are updated in place."""
+        ef_groups = tuple(n for n, lo in self.layouts.items()
+                          if lo.store.has_ef)
 
         def step_fn(params, opt_state, step: int, batch):
             if not isinstance(step, int):
                 raise TypeError(f"step must be a Python int, got {step!r}")
-            # the differentiable part of each store state (the buffer the
-            # reduce-scatter targets) and the rest; for fp32 the state
-            # itself and nothing
+            # the master of each store state (the buffer the reduce-scatter
+            # targets) and the rest (q8 codes and scales, the residual,
+            # which the gather's backward updates in place); for a bare
+            # fp32 state the state itself and nothing
             trainable = {n: self.layouts[n].store.trainable(s)
                          for n, s in params.items()}
             frozen = {n: self.layouts[n].store.frozen(s)
@@ -243,8 +257,13 @@ class FSDPRuntime:
                 scale = 1.0 / torch.clamp(w_g, min=1.0)
                 for g in grads.values():
                     g.mul_(scale)
-                params, opt_state = optimizer.update(self, params, grads,
-                                                     opt_state, step)
+                new_params, opt_state = optimizer.update(self, params, grads,
+                                                         opt_state, step)
+                # optimizers do not see the residual: re-attach it
+                for n in ef_groups:
+                    new_params[n] = self.layouts[n].store.attach_ef(
+                        new_params[n], params[n][EF_KEY])
+                params = new_params
                 metrics = {
                     "loss": nll_g / torch.clamp(w_g, min=1.0),
                     "tokens": w_g,
@@ -266,34 +285,48 @@ def _global_norm(runtime: FSDPRuntime, grads) -> torch.Tensor:
 def load_reference_state(runtime: FSDPRuntime, params: Mapping[str, Any],
                          opt_state: Mapping[str, Mapping[str, Any]] | None
                          = None):
-    """Carry the reference runtime's state across: ``params`` is
-    ``{group: global flat buffer}`` as numpy arrays (``(L, total)`` or
-    ``(total,)``), ``opt_state`` optionally ``{"m": {...}, "v": {...}}`` of
-    the same shapes.  Each shape is checked against the port's layouts
-    (which are bitwise the reference's, so no re-layout is needed); each
-    rank keeps its columns on the runtime's device.  Returns ``(params,
+    """Carry the reference runtime's state across: ``params`` is ``{group:
+    state}`` as numpy arrays -- the global flat buffer (``(L, total)`` or
+    ``(total,)``) for a bare fp32 state, else the dict of the store's
+    leaves (``codes``, ``master``, ``scales``, ``reduce_ef``) at their
+    global shapes; ``opt_state`` optionally ``{"m": {...}, "v": {...}}`` of
+    the buffers' shapes.  Every leaf's shape is checked against the port's
+    layouts (which are bitwise the reference's, so no re-layout is
+    needed); each rank keeps its equal share of each leaf's last axis on
+    the runtime's device (the master requires grad).  Returns ``(params,
     opt_state)`` in the port's form (``opt_state`` None when not given)."""
 
-    def place_all(tree, what, requires_grad):
+    def check_groups(tree, what):
         if set(tree) != set(runtime.layouts):
             raise ValueError(
                 f"{what} groups {sorted(tree)} do not match the runtime's "
                 f"{sorted(runtime.layouts)}")
-        out = {}
-        for name, lo in runtime.layouts.items():
-            a = np.asarray(tree[name], np.float32)
-            if a.shape != lo.global_shape():
-                raise ValueError(
-                    f"{what}[{name!r}] has shape {a.shape}, the port's "
-                    f"layout needs {lo.global_shape()}")
-            out[name] = runtime._place(name, a, requires_grad)
-        return out
 
-    new_params = place_all(params, "params", True)
+    check_groups(params, "params")
+    new_params = {}
+    for name, lo in runtime.layouts.items():
+        state = params[name]
+        check_state(lo.store, state, lo.global_shape(), f"params[{name!r}]")
+        if lo.store.state_keys() is None:
+            new_params[name] = runtime._place(name, np.asarray(state))
+            continue
+        new_params[name] = {
+            k: runtime._place(name, np.asarray(state[k]), k == "master",
+                              lo.store.leaf_dtype(k))
+            for k in lo.store.state_keys()}
     if opt_state is None:
         return new_params, None
-    return new_params, {k: place_all(opt_state[k], f"opt_state[{k!r}]",
-                                     False) for k in ("m", "v")}
+    new_opt = {}
+    for k in ("m", "v"):
+        what = f"opt_state[{k!r}]"
+        check_groups(opt_state[k], what)
+        new_opt[k] = {}
+        for name, lo in runtime.layouts.items():
+            a = np.asarray(opt_state[k][name])
+            check_state(ParamStore(), a, lo.global_shape(),
+                        f"{what}[{name!r}]")
+            new_opt[k][name] = runtime._place(name, a, False)
+    return new_params, new_opt
 
 
 class _ParamGetter:
@@ -305,12 +338,18 @@ class _ParamGetter:
         self.compute_dtype = runtime.compute_dtype
 
     def _gather(self, name: str, layer: int | None = None) -> torch.Tensor:
-        p = self.params[name]
-        shard, sink = (p, p.grad) if layer is None \
-            else (p[layer], p.grad[layer])
-        return self.rt.layouts[name].store.gather(
-            shard, sink, self.rt.group, self.rt.sched_for(name),
-            self.compute_dtype)
+        """Gather one group (one layer of a stacked group: row ``layer`` of
+        every leaf of its state)."""
+        state = self.params[name]
+        store = self.rt.layouts[name].store
+        master = store.trainable(state)
+        sink = master.grad
+        if layer is not None:
+            sink = sink[layer]
+            state = ({k: v[layer] for k, v in state.items()}
+                     if isinstance(state, dict) else state[layer])
+        return store.gather(state, sink, self.rt.group,
+                            self.rt.sched_for(name), self.compute_dtype)
 
     def globals(self, group: str) -> dict[str, torch.Tensor]:
         return self.rt.layouts[group].buffer.unpack(self._gather(group))

@@ -19,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 import fnmatch
 import glob as _glob
+import math
 from typing import Mapping, Optional
 
 import numpy as np
@@ -163,11 +164,13 @@ class PolicySet:
         return cls(rules=rules, default=ShardingPolicy.from_schedule(base))
 
 
-def store_for(policy: ShardingPolicy, quant_block: int) -> ParamStore:
-    """THE policy -> ParamStore mapping.  The reference also sizes an EF
-    residual by the group's world size when the reduce wire is quantized;
-    the port rejects that wire in ``CommSchedule``, so there is none."""
-    return ParamStore(policy.store, quant_block)
+def store_for(policy: ShardingPolicy, quant_block: int, m: int) -> ParamStore:
+    """THE policy -> ParamStore mapping: the EF residual exists iff the
+    policy's reduce wire is quantized, sized by the group's FSDP world m.
+    ``plan()``'s align and shard-size checks and ``GroupPlanEntry.store``
+    both use it, so the two cannot diverge."""
+    return ParamStore(policy.store, quant_block,
+                      ef_m=m if policy.to_schedule().ef_enabled else 0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,7 +189,8 @@ class GroupPlanEntry:
 
     @property
     def store(self) -> ParamStore:
-        return store_for(self.policy, self.quant_block)
+        return store_for(self.policy, self.quant_block,
+                         math.prod(self.fsdp_axis_sizes) or 1)
 
     def schedule(self) -> CommSchedule:
         return self.policy.to_schedule()
@@ -279,10 +283,20 @@ def plan(model, axis_sizes: Mapping[str, int], policies=None, *,
         _, _, local_specs, fsdp_axes = _group_axes(name, gdef, par,
                                                    axis_sizes)
         m = int(np.prod([axis_sizes[a] for a in fsdp_axes])) or 1
-        # 8-bit optimizer state is block-quantized: blocks never straddle
-        # a shard boundary or a tensor start
-        align = cfg.quant_block if cfg.optimizer == "adam8bit" else 1
+        store = store_for(pol, cfg.quant_block, m)
+        # quant blocks never straddle a shard boundary or a tensor start:
+        # for the 8-bit optimizer states, for a quantized store, and for the
+        # q8 reduce wire (its reduce-scatter chunks are shard-sized)
+        align = max(store.align(),
+                    cfg.quant_block if cfg.optimizer == "adam8bit" else 1)
         gplan = plan_group(local_specs, m, g_coll=LANE, align=align)
+        if ((store.quantized or sched.ef_enabled)
+                and gplan.shard_size % store.block):
+            raise ValueError(
+                f"group {name}: planner mode {planner!r} produced shard "
+                f"size {gplan.shard_size} not aligned to quant block "
+                f"{store.block}; quantized stores and the q8_block reduce "
+                f"wire need the ragged planner's align guarantee")
         entries[name] = GroupPlanEntry(
             name=name, tag=info.tag, policy=pol, local_specs=local_specs,
             plan=gplan, fsdp_axes=fsdp_axes,

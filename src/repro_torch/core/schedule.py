@@ -8,13 +8,23 @@ reduce-scatter that accumulates in ``reduce_dtype``, falling back to the
 wire dtype.  With bf16 compute the gradients therefore cross a bf16
 reduce-scatter and are cast to fp32 after it, on one rank as on many.
 
+It also runs block-wise quantized training:
+
+  * ``param_store="q8_block"`` -- the group's state holds int8 codes and
+    per-block fp32 scales beside the fp32 master; the all-gather moves the
+    codes and scales and decodes them into the compute dtype.
+  * ``reduce_wire`` -- the gradient reduce-scatter's wire format: ``None``
+    (the legacy ``reduce_dtype`` rule), a cast name (``"fp32"``,
+    ``"bf16"``), or ``"q8_block"``, the quantized gradient wire: each rank
+    encodes its cotangent plus an error-feedback residual as int8 codes and
+    per-block scales, and destinations dequantize and sum in fp32.
+
 Knobs the reference has and the port does not run yet raise
 ``NotImplementedError`` at construction, naming the ROADMAP item that will
 port them: ``prefetch``, ``keep_last_gathered``,
 ``reshard_after_forward=False``, ``gather_mode="ring"``,
-``reduce_mode="ring_acc"``, ``ring_chunk_elems``, ``reduce_wire``,
-``sharded=False``, ``serve_quant_matmul``, fp8 wire dtypes and every store
-format except fp32.
+``reduce_mode="ring_acc"``, ``ring_chunk_elems``, ``sharded=False``,
+``serve_quant_matmul``, fp8 wire dtypes and the bf16 and fp8 stores.
 """
 from __future__ import annotations
 
@@ -23,7 +33,8 @@ from collections.abc import Mapping
 
 import torch
 
-from .wire import STORE_FORMATS, WireCodec, fmt_of_dtype
+from .wire import (CAST_FORMATS, STORE_FORMATS, WireCodec, check_wire_format,
+                   fmt_of_dtype)
 
 _DTYPES = {
     "bf16": torch.bfloat16,
@@ -97,6 +108,12 @@ class CommSchedule:
     def __post_init__(self):
         _check_name(self.gather_dtype)
         _check_name(self.reduce_dtype)
+        check_wire_format(self.reduce_wire, "reduce_wire")
+        if self.reduce_wire is not None and self.reduce_dtype is not None:
+            raise ValueError(
+                f"pass either reduce_wire ({self.reduce_wire!r}) or the "
+                f"legacy reduce_dtype ({self.reduce_dtype!r}), not both: "
+                f"reduce_dtype lowers onto a cast reduce_wire")
         if self.gather_mode not in _GATHER_MODES:
             raise ValueError(
                 f"unknown gather_mode {self.gather_mode!r}; expected one of "
@@ -123,10 +140,6 @@ class CommSchedule:
              "Queue 1 item 10"),
             (not self.sharded, "sharded=False (replicated groups)",
              "Queue 1 item 10"),
-            (self.reduce_wire is not None, "reduce_wire",
-             "Queue 1 item 7"),
-            (self.param_store == "q8_block", "param_store='q8_block'",
-             "Queue 1 item 7"),
             (self.param_store not in ("fp32", "q8_block"),
              f"param_store={self.param_store!r}", "Queue 1 item 9"),
             (self.serve_quant_matmul, "serve_quant_matmul",
@@ -154,20 +167,43 @@ class CommSchedule:
         return _resolve(self.gather_dtype, compute_dtype)
 
     def accum_dtype(self, compute_dtype: torch.dtype) -> torch.dtype:
-        """Accumulate dtype of the gradient reduce-scatter: ``reduce_dtype``
-        when set, else the gather wire dtype (the reference's rule)."""
+        """Accumulate dtype of the gradient reduce-scatter: fp32 for the q8
+        reduce wire (destinations sum dequantized contributions in fp32),
+        the named dtype for a cast reduce wire, else ``reduce_dtype`` when
+        set and the gather wire dtype otherwise (the reference's rule)."""
+        if self.reduce_wire == "q8_block":
+            return torch.float32
+        if self.reduce_wire is not None:
+            return CAST_FORMATS[self.reduce_wire]
         return _resolve(self.reduce_dtype, self.wire_dtype(compute_dtype))
 
     def gather_codec(self, compute_dtype: torch.dtype) -> WireCodec:
+        """Cast codec of the all-gather of a flat store (a quantized store
+        gathers its stored codes and scales instead)."""
         return WireCodec(fmt_of_dtype(self.wire_dtype(compute_dtype)))
 
-    def reduce_codec(self, compute_dtype: torch.dtype) -> WireCodec:
+    def reduce_codec(self, compute_dtype: torch.dtype,
+                     block: int = 1024) -> WireCodec:
+        """The gradient reduce-scatter's codec: ``reduce_wire`` when set
+        (``block`` is the group's quant block), else a cast codec of the
+        accum dtype."""
+        if self.reduce_wire is not None:
+            return WireCodec(self.reduce_wire, block)
         return WireCodec(fmt_of_dtype(self.accum_dtype(compute_dtype)))
+
+    @property
+    def ef_enabled(self) -> bool:
+        """The q8 reduce wire always runs error feedback: the residual
+        state exists iff the reduce codec is lossy."""
+        return self.reduce_wire == "q8_block"
 
     def validate_for(self, compute_dtype: torch.dtype) -> None:
         """Resolve the wire/accum dtype path against the actual compute
         dtype: a ``None`` dtype inherits it, so e.g. fp16 compute fails at
-        runtime construction."""
+        runtime construction.  Also the reference's q8 rule: a quantized
+        store fixes the gather payload.  (Its rule that the q8 reduce wire
+        needs a sharded group comes with ``sharded=False``, Queue 1 item
+        10.)"""
         supported = set(_DTYPES.values())
         for role, dt in (("gather", self.wire_dtype(compute_dtype)),
                          ("reduce", self.accum_dtype(compute_dtype))):
@@ -176,6 +212,11 @@ class CommSchedule:
                     f"schedule {role} dtype resolves to unsupported {dt} "
                     f"(compute dtype {compute_dtype}); supported: "
                     f"{sorted(set(_DTYPES))}")
+        if self.param_store == "q8_block" and self.gather_dtype is not None:
+            raise ValueError(
+                "param_store='q8_block' fixes the all-gather payload (int8 "
+                "codes + fp32 scales); gather_dtype must stay None, got "
+                f"{self.gather_dtype!r}")
 
     def plan_layers(self, n_layers: int, remat: bool = True) -> LayerPlan:
         n = int(n_layers)

@@ -1,24 +1,53 @@
 """ParamStore: the storage format of a group's sharded parameter buffer
-(port of the fp32 branch of ``repro/core/store.py``).
+(port of the fp32 and ``q8_block`` branches of ``repro/core/store.py``).
 
-``fp32`` -- one fp32 flat buffer; master weights == stored weights.  The
-state of a group is the bare rank-local tensor, ``trainable`` is that
-tensor and ``frozen`` is None, as in the reference.  The bf16 and fp8
-stores come with ROADMAP Queue 1 item 9, ``q8_block`` and the quantized
-reduce wire's error-feedback residual with item 7.
+  * ``fp32`` -- one fp32 flat buffer; master weights == stored weights.
+    Without a residual the state is the bare rank-local tensor, as in the
+    reference.
+  * ``q8_block`` -- block-wise INT8 codes + one fp32 absmax scale per
+    ``block`` elements, beside the fp32 master.  The all-gather moves the
+    codes and scales and decodes them locally; the gradient reduce-scatters
+    to the master, which the optimizer updates and requantizes in one fused
+    pass.
+  * ``ef_m`` > 0 adds the q8 reduce wire's error-feedback residual
+    (``reduce_ef``, fp32): ``ef_m`` is the group's FSDP world size m, and
+    each rank's residual is m shards long (its local gradient
+    contribution).
 
-PARITY: BITWISE -- ``create`` is the identity on the fp32 host buffer and
-``gather`` is the cast-codec ``codec_gather``.
+A dict state holds ``state_keys()`` as tensors on the runtime's device.
+The master is the leaf that requires grad; codes, scales and the residual
+do not.  Where the reference threads the residual through ``jax.grad``
+(its updated value comes back as the residual's cotangent), the port's
+gather backward writes it into the ``reduce_ef`` tensor in place, so
+``trainable`` is the master alone.  The bf16 and fp8 stores come with
+ROADMAP Queue 1 item 9.
+
+PARITY: BITWISE -- ``create`` is the identity on the fp32 buffer and
+``ops.quantize`` on the master (per-shard quantization equals the
+reference's global-buffer one because the planner aligns the shard size to
+the block); ``gather`` dispatches over the wire primitives, whose classes
+are in ``core.wire``.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Mapping
 
-import numpy as np
 import torch
 
+from ..kernels import ops
 from .schedule import CommSchedule
-from .wire import STORE_FORMATS, codec_gather
+from .wire import STORE_FORMATS, WireCodec, codec_gather, payload_all_gather, \
+    q8_gather
+
+# q8_block state keys, in the reference's (tree-sorted) order; a state with
+# a residual appends EF_KEY (see ``state_keys``)
+Q8_KEYS = ("codes", "master", "scales")
+# the reduce-wire error-feedback residual leaf (fp32, contribution-sized)
+EF_KEY = "reduce_ef"
+
+_LEAF_DTYPES = {"codes": torch.int8, "master": torch.float32,
+                "scales": torch.float32, EF_KEY: torch.float32}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,50 +55,184 @@ class ParamStore:
     """Storage-format policy for one communication group's buffer."""
 
     fmt: str = "fp32"
-    block: int = 1024
-    ef_m: int = 0
+    block: int = 1024  # quant block (flat elements) for q8_block
+    ef_m: int = 0      # reduce-wire EF residual chunks (0 = no residual)
 
     def __post_init__(self):
         if self.fmt not in STORE_FORMATS:
             raise ValueError(
                 f"unknown param_store {self.fmt!r}; expected one of "
                 f"{list(STORE_FORMATS)}")
-        if self.fmt != "fp32":
-            item = "Queue 1 item 7" if self.fmt == "q8_block" \
-                else "Queue 1 item 9"
+        if self.fmt not in ("fp32", "q8_block"):
             raise NotImplementedError(
                 f"param_store={self.fmt!r} is not ported yet (ROADMAP "
-                f"{item})")
-        if self.ef_m:
-            raise NotImplementedError(
-                "the reduce-wire error-feedback residual is not ported yet "
-                "(ROADMAP Queue 1 item 7)")
+                f"Queue 1 item 9)")
+        if self.block < 1:
+            raise ValueError(f"quant block must be >= 1, got {self.block}")
+        if self.ef_m < 0:
+            raise ValueError(f"ef_m must be >= 0, got {self.ef_m}")
 
-    def create(self, master_f32: np.ndarray) -> np.ndarray:
-        """State from a host-side fp32 buffer (identity for fp32)."""
-        return np.asarray(master_f32, np.float32)
+    # ------------------------------------------------------------------ #
+    # format properties
+    # ------------------------------------------------------------------ #
+    @property
+    def quantized(self) -> bool:
+        return self.fmt == "q8_block"
 
-    def trainable(self, state: torch.Tensor) -> torch.Tensor:
-        """The buffer the gradient reduce-scatter targets."""
-        return state
+    @property
+    def has_ef(self) -> bool:
+        return self.ef_m > 0
 
-    def frozen(self, state: torch.Tensor) -> None:
-        """The non-differentiable rest of the state: none for fp32."""
-        return None
+    def align(self) -> int:
+        """Planner alignment this store needs: a quantized store, and a
+        quantized reduce wire (its chunks are shard-sized), pin tensor
+        starts and the shard size to the quant block."""
+        return self.block if (self.quantized or self.has_ef) else 1
 
-    def combine(self, trainable: torch.Tensor, frozen) -> torch.Tensor:
-        return trainable
+    def state_keys(self) -> tuple[str, ...] | None:
+        """Leaf names of a dict state (None: the state is a bare tensor)."""
+        keys = Q8_KEYS if self.quantized else (
+            ("master",) if self.has_ef else None)
+        if keys is None:
+            return None
+        return keys + ((EF_KEY,) if self.has_ef else ())
 
-    def wrap_core(self, core: torch.Tensor) -> torch.Tensor:
-        """A rebuilt core (the fused update's weight output) as a state."""
+    def leaf_dtype(self, key: str) -> torch.dtype:
+        return _LEAF_DTYPES[key]
+
+    def leaf_shape(self, key: str, shape: tuple[int, ...]
+                   ) -> tuple[int, ...]:
+        """Shape of leaf ``key`` for a buffer of ``shape`` (global or
+        rank-local alike): scales have one entry per block, the residual is
+        ``ef_m`` buffers long."""
+        if key == "scales":
+            if shape[-1] % self.block:
+                raise ValueError(
+                    f"buffer last dim {shape[-1]} not a multiple of quant "
+                    f"block {self.block} -- planner align missing?")
+            return shape[:-1] + (shape[-1] // self.block,)
+        if key == EF_KEY:
+            return shape[:-1] + (shape[-1] * self.ef_m,)
+        return tuple(shape)
+
+    # ------------------------------------------------------------------ #
+    # construction
+    # ------------------------------------------------------------------ #
+    def create(self, master: torch.Tensor):
+        """State from this rank's fp32 master shard, on its device: the
+        shard itself for fp32, else a dict whose codes and scales come from
+        ``ops.quantize`` (the kernel, on a card) and whose residual starts
+        at zero."""
+        if not self.state_keys():
+            return master
+        state = {"master": master}
+        if self.quantized:
+            with torch.no_grad():
+                state["codes"], state["scales"] = ops.quantize(
+                    master.detach(), self.block)
+        if self.has_ef:
+            state[EF_KEY] = torch.zeros(
+                self.leaf_shape(EF_KEY, tuple(master.shape)),
+                dtype=torch.float32, device=master.device)
+        return {k: state[k] for k in self.state_keys()}
+
+    # ------------------------------------------------------------------ #
+    # views of a state
+    # ------------------------------------------------------------------ #
+    def trainable(self, state) -> torch.Tensor:
+        """The master buffer the gradient reduce-scatter targets (the leaf
+        whose ``.grad`` the train step reads)."""
+        return state["master"] if isinstance(state, dict) else state
+
+    def frozen(self, state):
+        """The rest of the state: the q8 codes and scales and the residual
+        (None for a bare fp32 state)."""
+        if not isinstance(state, dict):
+            return None
+        return {k: v for k, v in state.items() if k != "master"}
+
+    def combine(self, trainable: torch.Tensor, frozen):
+        """Inverse of (trainable, frozen): the full state again."""
+        if frozen is None:
+            return trainable
+        return {k: trainable if k == "master" else frozen[k]
+                for k in self.state_keys()}
+
+    def wrap_core(self, core):
+        """A rebuilt core (the fused update's output: a bare tensor, or the
+        q8 ``{"codes", "master", "scales"}`` dict) as this store's state,
+        minus the residual (``attach_ef`` re-attaches it)."""
+        if self.has_ef and not isinstance(core, dict):
+            return {"master": core}
         return core
 
-    def gather(self, state: torch.Tensor, grad_sink: torch.Tensor, group,
+    def attach_ef(self, core_state, ef: torch.Tensor):
+        """Re-attach the residual to a rebuilt state."""
+        if not self.has_ef:
+            raise ValueError("attach_ef on a store without an EF residual")
+        if not isinstance(core_state, dict):
+            core_state = {"master": core_state}
+        return {**core_state, EF_KEY: ef}
+
+    # ------------------------------------------------------------------ #
+    # the gather
+    # ------------------------------------------------------------------ #
+    def gather(self, state, grad_sink: torch.Tensor, group,
                sched: CommSchedule, compute_dtype: torch.dtype
                ) -> torch.Tensor:
-        """All-gather one rank-local state into the flat compute-dtype
-        buffer the model unpacks; backward reduce-scatters into
-        ``grad_sink``."""
-        return codec_gather(state, grad_sink, group,
-                            sched.gather_codec(compute_dtype),
-                            sched.reduce_codec(compute_dtype), compute_dtype)
+        """All-gather one rank-local (one-layer) state into the flat
+        compute-dtype buffer the model unpacks; backward reduce-scatters
+        into ``grad_sink`` through the schedule's reduce codec, and with a
+        residual writes the new one into ``state["reduce_ef"]``."""
+        rcodec = sched.reduce_codec(compute_dtype, self.block)
+        ef = state[EF_KEY] if self.has_ef else None
+        if self.quantized:
+            return q8_gather(state["master"], state["codes"], state["scales"],
+                             grad_sink, group, self.block, rcodec,
+                             compute_dtype, ef)
+        return codec_gather(self.trainable(state), grad_sink, group,
+                            sched.gather_codec(compute_dtype), rcodec,
+                            compute_dtype, ef)
+
+    def gather_payload(self, state, group) -> dict[str, torch.Tensor]:
+        """All-gather a quantized state's payload without decoding:
+        ``{"codes", "scales"}`` of the full flat buffer, pure data movement
+        (the reference's serve path keeps these in int8; ROADMAP Queue 1
+        item 13 ports that use).  PARITY: BITWISE."""
+        if not self.quantized:
+            raise ValueError(
+                f"gather_payload on a {self.fmt!r} store (quantized only)")
+        return {"codes": payload_all_gather(state["codes"], group),
+                "scales": payload_all_gather(state["scales"], group)}
+
+    # ------------------------------------------------------------------ #
+    # accounting
+    # ------------------------------------------------------------------ #
+    def wire_bytes(self, n_elements: int, wire_dtype: torch.dtype) -> int:
+        """Bytes one all-gather of an ``n_elements`` buffer puts on the
+        wire in this format (per gathered copy)."""
+        if not self.quantized:
+            return n_elements * wire_dtype.itemsize
+        return WireCodec("q8_block", self.block).wire_bytes(n_elements)
+
+
+def check_state(store: ParamStore, state: Mapping[str, Any] | Any,
+                shape: tuple[int, ...], what: str) -> None:
+    """Raise unless ``state`` has ``store``'s leaves at buffer ``shape``."""
+    keys = store.state_keys()
+    if keys is None:
+        leaves = {"master": state}
+    elif isinstance(state, Mapping) and set(state) == set(keys):
+        leaves = state
+    else:
+        got = sorted(state) if isinstance(state, Mapping) else "a bare array"
+        raise ValueError(
+            f"{what} has leaves {got}, the {store.fmt!r} store needs "
+            f"{list(keys or ('master',))}")
+    for k, leaf in leaves.items():
+        want = store.leaf_shape(k, tuple(shape))
+        if tuple(leaf.shape) != want:
+            name = what if keys is None else f"{what}[{k!r}]"
+            raise ValueError(
+                f"{name} has shape {tuple(leaf.shape)}, the port's layout "
+                f"needs {want}")

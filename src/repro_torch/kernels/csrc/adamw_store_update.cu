@@ -1,8 +1,12 @@
-// Fused AdamW step + flat ParamStore epilogue for Hopper (sm_90a).
+// Fused AdamW step + ParamStore epilogue for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel repro/kernels/fused_update.py::
-// _adamw_flat_kernel (with its math core _adam_math), launched by
-// adamw_store_update for the fp32 and bf16 store formats.
+// Replaces two Pallas TPU kernels of repro/kernels/fused_update.py, both on
+// the math core _adam_math, launched by adamw_store_update:
+//   _adamw_flat_kernel (launched at :255) for the fp32 and bf16 stores;
+//   _adamw_q8_kernel   (launched at :198) for the q8_block store: the same
+//                      step, then the blockwise requantize of w'
+//                      (_requant, repro/kernels/adam8bit_update.py:25).
+// The flat epilogue is described first; the q8 one follows at adamw_q8.
 //
 // What it computes, per element, in the reference's operation order:
 //   m'  = b1*m + (1-b1)*g
@@ -30,6 +34,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "blockwise.cuh"
 
 namespace {
 
@@ -130,10 +136,83 @@ void launch(const float* w, const float* g, const float* m, const float* v,
   }
 }
 
+// ---- q8_block epilogue ----------------------------------------------------
+// One CTA per quant block (grid-stride): each thread runs the Adam step on
+// its elements, writes m', v' and the fp32 master w', and keeps w' in shared
+// memory; after the block's absmax (blockwise.cuh) it encodes w' from shared
+// memory, so w' is never read back from device memory.  Bound: memory, 33 B
+// per element (w, g, m, v, mask in: 20 B; code 1 B, master, m', v' 12 B;
+// 4/block B of scale).  Outputs may alias inputs (w_out == w, m_out == m,
+// v_out == v): every thread reads its elements before writing them.
+template <int V>
+__global__ void adamw_q8(const float* w, const float* g, const float* m,
+                         const float* v, const float* mask, int8_t* codes,
+                         float* w_out, float* scales, float* m_out, float* v_out,
+                         long long n_blocks, int block, Scalars s) {
+  extern __shared__ float vals[];
+  __shared__ float red[bq::kMaxThreads / 32];
+  for (long long qb = blockIdx.x; qb < n_blocks; qb += gridDim.x) {
+    const long long base = qb * block;
+    float amax = 0.f;
+    for (int i = V * threadIdx.x; i < block; i += V * blockDim.x) {
+      const long long j = base + i;
+      float wi[V], gi[V], mi[V], vi[V], ki[V], wo[V], mo[V], vo[V];
+      bq::load<V>(w + j, wi);
+      bq::load<V>(g + j, gi);
+      bq::load<V>(m + j, mi);
+      bq::load<V>(v + j, vi);
+      bq::load<V>(mask + j, ki);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        adam_math(s, wi[k], gi[k], mi[k], vi[k], ki[k], wo[k], mo[k], vo[k]);
+        vals[i + k] = wo[k];
+        amax = fmaxf(amax, fabsf(wo[k]));
+      }
+      bq::store<V>(w_out + j, wo);
+      bq::store<V>(m_out + j, mo);
+      bq::store<V>(v_out + j, vo);
+    }
+    amax = bq::block_absmax(amax, red);
+    float scale, inv;
+    bq::scale_inv(amax, scale, inv);
+    for (int i = V * threadIdx.x; i < block; i += V * blockDim.x) {
+      float q[V];
+#pragma unroll
+      for (int k = 0; k < V; ++k) q[k] = bq::code_of(vals[i + k], inv);
+      bq::store<V>(codes + base + i, q);
+    }
+    if (threadIdx.x == 0) scales[qb] = scale;
+  }
+}
+
+template <int V>
+cudaError_t launch_q8(const float* w, const float* g, const float* m, const float* v,
+                      const float* mask, int8_t* codes, float* w_out, float* scales,
+                      float* m_out, float* v_out, long long n_blocks, int block,
+                      const Scalars& s, cudaStream_t stream) {
+  size_t smem = 0;
+  cudaError_t err = bq::stage_smem(adamw_q8<V>, block, &smem);
+  if (err != cudaSuccess) return err;
+  adamw_q8<V><<<bq::grid_for(n_blocks), bq::threads_for(block, V), smem, stream>>>(
+      w, g, m, v, mask, codes, w_out, scales, m_out, v_out, n_blocks, block, s);
+  return cudaGetLastError();
+}
+
+Scalars make_scalars(float lr, float b1, float b2, float eps, float wd, float c1,
+                     float c2) {
+  Scalars s;
+  s.lr = lr; s.b1 = b1; s.b2 = b2; s.eps = eps; s.wd = wd; s.c1 = c1; s.c2 = c2;
+  // host float arithmetic is IEEE single precision (SSE): the same fp32
+  // 1-b1 and 1-b2 the plain version forms on the device
+  s.one_m_b1 = 1.0f - b1;
+  s.one_m_b2 = 1.0f - b2;
+  return s;
+}
+
 }  // namespace
 
-// Plain C entry point, loaded with ctypes.  Pointers are device pointers of
-// contiguous tensors of n elements (w, g, m, v, mask, m_out, v_out fp32;
+// Plain C entry point of the flat epilogue, loaded with ctypes.  Pointers
+// are device pointers of contiguous tensors of n elements (w, g, m, v, mask, m_out, v_out fp32;
 // w_out fp32, or bf16 when out_bf16 != 0).  Launches on `stream` and returns
 // cudaGetLastError() (0 on success); it never synchronises.
 extern "C" int adamw_store_update_launch(const float* w, const float* g,
@@ -145,12 +224,7 @@ extern "C" int adamw_store_update_launch(const float* w, const float* g,
                                          float c1, float c2, int out_bf16,
                                          void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  Scalars s;
-  s.lr = lr; s.b1 = b1; s.b2 = b2; s.eps = eps; s.wd = wd; s.c1 = c1; s.c2 = c2;
-  // host float arithmetic is IEEE single precision (SSE): the same fp32
-  // 1-b1 and 1-b2 the plain version forms on the device
-  s.one_m_b1 = 1.0f - b1;
-  s.one_m_b2 = 1.0f - b2;
+  const Scalars s = make_scalars(lr, b1, b2, eps, wd, c1, c2);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (out_bf16) {
     launch<true>(w, g, m, v, mask, w_out, m_out, v_out, (int64_t)n, s, st);
@@ -158,4 +232,28 @@ extern "C" int adamw_store_update_launch(const float* w, const float* g,
     launch<false>(w, g, m, v, mask, w_out, m_out, v_out, (int64_t)n, s, st);
   }
   return (int)cudaGetLastError();
+}
+
+// Plain C entry point of the q8_block epilogue.  w, g, m, v, mask, w_out,
+// m_out, v_out: fp32, codes: int8, all n_blocks * block elements; scales:
+// fp32, n_blocks.  Contiguous, on one device.  Launches on `stream`, never
+// synchronises, returns the launch's cudaError_t (0 on success).
+extern "C" int adamw_q8_launch(const float* w, const float* g, const float* m,
+                               const float* v, const float* mask, void* codes,
+                               float* w_out, float* scales, float* m_out,
+                               float* v_out, long long n_blocks, int block,
+                               float lr, float b1, float b2, float eps, float wd,
+                               float c1, float c2, void* stream) {
+  if (block < 1) return (int)cudaErrorInvalidValue;
+  if (n_blocks <= 0) return (int)cudaSuccess;
+  const Scalars s = make_scalars(lr, b1, b2, eps, wd, c1, c2);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  int8_t* c = reinterpret_cast<int8_t*>(codes);
+  const bool vec = block % 4 == 0 && aligned16(w) && aligned16(g) && aligned16(m) &&
+                   aligned16(v) && aligned16(mask) && aligned16(w_out) &&
+                   aligned16(m_out) && aligned16(v_out) && bq::aligned(codes, 4);
+  return (int)(vec ? launch_q8<4>(w, g, m, v, mask, c, w_out, scales, m_out, v_out,
+                                  n_blocks, block, s, st)
+                   : launch_q8<1>(w, g, m, v, mask, c, w_out, scales, m_out, v_out,
+                                  n_blocks, block, s, st));
 }

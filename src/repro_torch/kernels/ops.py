@@ -1,17 +1,20 @@
 """The dispatch layer for the port's kernels (port of
-``repro/kernels/ops.py`` for the ops the slice runs).
+``repro/kernels/ops.py`` for the ops the port runs).
 
 Rule: CUDA tensors launch the hand-written kernel; CPU tensors take the
 plain PyTorch version (``kernels.ref``), the CPU tests' path; anything
 else -- tensors split across devices, another device type -- raises.
 There is no fallback from a failed build or launch to the plain version.
+Every hot path of the port (the wire codecs, the store, the optimizer)
+goes through these functions.
 """
 from __future__ import annotations
 
 import torch
 
-from . import fused_update
-from .ref import adamw_store_update_ref, scalar_stack
+from . import blockwise_quant, encode_ef as _encode_ef, fused_update
+from .ref import (adamw_store_update_ref, dequantize_into_ref, encode_ef_ref,
+                  quantize_ref, scalar_stack)
 
 
 def _device_kind(*tensors: torch.Tensor) -> str:
@@ -26,23 +29,84 @@ def _device_kind(*tensors: torch.Tensor) -> str:
         f"got {sorted(str(d) for d in devices)}")
 
 
-def adamw_store_update(w, g, m, v, mask, *, lr, b1, b2, eps, wd, c1, c2,
-                       fmt: str = "fp32", out=None):
-    """Fused AdamW step + flat store epilogue (fp32 or bf16 weights).
-    Returns ``(w', m', v')``; ``out=(w, m, v)`` updates in place (the
-    optimizer's main path, which saves three transient copies of the
-    state).
+def _copy_out(out, results):
+    if out is None:
+        return results
+    for dst, src in zip(out, results):
+        dst.copy_(src)
+    return out
 
-    PARITY: the CUDA kernel is BITWISE against the plain version on the
+
+def quantize(x: torch.Tensor, block: int = 1024):
+    """Blockwise absmax INT8 encode: ``(codes int8 like x, scales f32
+    (..., n // block))`` (store create, wire encode).
+
+    PARITY: the kernel is BITWISE against the plain version on the card;
+    the plain version is bitwise the reference's but for subnormal scales
+    (``quant.blockwise``)."""
+    if _device_kind(x) == "cuda":
+        return blockwise_quant.quantize(x, block)
+    return quantize_ref(x, block)
+
+
+def dequantize_into(codes: torch.Tensor, scales: torch.Tensor,
+                    block: int = 1024, *, out_dtype: torch.dtype
+                    ) -> torch.Tensor:
+    """Gather-path decode: codes + scales -> ``out_dtype`` in one pass, no
+    full-size fp32 intermediate.
+
+    PARITY: BITWISE (kernel vs plain version on the card; plain version vs
+    the reference)."""
+    if _device_kind(codes, scales) == "cuda":
+        return blockwise_quant.dequantize_into(codes, scales, block,
+                                               out_dtype)
+    return dequantize_into_ref(codes, scales, block, out_dtype)
+
+
+def dequantize(codes: torch.Tensor, scales: torch.Tensor,
+               block: int = 1024) -> torch.Tensor:
+    """Blockwise decode to fp32 (the q8 reduce route): ``dequantize_into``
+    with fp32 output.  PARITY: BITWISE."""
+    return dequantize_into(codes, scales, block, out_dtype=torch.float32)
+
+
+def encode_ef(ct: torch.Tensor, ef: torch.Tensor, block: int = 1024, *,
+              out=None):
+    """Reduce-path fused encode with error feedback: ``(codes, scales,
+    new_ef)`` of ``comp = ct.f32 + ef``; ``out=(codes, scales, ef)``
+    updates the residual in place.
+
+    PARITY: the kernel is BITWISE against the plain version on the card;
+    the plain version vs the reference: codes and scales bitwise (but for
+    subnormal scales), new_ef within XLA's FMA contraction of ``comp -
+    codes*scale`` (``kernels.ref.encode_ef_ref``)."""
+    if _device_kind(ct, ef) == "cuda":
+        return _encode_ef.encode_ef(ct, ef, block, out=out)
+    return _copy_out(out, encode_ef_ref(ct, ef, block))
+
+
+def adamw_store_update(w, g, m, v, mask, *, lr, b1, b2, eps, wd, c1, c2,
+                       fmt: str = "fp32", block: int = 1024, out=None):
+    """Fused AdamW step + store epilogue.  Flat formats (fp32, bf16)
+    return ``(w', m', v')``, ``out=(w, m, v)`` updating in place (the
+    optimizer's main path, which saves three transient copies of the
+    state).  ``fmt="q8_block"`` returns ``({"codes", "master", "scales"},
+    m', v')``; ``out=(codes, master, scales, m, v)``.
+
+    PARITY: the CUDA kernels are BITWISE against the plain version on the
     card; the plain version is within a few ulp of the reference's
     interpreted kernel (see ``kernels.ref``)."""
     scalars = scalar_stack(lr, b1, b2, eps, wd, c1, c2)
     if _device_kind(w, g, m, v, mask) == "cuda":
         return fused_update.adamw_store_update(w, g, m, v, mask, scalars,
-                                               fmt=fmt, out=out)
-    w2, m2, v2 = adamw_store_update_ref(w, g, m, v, mask, scalars, fmt)
+                                               fmt=fmt, block=block, out=out)
+    core, m2, v2 = adamw_store_update_ref(w, g, m, v, mask, scalars, fmt,
+                                          block)
     if out is None:
-        return w2, m2, v2
-    for dst, src in zip(out, (w2, m2, v2)):
-        dst.copy_(src)
-    return out
+        return core, m2, v2
+    if fmt == "q8_block":
+        codes, master, scales, m_out, v_out = _copy_out(
+            out, (core["codes"], core["master"], core["scales"], m2, v2))
+        return ({"codes": codes, "master": master, "scales": scales},
+                m_out, v_out)
+    return tuple(_copy_out(out, (core, m2, v2)))

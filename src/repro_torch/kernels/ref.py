@@ -1,10 +1,16 @@
 """Plain PyTorch versions of the port's kernels: the CPU execution path and
 the semantics the card's kernels are held to (the role the reference's
-``interpret=True`` plays)."""
+``interpret=True`` plays).  One eager op per step, in the reference
+kernel's order; on the card every scalar is a 0-d device tensor or an
+exactly representable fp32 constant, so each op rounds as the kernel's
+explicitly rounded intrinsic does."""
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..quant.blockwise import (_check_blocking, _check_scales,
+                               dequantize_blockwise, quantize_blockwise)
 
 # store epilogues of the flat AdamW update -> dtype of the written weights
 FLAT_OUT_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
@@ -17,7 +23,7 @@ def scalar_stack(lr, b1, b2, eps, wd, c1, c2) -> np.ndarray:
 
 
 def adamw_store_update_ref(w, g, m, v, mask, scalars: np.ndarray,
-                           fmt: str = "fp32"):
+                           fmt: str = "fp32", block: int = 1024):
     """AdamW step + flat store epilogue, op for op the reference's
     ``_adam_math`` + ``_adamw_flat_kernel``, one eager op per step:
 
@@ -29,17 +35,21 @@ def adamw_store_update_ref(w, g, m, v, mask, scalars: np.ndarray,
     ``scalars`` is ``scalar_stack(...)``; 1-b1 and 1-b2 are formed in
     fp32 from its entries, as the kernel does.  Returns ``(w', m', v')``
     with w' in the epilogue's dtype (fp32, or bf16 rounded to nearest
-    even) and m', v' in fp32.
+    even) and m', v' in fp32.  The ``q8_block`` epilogue (the reference's
+    ``_adamw_q8_kernel``) then requantizes w' blockwise (``_requant``) and
+    returns ``({"codes", "master", "scales"}, m', v')`` with master = w';
+    it needs ``w.shape[-1] % block == 0``.
 
     PARITY vs the reference's interpreted Pallas kernel on the CPU:
     m' and v' within 1 ulp, w' within a few integer-view steps (XLA
     contracts parts of the chain; tests/test_torch_kernels.py pins the
-    bound).  The CUDA kernel is BITWISE against this function on the card.
+    bound).  A q8 code inherits the class of w': it can move by one where
+    w' sits within an ulp of a rounding boundary.  The CUDA kernels are
+    BITWISE against this function on the card.
     """
-    if fmt not in FLAT_OUT_DTYPES:
-        raise NotImplementedError(
-            f"the {fmt!r} epilogue of adamw_store_update is not ported yet "
-            f"(ROADMAP Queue 2)")
+    check_store_fmt(fmt)
+    if fmt == "q8_block":
+        _check_block(w.shape, block, "q8_block store update")
     # 0-d tensors on w's device, not Python numbers: CUDA divides a tensor
     # by a host scalar as a multiply by its reciprocal, which is not the
     # kernel's (or the reference's) correctly rounded division
@@ -52,4 +62,73 @@ def adamw_store_update_ref(w, g, m, v, mask, scalars: np.ndarray,
     upd = (m2 / c1) / (torch.sqrt(v2 / c2) + eps)
     w = w.float()
     w2 = w - lr * (upd + wd * mask * w)
+    if fmt == "q8_block":
+        codes, scales = quantize_ref(w2, block)
+        return {"codes": codes, "master": w2, "scales": scales}, m2, v2
     return w2.to(FLAT_OUT_DTYPES[fmt]), m2, v2
+
+
+def check_store_fmt(fmt: str) -> None:
+    """The epilogues the port runs: fp32, bf16 and q8_block."""
+    if fmt in ("fp8_e4m3", "fp8_e5m2"):
+        raise NotImplementedError(
+            f"the {fmt!r} epilogue of adamw_store_update is not ported yet "
+            f"(ROADMAP Queue 2 item 7)")
+    if fmt not in FLAT_OUT_DTYPES and fmt != "q8_block":
+        raise ValueError(f"unknown store fmt {fmt!r} for the fused update")
+
+
+def _check_block(shape, block: int, who: str) -> None:
+    """The reference's ``_check_block`` (``fused_update.py:171``)."""
+    if shape[-1] % block:
+        raise ValueError(
+            f"{who} needs last dim % block == 0, got {shape[-1]} % "
+            f"{block} -- planner align missing?")
+
+
+def quantize_ref(x: torch.Tensor, block: int):
+    """Blockwise absmax INT8 encode, the reference's ``_quant_kernel``
+    (and ``_requant``): ``(codes int8 like x, scales f32 (..., n/block))``.
+    PARITY: see ``quant.blockwise`` (bitwise but for subnormal scales)."""
+    _check_blocking(x.shape[-1], block, "quantize")
+    return quantize_blockwise(x, block)
+
+
+def dequantize_into_ref(codes: torch.Tensor, scales: torch.Tensor,
+                        block: int, out_dtype: torch.dtype = torch.float32
+                        ) -> torch.Tensor:
+    """``codes.f32 * scale`` cast to ``out_dtype`` (fp32, or bf16 rounded
+    to nearest even), the reference's ``_dequant_kernel``.  PARITY:
+    BITWISE."""
+    n = codes.shape[-1]
+    _check_blocking(n, block, "dequantize")
+    _check_scales(n, block, scales.shape[-1], "dequantize")
+    return dequantize_blockwise(codes, scales, block).to(out_dtype)
+
+
+def encode_ef_ref(ct: torch.Tensor, ef: torch.Tensor, block: int):
+    """The q8 gradient wire's encode with error feedback, the reference's
+    ``_encode_ef_kernel``::
+
+        comp   = ct.f32 + ef
+        codes, scales = quantize(comp)
+        new_ef = comp - codes * scale
+
+    Returns ``(codes, scales, new_ef)``.
+
+    PARITY vs the reference on the CPU: codes and scales BITWISE (but for
+    subnormal scales, see ``quant.blockwise``); XLA contracts ``comp -
+    codes*scale`` into one FMA where this function rounds the product
+    first, so ``new_ef`` differs by up to half an ulp of ``codes*scale``
+    plus one ulp of ``new_ef``.  The CUDA kernel is BITWISE against this
+    function on the card."""
+    n = ct.shape[-1]
+    _check_blocking(n, block, "encode_ef")
+    if ef.shape != ct.shape:
+        raise ValueError(
+            f"encode_ef: ef shape {tuple(ef.shape)} != ct shape "
+            f"{tuple(ct.shape)}")
+    comp = ct.float() + ef
+    codes, scales = quantize_blockwise(comp, block)
+    deq = dequantize_blockwise(codes, scales, block)
+    return codes, scales, comp - deq

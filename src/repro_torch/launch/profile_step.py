@@ -1,18 +1,20 @@
 """Where a train step's device time goes: one profiled ZeRO-3 step.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_step
+    PYTHONPATH=src python -m repro_torch.launch.profile_step [--q8]
 
 Builds the configuration ``chip_smoke.py`` trains -- gemma2-2b at published
-width, depth cut to 4 layers, batch 2 x 2048, bf16 compute, fp32 store,
-AdamW -- runs two warm-up steps on one rank of a NCCL group, then one step
+width, depth cut to 4 layers, batch 2 x 2048, bf16 compute, fp32 store (or,
+with ``--q8``, the q8_block store and the q8 gradient wire with error
+feedback on both groups), AdamW -- runs two warm-up steps on one rank of a NCCL group, then one step
 under ``torch.profiler`` and prints JSON lines:
 the step's wall time, the summed device time of its kernels by category
-(matmul, optimizer kernel, collective, other) and the device's idle share
+(matmul, optimizer kernel, q8 codec kernels, collective, other) and the device's idle share
 of the step, then the kernels with the most device time.  Needs a CUDA
 card; it does not run on the CPU.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import time
@@ -21,13 +23,15 @@ import torch
 
 from ..configs import build_model, get_config
 from ..core.fsdp import FSDPRuntime
+from ..core.schedule import CommSchedule
 from ..data.pipeline import DataConfig, SyntheticStream
 from ..optim import make_optimizer
 from .mesh import init_local_group
 
 # kernel-name fragments -> category (cuBLAS/CUTLASS GEMM names, NCCL, ours)
 CATEGORIES = (
-    ("optimizer", ("adamw_flat",)),
+    ("optimizer", ("adamw_flat", "adamw_q8")),
+    ("q8 codec", ("quantize_kernel", "dequantize_kernel", "encode_ef_kernel")),
     ("collective", ("nccl",)),
     ("matmul", ("gemm", "cutlass", "xmma", "nvjet", "cublas")),
 )
@@ -45,14 +49,20 @@ LAYERS, BATCH, SEQ, WARMUP, TOP = 4, 2, 2048, 2, 15
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--q8", action="store_true",
+                    help="the q8_block store and q8 gradient wire")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     cfg = dataclasses.replace(get_config("gemma2-2b"), n_layers=LAYERS)
+    sched = CommSchedule(param_store="q8_block", reduce_wire="q8_block") \
+        if args.q8 else None
     rt = FSDPRuntime(build_model(cfg), init_local_group("nccl"),
-                     compute_dtype=torch.bfloat16)
+                     compute_dtype=torch.bfloat16, schedule=sched)
     params = rt.init_params(0)
     opt = make_optimizer(cfg)
     opt_state = opt.init(rt)
@@ -97,6 +107,7 @@ def main() -> None:
         row[1] += 1
     print(json.dumps({
         "phase": "profile", "model": cfg.name, "n_layers": LAYERS,
+        "schedule": "q8_both_wires" if args.q8 else "default",
         "batch": [BATCH, SEQ], "compute": "bf16",
         "device": torch.cuda.get_device_name(0), "loss": float(m["loss"]),
         "step_ms": wall_ms, "device_busy_ms": busy_us / 1e3,

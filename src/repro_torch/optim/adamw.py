@@ -4,7 +4,8 @@ The whole per-group step -- moment update and weight write in the store's
 format -- is ONE fused kernel through the dispatch layer
 (``kernels.ops.adamw_store_update``: the hand-written CUDA kernel on the
 card, its plain PyTorch version on the CPU).  The update runs in place on
-the parameter and moment buffers.  ``lr``, ``c1`` and ``c2`` are float32
+the parameter and moment buffers; for a q8_block store the same launch
+rewrites the state's codes and scales from the updated master.  ``lr``, ``c1`` and ``c2`` are float32
 scalars computed on the host from the Python step counter, so the loop
 never waits on the device for them.
 """
@@ -51,9 +52,11 @@ class AdamW(OptimizerBase):
             store = runtime.layouts[name].store
             buf = store.trainable(pstate)
             m, v = state["m"][name], state["v"][name]
+            out = ((pstate["codes"], buf, pstate["scales"], m, v)
+                   if store.quantized else (buf, m, v))
             core, _, _ = ops.adamw_store_update(
                 buf, grads[name], m, v, self._masks[name], lr=lr, b1=self.b1,
                 b2=self.b2, eps=self.eps, wd=self.wd, c1=c1, c2=c2,
-                fmt=store.fmt, out=(buf, m, v))
+                fmt=store.fmt, block=store.block, out=out)
             new_params[name] = store.wrap_core(core)
         return new_params, state

@@ -21,14 +21,17 @@ def quickstart_config():
                                learning_rate=LR)
 
 
-def train(group, compute_dtype, steps, *, first_step=0, state=None):
-    """Run ``steps`` quickstart steps from ``first_step``.  ``state``, if
-    given, maps the runtime to the ``(params, opt_state)`` to start from
-    (default: ``init_params(0)`` and zero moments).  Returns (losses,
-    grad_norms, runtime, params, opt_state)."""
+def train(group, compute_dtype, steps, *, first_step=0, state=None,
+          schedule=None, on_step=None):
+    """Run ``steps`` quickstart steps from ``first_step`` under
+    ``schedule`` (default: the config's).  ``state``, if given, maps the
+    runtime to the ``(params, opt_state)`` to start from (default:
+    ``init_params(0)`` and zero moments); ``on_step(i, params)`` sees the
+    state after each step.  Returns (losses, grad_norms, runtime, params,
+    opt_state)."""
     cfg = quickstart_config()
     rt = FSDPRuntime(build_model(cfg), group, compute_dtype=compute_dtype,
-                     device="cpu")
+                     device="cpu", schedule=schedule)
     opt = make_optimizer(cfg)
     opt_state = opt.init(rt)
     params = rt.init_params(0)
@@ -41,6 +44,8 @@ def train(group, compute_dtype, steps, *, first_step=0, state=None):
     for i in range(first_step, first_step + steps):
         batch = stream.shard(stream.batch(i), rt)
         params, opt_state, step, m = step_fn(params, opt_state, step, batch)
+        if on_step is not None:
+            on_step(i, params)
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
     return losses, norms, rt, params, opt_state

@@ -134,8 +134,8 @@ def test_cuda_wrapper_rejects_cpu_tensors():
 
 def test_unported_epilogues_raise():
     arrs, kw = _inputs(64, True)
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        ops.adamw_store_update(*map(torch.from_numpy, arrs), fmt="q8_block",
+    with pytest.raises(NotImplementedError, match="Queue 2 item 7"):
+        ops.adamw_store_update(*map(torch.from_numpy, arrs), fmt="fp8_e4m3",
                                **kw)
 
 
@@ -170,3 +170,121 @@ def test_kernel_matches_plain_on_card(fmt):
             torch.cuda.synchronize()
             for a, b in zip((w, m, v), want):
                 assert torch.equal(a, b), ("in place", n)
+
+
+# --------------------------------------------------------------------------- #
+# the block-wise INT8 kernels on the card (kernel vs plain version: BITWISE)
+# --------------------------------------------------------------------------- #
+# (rows, n, block, element offset): the vector path (block % 4 == 0, aligned
+# pointers), a misaligned view (scalar path), an odd block (scalar path) and
+# a block whose staged values need more than 48 KB of shared memory
+CARD_CASES = [(1, 1024 * 96, 1024, 0), (3, 64 * 50, 64, 0),
+              (2, 64 * 50, 64, 1), (2, 7 * 33, 7, 0), (1, 16384 * 3, 16384, 0)]
+
+
+def _card_tensor(shape, offset, dtype, gen, scale=1.0):
+    """Random values in a view that starts ``offset`` elements into its
+    buffer (an odd offset takes the kernels' scalar path)."""
+    import math
+    n = math.prod(shape)
+    buf = torch.empty(n + offset, dtype=dtype, device="cuda")
+    buf[offset:] = torch.randn(n, generator=gen, device="cuda") * scale
+    return buf[offset:].view(shape)
+
+
+def _card_inputs(rows, n, offset, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = _card_tensor((rows, n), offset, torch.float32, gen)
+    x[0, :min(n, 64)] = 0.0          # an all-zero block (block <= 64 cases)
+    return x, gen
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_quantize_dequantize_kernels_match_plain_on_card(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import blockwise_quant, ref
+
+    for rows, n, block, offset in CARD_CASES:
+        x, _ = _card_inputs(rows, n, offset, seed=n + offset)
+        x = x.to(dtype)
+        before = blockwise_quant.quantize.launches
+        codes, scales = ops.quantize(x, block)
+        assert blockwise_quant.quantize.launches == before + 1
+        want_c, want_s = ref.quantize_ref(x, block)
+        torch.cuda.synchronize()
+        assert torch.equal(codes, want_c), (rows, n, block, offset)
+        assert torch.equal(scales.view(torch.int32),
+                           want_s.view(torch.int32)), (rows, n, block, offset)
+        for out_dtype in (torch.float32, torch.bfloat16):
+            before = blockwise_quant.dequantize_into.launches
+            got = ops.dequantize_into(codes, scales, block,
+                                      out_dtype=out_dtype)
+            assert blockwise_quant.dequantize_into.launches == before + 1
+            want = ref.dequantize_into_ref(codes, scales, block, out_dtype)
+            torch.cuda.synchronize()
+            assert got.dtype == out_dtype and torch.equal(got, want), (
+                rows, n, block, offset, out_dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_encode_ef_kernel_matches_plain_on_card(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import encode_ef as ef_kernel, ref
+
+    for rows, n, block, offset in CARD_CASES:
+        ct, gen = _card_inputs(rows, n, offset, seed=2 * n + offset)
+        ct = ct.to(dtype)
+        ef = _card_tensor((rows, n), offset, torch.float32, gen, 1e-2)
+        before = ef_kernel.encode_ef.launches
+        got = ops.encode_ef(ct, ef, block)
+        assert ef_kernel.encode_ef.launches == before + 1
+        want = ref.encode_ef_ref(ct, ef, block)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b), (
+                rows, n, block, offset)
+        # the residual updated in place, as the gather's backward does
+        codes, scales = torch.empty_like(got[0]), torch.empty_like(got[1])
+        ops.encode_ef(ct, ef, block, out=(codes, scales, ef))
+        torch.cuda.synchronize()
+        for a, b in zip((codes, scales, ef), want):
+            assert torch.equal(a, b), ("in place", rows, n, block, offset)
+
+
+@pytest.mark.gpu
+def test_adamw_q8_kernel_matches_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for rows, n, block, offset in CARD_CASES:
+        arrs, kw = _inputs(rows * n + offset, False, seed=n)
+        t = [torch.from_numpy(a).cuda()[offset:].reshape(rows, n)
+             for a in arrs]
+        before = fused_update.adamw_q8_update.launches
+        core, m2, v2 = ops.adamw_store_update(*t, fmt="q8_block",
+                                              block=block, **kw)
+        assert fused_update.adamw_q8_update.launches == before + 1
+        want, wm, wv = adamw_store_update_ref(
+            *t, scalar_stack(kw["lr"], B1, B2, EPS, WD, kw["c1"], kw["c2"]),
+            "q8_block", block)
+        torch.cuda.synchronize()
+        for k in ("codes", "master", "scales"):
+            assert torch.equal(core[k], want[k]), (k, rows, n, block, offset)
+        assert torch.equal(m2, wm) and torch.equal(v2, wv)
+        # in place on the state's tensors, as the optimizer runs it
+        w, m, v = (x.clone() for x in (t[0], t[2], t[3]))
+        codes = torch.empty_like(core["codes"])
+        scales = torch.empty_like(core["scales"])
+        ops.adamw_store_update(w, t[1], m, v, t[4], fmt="q8_block",
+                               block=block, out=(codes, w, scales, m, v),
+                               **kw)
+        torch.cuda.synchronize()
+        for a, b in zip((codes, w, scales, m, v),
+                        (want["codes"], want["master"], want["scales"], wm,
+                         wv)):
+            assert torch.equal(a, b), ("in place", rows, n, block, offset)

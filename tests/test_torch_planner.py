@@ -55,6 +55,50 @@ def test_plan_matches_reference(reduced, m):
         assert g.fsdp_axes == e.fsdp_axes and g.n_layers == e.n_layers
 
 
+Q8_SCHEDULES = {
+    "q8_store": dict(param_store="q8_block"),
+    "q8_reduce": dict(reduce_wire="q8_block"),
+    "q8_both_wires": dict(param_store="q8_block", reduce_wire="q8_block"),
+}
+
+
+@pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])
+@pytest.mark.parametrize("m", [1, 2, 8])
+@pytest.mark.parametrize("variant", list(Q8_SCHEDULES))
+def test_q8_plan_matches_reference(variant, reduced, m):
+    """The q8 store and the q8 reduce wire align every tensor start and
+    the shard size to the quant block; the plans equal the reference's."""
+    from repro.core.schedule import CommSchedule as JaxSchedule
+
+    jcfg, tcfg = _cfgs(reduced)
+    mesh = {"data": m, "model": 1}
+    ref = jax_plan(jax_build_model(jcfg), mesh,
+                   JaxSchedule(**Q8_SCHEDULES[variant]))
+    got = plan(build_model(tcfg), mesh, CommSchedule(**Q8_SCHEDULES[variant]))
+    assert list(got.groups) == list(ref.groups)
+    for name, e in ref.groups.items():
+        g = got.groups[name]
+        assert _placements(g.plan) == _placements(e.plan), name
+        assert (g.plan.shard_size, g.plan.total, g.plan.padding) == \
+            (e.plan.shard_size, e.plan.total, e.plan.padding), name
+        assert g.plan.shard_size % tcfg.quant_block == 0
+        assert g.store.state_keys() == e.store.state_keys()
+        assert (g.store.fmt, g.store.block, g.store.ef_m) == \
+            (e.store.fmt, e.store.block, e.store.ef_m)
+
+
+def test_full_width_q8_shard_sizes():
+    """The sizes the chip smoke's q8 phases rely on (one rank,
+    align = quant_block = 1024)."""
+    got = plan(build_model(get_config("gemma2-2b")), {"data": 1, "model": 1},
+               CommSchedule(param_store="q8_block", reduce_wire="q8_block"))
+    # aligned tensor starts pad the layer buffer by 3072 elements and the
+    # globals by 768
+    assert got.groups["layers"].plan.shard_size == 77_869_056
+    assert got.groups["globals"].plan.shard_size == 589_827_072
+    assert all(e.plan.shard_size % 1024 == 0 for e in got.groups.values())
+
+
 def test_full_width_shard_sizes():
     """The sizes the chip smoke relies on (one rank: no padding)."""
     got = plan(build_model(get_config("gemma2-2b")), {"data": 1, "model": 1})
@@ -147,8 +191,8 @@ def test_default_layer_plan_matches_reference(n):
     (dict(gather_mode="ring"), "Queue 1 item 10"),
     (dict(reduce_mode="ring_acc"), "Queue 1 item 10"),
     (dict(ring_chunk_elems=1024), "Queue 1 item 10"),
-    (dict(reduce_wire="bf16"), "Queue 1 item 7"),
-    (dict(param_store="q8_block"), "Queue 1 item 7"),
+    (dict(param_store="fp8_e4m3"), "Queue 1 item 9"),
+    (dict(reduce_mode="ring_acc", reduce_wire="q8_block"), "Queue 1 item 10"),
     (dict(param_store="bf16"), "Queue 1 item 9"),
 ], ids=lambda x: str(x))
 def test_unported_schedule_knobs_raise(knob, item):
