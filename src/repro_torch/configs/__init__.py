@@ -9,6 +9,7 @@ from .base import ModelConfig, ParallelConfig
 # adds an id once it runs that family -- ROADMAP Queue 1 item 14)
 _MODULES = {
     "gemma2-2b": "gemma2_2b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
 }
 
 ARCH_IDS = list(_MODULES)
@@ -26,7 +27,7 @@ def get_config(arch_id: str) -> ModelConfig:
 def build_model(cfg: ModelConfig):
     from ..models.transformer import DecoderLM
 
-    if cfg.arch_type == "dense":
+    if cfg.arch_type in ("dense", "moe"):
         return DecoderLM(cfg)
     raise NotImplementedError(
         f"arch_type {cfg.arch_type!r} is not ported yet (ROADMAP Queue 1 "

@@ -46,6 +46,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..launch.mesh import mesh_axes
 from ..models.transformer import GroupDef
+from ..optim import make_optimizer
 from .dbuffer import DBuffer
 from .policy import PolicySet, ShardingPlan, plan as make_plan
 from .ragged import TensorSpec
@@ -282,6 +283,10 @@ def _global_norm(runtime: FSDPRuntime, grads) -> torch.Tensor:
     return torch.sqrt(sum(sq.unbind()))
 
 
+_NUMPY_DTYPES = {torch.float32: np.dtype(np.float32),
+                 torch.int8: np.dtype(np.int8)}
+
+
 def load_reference_state(runtime: FSDPRuntime, params: Mapping[str, Any],
                          opt_state: Mapping[str, Mapping[str, Any]] | None
                          = None):
@@ -289,12 +294,16 @@ def load_reference_state(runtime: FSDPRuntime, params: Mapping[str, Any],
     state}`` as numpy arrays -- the global flat buffer (``(L, total)`` or
     ``(total,)``) for a bare fp32 state, else the dict of the store's
     leaves (``codes``, ``master``, ``scales``, ``reduce_ef``) at their
-    global shapes; ``opt_state`` optionally ``{"m": {...}, "v": {...}}`` of
-    the buffers' shapes.  Every leaf's shape is checked against the port's
-    layouts (which are bitwise the reference's, so no re-layout is
-    needed); each rank keeps its equal share of each leaf's last axis on
-    the runtime's device (the master requires grad).  Returns ``(params,
-    opt_state)`` in the port's form (``opt_state`` None when not given)."""
+    global shapes; ``opt_state`` optionally the optimizer's state ``{key:
+    {group: array}}`` at global shapes, checked against the state of the
+    config's optimizer (``state_shapes``): its keys, and per leaf its dtype
+    and shape -- AdamW's fp32 ``m``, ``v`` at the buffer's shape, 8-bit
+    Adam's int8 ``m8``, ``v8`` at the buffer's shape and fp32 ``ms``,
+    ``vs`` at ``(..., total / quant_block)``.  Every leaf's shape is
+    checked against the port's layouts (which are bitwise the reference's,
+    so no re-layout is needed); each rank keeps its equal share of each
+    leaf's last axis on the runtime's device (the master requires grad).  Returns ``(params, opt_state)`` in
+    the port's form (``opt_state`` None when not given)."""
 
     def check_groups(tree, what):
         if set(tree) != set(runtime.layouts):
@@ -316,16 +325,23 @@ def load_reference_state(runtime: FSDPRuntime, params: Mapping[str, Any],
             for k in lo.store.state_keys()}
     if opt_state is None:
         return new_params, None
+    spec = make_optimizer(runtime.cfg).state_shapes(runtime, True)
+    if set(opt_state) != set(spec):
+        raise ValueError(
+            f"opt_state keys {sorted(opt_state)} do not match the "
+            f"{runtime.cfg.optimizer} state's {sorted(spec)}")
     new_opt = {}
-    for k in ("m", "v"):
+    for k, groups in spec.items():
         what = f"opt_state[{k!r}]"
         check_groups(opt_state[k], what)
         new_opt[k] = {}
-        for name, lo in runtime.layouts.items():
+        for name, (dtype, shape) in groups.items():
             a = np.asarray(opt_state[k][name])
-            check_state(ParamStore(), a, lo.global_shape(),
-                        f"{what}[{name!r}]")
-            new_opt[k][name] = runtime._place(name, a, False)
+            if a.shape != shape or a.dtype != _NUMPY_DTYPES[dtype]:
+                raise ValueError(
+                    f"{what}[{name!r}] is {a.dtype} of shape {a.shape}, the "
+                    f"port's layout needs {dtype} of {shape}")
+            new_opt[k][name] = runtime._place(name, a, False, dtype)
     return new_params, new_opt
 
 

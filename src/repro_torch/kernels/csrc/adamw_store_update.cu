@@ -8,16 +8,9 @@
 //                      (_requant, repro/kernels/adam8bit_update.py:25).
 // The flat epilogue is described first; the q8 one follows at adamw_q8.
 //
-// What it computes, per element, in the reference's operation order:
-//   m'  = b1*m + (1-b1)*g
-//   v'  = b2*v + (1-b2)*g*g
-//   upd = (m'/c1) / (sqrt(v'/c2) + eps)
-//   w'  = w - lr*(upd + wd*mask*w)
-// and writes w' as fp32 or as bf16 (round to nearest even), m' and v' as
-// fp32.  Every operation is an explicitly rounded intrinsic (no FMA
-// contraction, IEEE division and square root), so the result is bitwise
-// equal to the plain PyTorch version (kernels/ref.py), which runs one eager
-// op per step.
+// What it computes: the Adam step of adam.cuh per element, bitwise equal to
+// the plain PyTorch version (kernels/ref.py); it writes w' as fp32 or as
+// bf16 (round to nearest even), m' and v' as fp32.
 //
 // Bound: memory.  Each element reads w, g, m, v, mask (20 B) and writes w',
 // m', v' (12 B fp32 / 10 B bf16): 32 B or 30 B per element against ~15
@@ -35,24 +28,14 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "adam.cuh"
 #include "blockwise.cuh"
 
 namespace {
 
-struct Scalars {
-  float lr, b1, b2, eps, wd, c1, c2, one_m_b1, one_m_b2;
-};
-
-__device__ __forceinline__ void adam_math(const Scalars& s, float w, float g,
-                                          float m, float v, float mask,
-                                          float& w2, float& m2, float& v2) {
-  m2 = __fadd_rn(__fmul_rn(s.b1, m), __fmul_rn(s.one_m_b1, g));
-  v2 = __fadd_rn(__fmul_rn(s.b2, v), __fmul_rn(__fmul_rn(s.one_m_b2, g), g));
-  const float upd = __fdiv_rn(__fdiv_rn(m2, s.c1),
-                              __fadd_rn(__fsqrt_rn(__fdiv_rn(v2, s.c2)), s.eps));
-  w2 = __fsub_rn(w, __fmul_rn(s.lr, __fadd_rn(upd,
-                                              __fmul_rn(__fmul_rn(s.wd, mask), w))));
-}
+using adam::Scalars;
+using adam::adam_math;
+using adam::make_scalars;
 
 template <bool kBf16>
 __device__ __forceinline__ void store_w(void* w_out, int64_t i, float x) {
@@ -196,17 +179,6 @@ cudaError_t launch_q8(const float* w, const float* g, const float* m, const floa
   adamw_q8<V><<<bq::grid_for(n_blocks), bq::threads_for(block, V), smem, stream>>>(
       w, g, m, v, mask, codes, w_out, scales, m_out, v_out, n_blocks, block, s);
   return cudaGetLastError();
-}
-
-Scalars make_scalars(float lr, float b1, float b2, float eps, float wd, float c1,
-                     float c2) {
-  Scalars s;
-  s.lr = lr; s.b1 = b1; s.b2 = b2; s.eps = eps; s.wd = wd; s.c1 = c1; s.c2 = c2;
-  // host float arithmetic is IEEE single precision (SSE): the same fp32
-  // 1-b1 and 1-b2 the plain version forms on the device
-  s.one_m_b1 = 1.0f - b1;
-  s.one_m_b2 = 1.0f - b2;
-  return s;
 }
 
 }  // namespace

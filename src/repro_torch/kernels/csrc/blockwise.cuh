@@ -1,6 +1,7 @@
 // Shared pieces of the block-wise INT8 kernels for Hopper (sm_90a):
-// blockwise_quant.cu (quantize, dequantize_into), encode_ef.cu and the q8
-// epilogue of adamw_store_update.cu.
+// blockwise_quant.cu (quantize, dequantize_into), encode_ef.cu, the q8
+// epilogue of adamw_store_update.cu and adam8bit_store_update.cu (which
+// also uses the log-space codec at the end of this file).
 //
 // Layout: a buffer of n_blocks * block elements is cut into quant blocks of
 // `block` contiguous elements, one fp32 scale each.  One CTA owns one quant
@@ -69,6 +70,15 @@ __device__ __forceinline__ void load<4, __nv_bfloat16>(const __nv_bfloat16* p,
 template <>
 __device__ __forceinline__ void load<4, int8_t>(const int8_t* p, float (&out)[4]) {
   const char4 v = *reinterpret_cast<const char4*>(p);
+  out[0] = (float)v.x; out[1] = (float)v.y; out[2] = (float)v.z; out[3] = (float)v.w;
+}
+template <>
+__device__ __forceinline__ void load<1, uint8_t>(const uint8_t* p, float (&out)[1]) {
+  out[0] = (float)*p;
+}
+template <>
+__device__ __forceinline__ void load<4, uint8_t>(const uint8_t* p, float (&out)[4]) {
+  const uchar4 v = *reinterpret_cast<const uchar4*>(p);
   out[0] = (float)v.x; out[1] = (float)v.y; out[2] = (float)v.z; out[3] = (float)v.w;
 }
 
@@ -154,16 +164,43 @@ inline unsigned grid_for(long long n_blocks) {
   return (unsigned)(n_blocks < kMaxGrid ? n_blocks : kMaxGrid);
 }
 
-// dynamic shared memory for one staged quant block; kernels above 48 KB
-// need the opt-in attribute first.  Returns cudaSuccess or the error.
+// dynamic shared memory for `stages` fp32 values per element of one staged
+// quant block; kernels above 48 KB need the opt-in attribute first.
+// Returns cudaSuccess or the error.
 template <typename Kernel>
-inline cudaError_t stage_smem(Kernel kernel, int block, size_t* bytes) {
-  *bytes = (size_t)block * sizeof(float);
+inline cudaError_t stage_smem(Kernel kernel, int block, size_t* bytes,
+                              int stages = 1) {
+  *bytes = (size_t)block * stages * sizeof(float);
   if (*bytes > 48 * 1024) {
     return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)*bytes);
   }
   return cudaSuccess;
+}
+
+// ---- the log-space codec (8-bit Adam's second moment) ----------------------
+// The reference's _dequant_log / _requant_log (repro/kernels/adam8bit_update.py)
+// as XLA compiles them: (c - 127) / 127 * 24 folds into one multiply by
+// float32(24/127), and log(.) / 24 into a multiply by float32(1/24).  expf and
+// logf are the CUDA math library's IEEE-mode functions (no --use_fast_math),
+// the ones torch.exp / torch.log call on the card, so the plain version
+// (quant/blockwise.py log_values, log_codes) gives the same bits.
+constexpr float kLogStep = 0x1.83060cp-3f;   // float32(24/127)
+constexpr float kInvRange = 0x1.555556p-5f;  // float32(1/24)
+constexpr float kLogFloor = 1e-38f;          // subnormal; kept (no FTZ)
+
+// value of code c (an integral float in [0, 127]) in a block of max `scale`
+__device__ __forceinline__ float log_value(float c, float scale) {
+  return c > 0.f ? __fmul_rn(expf(__fmul_rn(__fsub_rn(c, 127.f), kLogStep)), scale)
+                 : 0.f;
+}
+
+// the code (integral float) of x >= 0 in a block whose max is `absmax`
+__device__ __forceinline__ float log_code(float x, float absmax) {
+  const float safe = __fdiv_rn(x, fmaxf(absmax, kLogFloor));
+  const float logq = __fmul_rn(logf(fmaxf(safe, kLogFloor)), kInvRange);
+  const float code = rintf(__fmul_rn(127.f, __fadd_rn(1.f, logq)));
+  return x > 0.f ? fminf(fmaxf(code, 1.f), 127.f) : 0.f;
 }
 
 }  // namespace bq

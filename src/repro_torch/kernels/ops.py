@@ -13,8 +13,11 @@ from __future__ import annotations
 import torch
 
 from . import blockwise_quant, encode_ef as _encode_ef, fused_update
-from .ref import (adamw_store_update_ref, dequantize_into_ref, encode_ef_ref,
-                  quantize_ref, scalar_stack)
+from ..quant.blockwise import dequantize_blockwise_log, \
+    quantize_blockwise_log
+from .ref import (adam8bit_store_update_ref, adamw_store_update_ref,
+                  dequantize_into_ref, encode_ef_ref, quantize_ref,
+                  scalar_stack)
 
 
 def _device_kind(*tensors: torch.Tensor) -> str:
@@ -110,3 +113,50 @@ def adamw_store_update(w, g, m, v, mask, *, lr, b1, b2, eps, wd, c1, c2,
         return ({"codes": codes, "master": master, "scales": scales},
                 m_out, v_out)
     return tuple(_copy_out(out, (core, m2, v2)))
+
+
+def adam8bit_store_update(w, g, m8, v8, ms, vs, mask, *, lr, b1, b2, eps, wd,
+                          c1, c2, fmt: str = "fp32", block: int = 1024,
+                          out=None):
+    """Fused 8-bit Adam step + store epilogue: decode the int8 moments (m
+    linear, v log-space), the Adam step, requantize both moments and write
+    w' in the store's format.  ``mask`` is the (S,) uint8 weight-decay row
+    shared by every row of ``w`` (..., S).  Flat formats (fp32, bf16)
+    return ``(w', m8', v8', ms', vs')``, ``out=(w, m8, v8, ms, vs)``
+    updating in place (the optimizer's main path); ``fmt="q8_block"``
+    returns ``({"codes", "master", "scales"}, m8', v8', ms', vs')``,
+    ``out=(codes, master, scales, m8, v8, ms, vs)``.
+
+    PARITY: the CUDA kernel is BITWISE against the plain version on the
+    card; the plain version is held to the reference's interpreted kernel
+    within the log codec's and the AdamW chain's classes (see
+    ``kernels.ref.adam8bit_update_ref``)."""
+    scalars = scalar_stack(lr, b1, b2, eps, wd, c1, c2)
+    if _device_kind(w, g, m8, v8, ms, vs, mask) == "cuda":
+        return fused_update.adam8bit_store_update(
+            w, g, m8, v8, ms, vs, mask, scalars, fmt=fmt, block=block,
+            out=out)
+    core, *moments = adam8bit_store_update_ref(w, g, m8, v8, ms, vs, mask,
+                                               scalars, fmt, block)
+    if out is None:
+        return (core, *moments)
+    if fmt == "q8_block":
+        done = _copy_out(out, (core["codes"], core["master"], core["scales"],
+                               *moments))
+        return ({"codes": done[0], "master": done[1], "scales": done[2]},
+                *done[3:])
+    return tuple(_copy_out(out, (core, *moments)))
+
+
+def quantize_log(x: torch.Tensor, block: int = 1024):
+    """Log-space blockwise quantize (8-bit Adam's v): the plain version on
+    every device -- no standalone kernel, ``adam8bit_store_update`` fuses
+    it, as in the reference.  PARITY: see ``quant.blockwise``."""
+    return quantize_blockwise_log(x, block)
+
+
+def dequantize_log(codes: torch.Tensor, scales: torch.Tensor,
+                   block: int = 1024) -> torch.Tensor:
+    """Log-space blockwise decode; a plain passthrough like
+    ``quantize_log``."""
+    return dequantize_blockwise_log(codes, scales, block)

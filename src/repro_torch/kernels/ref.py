@@ -9,8 +9,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..quant.blockwise import (_check_blocking, _check_scales,
-                               dequantize_blockwise, quantize_blockwise)
+from ..quant.blockwise import (_blocks, _check_blocking, _check_scales,
+                               dequantize_blockwise, log_codes, log_values,
+                               quantize_blockwise)
 
 # store epilogues of the flat AdamW update -> dtype of the written weights
 FLAT_OUT_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
@@ -50,6 +51,13 @@ def adamw_store_update_ref(w, g, m, v, mask, scalars: np.ndarray,
     check_store_fmt(fmt)
     if fmt == "q8_block":
         _check_block(w.shape, block, "q8_block store update")
+    w2, m2, v2 = _adam_math(w, g, m, v, mask, scalars)
+    return _store_epilogue(w2, fmt, block), m2, v2
+
+
+def _adam_math(w, g, m, v, mask, scalars: np.ndarray):
+    """The Adam step of both updates (the reference's ``_adam_math`` /
+    ``_adam8_math`` core) on fp32 moments; returns fp32 ``(w', m', v')``."""
     # 0-d tensors on w's device, not Python numbers: CUDA divides a tensor
     # by a host scalar as a multiply by its reciprocal, which is not the
     # kernel's (or the reference's) correctly rounded division
@@ -62,18 +70,87 @@ def adamw_store_update_ref(w, g, m, v, mask, scalars: np.ndarray,
     upd = (m2 / c1) / (torch.sqrt(v2 / c2) + eps)
     w = w.float()
     w2 = w - lr * (upd + wd * mask * w)
+    return w2, m2, v2
+
+
+def _store_epilogue(w2: torch.Tensor, fmt: str, block: int):
+    """The store re-encode of an updated fp32 buffer: w' in the flat
+    format's dtype, or the q8 ``{"codes", "master", "scales"}`` dict."""
     if fmt == "q8_block":
         codes, scales = quantize_ref(w2, block)
-        return {"codes": codes, "master": w2, "scales": scales}, m2, v2
-    return w2.to(FLAT_OUT_DTYPES[fmt]), m2, v2
+        return {"codes": codes, "master": w2, "scales": scales}
+    return w2.to(FLAT_OUT_DTYPES[fmt])
 
 
-def check_store_fmt(fmt: str) -> None:
+def adam8bit_update_ref(w, g, m8, v8, ms, vs, mask, scalars: np.ndarray,
+                        block: int):
+    """The 8-bit Adam step on blockwise-quantized moments, op for op the
+    reference's ``_adam8_math`` followed by the moment requantize
+    (``_requant``, ``_requant_log``; ``repro/kernels/adam8bit_update.py``)::
+
+        m  = m8 * ms                         (linear decode)
+        v  = exp((v8 - 127) * f32(24/127)) * vs, 0 where v8 == 0
+        w', m', v' = the AdamW step of ``adamw_store_update_ref``
+        m8', ms' = quantize(m')              (absmax * f32(1/127))
+        v8', vs' = log-quantize(v')          (vs' = max v' of the block)
+
+    ``w`` (..., S) fp32 or bf16, ``g`` fp32 of w's shape, ``m8``/``v8``
+    int8 of w's shape, ``ms``/``vs`` fp32 (..., S / block); ``mask`` the
+    (S,) uint8 0/1 weight-decay row shared by every row of a stacked
+    buffer.  Returns fp32 ``(w', m8', v8', ms', vs')``.
+
+    PARITY vs the reference's interpreted kernel on the CPU: the log codec's
+    class (``quant.blockwise``: XLA:CPU's own ``exp``/``log``) plus the
+    AdamW chain's (XLA contracts ``b1*m + (1-b1)*g`` into an FMA), carried
+    into the requantized moments; tests/test_torch_adam8bit.py pins the
+    integer-view bounds.  The CUDA kernel is BITWISE against this function
+    on the card.
+    """
+    _check_block(w.shape, block, "adam8bit store update")
+    nb = w.shape[-1] // block
+    for k, t in (("ms", ms), ("vs", vs)):
+        if tuple(t.shape) != tuple(w.shape[:-1]) + (nb,):
+            raise ValueError(
+                f"adam8bit store update: {k} {tuple(t.shape)} must be "
+                f"{tuple(w.shape[:-1]) + (nb,)} (one scale per quant block)")
+    if tuple(mask.shape) != (w.shape[-1],) or mask.dtype != torch.uint8:
+        raise ValueError(
+            f"adam8bit store update: mask must be one uint8 row of "
+            f"({w.shape[-1]},), got {mask.dtype} {tuple(mask.shape)}")
+    m = dequantize_blockwise(m8, ms, block)
+    v = log_values(_blocks(v8, block).float(), vs).reshape(w.shape)
+    w2, m2, v2 = _adam_math(w, g, m, v, mask.float(), scalars)
+    m8o, mso = quantize_blockwise(m2, block)
+    vb = _blocks(v2, block)
+    vso = vb.amax(dim=-1)
+    v8o = log_codes(vb, vso).to(torch.int8).reshape(w.shape)
+    return w2, m8o, v8o, mso, vso
+
+
+def adam8bit_store_update_ref(w, g, m8, v8, ms, vs, mask,
+                              scalars: np.ndarray, fmt: str = "fp32",
+                              block: int = 1024):
+    """8-bit Adam step + store epilogue, the reference's
+    ``_adam8_flat_kernel`` (fp32, bf16) and ``_adam8_q8_kernel``
+    (q8_block): ``adam8bit_update_ref``, then w' in the store's format.
+    Returns ``(core, m8', v8', ms', vs')`` with ``core`` as in
+    ``adamw_store_update_ref``.  PARITY: as ``adam8bit_update_ref``; a q8
+    code of w' inherits w''s class (it moves by one where w' sits within
+    its difference of a rounding boundary)."""
+    check_store_fmt(fmt, "adam8bit_store_update", "Queue 2 item 7 / "
+                    "Queue 1 item 9")
+    w2, m8o, v8o, mso, vso = adam8bit_update_ref(w, g, m8, v8, ms, vs, mask,
+                                                 scalars, block)
+    return _store_epilogue(w2, fmt, block), m8o, v8o, mso, vso
+
+
+def check_store_fmt(fmt: str, who: str = "adamw_store_update",
+                    item: str = "Queue 2 item 7") -> None:
     """The epilogues the port runs: fp32, bf16 and q8_block."""
     if fmt in ("fp8_e4m3", "fp8_e5m2"):
         raise NotImplementedError(
-            f"the {fmt!r} epilogue of adamw_store_update is not ported yet "
-            f"(ROADMAP Queue 2 item 7)")
+            f"the {fmt!r} epilogue of {who} is not ported yet (ROADMAP "
+            f"{item})")
     if fmt not in FLAT_OUT_DTYPES and fmt != "q8_block":
         raise ValueError(f"unknown store fmt {fmt!r} for the fused update")
 

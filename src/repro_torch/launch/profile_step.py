@@ -1,12 +1,15 @@
 """Where a train step's device time goes: one profiled ZeRO-3 step.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_step [--q8]
+    PYTHONPATH=src python -m repro_torch.launch.profile_step \
+        [--config gemma2|qwen3-moe] [--q8]
 
-Builds the configuration ``chip_smoke.py`` trains -- gemma2-2b at published
-width, depth cut to 4 layers, batch 2 x 2048, bf16 compute, fp32 store (or,
-with ``--q8``, the q8_block store and the q8 gradient wire with error
-feedback on both groups), AdamW -- runs two warm-up steps on one rank of a NCCL group, then one step
-under ``torch.profiler`` and prints JSON lines:
+Builds a configuration ``chip_smoke.py`` trains -- ``gemma2`` (default):
+gemma2-2b at published width, depth cut to 4 layers, batch 2 x 2048, AdamW;
+``qwen3-moe``: qwen3-moe-235b-a22b at published width, depth cut to 1
+layer, ep=1, batch 1 x 2048, Adam8bit -- with bf16 compute and the fp32
+store (or, with ``--q8``, the q8_block store and the q8 gradient wire with
+error feedback on every group), runs two warm-up steps on one rank of a
+NCCL group, then one step under ``torch.profiler`` and prints JSON lines:
 the step's wall time, the summed device time of its kernels by category
 (matmul, optimizer kernel, q8 codec kernels, collective, other) and the device's idle share
 of the step, then the kernels with the most device time.  Needs a CUDA
@@ -30,7 +33,7 @@ from .mesh import init_local_group
 
 # kernel-name fragments -> category (cuBLAS/CUTLASS GEMM names, NCCL, ours)
 CATEGORIES = (
-    ("optimizer", ("adamw_flat", "adamw_q8")),
+    ("optimizer", ("adamw_flat", "adamw_q8", "adam8_store")),
     ("q8 codec", ("quantize_kernel", "dequantize_kernel", "encode_ef_kernel")),
     ("collective", ("nccl",)),
     ("matmul", ("gemm", "cutlass", "xmma", "nvjet", "cublas")),
@@ -45,20 +48,28 @@ def category(name: str) -> str:
     return "other"
 
 
-LAYERS, BATCH, SEQ, WARMUP, TOP = 4, 2, 2048, 2, 15
+# config -> (arch id, layers, batch, sequence length)
+CONFIGS = {"gemma2": ("gemma2-2b", 4, 2, 2048),
+           "qwen3-moe": ("qwen3-moe-235b-a22b", 1, 1, 2048)}
+WARMUP, TOP = 2, 15
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", choices=list(CONFIGS), default="gemma2")
     ap.add_argument("--q8", action="store_true",
                     help="the q8_block store and q8 gradient wire")
     args = ap.parse_args()
+    arch, layers, batch_size, seq = CONFIGS[args.config]
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    cfg = dataclasses.replace(get_config("gemma2-2b"), n_layers=LAYERS)
+    full = get_config(arch)
+    # one rank: expert parallelism off (the port runs ep=1)
+    cfg = dataclasses.replace(full, n_layers=layers, parallel=dataclasses
+                              .replace(full.parallel, ep=1))
     sched = CommSchedule(param_store="q8_block", reduce_wire="q8_block") \
         if args.q8 else None
     rt = FSDPRuntime(build_model(cfg), init_local_group("nccl"),
@@ -67,7 +78,7 @@ def main() -> None:
     opt = make_optimizer(cfg)
     opt_state = opt.init(rt)
     step_fn = rt.make_train_step(opt)
-    stream = SyntheticStream(DataConfig(cfg.vocab, SEQ, BATCH), cfg)
+    stream = SyntheticStream(DataConfig(cfg.vocab, seq, batch_size), cfg)
     step = 0
     for i in range(WARMUP):
         batch = stream.shard(stream.batch(i), rt)
@@ -106,9 +117,10 @@ def main() -> None:
         row[0] += us
         row[1] += 1
     print(json.dumps({
-        "phase": "profile", "model": cfg.name, "n_layers": LAYERS,
+        "phase": "profile", "model": cfg.name, "n_layers": layers,
+        "optimizer": cfg.optimizer,
         "schedule": "q8_both_wires" if args.q8 else "default",
-        "batch": [BATCH, SEQ], "compute": "bf16",
+        "batch": [batch_size, seq], "compute": "bf16",
         "device": torch.cuda.get_device_name(0), "loss": float(m["loss"]),
         "step_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,

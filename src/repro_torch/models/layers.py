@@ -123,10 +123,18 @@ def attention(cfg, p, x: torch.Tensor, *, q_pos: torch.Tensor,
 
 
 def mlp(cfg, p, x: torch.Tensor, *, prefix: str = "") -> torch.Tensor:
-    """GeGLU feed-forward (``jax.nn.gelu(approximate=True)`` is the tanh
-    form); the other mlp kinds come with ROADMAP Queue 1 item 14."""
-    h = (F.gelu(dense(x, p[prefix + "w1"]), approximate="tanh")
-         * dense(x, p[prefix + "w3"]))
+    """The dense feed-forward of ``cfg.mlp``: swiglu (silu gate), geglu
+    (``jax.nn.gelu(approximate=True)`` is the tanh form) or squared_relu
+    (nemotron-4, no gate projection)."""
+    if cfg.mlp == "swiglu":
+        h = F.silu(dense(x, p[prefix + "w1"])) * dense(x, p[prefix + "w3"])
+    elif cfg.mlp == "geglu":
+        h = (F.gelu(dense(x, p[prefix + "w1"]), approximate="tanh")
+             * dense(x, p[prefix + "w3"]))
+    elif cfg.mlp == "squared_relu":
+        h = torch.square(F.relu(dense(x, p[prefix + "w1"])))
+    else:
+        raise ValueError(f"unknown mlp kind {cfg.mlp!r}")
     return dense(h, p[prefix + "w2"])
 
 

@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM, dense path (port of
+"""Decoder-only transformer LM, dense and MoE (port of
 ``repro/models/transformer.py``).
 
 The model is written against the ParamGetter protocol of
@@ -7,14 +7,14 @@ of an unstacked group; ``pg.scan(groups, body, carry, xs)`` runs the FSDP
 layer loop (per-layer all-gather -> zero-copy unpack -> body, with the
 gather inside the activation checkpoint), which is the ZeRO-3 schedule.
 
-Ported: the dense self-attention decoder with tp=1 -- the ``layers`` and
+Ported: the self-attention decoder with tp=1 -- the ``layers`` and
 ``globals`` groups, gemma2's alternating local/global windows, softcaps,
-post-norms and tied embeddings, and the loss on the materialized-logits
-(``ce_chunk=0``) branch.  MoE, VLM cross-attention, tensor/expert
-parallelism, the vocab-chunked CE and the serving steps raise
-``NotImplementedError`` naming their ROADMAP item.  The MoE auxiliary loss
-term of the reference's ``loss`` is identically zero for a dense model and
-is not carried.
+post-norms and tied embeddings, the mlp kinds, the MoE layer at ep=1 (the
+router in ``layers``, the experts in the ``layers_experts`` group scanned
+beside it, the load-balance term carried through the scan), and the loss
+on the materialized-logits (``ce_chunk=0``) branch.  VLM cross-attention,
+tensor/expert parallelism, qkv bias, the vocab-chunked CE and the serving
+steps raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ import torch
 
 from ..core.ragged import ShardDim, TensorSpec
 from . import layers as L
+from .moe import moe_ffn
 
 # window of a global-attention layer (the reference's 2**30 sentinel)
 GLOBAL_WINDOW = 2 ** 30
@@ -59,14 +60,12 @@ def spec(cfg, name, shape) -> TensorSpec:
 def _check_supported(cfg) -> None:
     par = cfg.parallel
     unported = (
-        (cfg.n_experts > 0, "MoE layers", "Queue 1 item 14"),
         (cfg.cross_attn_interval > 0, "VLM cross-attention",
          "Queue 1 item 14"),
         (par.tp > 1, f"tp={par.tp}", "Queue 1 item 18"),
         (par.ep > 1, f"ep={par.ep}", "Queue 1 item 18"),
         (par.sequence_parallel, "sequence_parallel", "Queue 1 item 18"),
         (cfg.qkv_bias, "qkv_bias", "Queue 1 item 14"),
-        (cfg.mlp != "geglu", f"mlp={cfg.mlp!r}", "Queue 1 item 14"),
         (cfg.ce_chunk > 0, "ce_chunk (vocab-chunked CE)", "Queue 1 item 5"),
     )
     for hit, what, item in unported:
@@ -93,9 +92,16 @@ class DecoderLM:
                  spec(cfg, "wo", (Hq * hd, D))]
         if cfg.post_norms:
             specs.append(spec(cfg, "post_ln1", (D,)))
-        specs += [spec(cfg, "ln2", (D,)), spec(cfg, "w1", (D, cfg.d_ff)),
-                  spec(cfg, "w3", (D, cfg.d_ff)),
-                  spec(cfg, "w2", (cfg.d_ff, D))]
+        specs.append(spec(cfg, "ln2", (D,)))
+        if cfg.n_experts:
+            # the router lives in the layer group; the experts are a group
+            # of their own (see groups())
+            specs.append(spec(cfg, "moe_router", (D, cfg.n_experts)))
+        else:
+            specs.append(spec(cfg, "w1", (D, cfg.d_ff)))
+            if cfg.mlp in ("swiglu", "geglu"):
+                specs.append(spec(cfg, "w3", (D, cfg.d_ff)))
+            specs.append(spec(cfg, "w2", (cfg.d_ff, D)))
         if cfg.post_norms:
             specs.append(spec(cfg, "post_ln2", (D,)))
         return specs
@@ -106,11 +112,15 @@ class DecoderLM:
               spec(cfg, "final_ln", (cfg.d_model,))]
         if not cfg.tie_embeddings:
             gl.append(spec(cfg, "head", (cfg.d_model, cfg.vocab)))
-        return {
-            "layers": GroupDef(tuple(self._self_layer_specs()),
-                               n_layers=self.n_blocks),
-            "globals": GroupDef(tuple(gl)),
-        }
+        groups = {"layers": GroupDef(tuple(self._self_layer_specs()),
+                                     n_layers=self.n_blocks)}
+        if cfg.n_experts:
+            E, D, F = cfg.n_experts, cfg.d_model, cfg.d_ff
+            groups["layers_experts"] = GroupDef(
+                (spec(cfg, "moe_w1", (E, D, F)), spec(cfg, "moe_w3", (E, D, F)),
+                 spec(cfg, "moe_w2", (E, F, D))), n_layers=self.n_blocks)
+        groups["globals"] = GroupDef(tuple(gl))
+        return groups
 
     # ---------------- forward ------------------------------------------------
     def _layer_windows(self) -> list[int]:
@@ -125,6 +135,8 @@ class DecoderLM:
         return [GLOBAL_WINDOW] * cfg.n_layers
 
     def _self_block(self, p, x, q_pos, window):
+        """One layer; returns ``(x, aux)``, aux the MoE load-balance term
+        (0.0 for a dense layer)."""
         cfg = self.cfg
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
         out = L.attention(cfg, p, h, q_pos=q_pos, window=window)
@@ -132,17 +144,29 @@ class DecoderLM:
             out = L.rms_norm(out, p["post_ln1"], cfg.norm_eps)
         x = x + out
         h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-        out = L.mlp(cfg, p, h)
+        if cfg.n_experts:
+            out, aux = moe_ffn(cfg, p, h, ep=cfg.parallel.ep)
+        else:
+            out, aux = L.mlp(cfg, p, h), 0.0
         if cfg.post_norms:
             out = L.rms_norm(out, p["post_ln2"], cfg.norm_eps)
-        return x + out
+        return x + out, aux
+
+    def _scan_groups(self) -> list[str]:
+        return ["layers"] + (["layers_experts"] if self.cfg.n_experts else [])
 
     def _backbone(self, pg, x, q_pos):
-        def body(p, x, window):
-            return self._self_block(p, x, q_pos, window), None
+        """The layer stack; returns ``(x, aux)``, aux summed over layers in
+        fp32."""
+        def body(p, carry, window):
+            x, aux = carry
+            x, a = self._self_block(p, x, q_pos, window)
+            return (x, aux + a), None
 
-        x, _ = pg.scan(["layers"], body, x, self._layer_windows())
-        return x
+        aux0 = torch.zeros((), dtype=torch.float32, device=x.device)
+        (x, aux), _ = pg.scan(self._scan_groups(), body, (x, aux0),
+                              self._layer_windows())
+        return x, aux
 
     def _embed_in(self, pg, tokens):
         g = pg.globals("globals")
@@ -157,15 +181,17 @@ class DecoderLM:
 
     # ---------------- public API ----------------------------------------------
     def loss(self, pg, batch):
-        """(sum of next-token NLL, number of predicted tokens) of the local
+        """(sum of next-token NLL plus the MoE load-balance term weighted
+        by tokens / n_layers, number of predicted tokens) of the local
         batch; the runtime normalizes across ranks."""
         tokens = batch["tokens"]
         B, T = tokens.shape
         q_pos = torch.arange(T, device=tokens.device)[None].expand(B, T)
         x, g = self._embed_in(pg, tokens)
-        x = self._backbone(pg, x, q_pos)
+        x, aux = self._backbone(pg, x, q_pos)
         logits = self._logits(g, x)
-        return L.vocab_parallel_ce(
+        nll, w = L.vocab_parallel_ce(
             logits[:, :-1], tokens[:, 1:],
             torch.ones((B, T - 1), dtype=torch.float32,
                        device=tokens.device))
+        return nll + aux * w / max(self.cfg.n_layers, 1), w

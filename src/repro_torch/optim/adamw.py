@@ -11,7 +11,6 @@ never waits on the device for them.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..kernels import ops
@@ -32,15 +31,10 @@ class AdamW(OptimizerBase):
             name: torch.from_numpy(matrix_mask_local(lo, runtime.rank))
             .to(runtime.device).expand(lo.local_shape()).contiguous()
             for name, lo in runtime.layouts.items()}
-        return {"m": self._zeros(runtime), "v": self._zeros(runtime)}
+        return self.zero_state(runtime)
 
-    def host_scalars(self, step: int):
-        """(lr, c1, c2) in float32 for 0-based ``step``."""
-        lr = self.schedule(step)
-        t = np.float32(step) + np.float32(1.0)
-        c1 = np.float32(1.0) - np.float32(self.b1) ** t
-        c2 = np.float32(1.0) - np.float32(self.b2) ** t
-        return lr, c1, c2
+    def state_leaves(self):
+        return {"m": (torch.float32, 1), "v": (torch.float32, 1)}
 
     @torch.no_grad()
     def update(self, runtime, params, grads, state, step: int):

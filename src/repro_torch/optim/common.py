@@ -43,10 +43,41 @@ class OptimizerBase:
         return np.float32(self.lr) * np.minimum(
             (np.float32(step) + np.float32(1.0)) / warmup, np.float32(1.0))
 
-    def _zeros(self, runtime) -> dict[str, torch.Tensor]:
-        return {name: torch.zeros(lo.local_shape(), dtype=torch.float32,
-                                  device=runtime.device)
-                for name, lo in runtime.layouts.items()}
+    def host_scalars(self, step: int):
+        """(lr, c1, c2) in float32 for 0-based ``step`` of an Adam-family
+        optimizer (``b1``, ``b2``): the warmup rate and the bias
+        corrections ``1 - b**(step + 1)``."""
+        lr = self.schedule(step)
+        t = np.float32(step) + np.float32(1.0)
+        c1 = np.float32(1.0) - np.float32(self.b1) ** t
+        c2 = np.float32(1.0) - np.float32(self.b2) ** t
+        return lr, c1, c2
+
+    def state_leaves(self) -> dict[str, tuple[torch.dtype, int]]:
+        """The state's leaves, ``{key: (dtype, div)}``: per group a tensor
+        of the group's shape with the last axis divided by ``div`` (one
+        entry per quant block of ``div`` elements)."""
+        raise NotImplementedError
+
+    def state_shapes(self, runtime, global_shape: bool = False
+                     ) -> dict[str, dict[str, tuple]]:
+        """``{key: {group: (dtype, shape)}}`` of the state at the
+        rank-local shapes (or, ``global_shape=True``, the global ones)."""
+        out = {}
+        for k, (dtype, div) in self.state_leaves().items():
+            out[k] = {}
+            for name, lo in runtime.layouts.items():
+                shape = lo.global_shape() if global_shape \
+                    else lo.local_shape()
+                out[k][name] = (dtype, shape[:-1] + (shape[-1] // div,))
+        return out
+
+    def zero_state(self, runtime) -> dict[str, dict[str, torch.Tensor]]:
+        """Every leaf of the state, zero, on the runtime's device."""
+        return {k: {name: torch.zeros(shape, dtype=dtype,
+                                      device=runtime.device)
+                    for name, (dtype, shape) in groups.items()}
+                for k, groups in self.state_shapes(runtime).items()}
 
     def init(self, runtime):
         raise NotImplementedError

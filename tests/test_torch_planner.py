@@ -205,9 +205,8 @@ def test_unported_planners_and_configs_raise():
         get_planner("fsdp2")
     with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
         get_config("qwen2.5-14b")
-    moe = dataclasses.replace(get_config("gemma2-2b").reduced(),
-                              n_experts=4, top_k=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+    moe = get_config("qwen3-moe-235b-a22b")  # the config's own ep=16
+    with pytest.raises(NotImplementedError, match="Queue 1 item 18"):
         build_model(moe)
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         plan(build_model(get_config("gemma2-2b").reduced()),
