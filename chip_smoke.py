@@ -57,6 +57,33 @@ non-zero):
                   the CPU (plain versions) and on the card (kernels):
                   losses and grad norms must agree within PARITY_RTOL
                   (PARITY_Q8_RTOL on a q8_block store).
+ 11. kernel_q8mm -- the int8 x int8 ``q8_matmul`` against its plain version,
+                  bf16 x and out and fp32 x and out, at decode M = 4 and
+                  prefill M = 2048: gemma2-2b's case-A weights (2304, 2048),
+                  (2304, 1024), (2304, 9216), qwen3-moe's case-B (4096, 512)
+                  and (4096, 128), and a case-B shape with a trailing partial
+                  block (1001, 512): integer-view difference (expected 0),
+                  median device times of kernel and plain version as
+                  CUDA-graph replays (and the eager call's time, host
+                  launch path included), bound (int8 operations or bytes),
+                  the relative L2 against the dense x @ dequantize(w) and,
+                  at prefill, ``torch._int_mm`` on the same int8 operands.
+ 12. serve     -- the serve path: gemma2-2b at published width, 4 layers, one
+                  NCCL rank, bf16 compute, q8_block store with
+                  ``serve_quant_matmul``: prefill of 4 x 512 prompt tokens
+                  into a 1024-slot cache (after one warm-up prefill), 32
+                  greedy decode steps, then the
+                  ``ServeEngine`` (pool 4, 8 requests of 8-64 prompt tokens,
+                  16 new tokens each); then the same through the
+                  dense-dequant q8 serve on the same parameters.  Launch
+                  counts must match the plan (``q8_matmul`` once per eligible
+                  weight per layer and call, ``dequantize_into`` per
+                  ineligible one and per ``globals`` gather).
+ 13. parity_serve -- gemma2-2b.reduced() and qwen3-moe-235b-a22b.reduced(),
+                  fp32 compute, fp32 store and q8_block with
+                  ``serve_quant_matmul``: prefill and 8 teacher-forced decode
+                  steps for each of four seeds on the CPU and on the card;
+                  the logits' relative L2 within PARITY_SERVE_RTOL.
 
 Then the ``kernels`` line, the card's name and power limit as nvidia-smi
 reports them, and a last line ``{"ok": true, "device": {...}}``.  The
@@ -72,6 +99,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -115,6 +144,35 @@ MOE_SHARDS = {"layers": 71_835_648, "layers_experts": 2_415_919_104,
               "globals": 1_244_663_808}
 MOE_SLICE = 536_870_912   # the part of the layers_experts shard compared
 ADAM8_Q8_SCHEDULE = {"param_store": "q8_block"}
+# NVIDIA's H100 SXM data sheet: dense int8 tensor cores at 1,979 TOP/s
+INT8_OPS = 1979e12
+Q8MM_M = (4, 2048)            # decode batch, prefill tokens (4 x 512)
+# (K, N) of q8_matmul calls: gemma2-2b's wq, wk/wv, w1/w3 (case A at block
+# 1024), qwen3-moe's wk/wv and router (case B), a trailing partial block
+Q8MM_SHAPES = ((2304, 2048), (2304, 1024), (2304, 9216), (4096, 512),
+               (4096, 128), (1001, 512))
+# eligible weights of one gemma2-2b layer: shape -> calls per layer
+GEMMA_LAYER_Q8MM = {(2304, 2048): 1, (2304, 1024): 2, (2304, 9216): 2}
+SERVE_SCHEDULE = {"param_store": "q8_block", "serve_quant_matmul": True}
+SERVE_DENSE_SCHEDULE = {"param_store": "q8_block"}
+SERVE_BATCH, SERVE_PROMPT, SERVE_LEN, SERVE_STEPS = 4, 512, 1024, 32
+ENGINE_POOL, ENGINE_REQUESTS, ENGINE_NEW = 4, 8, 16
+ENGINE_PROMPT = (8, 64)       # prompt lengths drawn in [8, 64]
+# card vs CPU, prefill + PARITY_SERVE_STEPS decode steps of a reduced
+# config per seed: relative L2 of the logits, limits about four times the
+# largest reading over PARITY_SEEDS (readings in PERF.md): 6.8e-4 on the
+# fp32 store (bf16 K/V rounding flips), 1.5e-2 in the int8 mode (the flips
+# amplified by the activations' row quantization)
+PARITY_SERVE_STEPS = 8
+PARITY_SERVE_RTOL = {"fp32": 3e-3, "q8_matmul": 6e-2}
+# int8 vs dense-dequant q8 serve, prefill logits at 4 full-width layers.
+# The reference holds 0.15 on 2 reduced layers at fp32 (tests/
+# test_torch_serve.py keeps that).  At full width the gap grows with depth
+# (``python -m repro_torch.launch.serve_drift``): 0.042, 0.086, 0.207 at
+# 1, 2, 4 layers in bf16, and 0.036, 0.085, 0.178 from the fp32 dense
+# serve at fp32 compute, where the bf16 dense serve drifts 0.017, 0.039,
+# 0.088 -- so the limit is set from the 4-layer reading (PERF.md Findings)
+SERVE_INT8_VS_DENSE = 0.3
 
 
 def emit(obj) -> None:
@@ -149,6 +207,30 @@ def median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def graph_ms(fn, reps: int = 20, iters: int = 10) -> float:
+    """Device time of one ``fn()`` as the median over ``iters`` timings of
+    ``reps`` back-to-back replays of a CUDA graph of it: a call small
+    enough that the host's launch path outlasts the kernels is measured on
+    the device alone."""
+    import torch
+
+    fn()                                   # build, load, allocate first
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+
+    def replays():
+        for _ in range(reps):
+            graph.replay()
+
+    return median_ms(replays, iters) / reps
 
 
 def int_view_diff(a, b) -> int:
@@ -474,7 +556,8 @@ def phase_kernel_adam8(ops, ref, gemma_q8_shards) -> dict:
 
 def launches_now(mods) -> dict:
     fu = mods["fused_update"]
-    return {"adamw_store_update": fu.adamw_store_update.launches,
+    return {"q8_matmul": mods["q8_matmul"].q8_matmul.launches,
+            "adamw_store_update": fu.adamw_store_update.launches,
             "adamw_q8": fu.adamw_q8_update.launches,
             "adam8bit_store_update": fu.adam8bit_store_update.launches,
             "adam8bit_q8": fu.adam8bit_q8_update.launches,
@@ -485,6 +568,7 @@ def launches_now(mods) -> dict:
 
 
 def reset_launches(mods) -> None:
+    mods["q8_matmul"].q8_matmul.launches = 0
     mods["fused_update"].adamw_store_update.launches = 0
     mods["fused_update"].adamw_q8_update.launches = 0
     mods["fused_update"].adam8bit_store_update.launches = 0
@@ -504,10 +588,119 @@ def expected_q8_launches(rt, steps: int) -> dict:
                   for lo in rt.layouts.values())
     reduces = sum(lo.n_layers or 1 for lo in rt.layouts.values())
     groups = len(rt.layouts)
-    return {"adamw_store_update": 0, "adamw_q8": groups * steps,
+    return {"q8_matmul": 0, "adamw_store_update": 0,
+            "adamw_q8": groups * steps,
             "adam8bit_store_update": 0, "adam8bit_q8": 0,
             "quantize": groups, "dequantize_into": (gathers + reduces) * steps,
             "encode_ef": reduces * steps}
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm())
+
+
+def phase_kernel_q8mm(ops, ref) -> dict:
+    """``q8_matmul`` against its plain version.  Returns the summary the
+    kernels line carries: one decode step's calls on one gemma2-2b layer
+    (M = 4, bf16: wq, wk, wv, w1, w3), summed."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    block = 1024
+    summary = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+               "max_abs_err": 0.0}
+    for k, n in Q8MM_SHAPES:
+        n_scales = -(-(k * n) // block)
+        codes = torch.randint(-127, 128, (k, n), generator=gen,
+                              device="cuda", dtype=torch.int8)
+        scales = torch.rand(n_scales, generator=gen, device="cuda") * 0.02 \
+            + 1e-3
+        padded = torch.zeros(n_scales * block, device="cuda")
+        padded[:k * n] = codes.reshape(-1).float()
+        dense_w = (padded.reshape(n_scales, block) * scales[:, None]) \
+            .reshape(-1)[:k * n].reshape(k, n)
+        for m in Q8MM_M:
+            for dtype in (torch.bfloat16, torch.float32):
+                x = (torch.randn(m, k, generator=gen, device="cuda")
+                     * 2.0).to(dtype)
+                got = ops.q8_matmul(x, codes, scales, block)
+                want = ref.q8_matmul_ref(x, codes, scales, block)
+                torch.cuda.synchronize()
+                diff = int_view_diff(got, want)
+                abs_err = float((got.float() - want.float()).abs().max())
+                dense_rel = rel_l2(got.float(), x.float() @ dense_w)
+                del want
+                eager_ms = median_ms(lambda: ops.q8_matmul(
+                    x, codes, scales, block), Q8_ITERS)
+                ms = graph_ms(lambda: ops.q8_matmul(x, codes, scales, block))
+                plain_ms = graph_ms(lambda: ref.q8_matmul_ref(
+                    x, codes, scales, block))
+                size = x.element_size()
+                nbytes = m * k * size + k * n + 4 * n_scales + m * n * size
+                nops = 2 * m * k * n
+                bound_ms = max(nbytes / HBM_BYTES_PER_S,
+                               nops / INT8_OPS) * 1e3
+                row = {"phase": "kernel_q8mm", "name": "q8_matmul",
+                       "M": m, "K": k, "N": n, "block": block,
+                       "case": "A" if n % block == 0 else "B",
+                       "dtype": str(dtype)[6:],
+                       "max_int_view_diff": diff, "max_abs_err": abs_err,
+                       "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+                       "bound_ms": bound_ms,
+                       "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+                       >= nops / INT8_OPS else "operations",
+                       "bytes": nbytes, "ops": nops,
+                       "achieved_TOPs": nops / ms / 1e9,
+                       "rel_l2_vs_dense": dense_rel,
+                       "parity": "bitwise" if diff == 0 else "DIFFERS"}
+                if m > 16 and k % 8 == 0:
+                    # the int8 GEMM alone, for information (the port never
+                    # calls it): the same int8 operands
+                    a8 = torch.randint(-127, 128, (m, k), generator=gen,
+                                       device="cuda", dtype=torch.int8)
+                    row["int_mm_ms"] = graph_ms(
+                        lambda: torch._int_mm(a8, codes))
+                    del a8
+                emit(row)
+                if diff != 0:
+                    fail(f"q8_matmul differs from its plain version at M={m} "
+                         f"({k}, {n}) {dtype}: {diff} integer-view steps")
+                summary["max_abs_err"] = max(summary["max_abs_err"], abs_err)
+                calls = GEMMA_LAYER_Q8MM.get((k, n), 0)
+                if m == Q8MM_M[0] and dtype == torch.bfloat16 and calls:
+                    for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                                     ("bound_ms", bound_ms)):
+                        summary[key] += calls * val
+                del x, got
+        del codes, scales, padded, dense_w
+        torch.cuda.empty_cache()
+    return summary
+
+
+def expected_serve_launches(rt, calls: int, keys) -> dict:
+    """What a serve run of ``calls`` prefill/decode calls must launch, from
+    the plan: in the int8 mode one ``q8_matmul`` per eligible weight of each
+    q8 layer and one ``dequantize_into`` per other tensor (``unpack_quant``),
+    else one ``dequantize_into`` per q8 layer gather; ``globals`` one
+    dense gather (one ``dequantize_into``) per call."""
+    from repro_torch.kernels import ops
+
+    q8mm = deq = 0
+    for lo in rt.layouts.values():
+        if not lo.store.quantized:
+            continue
+        layers = lo.n_layers or 1
+        if lo.n_layers and rt.schedule.serve_quant_matmul:
+            elig = sum(ops.quant_eligible(p.spec.shape, lo.store.block)
+                       for p in lo.plan.placements)
+            q8mm += elig * layers
+            deq += (len(lo.plan.placements) - elig) * layers
+        else:
+            deq += layers
+    want = {k: 0 for k in keys}
+    want.update(q8_matmul=q8mm * calls, dequantize_into=deq * calls)
+    return want
 
 
 def main() -> None:
@@ -525,12 +718,13 @@ def main() -> None:
     from repro_torch.core.schedule import CommSchedule
     from repro_torch.data.pipeline import DataConfig, SyntheticStream
     from repro_torch.kernels import (blockwise_quant, build, encode_ef,
-                                     fused_update, ops, ref)
+                                     fused_update, ops, q8_matmul, ref)
     from repro_torch.launch.mesh import init_local_group
     from repro_torch.optim import make_optimizer
+    from repro_torch.serve.engine import Request, ServeEngine
 
     mods = {"fused_update": fused_update, "blockwise_quant": blockwise_quant,
-            "encode_ef": encode_ef}
+            "encode_ef": encode_ef, "q8_matmul": q8_matmul}
 
     def train(cfg, device, compute_dtype, stream, steps, schedule=None,
               timings=None, seed=0):
@@ -573,7 +767,8 @@ def main() -> None:
     # ---- 2. build ------------------------------------------------------
     t0 = time.perf_counter()
     built = build.build([fused_update.KERNEL, fused_update.ADAM8_KERNEL,
-                         blockwise_quant.KERNEL, encode_ef.KERNEL])
+                         blockwise_quant.KERNEL, encode_ef.KERNEL,
+                         q8_matmul.KERNEL])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {k: {"seconds": v["seconds"],
                           "ptxas": [l for l in v["log"].splitlines()
@@ -820,7 +1015,168 @@ def main() -> None:
             fail(f"{phase}: CPU and card runs differ by {max(readings)} > "
                  f"{rtol}")
 
-    # ---- 11. kernels line, card, last line -----------------------------
+    # ---- 11. q8_matmul vs plain ----------------------------------------
+    q8mm_stats = phase_kernel_q8mm(ops, ref)
+
+    # ---- 12. serve path: gemma2-2b at full width, int8 and dense q8 ----
+    def serve_run(rt, model, params, prompts, requests):
+        """A warm-up prefill and a timed one (the cache's slots are simply
+        rewritten), SERVE_STEPS greedy decode steps at a scalar index, then
+        the engine; returns (metrics, prefill logits, step calls)."""
+        cache = model.init_cache(SERVE_BATCH, SERVE_LEN, device=rt.device)
+        prefill, decode = rt.make_prefill_step(), rt.make_decode_step()
+        prefill(params, {"tokens": prompts}, cache)        # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, {"tokens": prompts}, cache)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        tok = torch.argmax(logits, -1)
+        step_ms, gen = [], [tok]
+        for i in range(SERVE_STEPS):
+            t0 = time.perf_counter()
+            lg, cache = decode(params, {"tokens": tok}, cache,
+                               SERVE_PROMPT + i)
+            tok = torch.argmax(lg, -1)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            gen.append(tok)
+        if not bool(torch.isfinite(lg.float()).all()):
+            fail(f"non-finite decode logits on {rt.schedule}")
+        gen = torch.cat(gen, 1).cpu()
+        del cache
+        eng = ServeEngine(rt, model, params, pool=ENGINE_POOL,
+                          max_len=SERVE_LEN)
+        reqs = [Request(uid=i, prompt=p, max_new=ENGINE_NEW)
+                for i, p in enumerate(requests)]
+        for r in reqs:
+            eng.submit(r)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine_calls = 0
+        while eng.queue or any(sl.req for sl in eng.slots):
+            eng.step()
+            engine_calls += 1
+        engine_s = time.perf_counter() - t0
+        new_tokens = sum(len(r.out) for r in reqs)
+        if not all(r.done and len(r.out) == ENGINE_NEW for r in reqs):
+            fail("the engine left requests unfinished")
+        if not (0 <= int(gen.min()) and int(gen.max()) < model.cfg.vocab):
+            fail("decoded tokens out of the vocabulary")
+        decode_med = statistics.median(step_ms[1:])
+        return ({"prefill_ms": prefill_ms, "decode_step_ms": step_ms,
+                 "decode_step_ms_median": decode_med,
+                 "decode_tokens_per_s": SERVE_BATCH / (decode_med / 1e3),
+                 "engine_calls": engine_calls, "engine_s": engine_s,
+                 "engine_new_tokens": new_tokens,
+                 "engine_tokens_per_s": new_tokens / engine_s,
+                 "greedy_row0": gen[0].tolist()},
+                logits, 2 + SERVE_STEPS + engine_calls)
+
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT))).to("cuda")
+    requests = [rng.integers(0, cfg.vocab, (int(n),)) for n in rng.integers(
+        ENGINE_PROMPT[0], ENGINE_PROMPT[1] + 1, ENGINE_REQUESTS)]
+    emit({"phase": "serve_setup", "model": cfg.name,
+          "cut": {"n_layers": [full.n_layers, TRAIN_LAYERS]},
+          "prefill": [SERVE_BATCH, SERVE_PROMPT], "cache_len": SERVE_LEN,
+          "decode_steps": SERVE_STEPS,
+          "engine": {"pool": ENGINE_POOL, "requests": ENGINE_REQUESTS,
+                     "prompt_lens": [len(r) for r in requests],
+                     "max_new": ENGINE_NEW}})
+    serve_model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rt = FSDPRuntime(serve_model, group, compute_dtype=torch.bfloat16,
+                     schedule=CommSchedule(**SERVE_SCHEDULE))
+    serve_params = rt.init_params(0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    serve_logits = {}
+    for mode, sched in (("q8_serve_matmul", SERVE_SCHEDULE),
+                        ("q8_dense", SERVE_DENSE_SCHEDULE)):
+        if mode != "q8_serve_matmul":
+            rt2 = FSDPRuntime(serve_model, group,
+                              compute_dtype=torch.bfloat16,
+                              schedule=CommSchedule(**sched))
+            if any(rt2.layouts[n].plan != lo.plan
+                   for n, lo in rt.layouts.items()):
+                fail("the dense q8 serve plans differently: cannot share "
+                     "the parameter state")
+            rt = rt2
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(mods)
+        metrics, serve_logits[mode], calls = serve_run(
+            rt, serve_model, serve_params, prompts, requests)
+        got = launches_now(mods)
+        want = expected_serve_launches(rt, calls, got)
+        emit({"phase": "serve", "mode": mode, "schedule": sched,
+              "setup_s": setup_s, **metrics,
+              "max_memory_allocated": torch.cuda.max_memory_allocated(),
+              "calls": calls, "kernel_launches": got,
+              "expected_launches": want,
+              "per_call": {k: v // calls for k, v in want.items()}})
+        if got != want:
+            fail(f"serve {mode} launched {got}, expected {want}")
+        if serve_logits[mode].shape != (SERVE_BATCH, 1, cfg.vocab):
+            fail(f"serve {mode} prefill logits have shape "
+                 f"{tuple(serve_logits[mode].shape)}")
+        if mode == "q8_serve_matmul":
+            serve_launches = got["q8_matmul"]
+    quant_vs_dense = rel_l2(serve_logits["q8_serve_matmul"].float(),
+                            serve_logits["q8_dense"].float())
+    emit({"phase": "serve_summary", "prefill_rel_l2_int8_vs_dense":
+          quant_vs_dense, "limit": SERVE_INT8_VS_DENSE})
+    if not quant_vs_dense < SERVE_INT8_VS_DENSE:
+        fail(f"int8 serve prefill logits {quant_vs_dense} from the dense "
+             f"q8 serve's (limit {SERVE_INT8_VS_DENSE})")
+    del rt, serve_params, serve_logits
+    torch.cuda.empty_cache()
+
+    # ---- 13. serve: CPU (plain versions) vs card (kernels) -------------
+    moe_dropless = dataclasses.replace(
+        moe_small, capacity_factor=float(moe_small.n_experts))
+    for model_cfg in (small, moe_dropless):
+        for store, sched in (("fp32", None), ("q8_matmul", SERVE_SCHEDULE)):
+            readings, greedy = [], []
+            for seed in PARITY_SEEDS:
+                toks = torch.from_numpy(np.random.default_rng(seed).integers(
+                    0, model_cfg.vocab, (4, 16 + PARITY_SERVE_STEPS)))
+                outs = {}
+                for dev in ("cpu", "cuda"):
+                    model = build_model(model_cfg)
+                    srt = FSDPRuntime(model, group,
+                                      compute_dtype=torch.float32,
+                                      device=dev,
+                                      schedule=sched and CommSchedule(**sched))
+                    params = srt.init_params(seed)
+                    cache = model.init_cache(4, 32, device=srt.device)
+                    t = toks.to(srt.device)
+                    lg, cache = srt.make_prefill_step()(
+                        params, {"tokens": t[:, :16]}, cache)
+                    out = [lg]
+                    decode = srt.make_decode_step()
+                    for i in range(16, 16 + PARITY_SERVE_STEPS):
+                        lg, cache = decode(params, {"tokens": t[:, i:i + 1]},
+                                           cache, i)
+                        out.append(lg)
+                    outs[dev] = torch.cat(out, 1).float().cpu()
+                readings.append(max(
+                    rel_l2(outs["cuda"][:, i], outs["cpu"][:, i])
+                    for i in range(outs["cpu"].shape[1])))
+                greedy.append({d: o.argmax(-1)[0].tolist()
+                               for d, o in outs.items()})
+            rtol = PARITY_SERVE_RTOL[store]
+            emit({"phase": "parity_serve", "config": f"{model_cfg.name}"
+                  ".reduced()", "store": store, "compute": "float32",
+                  "seeds": list(PARITY_SEEDS), "max_rel_l2": readings,
+                  "rtol": rtol, "greedy_row0": greedy})
+            if not max(readings) <= rtol:
+                fail(f"parity_serve {model_cfg.name} {store}: CPU and card "
+                     f"logits differ by {max(readings)} > {rtol}")
+
+    # ---- 14. kernels line, card, last line -----------------------------
     csrc = "src/repro_torch/kernels/csrc/"
 
     def entry(name, source, replaces, launches, st):
@@ -851,6 +1207,9 @@ def main() -> None:
         entry("adam8bit_store_update_q8", "adam8bit_store_update.cu",
               "src/repro/kernels/fused_update.py:145",
               a8q_launches["adam8bit_q8"], a8stats["q8"]),
+        entry("q8_matmul", "q8_matmul.cu",
+              "src/repro/kernels/q8_matmul.py:81", serve_launches,
+              q8mm_stats),
     ]})
     torch.distributed.destroy_process_group()
     print(smi, flush=True)

@@ -7,6 +7,10 @@ tensors (port of ``repro/core/dbuffer.py``).
     views (``narrow`` + ``view``): every tensor aliases the gathered
     buffer's storage, as the reference's static slices lower to views.
     The planner keeps each tensor contiguous, so no copy is ever needed.
+  * ``unpack_quant`` -- the serve path's unpack of a gathered q8_block
+    payload: eligible 2-D weights stay int8 (``QuantTensor`` views of the
+    codes and scales), the rest take one ``dequantize_into`` each.
+    PARITY: BITWISE.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from ..kernels import ops
 from .ragged import GroupPlan
 
 
@@ -56,3 +61,42 @@ class DBuffer:
                 f"{tuple(flat.shape)}")
         return {p.spec.name: flat.narrow(0, p.offset, p.spec.size)
                 .view(p.spec.shape) for p in self.plan.placements}
+
+    def unpack_quant(self, payload: Mapping[str, torch.Tensor], block: int,
+                     compute_dtype: torch.dtype) -> dict:
+        """Unpack a gathered q8_block payload (``{"codes", "scales"}`` of
+        the full flat buffer) per tensor, without a whole-buffer
+        dequantize (the reference's ``unpack_quant``).
+
+        Eligible 2-D tensors (``ops.quant_eligible``) come out as
+        ``ops.QuantTensor`` views of their codes and scales slices (no
+        copy; in the overhang case of a trailing partial block, the
+        ceil-count scales), which ``layers.dense`` multiplies through
+        ``ops.q8_matmul``.  Every other tensor takes one
+        ``ops.dequantize_into`` of its blocks into ``compute_dtype``.  The
+        per-tensor slicing relies on the planner's align guarantee: a
+        tensor start that is not a quant-block multiple raises.  (The fsdp2
+        layout's branch comes with it, ROADMAP Queue 1 item 10; its
+        ``__post_init__`` already refuses that layout.)"""
+        codes, scales = payload["codes"], payload["scales"]
+        if codes.dim() != 1 or codes.numel() != self.plan.total:
+            raise ValueError(
+                f"unpack_quant expects flat ({self.plan.total},) codes, got "
+                f"{tuple(codes.shape)}")
+        out = {}
+        for p in self.plan.placements:
+            off, size = p.offset, p.spec.size
+            if off % block:
+                raise ValueError(
+                    f"{p.spec.name}: payload offset {off} not a multiple "
+                    f"of quant block {block} -- planner align missing?")
+            nb = -(-size // block)  # blocks covering the tensor (+ padding)
+            s = scales.narrow(0, off // block, nb)
+            if ops.quant_eligible(p.spec.shape, block):
+                out[p.spec.name] = ops.QuantTensor(
+                    codes.narrow(0, off, size).view(p.spec.shape), s, block)
+            else:
+                t = ops.dequantize_into(codes.narrow(0, off, nb * block), s,
+                                        block, out_dtype=compute_dtype)
+                out[p.spec.name] = t.narrow(0, 0, size).view(p.spec.shape)
+        return out

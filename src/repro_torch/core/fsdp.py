@@ -1,6 +1,6 @@
 """veScale-FSDP runtime over ``torch.distributed`` (port of
 ``repro/core/fsdp.py``: the ZeRO-3 train step on the fp32 and q8_block
-stores, with cast or q8 gradient wires).
+stores, with cast or q8 gradient wires, and the ZeRO-3 serve steps).
 
 ``FSDPRuntime`` wraps a model for a process group.  Construction lowers the
 ``ParallelConfig`` knobs (or ``schedule=``/``group_schedules=``/
@@ -26,11 +26,20 @@ residual ``reduce_ef`` (``(L, m * S)``).  The train step then:
     scaled gradients -- the reference's order.  The residual is never
     scaled and never counted in the norm.
 
+The serve steps (``make_prefill_step``, ``make_decode_step``) run the
+model's ``prefill``/``decode`` under ``torch.inference_mode()``: each
+layer is gathered just in time (parameters stay sharded at rest), with no
+activation checkpoint and no gradient route.  With ``serve_quant_matmul``
+a q8_block layer group's payload is gathered as int8 codes and scales and
+unpacked by ``DBuffer.unpack_quant`` (eligible weights multiply through
+``ops.q8_matmul``); ``globals`` always take the dense gather.
+
 Entry points run on the card unless the caller passes ``device="cpu"``;
 without a card and without that, construction raises.
 
 PARITY: ``init_params`` and the planned layouts are BITWISE the reference's;
-the train step is ALLCLOSE (tests/test_torch_train.py states the bounds).
+the train step is ALLCLOSE (tests/test_torch_train.py states the bounds),
+and so are the serve steps (tests/test_torch_serve.py).
 """
 from __future__ import annotations
 
@@ -52,6 +61,7 @@ from .policy import PolicySet, ShardingPlan, plan as make_plan
 from .ragged import TensorSpec
 from .schedule import CommSchedule
 from .store import EF_KEY, ParamStore, check_state
+from .wire import payload_all_gather
 
 
 @dataclasses.dataclass(frozen=True)
@@ -274,6 +284,75 @@ class FSDPRuntime:
 
         return step_fn
 
+    # ------------------------------------------------------------------ #
+    # serve steps (ZeRO-3 inference: per-layer gather, sharded at rest)
+    # ------------------------------------------------------------------ #
+    def _serve_call(self, fn, params, batch, cache, *index):
+        """Run ``fn(pg, batch, cache, *index)`` (the model's ``prefill`` or
+        ``decode``) on this rank's rows ``batch_slice`` gives of the global
+        batch, the cache and a per-row index, then all-gather the logit rows
+        when the batch is split, so every rank returns the global logits.
+        The cache holds the global batch; a rank writes its own rows in
+        place."""
+        tokens = batch["tokens"]
+        B = tokens.shape[0]
+        lo, hi = self.batch_slice(B)
+        bdims = self.model.cache_batch_dims()
+        for k, t in cache.items():
+            if t.shape[bdims[k]] != B:
+                raise ValueError(
+                    f"cache[{k!r}] holds {t.shape[bdims[k]]} rows, the "
+                    f"batch {B}")
+        local_cache = {k: t.narrow(bdims[k], lo, hi - lo)
+                       for k, t in cache.items()}
+        local_batch = {k: v[lo:hi] for k, v in batch.items()}
+        index = tuple(i[lo:hi] if isinstance(i, torch.Tensor) and i.dim()
+                      else i for i in index)
+        with torch.inference_mode():
+            pg = _ParamGetter(self, params, serve=True,
+                              quant_matmul=self.schedule.serve_quant_matmul)
+            logits, _ = fn(pg, local_batch, local_cache, *index)
+            if hi - lo != B:
+                logits = payload_all_gather(logits.reshape(-1),
+                                            self.group).view(
+                    (B,) + tuple(logits.shape[1:]))
+        return logits, cache
+
+    def _check_tokens(self, batch, what: str):
+        tokens = batch["tokens"]
+        if tokens.device != self.device:
+            raise ValueError(
+                f"{what}: tokens lie on {tokens.device}, the runtime on "
+                f"{self.device}")
+
+    def make_prefill_step(self):
+        """``step(params, batch, cache) -> (logits, cache)``: the prompt
+        ``batch["tokens"]`` (B, T) from position 0; ``logits`` (B, 1, V) of
+        the last position in the compute dtype; ``cache`` (the model's
+        ``init_cache(B, max_len, device=...)``) is filled in place and
+        returned (the reference donates it)."""
+
+        def step_fn(params, batch, cache):
+            self._check_tokens(batch, "prefill")
+            return self._serve_call(self.model.prefill, params, batch, cache)
+
+        return step_fn
+
+    def make_decode_step(self):
+        """``step(params, batch, cache, index) -> (logits, cache)``: one
+        token per row (``batch["tokens"]`` (B, 1)) at position ``index``
+        -- an int, or a (B,) integer tensor of per-row positions
+        (continuous batching); the cache is updated in place."""
+
+        def step_fn(params, batch, cache, index):
+            self._check_tokens(batch, "decode")
+            if isinstance(index, torch.Tensor) and index.dim():
+                index = index.to(self.device)
+            return self._serve_call(self.model.decode, params, batch, cache,
+                                    index)
+
+        return step_fn
+
 
 def _global_norm(runtime: FSDPRuntime, grads) -> torch.Tensor:
     """sqrt of the sum over groups of each group's all-reduced sum of
@@ -346,11 +425,19 @@ def load_reference_state(runtime: FSDPRuntime, params: Mapping[str, Any],
 
 
 class _ParamGetter:
-    """What the model sees of the runtime: gathered, unpacked tensors."""
+    """What the model sees of the runtime: gathered, unpacked tensors.
 
-    def __init__(self, runtime: FSDPRuntime, params):
+    ``serve``: the serve steps' getter -- gathers without a gradient route
+    and runs layers without activation checkpoints (the reference's
+    ``remat=False`` getter); ``quant_matmul``: keep q8_block layer groups'
+    eligible weights int8 (``DBuffer.unpack_quant``)."""
+
+    def __init__(self, runtime: FSDPRuntime, params, *, serve: bool = False,
+                 quant_matmul: bool = False):
         self.rt = runtime
         self.params = params
+        self.serve = serve
+        self.quant_matmul = quant_matmul
         self.compute_dtype = runtime.compute_dtype
 
     def _gather(self, name: str, layer: int | None = None) -> torch.Tensor:
@@ -358,36 +445,57 @@ class _ParamGetter:
         every leaf of its state)."""
         state = self.params[name]
         store = self.rt.layouts[name].store
-        master = store.trainable(state)
-        sink = master.grad
+        sink = None if self.serve else store.trainable(state).grad
         if layer is not None:
-            sink = sink[layer]
-            state = ({k: v[layer] for k, v in state.items()}
-                     if isinstance(state, dict) else state[layer])
+            sink = None if sink is None else sink[layer]
+            state = _row(state, layer)
         return store.gather(state, sink, self.rt.group,
                             self.rt.sched_for(name), self.compute_dtype)
+
+    def _layer(self, name: str, layer: int) -> dict:
+        """One layer of a stacked group, unpacked: the q8 payload into
+        ``QuantTensor``s and per-tensor decodes in the serve quant mode,
+        else zero-copy views of the gathered buffer."""
+        lo = self.rt.layouts[name]
+        if self.quant_matmul and lo.store.quantized:
+            payload = lo.store.gather_payload(
+                _row(self.params[name], layer), self.rt.group)
+            return lo.buffer.unpack_quant(payload, lo.store.block,
+                                          self.compute_dtype)
+        return lo.buffer.unpack(self._gather(name, layer))
 
     def globals(self, group: str) -> dict[str, torch.Tensor]:
         return self.rt.layouts[group].buffer.unpack(self._gather(group))
 
     def scan(self, groups, body, carry, xs=None):
         """The FSDP layer loop: for each layer, gather every group's layer
-        shard, unpack and run ``body(p, carry, x)`` -> ``(carry, y)``, all
-        inside one non-reentrant activation checkpoint, so backward
-        re-gathers the layer (ZeRO-3) and keeps only the layer inputs
-        alive between forward and backward.  Returns ``(carry, ys)``
-        (``ys`` None when every ``y`` is None)."""
+        shard, unpack and run ``body(p, carry, x)`` -> ``(carry, y)``.  In
+        training all of it runs inside one non-reentrant activation
+        checkpoint, so backward re-gathers the layer (ZeRO-3) and keeps
+        only the layer inputs alive between forward and backward; the serve
+        getter runs it plainly.  Returns ``(carry, ys)`` (``ys`` None when
+        every ``y`` is None)."""
         n = self.rt.layouts[groups[0]].n_layers
 
         def layer(i, c):
             p = {}
             for g in groups:
-                p.update(self.rt.layouts[g].buffer.unpack(self._gather(g, i)))
+                p.update(self._layer(g, i))
             return body(p, c, None if xs is None else xs[i])
 
         ys = []
         for i in range(n):
-            carry, y = checkpoint(layer, i, carry, use_reentrant=False,
-                                  preserve_rng_state=False)
+            if self.serve:
+                carry, y = layer(i, carry)
+            else:
+                carry, y = checkpoint(layer, i, carry, use_reentrant=False,
+                                      preserve_rng_state=False)
             ys.append(y)
         return carry, (None if all(y is None for y in ys) else ys)
+
+
+def _row(state, layer: int):
+    """Row ``layer`` of every leaf of a stacked group's state."""
+    if isinstance(state, dict):
+        return {k: v[layer] for k, v in state.items()}
+    return state[layer]

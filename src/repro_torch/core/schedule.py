@@ -19,12 +19,18 @@ It also runs block-wise quantized training:
     encodes its cotangent plus an error-feedback residual as int8 codes and
     per-block scales, and destinations dequantize and sum in fp32.
 
+It serves, too: ``serve_quant_matmul=True`` (with
+``param_store="q8_block"`` only: ``validate_for`` raises the reference's
+``ValueError`` otherwise)
+keeps eligible gathered layer weights in int8 through the serve steps'
+matmuls (``ops.q8_matmul``); the train step ignores it.
+
 Knobs the reference has and the port does not run yet raise
 ``NotImplementedError`` at construction, naming the ROADMAP item that will
 port them: ``prefetch``, ``keep_last_gathered``,
 ``reshard_after_forward=False``, ``gather_mode="ring"``,
-``reduce_mode="ring_acc"``, ``ring_chunk_elems``, ``sharded=False``,
-``serve_quant_matmul``, fp8 wire dtypes and the bf16 and fp8 stores.
+``reduce_mode="ring_acc"``, ``ring_chunk_elems``, ``sharded=False``, fp8
+wire dtypes and the bf16 and fp8 stores.
 """
 from __future__ import annotations
 
@@ -142,8 +148,6 @@ class CommSchedule:
              "Queue 1 item 10"),
             (self.param_store not in ("fp32", "q8_block"),
              f"param_store={self.param_store!r}", "Queue 1 item 9"),
-            (self.serve_quant_matmul, "serve_quant_matmul",
-             "Queue 1 item 13"),
         )
         for hit, what, item in unported:
             if hit:
@@ -200,8 +204,9 @@ class CommSchedule:
     def validate_for(self, compute_dtype: torch.dtype) -> None:
         """Resolve the wire/accum dtype path against the actual compute
         dtype: a ``None`` dtype inherits it, so e.g. fp16 compute fails at
-        runtime construction.  Also the reference's q8 rule: a quantized
-        store fixes the gather payload.  (Its rule that the q8 reduce wire
+        runtime construction.  Also the reference's q8 rules: a quantized
+        store fixes the gather payload, and ``serve_quant_matmul`` needs
+        the q8_block store.  (Its rule that the q8 reduce wire
         needs a sharded group comes with ``sharded=False``, Queue 1 item
         10.)"""
         supported = set(_DTYPES.values())
@@ -217,6 +222,11 @@ class CommSchedule:
                 "param_store='q8_block' fixes the all-gather payload (int8 "
                 "codes + fp32 scales); gather_dtype must stay None, got "
                 f"{self.gather_dtype!r}")
+        if self.serve_quant_matmul and self.param_store != "q8_block":
+            raise ValueError(
+                "serve_quant_matmul runs the int8 GEMM on gathered q8_block "
+                "codes; it requires param_store='q8_block', got "
+                f"{self.param_store!r}")
 
     def plan_layers(self, n_layers: int, remat: bool = True) -> LayerPlan:
         n = int(n_layers)

@@ -177,13 +177,23 @@ class ParamStore:
     # ------------------------------------------------------------------ #
     # the gather
     # ------------------------------------------------------------------ #
-    def gather(self, state, grad_sink: torch.Tensor, group,
+    def gather(self, state, grad_sink: torch.Tensor | None, group,
                sched: CommSchedule, compute_dtype: torch.dtype
                ) -> torch.Tensor:
         """All-gather one rank-local (one-layer) state into the flat
         compute-dtype buffer the model unpacks; backward reduce-scatters
         into ``grad_sink`` through the schedule's reduce codec, and with a
-        residual writes the new one into ``state["reduce_ef"]``."""
+        residual writes the new one into ``state["reduce_ef"]``.  With
+        ``grad_sink`` None (the serve steps) only the forward runs: the same
+        gather and decode, no autograd node and no gradient route."""
+        if grad_sink is None:
+            if self.quantized:
+                p = self.gather_payload(state, group)
+                return ops.dequantize_into(p["codes"], p["scales"],
+                                           self.block, out_dtype=compute_dtype)
+            codec = sched.gather_codec(compute_dtype)
+            return codec.decode(payload_all_gather(
+                codec.encode(self.trainable(state)), group), compute_dtype)
         rcodec = sched.reduce_codec(compute_dtype, self.block)
         ef = state[EF_KEY] if self.has_ef else None
         if self.quantized:
@@ -197,8 +207,8 @@ class ParamStore:
     def gather_payload(self, state, group) -> dict[str, torch.Tensor]:
         """All-gather a quantized state's payload without decoding:
         ``{"codes", "scales"}`` of the full flat buffer, pure data movement
-        (the reference's serve path keeps these in int8; ROADMAP Queue 1
-        item 13 ports that use).  PARITY: BITWISE."""
+        (the serve quant mode keeps these in int8 and unpacks them with
+        ``DBuffer.unpack_quant``).  PARITY: BITWISE."""
         if not self.quantized:
             raise ValueError(
                 f"gather_payload on a {self.fmt!r} store (quantized only)")

@@ -13,11 +13,21 @@ from __future__ import annotations
 import torch
 
 from . import blockwise_quant, encode_ef as _encode_ef, fused_update
+from . import q8_matmul as _q8mm
+from .q8_matmul import QuantTensor, fold_scales, q8_slice_cols, \
+    quant_eligible
 from ..quant.blockwise import dequantize_blockwise_log, \
     quantize_blockwise_log
 from .ref import (adam8bit_store_update_ref, adamw_store_update_ref,
-                  dequantize_into_ref, encode_ef_ref, quantize_ref,
-                  scalar_stack)
+                  dequantize_into_ref, encode_ef_ref, q8_matmul_ref,
+                  quantize_ref, scalar_stack)
+
+__all__ = [
+    "quantize", "dequantize", "dequantize_into", "encode_ef", "q8_matmul",
+    "adamw_store_update", "adam8bit_store_update", "quantize_log",
+    "dequantize_log", "q8_slice_cols", "QuantTensor", "quant_eligible",
+    "fold_scales",
+]
 
 
 def _device_kind(*tensors: torch.Tensor) -> str:
@@ -86,6 +96,28 @@ def encode_ef(ct: torch.Tensor, ef: torch.Tensor, block: int = 1024, *,
     if _device_kind(ct, ef) == "cuda":
         return _encode_ef.encode_ef(ct, ef, block, out=out)
     return _copy_out(out, encode_ef_ref(ct, ef, block))
+
+
+def q8_matmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
+              block: int = 1024, *, out_dtype: torch.dtype | None = None
+              ) -> torch.Tensor:
+    """Serve-path int8 x int8 GEMM on gathered codes: ``x`` (..., K) fp32
+    or bf16, ``codes`` (K, N) int8, ``scales`` the flat f32 block scales of
+    a case A or case B layout (``quant_eligible``); returns (..., N) in
+    ``out_dtype`` (default x's dtype) without materializing the dequantized
+    weight.  The reference's ``ValueError``s on the layout and the scale
+    count come first, on every device.
+
+    PARITY: the kernel is BITWISE against the plain version on the card;
+    the plain version is BITWISE against the reference's interpreted
+    kernel on the tests' inputs (``kernels.ref.q8_matmul_ref``); both are
+    ALLCLOSE to the dense ``x @ dequantize(w)``."""
+    k, n = codes.shape
+    _q8mm.check_args(k, n, block, scales.numel())
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    if _device_kind(x, codes, scales) == "cuda":
+        return _q8mm.q8_matmul(x, codes, scales, block, out_dtype)
+    return q8_matmul_ref(x, codes, scales, block, out_dtype)
 
 
 def adamw_store_update(w, g, m, v, mask, *, lr, b1, b2, eps, wd, c1, c2,

@@ -9,9 +9,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..quant.blockwise import (_blocks, _check_blocking, _check_scales,
+from ..quant.blockwise import (INV_127, SCALE_FLOOR, _blocks,
+                               _check_blocking, _check_scales,
                                dequantize_blockwise, log_codes, log_values,
                                quantize_blockwise)
+from .q8_matmul import check_args, fold_scales
 
 # store epilogues of the flat AdamW update -> dtype of the written weights
 FLAT_OUT_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
@@ -209,3 +211,44 @@ def encode_ef_ref(ct: torch.Tensor, ef: torch.Tensor, block: int):
     codes, scales = quantize_blockwise(comp, block)
     deq = dequantize_blockwise(codes, scales, block)
     return codes, scales, comp - deq
+
+
+def q8_matmul_ref(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
+                  block: int, out_dtype: torch.dtype | None = None
+                  ) -> torch.Tensor:
+    """The reference's ``_q8mm_kernel`` on tensors: ``x`` (..., K) float,
+    ``codes`` (K, N) int8, ``scales`` the flat f32 block scales; returns
+    (..., N) in ``out_dtype`` (default x's dtype).  Per column group j of
+    the folded (nj, K) scales (``fold_scales``)::
+
+        a   = x.f32 * s[j]                      (M, K)
+        rs  = rowmax(|a|) * float32(1/127)      (what XLA compiles /127 to)
+        inv = rs > 0 ? 1 / max(rs, 1e-30) : 0   (a true divide)
+        a8  = clip(round_half_even(a * inv), -127, 127)
+        y[:, cols_j] = f32(a8 @ codes[:, cols_j]) * rs
+
+    The int8 products are summed in float64, exact while K * 127**2 <
+    2**53 (``check_args`` caps K far below), so the f32 of the sum is the
+    f32 of the kernel's exact int32 sum: one product serves both devices
+    (PyTorch has no int32 matmul on CUDA).
+
+    PARITY: BITWISE vs the reference's interpreted kernel on the CPU on
+    the tests' inputs (tests/test_torch_q8_matmul.py), and the CUDA kernel
+    is BITWISE against this function on the card."""
+    k, n = codes.shape
+    check_args(k, n, block, scales.numel())
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    lead = tuple(x.shape[:-1])
+    xm = x.reshape(-1, k).float()
+    s2 = fold_scales(scales.reshape(-1), k, n, block)   # (nj, K)
+    nj = s2.shape[0]
+    a = xm[None] * s2[:, None, :]                       # (nj, M, K)
+    rs = a.abs().amax(dim=-1) * INV_127                 # (nj, M)
+    one = torch.ones((), dtype=torch.float32, device=x.device)
+    inv = torch.where(rs > 0, one / torch.clamp(rs, min=SCALE_FLOOR),
+                      torch.zeros_like(rs))
+    a8 = torch.clamp(torch.round(a * inv[..., None]), -127, 127)
+    w = codes.double().reshape(k, nj, n // nj).permute(1, 0, 2)
+    acc = torch.bmm(a8.double(), w).float()             # (nj, M, N/nj)
+    y = (acc * rs[..., None]).permute(1, 0, 2).reshape(xm.shape[0], n)
+    return y.to(out_dtype).reshape(lead + (n,))

@@ -1,7 +1,7 @@
-"""Where a train step's device time goes: one profiled ZeRO-3 step.
+"""Where the device time of one ZeRO-3 step (train or decode) goes.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_step \
-        [--config gemma2|qwen3-moe] [--q8]
+        [--config gemma2|qwen3-moe] [--q8 | --serve]
 
 Builds a configuration ``chip_smoke.py`` trains -- ``gemma2`` (default):
 gemma2-2b at published width, depth cut to 4 layers, batch 2 x 2048, AdamW;
@@ -9,7 +9,11 @@ gemma2-2b at published width, depth cut to 4 layers, batch 2 x 2048, AdamW;
 layer, ep=1, batch 1 x 2048, Adam8bit -- with bf16 compute and the fp32
 store (or, with ``--q8``, the q8_block store and the q8 gradient wire with
 error feedback on every group), runs two warm-up steps on one rank of a
-NCCL group, then one step under ``torch.profiler`` and prints JSON lines:
+NCCL group, then one step under ``torch.profiler``.  ``--serve`` profiles
+a decode step instead: the config on the q8_block store with
+``serve_quant_matmul`` (``chip_smoke.py``'s ``serve`` phase: a prefill of
+4 x 512 tokens into a 1024-slot cache, two warm-up decode steps at batch
+4).  It prints JSON lines:
 the step's wall time, the summed device time of its kernels by category
 (matmul, optimizer kernel, q8 codec kernels, collective, other) and the device's idle share
 of the step, then the kernels with the most device time.  Needs a CUDA
@@ -33,6 +37,7 @@ from .mesh import init_local_group
 
 # kernel-name fragments -> category (cuBLAS/CUTLASS GEMM names, NCCL, ours)
 CATEGORIES = (
+    ("q8 matmul", ("q8mm_",)),
     ("optimizer", ("adamw_flat", "adamw_q8", "adam8_store")),
     ("q8 codec", ("quantize_kernel", "dequantize_kernel", "encode_ef_kernel")),
     ("collective", ("nccl",)),
@@ -52,13 +57,76 @@ def category(name: str) -> str:
 CONFIGS = {"gemma2": ("gemma2-2b", 4, 2, 2048),
            "qwen3-moe": ("qwen3-moe-235b-a22b", 1, 1, 2048)}
 WARMUP, TOP = 2, 15
+# the serve mode's batch, prompt length and cache length
+SERVE_BATCH, SERVE_PROMPT, SERVE_LEN = 4, 512, 1024
+
+
+def train_step(cfg, args):
+    """Warm a train step up; returns a closure running one more step (and
+    its loss) and the schedule's name."""
+    sched = CommSchedule(param_store="q8_block", reduce_wire="q8_block") \
+        if args.q8 else None
+    rt = FSDPRuntime(build_model(cfg), init_local_group("nccl"),
+                     compute_dtype=torch.bfloat16, schedule=sched)
+    params = rt.init_params(0)
+    opt = make_optimizer(cfg)
+    opt_state = opt.init(rt)
+    step_fn = rt.make_train_step(opt)
+    _, _, batch_size, seq = CONFIGS[args.config]
+    stream = SyntheticStream(DataConfig(cfg.vocab, seq, batch_size), cfg)
+    state = {"params": params, "opt": opt_state, "step": 0}
+    for i in range(WARMUP + 1):
+        batch = stream.shard(stream.batch(i), rt)
+        if i == WARMUP:
+            break
+        state["params"], state["opt"], state["step"], _ = step_fn(
+            state["params"], state["opt"], state["step"], batch)
+
+    def run():
+        state["params"], state["opt"], state["step"], m = step_fn(
+            state["params"], state["opt"], state["step"], batch)
+        return float(m["loss"])
+
+    return run, "q8_both_wires" if args.q8 else "default"
+
+
+def decode_step(cfg, args):
+    """Prefill and warm a decode step up on the q8_block store with the
+    int8 matmuls; returns a closure running one more decode step."""
+    import numpy as np
+
+    sched = CommSchedule(param_store="q8_block", serve_quant_matmul=True)
+    model = build_model(cfg)
+    rt = FSDPRuntime(model, init_local_group("nccl"),
+                     compute_dtype=torch.bfloat16, schedule=sched)
+    params = rt.init_params(0)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT))).to(rt.device)
+    cache = model.init_cache(SERVE_BATCH, SERVE_LEN, device=rt.device)
+    logits, cache = rt.make_prefill_step()(params, {"tokens": tokens}, cache)
+    decode = rt.make_decode_step()
+    state = {"tok": torch.argmax(logits, -1), "pos": SERVE_PROMPT}
+
+    def run():
+        lg, _ = decode(params, {"tokens": state["tok"]}, cache, state["pos"])
+        state["tok"] = torch.argmax(lg, -1)
+        state["pos"] += 1
+        return float(lg.float().abs().mean())
+
+    for _ in range(WARMUP):
+        run()
+    return run, "q8_serve_matmul decode"
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", choices=list(CONFIGS), default="gemma2")
-    ap.add_argument("--q8", action="store_true",
-                    help="the q8_block store and q8 gradient wire")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--q8", action="store_true",
+                      help="the q8_block store and q8 gradient wire")
+    mode.add_argument("--serve", action="store_true",
+                      help="a decode step of the int8 serve mode")
     args = ap.parse_args()
     arch, layers, batch_size, seq = CONFIGS[args.config]
     if not torch.cuda.is_available():
@@ -70,27 +138,14 @@ def main() -> None:
     # one rank: expert parallelism off (the port runs ep=1)
     cfg = dataclasses.replace(full, n_layers=layers, parallel=dataclasses
                               .replace(full.parallel, ep=1))
-    sched = CommSchedule(param_store="q8_block", reduce_wire="q8_block") \
-        if args.q8 else None
-    rt = FSDPRuntime(build_model(cfg), init_local_group("nccl"),
-                     compute_dtype=torch.bfloat16, schedule=sched)
-    params = rt.init_params(0)
-    opt = make_optimizer(cfg)
-    opt_state = opt.init(rt)
-    step_fn = rt.make_train_step(opt)
-    stream = SyntheticStream(DataConfig(cfg.vocab, seq, batch_size), cfg)
-    step = 0
-    for i in range(WARMUP):
-        batch = stream.shard(stream.batch(i), rt)
-        params, opt_state, step, _ = step_fn(params, opt_state, step, batch)
-    batch = stream.shard(stream.batch(WARMUP), rt)
+    run, schedule = (decode_step if args.serve else train_step)(cfg, args)
     torch.cuda.synchronize()
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        params, opt_state, step, m = step_fn(params, opt_state, step, batch)
+        value = run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -116,12 +171,13 @@ def main() -> None:
         row = by_name.setdefault(e.name, [0.0, 0])
         row[0] += us
         row[1] += 1
+    batch = [SERVE_BATCH, 1] if args.serve else [batch_size, seq]
     print(json.dumps({
         "phase": "profile", "model": cfg.name, "n_layers": layers,
-        "optimizer": cfg.optimizer,
-        "schedule": "q8_both_wires" if args.q8 else "default",
-        "batch": [batch_size, seq], "compute": "bf16",
-        "device": torch.cuda.get_device_name(0), "loss": float(m["loss"]),
+        "optimizer": None if args.serve else cfg.optimizer,
+        "schedule": schedule, "batch": batch, "compute": "bf16",
+        "device": torch.cuda.get_device_name(0),
+        ("mean_abs_logit" if args.serve else "loss"): value,
         "step_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
         "kernel_ms_by_category": {k: v / 1e3 for k, v in
@@ -132,6 +188,7 @@ def main() -> None:
         print(json.dumps({"kernel": name[:120], "category": category(name),
                           "ms": us / 1e3, "count": count}), flush=True)
     torch.distributed.destroy_process_group()
+
 
 
 if __name__ == "__main__":

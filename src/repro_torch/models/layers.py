@@ -1,5 +1,5 @@
-"""Model-layer primitives of the dense training path (port of
-``repro/models/layers.py``).
+"""Model-layer primitives of the dense decoder, for training and serving
+(port of ``repro/models/layers.py``).
 
 Conventions kept from the reference so the tests compare like with like:
   * linear weights are (d_in, d_out); y = x @ w
@@ -10,7 +10,12 @@ Conventions kept from the reference so the tests compare like with like:
     reference too (no Pallas kernel), and SDPA cannot stand in for it: it
     has no logit softcap
   * tensor parallelism (``tp_axis``) is not ported: every collective of the
-    reference's layers is the identity here (ROADMAP Queue 1 item 18)
+    reference's layers is the identity here, and the replicated-KV branch
+    of ``attention`` (tp > n_kv_heads) comes with it (ROADMAP Queue 1 item
+    18; ``DecoderLM`` refuses tp > 1 at construction)
+  * serving: ``attention`` keeps a ring-buffer KV cache, updated in place;
+    ``dense`` multiplies a gathered-but-still-int8 weight (``QuantTensor``)
+    through ``ops.q8_matmul``
 
 PARITY: ALLCLOSE -- fp32 compute agrees with the reference to float
 rounding (transcendentals and matmul sums differ in the last bits); bf16
@@ -24,12 +29,30 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..kernels import ops
+
 NEG_INF = -1e30
 
 
-def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``y = x @ w`` with the weight cast to the activation dtype."""
+def dense(x: torch.Tensor, w) -> torch.Tensor:
+    """``y = x @ w`` with weight-format dispatch: a plain tensor is cast to
+    the activation dtype; a ``QuantTensor`` (a gathered q8_block weight in
+    the serve quant mode) goes through the int8 x int8 GEMM
+    (``ops.q8_matmul``), so the dense weight never materializes."""
+    if isinstance(w, ops.QuantTensor):
+        return ops.q8_matmul(x, w.codes, w.scales, w.block)
     return x @ w.to(x.dtype)
+
+
+def to_dense(w, dtype: torch.dtype) -> torch.Tensor:
+    """A weight in ``dtype``, for call sites that must slice or transpose
+    the weight itself: a ``QuantTensor`` takes one per-tensor
+    ``ops.dequantize_into``, a plain tensor is cast."""
+    if isinstance(w, ops.QuantTensor):
+        k, n = w.shape
+        return ops.dequantize_into(w.codes.reshape(-1), w.scales, w.block,
+                                   out_dtype=dtype).reshape(k, n)
+    return w.to(dtype)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -58,14 +81,17 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def chunked_attention(q, k, v, *, q_pos, kv_pos, window=None,
-                      softcap=None, chunk: int = 1024) -> torch.Tensor:
+def chunked_attention(q, k, v, *, q_pos, kv_pos, kv_valid=None,
+                      window=None, softcap=None,
+                      chunk: int = 1024) -> torch.Tensor:
     """Causal online-softmax GQA attention over KV chunks.
 
-    q: (B, Hq, Tq, hd); k, v: (B, Hkv, Tk, hd); q_pos/kv_pos: (B, T) int
-    positions; ``window``: int or None.  Scores are
-    fp32 (q and k cast before the product), scaled by 1/sqrt(hd), then
-    soft-capped, then masked -- the reference's order."""
+    q: (B, Hq, Tq, hd); k, v: (B, Hkv, Tk, hd); q_pos: (B, Tq) and kv_pos:
+    (B, Tk) int positions; ``kv_valid``: (B, Tk) bool or None (a KV cache's
+    occupancy); ``window``: int or None.  Scores are fp32 (q and k cast
+    before the product), scaled by 1/sqrt(hd), then soft-capped, then
+    masked -- the reference's order.  The last chunk is cut short where
+    the reference pads it with invalid keys (which weigh exactly 0)."""
     B, Hq, Tq, hd = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     group = Hq // Hkv
@@ -88,6 +114,8 @@ def chunked_attention(q, k, v, *, q_pos, kv_pos, window=None,
         qp = q_pos[:, None, None, :, None]
         kp = kv_pos[:, lo:lo + chunk][:, None, None, None, :]
         mask = kp <= qp
+        if kv_valid is not None:
+            mask = mask & kv_valid[:, lo:lo + chunk][:, None, None, None, :]
         if window is not None:
             mask = mask & (qp - kp < window)
         s = s.masked_fill(~mask, NEG_INF)
@@ -103,8 +131,20 @@ def chunked_attention(q, k, v, *, q_pos, kv_pos, window=None,
 
 
 def attention(cfg, p, x: torch.Tensor, *, q_pos: torch.Tensor,
-              window=None, prefix: str = "") -> torch.Tensor:
-    """Causal self-attention of the training path (no KV cache, tp=1)."""
+              cache=None, cache_index=0, window=None, prefix: str = ""):
+    """Causal self-attention (GQA, tp=1) with an optional ring-buffer KV
+    cache.  Returns ``(out, cache)``; ``cache`` is None without one.
+
+    ``cache``: None (training) or ``{"k", "v": (B, Hkv, W, hd), "pos":
+    (B, W) int32}`` with ``pos`` -1 where a slot is empty.  The new keys
+    (after RoPE) and values are written at slot ``cache_index % W``:
+    ``cache_index`` is an int (prefill at 0 with T <= W, or a decode step
+    with T = 1; the write start clamps so the T entries fit, as
+    ``lax.dynamic_update_slice`` does) or a (B,) integer tensor of per-row
+    positions (continuous-batching decode: each row writes its own slot).
+    Validity and causality then come from the stored positions.  The cache
+    tensors are updated IN PLACE (the reference donates them to the decode
+    step, ``core/fsdp.py:814``) and returned."""
     B, T, _ = x.shape
     hd = cfg.hd
 
@@ -115,11 +155,34 @@ def attention(cfg, p, x: torch.Tensor, *, q_pos: torch.Tensor,
     q = rope(proj("wq", cfg.n_heads), q_pos, cfg.rope_theta)
     k = rope(proj("wk", cfg.n_kv_heads), q_pos, cfg.rope_theta)
     v = proj("wv", cfg.n_kv_heads)
-    out = chunked_attention(q, k, v, q_pos=q_pos, kv_pos=q_pos,
-                            window=window, softcap=cfg.attn_softcap,
-                            chunk=cfg.attn_chunk)
+    if cache is None:
+        out = chunked_attention(q, k, v, q_pos=q_pos, kv_pos=q_pos,
+                                window=window, softcap=cfg.attn_softcap,
+                                chunk=cfg.attn_chunk)
+    else:
+        ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
+        W = ck.shape[2]
+        if T > W:
+            raise ValueError(f"{T} new positions do not fit a cache of {W}")
+        new_pos = q_pos[:, :T].to(cpos.dtype)
+        if isinstance(cache_index, torch.Tensor) and cache_index.dim() == 1:
+            start = torch.clamp(cache_index.to(torch.int64) % W, max=W - T)
+            cols = start[:, None] + torch.arange(T, device=start.device)
+            rows = torch.arange(B, device=start.device)[:, None]
+            ck[rows, :, cols] = k.transpose(1, 2).to(ck.dtype)
+            cv[rows, :, cols] = v.transpose(1, 2).to(cv.dtype)
+            cpos[rows, cols] = new_pos
+        else:
+            start = min(int(cache_index) % W, W - T)
+            ck[:, :, start:start + T] = k.to(ck.dtype)
+            cv[:, :, start:start + T] = v.to(cv.dtype)
+            cpos[:, start:start + T] = new_pos
+        out = chunked_attention(q, ck, cv, q_pos=q_pos, kv_pos=cpos,
+                                kv_valid=cpos >= 0, window=window,
+                                softcap=cfg.attn_softcap,
+                                chunk=cfg.attn_chunk)
     out = out.transpose(1, 2).reshape(B, T, cfg.n_heads * hd)
-    return dense(out, p[prefix + "wo"])
+    return dense(out, p[prefix + "wo"]), cache
 
 
 def mlp(cfg, p, x: torch.Tensor, *, prefix: str = "") -> torch.Tensor:

@@ -27,6 +27,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .layers import dense
+
 
 def _positions_within_expert(flat_e: torch.Tensor) -> torch.Tensor:
     """Rank of each assignment among the assignments to the same expert, in
@@ -61,7 +63,9 @@ def moe_ffn(cfg, p, x: torch.Tensor, *, ep: int = 1, prefix: str = "moe_"):
     E, k = cfg.n_experts, cfg.top_k
 
     xf = x.reshape(N, D)
-    logits = (xf @ p[prefix + "router"].to(x.dtype)).float()
+    # through ``dense``: a serve-path QuantTensor router takes the int8
+    # GEMM (the reference's ``.astype`` raises on one)
+    logits = dense(xf, p[prefix + "router"]).float()
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = torch.topk(probs, k, dim=-1)  # (N, k), descending
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)

@@ -11,10 +11,13 @@ Ported: the self-attention decoder with tp=1 -- the ``layers`` and
 ``globals`` groups, gemma2's alternating local/global windows, softcaps,
 post-norms and tied embeddings, the mlp kinds, the MoE layer at ep=1 (the
 router in ``layers``, the experts in the ``layers_experts`` group scanned
-beside it, the load-balance term carried through the scan), and the loss
-on the materialized-logits (``ce_chunk=0``) branch.  VLM cross-attention,
-tensor/expert parallelism, qkv bias, the vocab-chunked CE and the serving
-steps raise ``NotImplementedError`` naming their ROADMAP item.
+beside it, the load-balance term carried through the scan), the loss on
+the materialized-logits (``ce_chunk=0``) branch, and the serving API: the
+ring-buffer KV cache (``init_cache``, the reference's layout, bf16 K and
+V), ``prefill`` and ``decode`` (a scalar position, or per-row positions
+for continuous batching).  VLM cross-attention, tensor/expert
+parallelism, qkv bias and the vocab-chunked CE raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -78,7 +81,9 @@ class DecoderLM:
     def __init__(self, cfg):
         _check_supported(cfg)
         self.cfg = cfg
+        # no VLM cross-attention blocks: one self layer per scanned block
         self.n_blocks = cfg.n_layers
+        self.selfs_per_block = 1
 
     # ---------------- specs ------------------------------------------------
     def _self_layer_specs(self) -> list[TensorSpec]:
@@ -134,12 +139,14 @@ class DecoderLM:
             return [cfg.sliding_window] * cfg.n_layers
         return [GLOBAL_WINDOW] * cfg.n_layers
 
-    def _self_block(self, p, x, q_pos, window):
+    def _self_block(self, p, x, q_pos, window, cache=None, cache_index=0):
         """One layer; returns ``(x, aux)``, aux the MoE load-balance term
-        (0.0 for a dense layer)."""
+        (0.0 for a dense layer).  With a ``cache`` (this layer's views) the
+        attention writes its keys and values into it in place."""
         cfg = self.cfg
         h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-        out = L.attention(cfg, p, h, q_pos=q_pos, window=window)
+        out, _ = L.attention(cfg, p, h, q_pos=q_pos, cache=cache,
+                             cache_index=cache_index, window=window)
         if cfg.post_norms:
             out = L.rms_norm(out, p["post_ln1"], cfg.norm_eps)
         x = x + out
@@ -155,17 +162,23 @@ class DecoderLM:
     def _scan_groups(self) -> list[str]:
         return ["layers"] + (["layers_experts"] if self.cfg.n_experts else [])
 
-    def _backbone(self, pg, x, q_pos):
+    def _backbone(self, pg, x, q_pos, caches=None, cache_index=0):
         """The layer stack; returns ``(x, aux)``, aux summed over layers in
-        fp32."""
-        def body(p, carry, window):
+        fp32.  ``caches``: the full cache (leading dims n_blocks,
+        selfs_per_block), whose per-layer views each layer updates in
+        place."""
+        def body(p, carry, xs):
             x, aux = carry
-            x, a = self._self_block(p, x, q_pos, window)
+            window, cache = xs
+            x, a = self._self_block(p, x, q_pos, window, cache, cache_index)
             return (x, aux + a), None
 
+        windows = self._layer_windows()
+        xs = [(w, None if caches is None
+               else {k: t[i, 0] for k, t in caches.items()})
+              for i, w in enumerate(windows)]
         aux0 = torch.zeros((), dtype=torch.float32, device=x.device)
-        (x, aux), _ = pg.scan(self._scan_groups(), body, (x, aux0),
-                              self._layer_windows())
+        (x, aux), _ = pg.scan(self._scan_groups(), body, (x, aux0), xs)
         return x, aux
 
     def _embed_in(self, pg, tokens):
@@ -195,3 +208,67 @@ class DecoderLM:
             torch.ones((B, T - 1), dtype=torch.float32,
                        device=tokens.device))
         return nll + aux * w / max(self.cfg.n_layers, 1), w
+
+    # ---------------- serving ------------------------------------------------
+    def cache_window(self, seq_len: int) -> int:
+        """Ring-buffer size: long-context decode on a sliding-window arch
+        caps the cache at the window (the reference's rule)."""
+        cfg = self.cfg
+        if cfg.sliding_window and seq_len > 65536:
+            return cfg.sliding_window
+        return seq_len
+
+    def cache_shapes(self, batch: int, seq_len: int) -> dict:
+        """Full KV cache shapes and dtypes, leading dims (n_blocks,
+        selfs_per_block): K and V (B, Hkv, W, hd) in bf16 whatever the
+        compute dtype, ``pos`` (B, W) int32."""
+        cfg = self.cfg
+        W = self.cache_window(seq_len)
+        lead = (self.n_blocks, self.selfs_per_block, batch)
+        return {"k": (lead + (cfg.n_kv_heads, W, cfg.hd), torch.bfloat16),
+                "v": (lead + (cfg.n_kv_heads, W, cfg.hd), torch.bfloat16),
+                "pos": (lead + (W,), torch.int32)}
+
+    def cache_batch_dims(self) -> dict[str, int]:
+        """Batch-dim index of each cache leaf."""
+        return {"k": 2, "v": 2, "pos": 2}
+
+    def init_cache(self, batch: int, seq_len: int, device="cuda") -> dict:
+        """An empty cache: K and V zeros, ``pos`` -1 (no slot filled).  On
+        the card unless ``device`` says otherwise."""
+        dev = torch.device(device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "init_cache places the cache on the card by default and no "
+                "CUDA device is available; pass device='cpu'")
+        return {k: torch.full(shape, -1 if k == "pos" else 0, dtype=dtype,
+                              device=dev)
+                for k, (shape, dtype) in self.cache_shapes(
+                    batch, seq_len).items()}
+
+    def prefill(self, pg, batch, cache):
+        """Run the prompt ``batch["tokens"]`` (B, T) from position 0,
+        filling the cache in place.  Returns ``(logits (B, 1, V) of the last
+        position, cache)``."""
+        tokens = batch["tokens"]
+        B, T = tokens.shape
+        q_pos = torch.arange(T, device=tokens.device)[None].expand(B, T)
+        x, g = self._embed_in(pg, tokens)
+        x, _ = self._backbone(pg, x, q_pos, caches=cache, cache_index=0)
+        return self._logits(g, x[:, -1:]), cache
+
+    def decode(self, pg, batch, cache, index):
+        """One token per row (``batch["tokens"]`` (B, 1)) against a filled
+        cache.  ``index``: the position, an int, or a (B,) integer tensor
+        of per-row positions (continuous batching).  Returns ``(logits
+        (B, 1, V), cache)``."""
+        tokens = batch["tokens"]
+        B = tokens.shape[0]
+        if isinstance(index, torch.Tensor) and index.dim() == 1:
+            q_pos = index.to(device=tokens.device, dtype=torch.int64)[:, None]
+        else:
+            q_pos = torch.full((B, 1), int(index), dtype=torch.int64,
+                               device=tokens.device)
+        x, g = self._embed_in(pg, tokens)
+        x, _ = self._backbone(pg, x, q_pos, caches=cache, cache_index=index)
+        return self._logits(g, x), cache

@@ -1,0 +1,467 @@
+"""The port's serve path against the JAX reference: ``DBuffer.unpack_quant``,
+cached attention, ``make_prefill_step``/``make_decode_step`` of
+gemma2-2b.reduced() and qwen3-moe-235b-a22b.reduced() on the fp32 store and
+on the q8_block store with and without ``serve_quant_matmul``, the
+continuous-batching ``ServeEngine``, and two gloo ranks against one.  fp32
+compute throughout; token ids from a numpy seed go to both packages.
+
+Parity classes, measured (bounds asserted per test, about four times the
+largest reading):
+  * ``unpack_quant``: BITWISE (codes and scales views, per-tensor decodes).
+  * cached attention: ALLCLOSE.  fp32 sums in another order put a few new
+    keys or values on the other side of a bf16 rounding boundary (1
+    integer-view step in the bf16 cache, 1-2 entries per call); outputs
+    within 5.6e-5 relative L2.
+  * serve steps on the fp32 and q8_block stores: ALLCLOSE.  A cached key or
+    value that lands within rounding of a bf16 midpoint can round the
+    other way; with that, prefill and decode logits stay within 3.1e-4
+    relative L2 of the reference's.
+  * the int8 serve mode (``serve_quant_matmul``): prefill logits within
+    3.3e-7 (``q8_matmul`` is bitwise the reference's), and one decode step
+    from the reference's own cache within 3.5e-7.  Over a decode stream the
+    activations' row quantization turns the bf16 cache's rounding flips
+    into int8 code flips: up to 8.9e-3 relative L2.
+  * qwen3-moe: the reference's int8 serve mode raises on the MoE router
+    (``AttributeError``: its ``moe_ffn`` casts the router with
+    ``.astype``, which a ``QuantTensor`` lacks); the port sends the router
+    through ``layers.dense`` like every other eligible weight.  Held, like
+    gemma2's, to the reference's own check: int8 serve within 0.15
+    relative L2 of the dense-dequant q8 serve (measured up to 5.5e-2 on
+    gemma2-2b, 4.8e-2 on qwen3-moe, against either package's).
+"""
+import dataclasses
+import multiprocessing
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from repro.configs import build_model as jax_build_model
+from repro.configs import get_config as jax_get_config
+from repro.core.fsdp import FSDPRuntime as JaxRuntime
+from repro.core.schedule import CommSchedule as JaxSchedule
+from repro.launch.mesh import make_local_mesh
+from repro.models import layers as JL
+from repro.serve.engine import Request as JaxRequest
+from repro.serve.engine import ServeEngine as JaxEngine
+
+import _torch_serve_worker as SW
+from repro_torch.configs import build_model, get_config
+from repro_torch.core.fsdp import FSDPRuntime
+from repro_torch.core.schedule import CommSchedule
+from repro_torch.kernels import ops
+from repro_torch.launch import serve as serve_cli
+from repro_torch.launch.mesh import init_local_group
+from repro_torch.models import layers as TL
+from repro_torch.serve.engine import Request, ServeEngine
+
+torch.set_num_threads(2)
+
+ARCHS = ("gemma2-2b", "qwen3-moe-235b-a22b")
+STORES = {"fp32": {}, "q8": {"param_store": "q8_block"},
+          "q8_matmul": {"param_store": "q8_block",
+                        "serve_quant_matmul": True}}
+B, P, K, S = 2, 6, 4, 32
+BOUND = {"fp32": 1.5e-3, "q8": 1.5e-3}          # measured up to 3.1e-4
+QMM_PREFILL, QMM_STEP, QMM_STREAM = 2e-6, 2e-6, 4e-2
+QUANT_VS_DENSE = 0.15                            # the reference's own check
+
+
+def _cfgs(arch):
+    """Both packages' reduced configs; the MoE decoder runs dropless
+    (capacity = E), as the reference's decode-consistency test does, so
+    prefill and decode route alike."""
+    jc, tc = jax_get_config(arch).reduced(), get_config(arch).reduced()
+    if jc.n_experts:
+        jc = dataclasses.replace(jc, capacity_factor=float(jc.n_experts))
+        tc = dataclasses.replace(tc, capacity_factor=float(tc.n_experts))
+    return jc, tc
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+@pytest.fixture(scope="module")
+def group():
+    return init_local_group("gloo")
+
+
+def _port(arch, store, group):
+    _, tc = _cfgs(arch)
+    model = build_model(tc)
+    rt = FSDPRuntime(model, group, compute_dtype=torch.float32, device="cpu",
+                     schedule=CommSchedule(**STORES[store]))
+    return model, rt, rt.init_params(0)
+
+
+def _jax(arch, store):
+    jc, _ = _cfgs(arch)
+    model = jax_build_model(jc)
+    rt = JaxRuntime(model, make_local_mesh(1, 1), compute_dtype=jnp.float32,
+                    schedule=JaxSchedule(**STORES[store]))
+    return model, rt, rt.init_params(0)
+
+
+def _tokens(vocab, seed=0):
+    return np.random.default_rng(seed).integers(0, vocab, (B, P + K))
+
+
+def _port_stream(model, rt, params, toks):
+    """Prefill of P tokens, then K - 1 teacher-forced decode steps; the
+    logits of each call (fp32 numpy) and the final cache."""
+    cache = model.init_cache(B, S, device="cpu")
+    t = torch.from_numpy(toks)
+    lg, cache = rt.make_prefill_step()(params, {"tokens": t[:, :P]}, cache)
+    out = [lg.numpy()]
+    decode = rt.make_decode_step()
+    for i in range(P, P + K - 1):
+        lg, cache = decode(params, {"tokens": t[:, i:i + 1]}, cache, i)
+        out.append(lg.numpy())
+    return out, cache
+
+
+def _jax_stream(model, rt, params, toks):
+    cache = model.init_cache(B, S)
+    t = jnp.asarray(toks, jnp.int32)
+    lg, cache = rt.make_prefill_step()(params, {"tokens": t[:, :P]}, cache)
+    out = [np.asarray(lg, np.float32)]
+    decode = rt.make_decode_step()
+    for i in range(P, P + K - 1):
+        lg, cache = decode(params, {"tokens": t[:, i:i + 1]}, cache,
+                           jnp.int32(i))
+        out.append(np.asarray(lg, np.float32))
+    return out, cache
+
+
+# ---------------------------------------------------------------------------
+# unpack_quant and cached attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_unpack_quant_matches_reference(arch, group):
+    """The same gathered q8 payload through both packages' ``unpack_quant``:
+    the same tensors come out as QuantTensors (codes and scales bitwise,
+    the ceil-count scales of an overhang included), the rest decode to the
+    same bits.  The port's are views of the payload (no copy)."""
+    jmodel, jrt, _ = _jax(arch, "q8")
+    model, rt, _ = _port(arch, "q8", group)
+    for name in ("layers", "globals"):
+        jb, tb = jrt.layouts[name].buffer, rt.layouts[name].buffer
+        block = rt.layouts[name].store.block
+        total = tb.plan.total
+        rng = np.random.default_rng(len(name))
+        codes = rng.integers(-127, 128, total).astype(np.int8)
+        scales = rng.uniform(1e-3, 0.1, total // block).astype(np.float32)
+        want = jb.unpack_quant({"codes": jnp.asarray(codes),
+                                "scales": jnp.asarray(scales)}, block,
+                               jnp.float32)
+        payload = {"codes": torch.from_numpy(codes),
+                   "scales": torch.from_numpy(scales)}
+        got = tb.unpack_quant(payload, block, torch.float32)
+        assert set(got) == set(want)
+        n_quant = 0
+        for k, w in want.items():
+            g = got[k]
+            if isinstance(w, JL.ops.QuantTensor):
+                n_quant += 1
+                assert isinstance(g, ops.QuantTensor) and g.block == w.block
+                assert np.array_equal(g.codes.numpy(), np.asarray(w.codes))
+                assert np.array_equal(g.scales.numpy(), np.asarray(w.scales))
+                assert g.codes.untyped_storage().data_ptr() == \
+                    payload["codes"].untyped_storage().data_ptr()
+            else:
+                assert not isinstance(g, ops.QuantTensor)
+                assert np.array_equal(g.numpy(), np.asarray(w)), k
+        if name == "layers":
+            assert n_quant >= 4     # the projections (and the MoE router)
+
+
+def test_unpack_quant_refuses_unaligned_offsets(group):
+    _, rt, _ = _port("gemma2-2b", "q8", group)
+    buf = rt.layouts["layers"].buffer
+    block = rt.layouts["layers"].store.block
+    payload = {"codes": torch.zeros(buf.plan.total, dtype=torch.int8),
+               "scales": torch.ones(buf.plan.total // block)}
+    with pytest.raises(ValueError, match="not a multiple of quant block"):
+        buf.unpack_quant(payload, 3 * block, torch.float32)
+
+
+def test_dense_and_to_dense_match_reference():
+    """``layers.dense`` on a QuantTensor is the int8 GEMM (bitwise the
+    reference's); ``to_dense`` decodes it like the reference's (bitwise)
+    and casts a plain tensor."""
+    rng = np.random.default_rng(9)
+    k, n, block = 64, 128, 64
+    codes = rng.integers(-127, 128, (k, n)).astype(np.int8)
+    scales = rng.uniform(1e-3, 5e-2, k * n // block).astype(np.float32)
+    x = rng.standard_normal((3, k)).astype(np.float32)
+    jq = JL.ops.QuantTensor(jnp.asarray(codes), jnp.asarray(scales), block)
+    tq = ops.QuantTensor(torch.from_numpy(codes), torch.from_numpy(scales),
+                         block)
+    assert np.array_equal(TL.dense(torch.from_numpy(x), tq).numpy(),
+                          np.asarray(JL.dense(jnp.asarray(x), jq)))
+    assert np.array_equal(TL.to_dense(tq, torch.float32).numpy(),
+                          np.asarray(JL.to_dense(jq, jnp.float32)))
+    w = torch.from_numpy(x)
+    assert TL.to_dense(w, torch.bfloat16).dtype == torch.bfloat16
+
+
+def test_cached_attention_matches_reference():
+    """Prefill of 5 tokens into a 12-slot bf16 cache, two decode steps with
+    a scalar index, then one with per-row positions (row 1 two slots
+    ahead), windowed and soft-capped, against the reference's
+    ``attention``.  Measured: outputs within 5.6e-5 relative L2 (4.1e-7
+    before a value entry flips), K and V within 1 bf16 integer-view step,
+    positions bitwise; asserted 2.5e-4, 1 step and bitwise."""
+    jc, tc = _cfgs("gemma2-2b")
+    rng = np.random.default_rng(3)
+    D, hd, Hq, Hkv = tc.d_model, tc.hd, tc.n_heads, tc.n_kv_heads
+    shapes = {"wq": (D, Hq * hd), "wk": (D, Hkv * hd), "wv": (D, Hkv * hd),
+              "wo": (Hq * hd, D)}
+    p_np = {k: (rng.standard_normal(s) / np.sqrt(s[0])).astype(np.float32)
+            for k, s in shapes.items()}
+    jp = {k: jnp.asarray(v) for k, v in p_np.items()}
+    tp = {k: torch.from_numpy(v) for k, v in p_np.items()}
+    W, window = 12, 4
+    jcache = {"k": jnp.zeros((B, Hkv, W, hd), jnp.bfloat16),
+              "v": jnp.zeros((B, Hkv, W, hd), jnp.bfloat16),
+              "pos": jnp.full((B, W), -1, jnp.int32)}
+    tcache = {"k": torch.zeros((B, Hkv, W, hd), dtype=torch.bfloat16),
+              "v": torch.zeros((B, Hkv, W, hd), dtype=torch.bfloat16),
+              "pos": torch.full((B, W), -1, dtype=torch.int32)}
+    calls = [(5, 0, None), (1, 5, None), (1, 6, None),
+             (1, None, np.array([7, 9]))]
+    for T, idx, rows in calls:
+        x = rng.standard_normal((B, T, D)).astype(np.float32)
+        if rows is None:
+            qpos = np.broadcast_to(np.arange(idx, idx + T), (B, T))
+            jidx, tidx = jnp.int32(idx), idx
+        else:
+            qpos = rows[:, None]
+            jidx, tidx = jnp.asarray(rows, jnp.int32), torch.from_numpy(rows)
+        jout, jcache = JL.attention(jc, jp, jnp.asarray(x),
+                                    q_pos=jnp.asarray(qpos, jnp.int32),
+                                    cache=jcache, cache_index=jidx,
+                                    window=window)
+        tout, tcache = TL.attention(tc, tp, torch.from_numpy(x),
+                                    q_pos=torch.from_numpy(
+                                        np.ascontiguousarray(qpos)),
+                                    cache=tcache, cache_index=tidx,
+                                    window=window)
+        assert _rel(tout.numpy(), jout) < 2.5e-4
+        for k in ("k", "v"):
+            steps = (tcache[k].view(torch.int16).numpy().astype(np.int64)
+                     - np.asarray(jcache[k]).view(np.int16))
+            assert np.abs(steps).max() <= 1
+        assert np.array_equal(tcache["pos"].numpy(), np.asarray(jcache["pos"]))
+
+
+# ---------------------------------------------------------------------------
+# the serve steps against the reference
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("store", ["fp32", "q8"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serve_steps_match_reference(arch, store, group):
+    """Prefill, then three decode steps, each package with its own cache:
+    logits within ``BOUND`` relative L2 at every call (readings: see the
+    module docstring); the final caches' positions bitwise."""
+    port = _port(arch, store, group)
+    toks = _tokens(port[0].cfg.vocab)
+    got, tcache = _port_stream(*port, toks)
+    want, jcache = _jax_stream(*_jax(arch, store), toks)
+    errs = [_rel(g, w) for g, w in zip(got, want)]
+    assert got[0].shape == (B, 1, port[0].cfg.vocab)
+    assert max(errs) < BOUND[store], errs
+    assert np.array_equal(tcache["pos"].numpy(), np.asarray(jcache["pos"]))
+
+
+def test_int8_serve_matches_reference_gemma(group):
+    """gemma2-2b reduced, q8_block store with ``serve_quant_matmul``: the
+    reference runs the same int8 path.  Prefill within QMM_PREFILL; one
+    decode step from the reference's own cache within QMM_STEP; the whole
+    stream within QMM_STREAM (the amplified bf16-cache flips)."""
+    model, rt, params = _port("gemma2-2b", "q8_matmul", group)
+    jmodel, jrt, jparams = _jax("gemma2-2b", "q8_matmul")
+    toks = _tokens(model.cfg.vocab)
+    got, _ = _port_stream(model, rt, params, toks)
+    want, jcache = _jax_stream(jmodel, jrt, jparams, toks)
+    errs = [_rel(g, w) for g, w in zip(got, want)]
+    assert errs[0] < QMM_PREFILL and max(errs) < QMM_STREAM, errs
+    # one more step from the reference's cache, on both sides
+    cache = {k: torch.from_numpy(np.array(v.astype(jnp.float32)))
+             .to(torch.int32 if k == "pos" else torch.bfloat16)
+             for k, v in jcache.items()}
+    t = P + K - 1
+    step_tok = toks[:, t:t + 1]
+    lg, _ = rt.make_decode_step()(params, {"tokens": torch.from_numpy(
+        step_tok)}, cache, t)
+    jlg, _ = jrt.make_decode_step()(jparams, {"tokens": jnp.asarray(
+        step_tok, jnp.int32)}, jcache, jnp.int32(t))
+    assert _rel(lg.numpy(), np.asarray(jlg, np.float32)) < QMM_STEP
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_int8_serve_tracks_dense_q8_serve(arch, group):
+    """The reference's own check (tests/test_serve_engine.py), mirrored:
+    the int8 serve mode within 0.15 relative L2 of the dense-dequant q8
+    serve, against the port's and the reference's dense q8 serve, at every
+    call of the stream.  The int8 path must also have run: eligible
+    weights went through ``ops.q8_matmul``."""
+    port = _port(arch, "q8_matmul", group)
+    toks = _tokens(port[0].cfg.vocab)
+    quant, _ = _port_stream(*port, toks)
+    dense, _ = _port_stream(*_port(arch, "q8", group), toks)
+    ref_dense, _ = _jax_stream(*_jax(arch, "q8"), toks)
+    for q, d, r in zip(quant, dense, ref_dense):
+        assert _rel(q, d) < QUANT_VS_DENSE
+        assert _rel(q, r) < QUANT_VS_DENSE
+        assert _rel(q, d) > 0      # the int8 path ran: not the dense one
+    assert port[1].schedule.serve_quant_matmul
+
+
+@pytest.mark.parametrize("store", list(STORES))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_incremental_decode_matches_prefill(arch, store, group):
+    """tests/test_decode_consistency.py for the port: decoding the prefix
+    token by token gives the logits of a fresh prefill of each longer
+    prefix, within the reference test's rtol/atol 3e-2."""
+    model, rt, params = _port(arch, store, group)
+    toks = _tokens(model.cfg.vocab, seed=1)
+    inc, _ = _port_stream(model, rt, params, toks)
+    prefill = rt.make_prefill_step()
+    for j, t in enumerate(range(P, P + K)):
+        if j >= len(inc):
+            break
+        want, _ = prefill(params, {"tokens": torch.from_numpy(toks[:, :t])},
+                          model.init_cache(B, S, device="cpu"))
+        np.testing.assert_allclose(inc[j], want.numpy(), rtol=3e-2,
+                                   atol=3e-2)
+
+
+# ---------------------------------------------------------------------------
+# the continuous-batching engine
+# ---------------------------------------------------------------------------
+
+def _requests(vocab, lens, max_new, seed, req=Request):
+    rng = np.random.default_rng(seed)
+    return [req(uid=i, prompt=rng.integers(0, vocab, (n,)).astype(np.int32),
+                max_new=max_new) for i, n in enumerate(lens)]
+
+
+def _run(engine, reqs):
+    for r in reqs:
+        engine.submit(r)
+    engine.run()
+    return [r.out for r in reqs]
+
+
+@pytest.fixture(scope="module")
+def gemma_fp32(group):
+    return _port("gemma2-2b", "fp32", group)
+
+
+def test_engine_completes_all_requests(gemma_fp32):
+    model, rt, params = gemma_fp32
+    eng = ServeEngine(rt, model, params, pool=2, max_len=64)
+    reqs = _requests(model.cfg.vocab, (4, 5, 6, 7, 8), 5, seed=0)
+    _run(eng, reqs)
+    assert len(eng.finished) == 5
+    for r in reqs:
+        assert r.done and len(r.out) == 5
+        assert all(0 <= t < model.cfg.vocab for t in r.out)
+
+
+def test_engine_matches_straightline(gemma_fp32):
+    """Continuous batching does not change any request's tokens: each
+    request alone in a one-slot engine gives the same greedy tokens."""
+    model, rt, params = gemma_fp32
+    lens = (3, 5, 4)
+    alone = [_run(ServeEngine(rt, model, params, pool=1, max_len=64), [r])[0]
+             for r in _requests(model.cfg.vocab, lens, 4, seed=1)]
+    batched = _run(ServeEngine(rt, model, params, pool=2, max_len=64),
+                   _requests(model.cfg.vocab, lens, 4, seed=1))
+    assert batched == alone
+
+
+def test_engine_matches_reference_engine(gemma_fp32):
+    """Greedy tokens of the port's engine equal the reference engine's on
+    gemma2-2b reduced at fp32 (pool 2, three requests streamed through
+    per-row positions).  No near-tie flipped a token on these inputs."""
+    model, rt, params = gemma_fp32
+    jmodel, jrt, jparams = _jax("gemma2-2b", "fp32")
+    lens = (3, 6, 4)
+    want = _run(JaxEngine(jrt, jmodel, jparams, pool=2, max_len=64),
+                _requests(model.cfg.vocab, lens, 5, seed=2, req=JaxRequest))
+    got = _run(ServeEngine(rt, model, params, pool=2, max_len=64),
+               _requests(model.cfg.vocab, lens, 5, seed=2))
+    assert got == want
+
+
+# ---------------------------------------------------------------------------
+# ranks, knobs, devices
+# ---------------------------------------------------------------------------
+
+def test_two_ranks_give_the_one_rank_logits(tmp_path, group):
+    """Two gloo ranks split the batch of 4 (two rows each) and all-gather
+    the logit rows: every rank returns the one-rank logits of prefill,
+    scalar-index decode and per-row decode.  Measured: bitwise; asserted
+    bitwise (each row's arithmetic is the same on either side)."""
+    one = SW.serve_logits(group)
+    ctx = multiprocessing.get_context("spawn")
+    init_file, prefix = str(tmp_path / "store"), str(tmp_path / "rank")
+    procs = [ctx.Process(target=SW.rank_main, args=(r, 2, init_file, prefix))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=240)
+    alive = [p.pid for p in procs if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    assert not alive, f"ranks {alive} did not finish"
+    assert [p.exitcode for p in procs] == [0, 0]
+    for r in range(2):
+        assert np.array_equal(np.load(f"{prefix}{r}.npy"), one)
+
+
+def test_serve_quant_matmul_needs_q8_store(group):
+    """The reference's ValueError, raised where the reference raises it
+    (``validate_for``, at runtime construction)."""
+    sched = dict(serve_quant_matmul=True)
+    with pytest.raises(ValueError) as ref:
+        JaxRuntime(jax_build_model(jax_get_config("gemma2-2b").reduced()),
+                   make_local_mesh(1, 1), schedule=JaxSchedule(**sched))
+    with pytest.raises(ValueError) as port:
+        FSDPRuntime(build_model(get_config("gemma2-2b").reduced()), group,
+                    device="cpu", schedule=CommSchedule(**sched))
+    assert str(port.value) == str(ref.value)
+
+
+def test_cpu_only_with_device_cpu(gemma_fp32):
+    """Without a card the serve entry points run only when asked for the
+    CPU: the cache, the runtime and the CLI raise by default."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    model = gemma_fp32[0]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init_cache(1, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FSDPRuntime(model, gemma_fp32[1].group)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        serve_cli.main(["--batch", "1", "--prompt-len", "2", "--gen", "1"])
+    with pytest.raises(NotImplementedError, match="Queue 1 item 18"):
+        serve_cli.main(["--model", "2", "--device", "cpu"])
+
+
+def test_serve_cli_on_cpu(capsys, group):
+    gen = serve_cli.serve(serve_cli.parse_args(
+        ["--device", "cpu", "--batch", "2", "--prompt-len", "4", "--gen",
+         "3"]), group)
+    assert np.asarray(gen).shape == (2, 3)
+    out = capsys.readouterr().out
+    assert "prefill 2x4" in out and "tok/s" in out
