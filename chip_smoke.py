@@ -56,7 +56,10 @@ non-zero):
                   from the same init and batches of each of four seeds on
                   the CPU (plain versions) and on the card (kernels):
                   losses and grad norms must agree within PARITY_RTOL
-                  (PARITY_Q8_RTOL on a q8_block store).
+                  (PARITY_Q8_RTOL on a q8_block store).  The fp32-store
+                  case runs each device twice: both must repeat bitwise
+                  (a CPU reference whose sum order varies from run to run
+                  moves the readings past their limits).
  11. kernel_q8mm -- the int8 x int8 ``q8_matmul`` against its plain version,
                   bf16 x and out and fp32 x and out, at decode M = 4 and
                   prefill M = 2048: gemma2-2b's case-A weights (2304, 2048),
@@ -84,6 +87,36 @@ non-zero):
                   ``serve_quant_matmul``: prefill and 8 teacher-forced decode
                   steps for each of four seeds on the CPU and on the card;
                   the logits' relative L2 within PARITY_SERVE_RTOL.
+
+The bf16 and fp8 stores and the standalone updates (14 runs after 5, 16
+and 15 after 9, 17 with 10):
+
+ 14. kernel_fp8 -- the fp8 epilogues of both fused updates (both formats),
+                  the standalone ``adamw_update`` and ``adam8bit_update``,
+                  and the bf16 store's passes (bf16 w and g, the gradient
+                  scale applied in the update) against their plain versions
+                  at gemma2-2b's fp32-plan shards (layers (4, 77865984),
+                  globals (589826304,)), the adam8bit plan's aligned shards
+                  and a ragged / misaligned case: integer-view difference
+                  (expected 0, fp8 codes as bytes), median times, bound;
+                  then a boundary tensor (448, 463.99, 464.0, 464.0001, 480,
+                  1e4, 57344, 61439, 61440, inf, NaN and fp8 subnormals in
+                  both signs) through both fp8 epilogues, whose codes must
+                  be the reference's rule's, NaN codes included.
+ 15. standalone -- the two standalone updates driven as a user of
+                  ``ops.adamw_update`` / ``ops.adam8bit_update`` drives
+                  them: four in-place steps on each gemma2-2b group's flat
+                  shard; each launches once per group and step.
+ 16. train_fp8, train_fp8_adam8, train_bf16 -- gemma2-2b as in ``train``
+                  on ``param_store="fp8_e4m3"`` with AdamW, on
+                  ``"fp8_e5m2"`` with Adam8bit, and on ``"bf16"`` with
+                  AdamW: the store's fused epilogue once per group and
+                  step, no q8 kernel at all.
+ 17. parity_fp8 -- gemma2-2b.reduced(), fp32 compute, two steps of each of
+                  four seeds on the CPU and on the card for fp8_e4m3 /
+                  AdamW, fp8_e5m2 / Adam8bit and bf16 / AdamW: losses and
+                  grad norms within PARITY_FP8_RTOL, and on each device the
+                  fp8 codes bitwise the encode of the master.
 
 Then the ``kernels`` line, the card's name and power limit as nvidia-smi
 reports them, and a last line ``{"ok": true, "device": {...}}``.  The
@@ -128,8 +161,8 @@ PARITY_Q8_RTOL = 7e-6
 Q8_SCHEDULE = {"param_store": "q8_block", "reduce_wire": "q8_block"}
 Q8_ITERS = 10
 # fp32 operations per element (beside the bytes they are far from binding)
-Q8_FLOPS = {"quantize": 6, "dequantize_into": 1, "encode_ef": 9,
-            "adamw_q8": FLOPS_PER_ELEM + 6}
+Q8_FLOPS = {"quantize": 6, "dequantize_into": 1, "dequantize": 1,
+            "encode_ef": 9, "adamw_q8": FLOPS_PER_ELEM + 6}
 # 8-bit Adam: bytes per element (w, g, m8, v8 in; w', m8', v8' out, plus
 # the q8 code of w'), per quant block (ms, vs in and out, plus the weight
 # scale) and, once per call, the (S,) uint8 decay row every row shares;
@@ -173,6 +206,39 @@ PARITY_SERVE_RTOL = {"fp32": 3e-3, "q8_matmul": 6e-2}
 # serve at fp32 compute, where the bf16 dense serve drifts 0.017, 0.039,
 # 0.088 -- so the limit is set from the 4-layer reading (PERF.md Findings)
 SERVE_INT8_VS_DENSE = 0.3
+FP8_FMTS = ("fp8_e4m3", "fp8_e5m2")
+# bytes per element of this slice's passes (each input read once, each
+# output written once): AdamW with fp8 codes (w, g, m, v, mask 20 B in;
+# code 1, w', m', v' 12 B out), the bf16 store's AdamW (bf16 w and g), the
+# standalone AdamW; the 8-bit Adam passes per element (plus
+# ADAM8_BLOCK_BYTES per quant block): fp8 (w, g 8 B, m8, v8 2 B in; code
+# 1, w' 4, m8', v8' 2 B out), the bf16 store's (bf16 w, g, w'), the
+# standalone update (its fp32 mask per element)
+NEW_BYTES = {"adamw_fp8": 33, "adamw_bf16": 26, "adamw_update": 32,
+             "adam8bit_fp8": 17, "adam8bit_bf16": 10, "adam8bit_update": 20}
+# fp32 operations per element (the Adam chain, the gradient scale, the
+# encode); far from binding beside the bytes
+NEW_FLOPS = {"adamw_fp8": FLOPS_PER_ELEM + 6, "adamw_bf16": FLOPS_PER_ELEM + 1,
+             "adamw_update": FLOPS_PER_ELEM, "adam8bit_fp8": 46,
+             "adam8bit_bf16": 41, "adam8bit_update": 40}
+FP8_SCHEDULES = {"train_fp8": ({"param_store": "fp8_e4m3"}, "adamw"),
+                 "train_fp8_adam8": ({"param_store": "fp8_e5m2"},
+                                     "adam8bit"),
+                 "train_bf16": ({"param_store": "bf16"}, "adamw")}
+# card vs CPU on the bf16 and fp8 stores, two fp32 steps of each of
+# PARITY_SEEDS: about four times the largest reading on the card (PERF.md:
+# 5.1e-7 fp8_e4m3 / AdamW, 2.7e-7 fp8_e5m2 / Adam8bit, 1.8e-6 bf16 / AdamW)
+PARITY_FP8_RTOL = 7e-6
+# the boundary tensor's values (both signs are added), and the codes the
+# reference's rule gives them (e4m3, e5m2), positive sign
+BOUNDARY = (448.0, 463.99, 464.0, 464.0001, 480.0, 1e4, 57344.0, 61439.0,
+            61440.0, float("inf"), float("nan"), 2.0 ** -9, 2.0 ** -10,
+            3 * 2.0 ** -11, 2.0 ** -16, 2.0 ** -17)
+BOUNDARY_CODES = {
+    "fp8_e4m3": (0x7E, 0x7E, 0x7E, 0x7F, 0x7F, 0x7F, 0x7F, 0x7F, 0x7F, 0x7F,
+                 0x7F, 0x01, 0x00, 0x01, 0x00, 0x00),
+    "fp8_e5m2": (0x5F, 0x5F, 0x5F, 0x5F, 0x60, 0x71, 0x7B, 0x7B, 0x7C, 0x7C,
+                 0x7E, 0x18, 0x14, 0x16, 0x01, 0x00)}
 
 
 def emit(obj) -> None:
@@ -241,8 +307,21 @@ def int_view_diff(a, b) -> int:
     if a.numel() == 0:
         return 0
     view = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
-            torch.int8: torch.int8}[a.dtype]
+            torch.int8: torch.int8, torch.float8_e4m3fn: torch.uint8,
+            torch.float8_e5m2: torch.uint8}[a.dtype]
     return int((a.view(view).long() - b.view(view).long()).abs().max())
+
+
+def abs_err(a, b) -> float:
+    """Largest |a - b| in fp32, NaN where both are NaN counted as 0."""
+    import torch
+
+    if a.numel() == 0:
+        return 0.0
+    a, b = a.float(), b.float()
+    both = torch.isnan(a) & torch.isnan(b)
+    d = torch.where(both, torch.zeros_like(a), (a - b).abs())
+    return float(d.max())
 
 
 def flat_outputs(out) -> list:
@@ -264,14 +343,13 @@ def hold(name: str, case: dict, run_kernel, run_plain, bytes_moved: float,
     got, want = flat_outputs(run_kernel()), flat_outputs(run_plain())
     torch.cuda.synchronize()
     diff = max(int_view_diff(a, b) for a, b in zip(got, want))
-    abs_err = max(float((a.float() - b.float()).abs().max()) if a.numel()
-                  else 0.0 for a, b in zip(got, want))
+    err = max(abs_err(a, b) for a, b in zip(got, want))
     del got, want
     ms = median_ms(run_kernel, iters)
     plain_ms = median_ms(run_plain, iters)
     bound_ms = max(bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
     row = {"phase": phase, "name": name, **case,
-           "max_int_view_diff": diff, "max_abs_err": abs_err, "ms": ms,
+           "max_int_view_diff": diff, "max_abs_err": err, "ms": ms,
            "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": "bytes" if bytes_moved / HBM_BYTES_PER_S
            >= flops / FP32_FLOPS else "operations",
@@ -309,8 +387,7 @@ def phase_kernel(fused_update, ref) -> dict:
             want = ref.adamw_store_update_ref(w, g, m, v, mask, scalars, fmt)
             torch.cuda.synchronize()
             diff = max(int_view_diff(a, b) for a, b in zip(out, want))
-            abs_err = max(float((a.float() - b.float()).abs().max())
-                          for a, b in zip(out, want))
+            err = max(abs_err(a, b) for a, b in zip(out, want))
             del want
             ms = median_ms(lambda: fused_update.adamw_store_update(
                 w, g, m, v, mask, scalars, fmt=fmt, out=out))
@@ -322,7 +399,7 @@ def phase_kernel(fused_update, ref) -> dict:
                            FLOPS_PER_ELEM * n / FP32_FLOPS) * 1e3
             row = {"phase": "kernel", "name": "adamw_store_update",
                    "shape": list(shape), "fmt": fmt,
-                   "max_int_view_diff": diff, "max_abs_err": abs_err,
+                   "max_int_view_diff": diff, "max_abs_err": err,
                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                    "bytes": bytes_moved,
                    "achieved_GBps": bytes_moved / ms / 1e6,
@@ -331,7 +408,7 @@ def phase_kernel(fused_update, ref) -> dict:
             if diff != 0:
                 fail(f"kernel differs from the plain version at {shape} "
                      f"{fmt}: {diff} integer-view steps")
-            worst_abs = max(worst_abs, abs_err)
+            worst_abs = max(worst_abs, err)
             if fmt == "fp32" and shape in (LAYERS_SHAPE, GLOBALS_SHAPE):
                 step["ms"] += ms
                 step["plain_ms"] += plain_ms
@@ -388,25 +465,29 @@ def phase_kernel_q8(ops, ref, layer_shard: int, globals_shard: int) -> dict:
                    Q8_FLOPS["quantize"] * n)
         add("quantize", row, on_path)
         del x
-    # dequantize_into: the bf16 gathers and the fp32 reduce route
+    # dequantize_into: the bf16 gathers; dequantize (its fp32 case, counted
+    # apart): the reduce route
     for shape, dtype, block, on_path in (
             ((layer_shard,), torch.bfloat16, 1024, True),
             ((globals_shard,), torch.bfloat16, 1024, True),
-            ((layer_shard,), torch.float32, 1024, False),
-            ((globals_shard,), torch.float32, 1024, False),
+            ((layer_shard,), torch.float32, 1024, True),
+            ((globals_shard,), torch.float32, 1024, True),
             (reduced_layer, torch.float32, 64, False)):
         codes, scales = ops.quantize(rnd(shape, 0.05), block)
         n = codes.numel()
         out_bytes = torch.empty((), dtype=dtype).element_size()
-        row = hold("dequantize_into", {"shape": list(shape),
-                                       "out": str(dtype)[6:], "block": block},
-                   lambda: ops.dequantize_into(codes, scales, block,
-                                               out_dtype=dtype),
+        key = "dequantize_into" if dtype == torch.bfloat16 else "dequantize"
+        row = hold(key, {"shape": list(shape), "out": str(dtype)[6:],
+                         "block": block},
+                   (lambda: ops.dequantize_into(codes, scales, block,
+                                                out_dtype=dtype))
+                   if key == "dequantize_into"
+                   else (lambda: ops.dequantize(codes, scales, block)),
                    lambda: ref.dequantize_into_ref(codes, scales, block,
                                                    dtype),
                    n * (1 + out_bytes) + 4 * n / block,
-                   Q8_FLOPS["dequantize_into"] * n)
-        add("dequantize_into", row, on_path)
+                   Q8_FLOPS[key] * n)
+        add(key, row, on_path)
         del codes, scales
     # encode_ef: the reduce wire's encode of a bf16 (or fp32) cotangent
     for shape, dtype, block, on_path in (
@@ -554,45 +635,340 @@ def phase_kernel_adam8(ops, ref, gemma_q8_shards) -> dict:
     return summary
 
 
+def phase_kernel_fp8(ops, ref, fp32_shards: dict, adam8_shards: dict
+                     ) -> dict:
+    """This slice's passes against their plain versions.  Returns per kernel
+    the summary the kernels line carries: one call at each group's
+    main-path shape, summed (rows 8b and 6 at the fp32 plan's shards, 9b
+    and 7 at the adam8bit plan's; the bf16 store's passes in PERF.md)."""
+    import torch
+
+    from repro_torch.quant.fp8 import FP8_DTYPES, fp8_encode
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    kw = dict(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, wd=0.1, c1=1 - 0.9 ** 3,
+              c2=1 - 0.95 ** 3)
+    scalars = ref.scalar_stack(*kw.values())
+    summary = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                   "max_abs_err": 0.0} for k in NEW_BYTES}
+    L = TRAIN_LAYERS
+
+    def rnd(shape, scale, offset=0, dtype=torch.float32):
+        """Random values ``offset`` elements into their buffer (an odd
+        offset takes the kernels' scalar path)."""
+        n = math.prod(shape)
+        buf = torch.empty(n + offset, dtype=dtype, device="cuda")
+        buf[offset:] = (torch.randn(n, generator=gen, device="cuda")
+                        * scale).to(dtype)
+        return buf[offset:].view(shape)
+
+    def add(key, row, on_path):
+        st = summary[key]
+        st["max_abs_err"] = max(st["max_abs_err"], row["max_abs_err"])
+        if on_path:
+            for k in ("ms", "plain_ms", "bound_ms"):
+                st[k] += row[k]
+
+    def adamw_in(shape, offset=0, w_dtype=torch.float32,
+                 g_dtype=torch.float32, w_scale=0.05):
+        w, g = rnd(shape, w_scale, offset, w_dtype), rnd(shape, 1e-3, offset,
+                                                         g_dtype)
+        m = rnd(shape, 1e-4, offset)
+        v = rnd(shape, 1e-4, offset).square_()
+        mask = (torch.rand(shape, generator=gen, device="cuda") < 0.8) \
+            .float()
+        return w, g, m, v, mask
+
+    def adam8_in(shape, block, offset=0, w_dtype=torch.float32,
+                 g_dtype=torch.float32, full_mask=False):
+        w, g = rnd(shape, 0.05, offset, w_dtype), rnd(shape, 1e-3, offset,
+                                                      g_dtype)
+        m8, ms = ops.quantize(rnd(shape, 1e-4), block)
+        v8, vs = ops.quantize_log(rnd(shape, 3e-4).square_(), block)
+        if offset:
+            m8, v8 = (rnd(shape, 0, offset, torch.int8).copy_(t)
+                      for t in (m8, v8))
+        if full_mask:
+            mask = torch.rand(shape, generator=gen, device="cuda")
+        else:
+            mask = (torch.rand(shape[-1], generator=gen, device="cuda")
+                    < 0.8).to(torch.uint8)
+        return w, g, m8, v8, ms, vs, mask
+
+    def cost(key, shape, block=None):
+        n = math.prod(shape)
+        nbytes = NEW_BYTES[key] * n
+        if block:
+            nbytes += n // block * ADAM8_BLOCK_BYTES["fp32"]
+            if not key.endswith("update"):
+                nbytes += shape[-1]           # the (S,) uint8 decay row
+        return nbytes, NEW_FLOPS[key] * n
+
+    fp32_layers = (L, fp32_shards["layers"])
+    fp32_globals = (fp32_shards["globals"],)
+    a8_layers = (L, adam8_shards["layers"])
+    a8_globals = (adam8_shards["globals"],)
+    scale = torch.tensor(1 / 4094, dtype=torch.float32, device="cuda")
+    # row 8b, both formats: the path's shards, a ragged and a misaligned view
+    for fmt in FP8_FMTS:
+        for shape, offset, on_path in ((fp32_layers, 0, fmt == "fp8_e4m3"),
+                                       (fp32_globals, 0, fmt == "fp8_e4m3"),
+                                       (RAGGED_SHAPE, 0, False),
+                                       ((4096 * 256,), 1, False)):
+            t = adamw_in(shape, offset)
+            row = hold("adamw_fp8", {"shape": list(shape), "fmt": fmt,
+                                     "offset": offset},
+                       lambda: ops.adamw_store_update(*t, fmt=fmt, **kw),
+                       lambda: ref.adamw_store_update_ref(*t, scalars, fmt),
+                       *cost("adamw_fp8", shape), phase="kernel_fp8")
+            add("adamw_fp8", row, on_path)
+            del t
+            torch.cuda.empty_cache()
+    # row 8a on the bf16 store: bf16 w and g, the gradient scale in the pass
+    for shape in (fp32_layers, fp32_globals):
+        t = adamw_in(shape, 0, torch.bfloat16, torch.bfloat16)
+        row = hold("adamw_bf16", {"shape": list(shape), "fmt": "bf16",
+                                  "w": "bf16", "g": "bf16"},
+                   lambda: ops.adamw_store_update(*t, fmt="bf16",
+                                                  g_scale=scale, **kw),
+                   lambda: ref.adamw_store_update_ref(*t, scalars, "bf16",
+                                                      g_scale=scale),
+                   *cost("adamw_bf16", shape), phase="kernel_fp8")
+        add("adamw_bf16", row, True)
+        del t
+        torch.cuda.empty_cache()
+    # row 6: the standalone AdamW on each group's flat shard
+    for shape, on_path in (((math.prod(fp32_layers),), True),
+                           (fp32_globals, True), ((128 * 7813,), False)):
+        t = adamw_in(shape)
+        row = hold("adamw_update", {"shape": list(shape)},
+                   lambda: ops.adamw_update(*t, **kw),
+                   lambda: ref.adamw_update_ref(*t, scalars),
+                   *cost("adamw_update", shape), phase="kernel_fp8")
+        add("adamw_update", row, on_path)
+        del t
+        torch.cuda.empty_cache()
+    # row 9b, both formats: the adam8bit plan's shards, block 64, misaligned
+    for fmt in FP8_FMTS:
+        for shape, block, offset, on_path in (
+                (a8_layers, 1024, 0, fmt == "fp8_e5m2"),
+                (a8_globals, 1024, 0, fmt == "fp8_e5m2"),
+                ((2, 64 * 4096), 64, 0, False),
+                ((1, 1024 * 1024), 1024, 1, False)):
+            t = adam8_in(shape, block, offset)
+            row = hold("adam8bit_fp8", {"shape": list(shape), "fmt": fmt,
+                                        "block": block, "offset": offset},
+                       lambda: ops.adam8bit_store_update(*t, fmt=fmt,
+                                                         block=block, **kw),
+                       lambda: ref.adam8bit_store_update_ref(*t, scalars, fmt,
+                                                             block),
+                       *cost("adam8bit_fp8", shape, block),
+                       phase="kernel_fp8")
+            add("adam8bit_fp8", row, on_path)
+            del t
+            torch.cuda.empty_cache()
+    # row 9a on the bf16 store: bf16 w and g with the gradient scale
+    for shape in (a8_layers, a8_globals):
+        t = adam8_in(shape, 1024, 0, torch.bfloat16, torch.bfloat16)
+        row = hold("adam8bit_bf16", {"shape": list(shape), "fmt": "bf16",
+                                     "w": "bf16", "g": "bf16"},
+                   lambda: ops.adam8bit_store_update(*t, fmt="bf16",
+                                                     block=1024,
+                                                     g_scale=scale, **kw),
+                   lambda: ref.adam8bit_store_update_ref(
+                       *t, scalars, "bf16", 1024, g_scale=scale),
+                   *cost("adam8bit_bf16", shape, 1024), phase="kernel_fp8")
+        add("adam8bit_bf16", row, True)
+        del t
+        torch.cuda.empty_cache()
+    # row 7: the standalone 8-bit Adam, a full fp32 mask read per element
+    for shape, block in (((math.prod(a8_layers),), 1024), (a8_globals, 1024),
+                         ((64 * 5000,), 64)):
+        t = adam8_in(shape, block, full_mask=True)
+        row = hold("adam8bit_update", {"shape": list(shape), "block": block},
+                   lambda: ops.adam8bit_update(*t, block=block, **kw),
+                   lambda: ref.adam8bit_update_ref(*t, scalars, block),
+                   *cost("adam8bit_update", shape, block),
+                   phase="kernel_fp8")
+        add("adam8bit_update", row, block == 1024)
+        del t
+        torch.cuda.empty_cache()
+    # the boundary tensor through both fp8 epilogues: lr 0 keeps every
+    # finite master (inf and NaN masters turn NaN through 0 * inf); a
+    # second run at lr -2 overflows +-3e38 to +-inf
+    vals = torch.tensor(BOUNDARY + (3e38,), device="cuda")
+    w = torch.cat([vals, -vals] * 64)                  # 4,352 elements
+    n = w.numel()
+    z = torch.zeros_like(w)
+    for lr in (0.0, -2.0):
+        bkw = dict(kw, lr=lr)
+        bsc = ref.scalar_stack(*bkw.values())
+        for fmt in FP8_FMTS:
+            for name, run, plain in (
+                    ("adamw_fp8",
+                     lambda: ops.adamw_store_update(w, z, z, z, z + 1,
+                                                    fmt=fmt, **bkw),
+                     lambda: ref.adamw_store_update_ref(w, z, z, z, z + 1,
+                                                        bsc, fmt)),
+                    ("adam8bit_fp8",
+                     lambda: ops.adam8bit_store_update(
+                         w.view(1, n), z.view(1, n),
+                         *(torch.zeros(1, n, dtype=torch.int8,
+                                       device="cuda"),) * 2,
+                         *(torch.zeros(1, n // 64, device="cuda"),) * 2,
+                         torch.ones(n, dtype=torch.uint8, device="cuda"),
+                         fmt=fmt, block=64, **bkw),
+                     lambda: ref.adam8bit_store_update_ref(
+                         w.view(1, n), z.view(1, n),
+                         *(torch.zeros(1, n, dtype=torch.int8,
+                                       device="cuda"),) * 2,
+                         *(torch.zeros(1, n // 64, device="cuda"),) * 2,
+                         torch.ones(n, dtype=torch.uint8, device="cuda"),
+                         bsc, fmt, 64))):
+                got, want = run()[0], plain()[0]
+                torch.cuda.synchronize()
+                codes = got["codes"].reshape(-1).view(torch.uint8).cpu()
+                diff = max(int_view_diff(got[k], want[k])
+                           for k in ("codes", "master"))
+                encoded = int_view_diff(got["codes"], fp8_encode(
+                    got["master"], fmt))
+                row = {"phase": "kernel_fp8", "name": name + "_boundary",
+                       "fmt": fmt, "lr": lr, "n": n,
+                       "max_int_view_diff": diff,
+                       "codes_vs_encode_of_master": encoded,
+                       "codes": [int(c) for c in codes[:2 * len(vals)]]}
+                if lr == 0.0:
+                    # inf turns NaN through 0 * inf, and a NaN master's
+                    # sign is the arithmetic's: those entries must hold a
+                    # NaN code of either sign, the others the rule's code
+                    # with the value's sign
+                    nan_code = BOUNDARY_CODES[fmt][
+                        [math.isnan(v) for v in BOUNDARY].index(True)]
+                    ok = True
+                    for i, (v, c) in enumerate(zip(BOUNDARY,
+                                                   BOUNDARY_CODES[fmt])):
+                        for sign, got_c in ((0, int(codes[i])),
+                                            (0x80, int(codes[len(vals) + i]))):
+                            if math.isinf(v) or math.isnan(v):
+                                ok &= (got_c & 0x7F) == nan_code
+                            else:
+                                ok &= got_c == c | sign
+                    row["rule_ok"] = ok
+                else:
+                    inf = {"fp8_e4m3": (0x7F, 0xFF), "fp8_e5m2": (0x7C, 0xFC)}
+                    row["rule_ok"] = (int(codes[len(vals) - 1]),
+                                      int(codes[2 * len(vals) - 1])) \
+                        == inf[fmt]
+                emit(row)
+                if diff or encoded or not row["rule_ok"]:
+                    fail(f"{name} boundary tensor ({fmt}, lr {lr}): kernel "
+                         f"vs plain {diff}, codes vs encode {encoded}, rule "
+                         f"{row['rule_ok']}")
+    del w, z
+    torch.cuda.empty_cache()
+    return summary
+
+
+def phase_standalone(ops, fp32_shards: dict, adam8_shards: dict,
+                     steps: int) -> dict:
+    """The standalone updates as their user drives them: ``steps``
+    in-place steps on each gemma2-2b group's flat shard through
+    ``ops.adamw_update`` (the fp32 plan's shards) and
+    ``ops.adam8bit_update`` (the adam8bit plan's).  Returns the step times
+    (the caller reads the launch counts)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    out = {}
+    for name, shards in (("adamw_update", fp32_shards),
+                         ("adam8bit_update", adam8_shards)):
+        sizes = [TRAIN_LAYERS * shards["layers"], shards["globals"]]
+        state = []
+        for n in sizes:
+            w = torch.randn(n, generator=gen, device="cuda") * 0.05
+            mask = (torch.rand(n, generator=gen, device="cuda") < 0.8) \
+                .float()
+            if name == "adamw_update":
+                state.append((w, torch.zeros_like(w), torch.zeros_like(w),
+                              mask))
+            else:
+                state.append((w, torch.zeros(n, dtype=torch.int8,
+                                             device="cuda"),
+                              torch.zeros(n, dtype=torch.int8, device="cuda"),
+                              torch.zeros(n // 1024, device="cuda"),
+                              torch.zeros(n // 1024, device="cuda"), mask))
+        times = []
+        for step in range(steps):
+            t = step + 1
+            kw = dict(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, wd=0.1,
+                      c1=1 - 0.9 ** t, c2=1 - 0.95 ** t)
+            grads = [torch.randn(n, generator=gen, device="cuda") * 1e-3
+                     for n in sizes]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for st, g in zip(state, grads):
+                if name == "adamw_update":
+                    w, m, v, mask = st
+                    ops.adamw_update(w, g, m, v, mask, out=(w, m, v), **kw)
+                else:
+                    w, m8, v8, ms, vs, mask = st
+                    ops.adam8bit_update(w, g, m8, v8, ms, vs, mask,
+                                        block=1024,
+                                        out=(w, m8, v8, ms, vs), **kw)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            del grads
+        finite = all(bool(torch.isfinite(st[0]).all()) for st in state)
+        out[name] = {"step_ms": times, "finite": finite,
+                     "elements": sizes}
+        del state
+        torch.cuda.empty_cache()
+    return out
+
+
+def counted(mods) -> dict:
+    """Every kernel wrapper of the port, by the name its count goes by."""
+    fu, bq = mods["fused_update"], mods["blockwise_quant"]
+    return {"q8_matmul": mods["q8_matmul"].q8_matmul,
+            "adamw_store_update": fu.adamw_store_update,
+            "adamw_fp8": fu.adamw_fp8_update,
+            "adamw_q8": fu.adamw_q8_update,
+            "adamw_update": fu.adamw_update,
+            "adam8bit_store_update": fu.adam8bit_store_update,
+            "adam8bit_fp8": fu.adam8bit_fp8_update,
+            "adam8bit_q8": fu.adam8bit_q8_update,
+            "adam8bit_update": fu.adam8bit_update,
+            "quantize": bq.quantize,
+            "dequantize_into": bq.dequantize_into,
+            "dequantize": bq.dequantize,
+            "encode_ef": mods["encode_ef"].encode_ef}
+
+
 def launches_now(mods) -> dict:
-    fu = mods["fused_update"]
-    return {"q8_matmul": mods["q8_matmul"].q8_matmul.launches,
-            "adamw_store_update": fu.adamw_store_update.launches,
-            "adamw_q8": fu.adamw_q8_update.launches,
-            "adam8bit_store_update": fu.adam8bit_store_update.launches,
-            "adam8bit_q8": fu.adam8bit_q8_update.launches,
-            "quantize": mods["blockwise_quant"].quantize.launches,
-            "dequantize_into": mods["blockwise_quant"].dequantize_into
-            .launches,
-            "encode_ef": mods["encode_ef"].encode_ef.launches}
+    return {k: fn.launches for k, fn in counted(mods).items()}
 
 
 def reset_launches(mods) -> None:
-    mods["q8_matmul"].q8_matmul.launches = 0
-    mods["fused_update"].adamw_store_update.launches = 0
-    mods["fused_update"].adamw_q8_update.launches = 0
-    mods["fused_update"].adam8bit_store_update.launches = 0
-    mods["fused_update"].adam8bit_q8_update.launches = 0
-    mods["blockwise_quant"].quantize.launches = 0
-    mods["blockwise_quant"].dequantize_into.launches = 0
-    mods["encode_ef"].encode_ef.launches = 0
+    for fn in counted(mods).values():
+        fn.launches = 0
 
 
-def expected_q8_launches(rt, steps: int) -> dict:
+def expected_q8_launches(rt, steps: int, keys) -> dict:
     """What the q8 path must launch: quantize once per group at init; per
     step a dequantize_into per gather (a layer twice: forward and the
-    backward's re-gather; globals once) plus one per reduce-scatter (the
-    one-rank q8 route decodes the encoded cotangent), an encode_ef per
-    reduce-scatter (a layer once, globals once) and one update per group."""
+    backward's re-gather; globals once), an fp32 dequantize per
+    reduce-scatter (the one-rank q8 route decodes the encoded cotangent),
+    an encode_ef per reduce-scatter (a layer once, globals once) and one
+    update per group."""
     gathers = sum(2 * lo.n_layers if lo.n_layers else 1
                   for lo in rt.layouts.values())
     reduces = sum(lo.n_layers or 1 for lo in rt.layouts.values())
     groups = len(rt.layouts)
-    return {"q8_matmul": 0, "adamw_store_update": 0,
-            "adamw_q8": groups * steps,
-            "adam8bit_store_update": 0, "adam8bit_q8": 0,
-            "quantize": groups, "dequantize_into": (gathers + reduces) * steps,
-            "encode_ef": reduces * steps}
+    want = {k: 0 for k in keys}
+    want.update(adamw_q8=groups * steps, quantize=groups,
+                dequantize_into=gathers * steps, dequantize=reduces * steps,
+                encode_ef=reduces * steps)
+    return want
 
 
 def rel_l2(a, b) -> float:
@@ -727,11 +1103,12 @@ def main() -> None:
             "encode_ef": encode_ef, "q8_matmul": q8_matmul}
 
     def train(cfg, device, compute_dtype, stream, steps, schedule=None,
-              timings=None, seed=0):
+              timings=None, seed=0, check=None):
         """The quickstart loop through the public API; returns (metrics
         per step, step ms, runtime) and, into ``timings``, the set-up
-        seconds (runtime, init, optimizer state).  Batches are made and
-        placed outside the timed region."""
+        seconds (runtime, init, optimizer state); ``check(rt, params)``
+        sees the final state.  Batches are made and placed outside the
+        timed region."""
         t_setup = time.perf_counter()
         rt = FSDPRuntime(build_model(cfg), group,
                          compute_dtype=compute_dtype, device=device,
@@ -752,6 +1129,8 @@ def main() -> None:
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
             out.append({k: float(v) for k, v in m.items()})
+        if check is not None:
+            check(rt, params)
         return out, times, rt
 
     smi = nvidia_smi()
@@ -794,6 +1173,14 @@ def main() -> None:
             build_model(adam8_cfg), {"data": 1, "model": 1},
             CommSchedule(**ADAM8_Q8_SCHEDULE)).groups.items()}
     a8stats = phase_kernel_adam8(ops, ref, adam8_q8_shards)
+
+    # ---- 14. this slice's passes vs plain, the boundary tensor ----------
+    fp32_shards = {n: e.plan.shard_size for n, e in plan(
+        build_model(cfg), {"data": 1, "model": 1}).groups.items()}
+    fp8_adam8_shards = {n: e.plan.shard_size for n, e in plan(
+        build_model(adam8_cfg), {"data": 1, "model": 1},
+        CommSchedule(param_store="fp8_e5m2")).groups.items()}
+    fp8stats = phase_kernel_fp8(ops, ref, fp32_shards, fp8_adam8_shards)
 
     # ---- 6. fp32 path: gemma2-2b at full width, depth cut to 4 ---------
     group = init_local_group("cpu:gloo,cuda:nccl")
@@ -852,7 +1239,7 @@ def main() -> None:
                                      1 + TIMED_STEPS, q8_sched)
     q8_launches = launches_now(mods)
     q8_peak = torch.cuda.max_memory_allocated()
-    q8_want = expected_q8_launches(rt, len(q8_metrics))
+    q8_want = expected_q8_launches(rt, len(q8_metrics), q8_launches)
     shards = {n: lo.plan.shard_size for n, lo in rt.layouts.items()}
     for i, (m, ms) in enumerate(zip(q8_metrics, q8_times)):
         emit({"phase": "train_q8", "step": i, "warmup": i == 0,
@@ -987,22 +1374,102 @@ def main() -> None:
     del rt
     torch.cuda.empty_cache()
 
+    # ---- 16. the bf16 and fp8 stores: gemma2-2b as in 6 ----------------
+    fp8_launches = {}
+    for phase, (sched, opt_name) in FP8_SCHEDULES.items():
+        pcfg = dataclasses.replace(cfg, optimizer=opt_name)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(mods)
+        t0 = time.perf_counter()
+        p_metrics, p_times, rt = train(pcfg, "cuda", torch.bfloat16, stream,
+                                       1 + TIMED_STEPS, CommSchedule(**sched))
+        got = launches_now(mods)
+        fp8_launches[phase] = got
+        peak = torch.cuda.max_memory_allocated()
+        store = rt.layouts["layers"].store
+        kernel = {"fp8_e4m3": "adamw_fp8", "fp8_e5m2": "adam8bit_fp8",
+                  "bf16": "adamw_store_update"}[store.fmt]
+        want = {k: 0 for k in got}
+        want[kernel] = len(rt.layouts) * len(p_metrics)
+        shards = {n: lo.plan.shard_size for n, lo in rt.layouts.items()}
+        for i, (m, ms) in enumerate(zip(p_metrics, p_times)):
+            emit({"phase": phase, "step": i, "warmup": i == 0,
+                  "loss": m["loss"], "grad_norm": m["grad_norm"],
+                  "tokens": m["tokens"], "step_ms": ms,
+                  "tokens_per_s": tokens / (ms / 1e3)})
+        timed = p_times[1:]
+        emit({"phase": phase + "_summary", "schedule": sched,
+              "optimizer": opt_name, "shard_sizes": shards,
+              "setup_and_steps_s": time.perf_counter() - t0,
+              "step_ms_median": statistics.median(timed),
+              "tokens_per_s": tokens / (statistics.median(timed) / 1e3),
+              "max_memory_allocated": peak, "kernel_launches": got,
+              "expected_launches": want})
+        if got != want:
+            fail(f"{phase} launched {got}, expected {want}")
+        for m in p_metrics:
+            if not all(math.isfinite(m[k]) for k in ("loss", "grad_norm")):
+                fail(f"non-finite {phase} metrics {m}")
+        if abs(p_metrics[0]["loss"] - math.log(cfg.vocab)) > 1.0:
+            fail(f"first {phase} loss {p_metrics[0]['loss']} far from "
+                 f"ln(vocab) {math.log(cfg.vocab)}")
+        del rt
+        torch.cuda.empty_cache()
+
+    # ---- 15. the standalone updates through ops ------------------------
+    reset_launches(mods)
+    sa = phase_standalone(ops, fp32_shards, fp8_adam8_shards,
+                          1 + TIMED_STEPS)
+    sa_launches = launches_now(mods)
+    sa_want = {k: 0 for k in sa_launches}
+    sa_want.update(adamw_update=2 * (1 + TIMED_STEPS),
+                   adam8bit_update=2 * (1 + TIMED_STEPS))
+    emit({"phase": "standalone", **sa, "kernel_launches": sa_launches,
+          "expected_launches": sa_want})
+    if sa_launches != sa_want or not all(v["finite"] for v in sa.values()):
+        fail(f"standalone updates launched {sa_launches}, expected "
+             f"{sa_want} (finite: {[v['finite'] for v in sa.values()]})")
+
     # ---- 10. CPU (plain versions) vs card (kernels) --------------------
     small = get_config("gemma2-2b").reduced()
     moe_small = get_config(MOE).reduced()
-    for phase, model, sched, rtol in (
-            ("parity", small, None, PARITY_RTOL),
-            ("parity_q8", small, Q8_SCHEDULE, PARITY_Q8_RTOL),
-            ("parity_moe", moe_small, None, PARITY_RTOL),
-            ("parity_moe", moe_small, ADAM8_Q8_SCHEDULE, PARITY_Q8_RTOL)):
+    from repro_torch.quant.fp8 import fp8_encode
+
+    def codes_of_master(rt, params):
+        """On either device: every fp8 state's codes are bitwise the
+        encode of its master."""
+        for name, st in params.items():
+            fmt = rt.layouts[name].store.fmt
+            if fmt in FP8_FMTS and int_view_diff(
+                    st["codes"], fp8_encode(st["master"], fmt)):
+                fail(f"{name}: fp8 codes differ from the encode of the "
+                     f"master on {rt.device}")
+
+    parity_cases = [
+        ("parity", small, None, PARITY_RTOL),
+        ("parity_q8", small, Q8_SCHEDULE, PARITY_Q8_RTOL),
+        ("parity_moe", moe_small, None, PARITY_RTOL),
+        ("parity_moe", moe_small, ADAM8_Q8_SCHEDULE, PARITY_Q8_RTOL)]
+    parity_cases += [("parity_fp8", dataclasses.replace(small,
+                                                        optimizer=opt_name),
+                      sched, PARITY_FP8_RTOL)
+                     for sched, opt_name in FP8_SCHEDULES.values()]
+    for phase, model, sched, rtol in parity_cases:
         readings = []
         for seed in PARITY_SEEDS:
             data = SyntheticStream(DataConfig(model.vocab, 64, 8, seed=seed),
                                    model)
             runs = {dev: train(model, dev, torch.float32, data, 2,
                                sched and CommSchedule(**sched),
-                               seed=seed)[0]
+                               seed=seed, check=codes_of_master)[0]
                     for dev in ("cpu", "cuda")}
+            if phase == "parity":
+                for dev, first in runs.items():
+                    again = train(model, dev, torch.float32, data, 2,
+                                  seed=seed)[0]
+                    if again != first:
+                        fail(f"parity: seed {seed} is not bitwise "
+                             f"repeatable on {dev}: {first} then {again}")
             readings.append(max(abs(a[k] - b[k]) / abs(b[k])
                                 for a, b in zip(runs["cuda"], runs["cpu"])
                                 for k in ("loss", "grad_norm")))
@@ -1010,7 +1477,7 @@ def main() -> None:
               "optimizer": model.optimizer,
               "schedule": sched or "default", "compute": "float32",
               "seeds": list(PARITY_SEEDS), "max_rel_diff": readings,
-              "rtol": rtol})
+              "rtol": rtol, "repeated_bitwise": phase == "parity"})
         if not max(readings) <= rtol:
             fail(f"{phase}: CPU and card runs differ by {max(readings)} > "
                  f"{rtol}")
@@ -1176,7 +1643,7 @@ def main() -> None:
                 fail(f"parity_serve {model_cfg.name} {store}: CPU and card "
                      f"logits differ by {max(readings)} > {rtol}")
 
-    # ---- 14. kernels line, card, last line -----------------------------
+    # ---- the kernels line, the card, the last line ---------------------
     csrc = "src/repro_torch/kernels/csrc/"
 
     def entry(name, source, replaces, launches, st):
@@ -1198,6 +1665,9 @@ def main() -> None:
         entry("dequantize_into", "blockwise_quant.cu",
               "src/repro/kernels/blockwise_quant.py:66",
               q8_launches["dequantize_into"], q8stats["dequantize_into"]),
+        entry("dequantize", "blockwise_quant.cu",
+              "src/repro/kernels/blockwise_quant.py:144",
+              q8_launches["dequantize"], q8stats["dequantize"]),
         entry("encode_ef", "encode_ef.cu",
               "src/repro/kernels/encode_ef.py:30",
               q8_launches["encode_ef"], q8stats["encode_ef"]),
@@ -1210,6 +1680,19 @@ def main() -> None:
         entry("q8_matmul", "q8_matmul.cu",
               "src/repro/kernels/q8_matmul.py:81", serve_launches,
               q8mm_stats),
+        entry("adamw_store_update_fp8", "adamw_store_update.cu",
+              "src/repro/kernels/fused_update.py:93",
+              fp8_launches["train_fp8"]["adamw_fp8"], fp8stats["adamw_fp8"]),
+        entry("adam8bit_store_update_fp8", "adam8bit_store_update.cu",
+              "src/repro/kernels/fused_update.py:130",
+              fp8_launches["train_fp8_adam8"]["adam8bit_fp8"],
+              fp8stats["adam8bit_fp8"]),
+        entry("adamw_update", "adamw_store_update.cu",
+              "src/repro/kernels/adam_update.py:23",
+              sa_launches["adamw_update"], fp8stats["adamw_update"]),
+        entry("adam8bit_update", "adam8bit_store_update.cu",
+              "src/repro/kernels/adam8bit_update.py:50",
+              sa_launches["adam8bit_update"], fp8stats["adam8bit_update"]),
     ]})
     torch.distributed.destroy_process_group()
     print(smi, flush=True)

@@ -1,14 +1,16 @@
 """veScale-FSDP runtime over ``torch.distributed`` (port of
-``repro/core/fsdp.py``: the ZeRO-3 train step on the fp32 and q8_block
-stores, with cast or q8 gradient wires, and the ZeRO-3 serve steps).
+``repro/core/fsdp.py``: the ZeRO-3 train step on the fp32, bf16, fp8 and
+q8_block stores, with cast (fp8 among them) or q8 gradient wires, and the
+ZeRO-3 serve steps).
 
 ``FSDPRuntime`` wraps a model for a process group.  Construction lowers the
 ``ParallelConfig`` knobs (or ``schedule=``/``group_schedules=``/
 ``policies=``) onto a ``ShardingPlan``: per communication group the
 planner's RaggedShard placements (Algorithm 1) over the group's ranks and a
 flat DBuffer.  Rank r holds columns ``[r*S, (r+1)*S)`` of each group's
-buffer (``(L, S)`` for the layer stack, ``(S,)`` otherwise) as an fp32
-leaf tensor, the master; a q8_block store adds its int8 codes and fp32
+buffer (``(L, S)`` for the layer stack, ``(S,)`` otherwise) as a leaf
+tensor: the fp32 master (a bf16 store's leaf is its bf16 buffer); an fp8
+store adds its float8 codes, a q8_block store its int8 codes and fp32
 scales (``(L, S / block)``), and the q8 reduce wire an fp32 error-feedback
 residual ``reduce_ef`` (``(L, m * S)``).  The train step then:
 
@@ -21,10 +23,13 @@ residual ``reduce_ef`` (``(L, m * S)``).  The train step then:
     ``reduce_ef``);
   * all-reduces the token-sum loss and the token count over the batch
     axes, scales the gradients by ``1/max(tokens, 1)``, runs the
-    optimizer (one fused kernel per group, in place: a q8 store's codes and
-    scales are rewritten in the same pass) and reports the norm of the
-    scaled gradients -- the reference's order.  The residual is never
-    scaled and never counted in the norm.
+    optimizer (one fused kernel per group, in place: a q8 or fp8 store's
+    codes are rewritten in the same pass) and reports the norm of the
+    scaled gradients -- the reference's order.  The reference's ``g *
+    scale`` turns a bf16 gradient into fp32; the port keeps a bf16 store's
+    gradient bf16 and hands the scale to the fused update, which applies it
+    in fp32 (the same values, without a full-size fp32 copy).  The residual
+    is never scaled and never counted in the norm.
 
 The serve steps (``make_prefill_step``, ``make_decode_step``) run the
 model's ``prefill``/``decode`` under ``torch.inference_mode()``: each
@@ -56,6 +61,7 @@ from torch.utils.checkpoint import checkpoint
 from ..launch.mesh import mesh_axes
 from ..models.transformer import GroupDef
 from ..optim import make_optimizer
+from ..quant.fp8 import FP8_DTYPES
 from .dbuffer import DBuffer
 from .policy import PolicySet, ShardingPlan, plan as make_plan
 from .ragged import TensorSpec
@@ -204,18 +210,19 @@ class FSDPRuntime:
                requires_grad: bool = True, dtype=torch.float32
                ) -> torch.Tensor:
         """This rank's columns of a global host buffer, on the device (its
-        equal share of the last axis).  Masters are leaves that require
-        grad: the gather's backward fills their ``.grad``."""
+        equal share of the last axis), as ``dtype``.  Masters are leaves
+        that require grad: the gather's backward fills their ``.grad``."""
         cols = global_buf.shape[-1] // dist.get_world_size(self.group)
         local = global_buf[..., self.rank * cols:(self.rank + 1) * cols]
-        return torch.tensor(local, dtype=dtype,
-                            device=self.device).requires_grad_(requires_grad)
+        return _host_tensor(local, dtype).to(self.device).requires_grad_(
+            requires_grad)
 
     def init_params(self, seed: int = 0) -> dict[str, Any]:
         """Host-side init; every rank builds the global fp32 buffer, keeps
-        its shard on the device and builds its store state there (a q8
-        store quantizes it through ``ops.quantize``).  PARITY: BITWISE vs
-        the reference's ``init_params``."""
+        its shard on the device and builds its store state there (a bf16
+        store rounds it, an fp8 store encodes it, a q8 store quantizes it
+        through ``ops.quantize``).  PARITY: BITWISE vs the reference's
+        ``init_params``."""
         params = {}
         for name, lo in self.layouts.items():
             layers = list(range(lo.n_layers)) if lo.n_layers else [None]
@@ -266,10 +273,13 @@ class FSDPRuntime:
                 nll_g, w_g = stats.unbind()
                 grads = {n: p.grad for n, p in trainable.items()}
                 scale = 1.0 / torch.clamp(w_g, min=1.0)
+                # fp32 gradients are scaled in place; a bf16 one by the
+                # fused update (see the module docstring)
                 for g in grads.values():
-                    g.mul_(scale)
-                new_params, opt_state = optimizer.update(self, params, grads,
-                                                         opt_state, step)
+                    if g.dtype == torch.float32:
+                        g.mul_(scale)
+                new_params, opt_state = optimizer.update(
+                    self, params, grads, opt_state, step, grad_scale=scale)
                 # optimizers do not see the residual: re-attach it
                 for n in ef_groups:
                     new_params[n] = self.layouts[n].store.attach_ef(
@@ -278,7 +288,7 @@ class FSDPRuntime:
                 metrics = {
                     "loss": nll_g / torch.clamp(w_g, min=1.0),
                     "tokens": w_g,
-                    "grad_norm": _global_norm(self, grads),
+                    "grad_norm": _global_norm(self, grads, scale),
                 }
             return params, opt_state, step + 1, metrics
 
@@ -354,16 +364,40 @@ class FSDPRuntime:
         return step_fn
 
 
-def _global_norm(runtime: FSDPRuntime, grads) -> torch.Tensor:
+def _global_norm(runtime: FSDPRuntime, grads, scale) -> torch.Tensor:
     """sqrt of the sum over groups of each group's all-reduced sum of
-    squares (groups added in the reference's order)."""
-    sq = torch.stack([g.float().square().sum() for g in grads.values()])
+    squares of the scaled gradients (a bf16 gradient is scaled in fp32
+    here, as the fused update scales it; groups added in the reference's
+    order)."""
+    sq = torch.stack([(g.float() if g.dtype == torch.float32
+                       else g.float() * scale).square().sum()
+                      for g in grads.values()])
     dist.all_reduce(sq, group=runtime.group)
     return torch.sqrt(sum(sq.unbind()))
 
 
 _NUMPY_DTYPES = {torch.float32: np.dtype(np.float32),
                  torch.int8: np.dtype(np.int8)}
+# dtypes numpy lacks: their arrays (ml_dtypes' bfloat16 and float8, or the
+# raw bytes as uint16 / uint8) cross as integer views
+_RAW_DTYPES = {torch.bfloat16: np.uint16,
+               **{dt: np.uint8 for dt in FP8_DTYPES.values()}}
+
+
+def _host_tensor(a, dtype: torch.dtype) -> torch.Tensor:
+    """A host array as a CPU tensor of ``dtype``: a cast for the dtypes
+    numpy has, a bit-for-bit view for bfloat16 and float8 (the array must
+    hold that dtype or its raw bytes)."""
+    raw = _RAW_DTYPES.get(dtype)
+    if raw is None:
+        return torch.tensor(np.asarray(a), dtype=dtype)
+    a = np.ascontiguousarray(a)
+    name = str(dtype).split(".")[-1]
+    if a.dtype.name not in (name, np.dtype(raw).name):
+        raise ValueError(
+            f"a {dtype} leaf needs a {name} array (or its raw "
+            f"{np.dtype(raw).name} bytes), got {a.dtype}")
+    return torch.from_numpy(a.view(raw).copy()).view(dtype)
 
 
 def load_reference_state(runtime: FSDPRuntime, params: Mapping[str, Any],
@@ -371,10 +405,12 @@ def load_reference_state(runtime: FSDPRuntime, params: Mapping[str, Any],
                          = None):
     """Carry the reference runtime's state across: ``params`` is ``{group:
     state}`` as numpy arrays -- the global flat buffer (``(L, total)`` or
-    ``(total,)``) for a bare fp32 state, else the dict of the store's
-    leaves (``codes``, ``master``, ``scales``, ``reduce_ef``) at their
-    global shapes; ``opt_state`` optionally the optimizer's state ``{key:
-    {group: array}}`` at global shapes, checked against the state of the
+    ``(total,)``) for a bare fp32 or bf16 state, else the dict of the
+    store's leaves (``codes``, ``master``, ``scales``, ``reduce_ef``) at
+    their global shapes; bf16 buffers and fp8 codes are ml_dtypes arrays or
+    their raw uint16 / uint8 bytes, carried bit for bit; ``opt_state``
+    optionally the optimizer's state ``{key: {group: array}}`` at global
+    shapes, checked against the state of the
     config's optimizer (``state_shapes``): its keys, and per leaf its dtype
     and shape -- AdamW's fp32 ``m``, ``v`` at the buffer's shape, 8-bit
     Adam's int8 ``m8``, ``v8`` at the buffer's shape and fp32 ``ms``,
@@ -396,7 +432,8 @@ def load_reference_state(runtime: FSDPRuntime, params: Mapping[str, Any],
         state = params[name]
         check_state(lo.store, state, lo.global_shape(), f"params[{name!r}]")
         if lo.store.state_keys() is None:
-            new_params[name] = runtime._place(name, np.asarray(state))
+            new_params[name] = runtime._place(name, np.asarray(state), True,
+                                              lo.store.storage_dtype)
             continue
         new_params[name] = {
             k: runtime._place(name, np.asarray(state[k]), k == "master",

@@ -195,6 +195,23 @@ class GroupPlanEntry:
     def schedule(self) -> CommSchedule:
         return self.policy.to_schedule()
 
+    def param_bytes(self) -> int:
+        """Stored bytes per rank of this group's parameter state across its
+        layer stack: per element 4 (fp32), 2 (bf16), 5 (fp8 codes + fp32
+        master) or 5 + 4 / block (q8_block), plus 4 * m for the q8 reduce
+        wire's residual (m shard-lengths of fp32).  PARITY: BITWISE vs the
+        reference's ``GroupPlanEntry.param_bytes``."""
+        s = self.store
+        if s.quantized:
+            per_elem = 1 + 4 + 4.0 / s.block
+        elif s.fp8:
+            per_elem = 1 + 4
+        else:
+            per_elem = s.storage_dtype.itemsize
+        per_elem += 4.0 * s.ef_m
+        local = self.plan.shard_size if self.fsdp_axes else self.plan.total
+        return int(local * per_elem * (self.n_layers or 1))
+
 
 @dataclasses.dataclass(frozen=True)
 class ShardingPlan:

@@ -8,6 +8,15 @@ reduce-scatter that accumulates in ``reduce_dtype``, falling back to the
 wire dtype.  With bf16 compute the gradients therefore cross a bf16
 reduce-scatter and are cast to fp32 after it, on one rank as on many.
 
+It runs every parameter store of the reference (``param_store``):
+``"fp32"``, ``"bf16"`` (the bf16 buffer is the leaf and its gradient is
+bf16), ``"fp8_e4m3"``/``"fp8_e5m2"`` (fp8 codes beside the fp32 master:
+the all-gather moves the codes, so ``validate_for`` refuses a
+``gather_dtype`` beside them), and ``"q8_block"``.  Every dtype knob
+(``gather_dtype``, ``reduce_dtype``, ``reduce_wire``) also takes the fp8
+names: an fp8 cast wire, whose reduce-scatter sums the contributions as
+XLA:CPU does (in float16, in rank order) and rounds to fp8 once.
+
 It also runs block-wise quantized training:
 
   * ``param_store="q8_block"`` -- the group's state holds int8 codes and
@@ -29,8 +38,7 @@ Knobs the reference has and the port does not run yet raise
 ``NotImplementedError`` at construction, naming the ROADMAP item that will
 port them: ``prefetch``, ``keep_last_gathered``,
 ``reshard_after_forward=False``, ``gather_mode="ring"``,
-``reduce_mode="ring_acc"``, ``ring_chunk_elems``, ``sharded=False``, fp8
-wire dtypes and the bf16 and fp8 stores.
+``reduce_mode="ring_acc"``, ``ring_chunk_elems`` and ``sharded=False``.
 """
 from __future__ import annotations
 
@@ -39,8 +47,8 @@ from collections.abc import Mapping
 
 import torch
 
-from .wire import (CAST_FORMATS, STORE_FORMATS, WireCodec, check_wire_format,
-                   fmt_of_dtype)
+from .wire import (CAST_FORMATS, FP8_FORMATS, STORE_FORMATS, WireCodec,
+                   check_wire_format, fmt_of_dtype)
 
 _DTYPES = {
     "bf16": torch.bfloat16,
@@ -48,9 +56,8 @@ _DTYPES = {
     "fp32": torch.float32,
     "f32": torch.float32,
     "float32": torch.float32,
+    **{name: CAST_FORMATS[name] for name in FP8_FORMATS},
 }
-# dtype names the reference accepts where its JAX provides float8
-_FP8_NAMES = ("fp8_e4m3", "fp8_e5m2")
 
 _GATHER_MODES = ("xla", "ring")
 _REDUCE_MODES = ("match", "ring_acc")
@@ -66,14 +73,10 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 def _check_name(name: str | None) -> None:
-    if name is None:
-        return
-    if name in _FP8_NAMES:
-        raise _not_ported(f"the {name} wire dtype", "Queue 1 item 9")
-    if name not in _DTYPES:
+    if name is not None and name not in _DTYPES:
         raise ValueError(
             f"unknown schedule dtype {name!r}; expected one of "
-            f"{sorted(_DTYPES) + list(_FP8_NAMES)}")
+            f"{sorted(_DTYPES)}")
 
 
 def _resolve(name: str | None, default: torch.dtype) -> torch.dtype:
@@ -146,8 +149,6 @@ class CommSchedule:
              "Queue 1 item 10"),
             (not self.sharded, "sharded=False (replicated groups)",
              "Queue 1 item 10"),
-            (self.param_store not in ("fp32", "q8_block"),
-             f"param_store={self.param_store!r}", "Queue 1 item 9"),
         )
         for hit, what, item in unported:
             if hit:
@@ -222,6 +223,11 @@ class CommSchedule:
                 "param_store='q8_block' fixes the all-gather payload (int8 "
                 "codes + fp32 scales); gather_dtype must stay None, got "
                 f"{self.gather_dtype!r}")
+        if self.param_store in FP8_FORMATS and self.gather_dtype is not None:
+            raise ValueError(
+                f"param_store={self.param_store!r} fixes the all-gather "
+                "payload (the fp8 codes themselves); gather_dtype must "
+                f"stay None, got {self.gather_dtype!r}")
         if self.serve_quant_matmul and self.param_store != "q8_block":
             raise ValueError(
                 "serve_quant_matmul runs the int8 GEMM on gathered q8_block "

@@ -1,9 +1,18 @@
 """ParamStore: the storage format of a group's sharded parameter buffer
-(port of the fp32 and ``q8_block`` branches of ``repro/core/store.py``).
+(port of ``repro/core/store.py``).
 
   * ``fp32`` -- one fp32 flat buffer; master weights == stored weights.
     Without a residual the state is the bare rank-local tensor, as in the
     reference.
+  * ``bf16`` -- one bf16 flat buffer, the leaf itself (half the parameter
+    memory; its gradient is bf16 too).  The optimizer computes in fp32 and
+    rounds w' back to bf16 in its fused pass.
+  * ``fp8_e4m3`` / ``fp8_e5m2`` -- float8 codes beside the fp32 master,
+    state ``{"codes", "master"}``: the all-gather moves the codes (1 B an
+    element, no scales) and decodes them with one cast; the gradient
+    reduce-scatters to the master, which the optimizer updates and
+    re-encodes (``quant.fp8`` semantics) in one fused pass.  Scale-free, so
+    no planner alignment.
   * ``q8_block`` -- block-wise INT8 codes + one fp32 absmax scale per
     ``block`` elements, beside the fp32 master.  The all-gather moves the
     codes and scales and decodes them locally; the gradient reduce-scatters
@@ -19,10 +28,10 @@ The master is the leaf that requires grad; codes, scales and the residual
 do not.  Where the reference threads the residual through ``jax.grad``
 (its updated value comes back as the residual's cotangent), the port's
 gather backward writes it into the ``reduce_ef`` tensor in place, so
-``trainable`` is the master alone.  The bf16 and fp8 stores come with
-ROADMAP Queue 1 item 9.
+``trainable`` is the master alone.
 
-PARITY: BITWISE -- ``create`` is the identity on the fp32 buffer and
+PARITY: BITWISE -- ``create`` is the identity on the fp32 buffer, a
+round-to-nearest-even cast for bf16, ``quant.fp8.fp8_encode`` for fp8 and
 ``ops.quantize`` on the master (per-shard quantization equals the
 reference's global-buffer one because the planner aligns the shard size to
 the block); ``gather`` dispatches over the wire primitives, whose classes
@@ -36,18 +45,18 @@ from typing import Any, Mapping
 import torch
 
 from ..kernels import ops
+from ..quant.fp8 import FP8_DTYPES, fp8_encode
 from .schedule import CommSchedule
-from .wire import STORE_FORMATS, WireCodec, codec_gather, payload_all_gather, \
-    q8_gather
+from .wire import (STORE_FORMATS, WireCodec, codec_gather, fp8_gather,
+                   payload_all_gather, q8_gather)
 
 # q8_block state keys, in the reference's (tree-sorted) order; a state with
 # a residual appends EF_KEY (see ``state_keys``)
 Q8_KEYS = ("codes", "master", "scales")
+# fp8 state keys: float8 codes + fp32 master, no scales
+FP8_KEYS = ("codes", "master")
 # the reduce-wire error-feedback residual leaf (fp32, contribution-sized)
 EF_KEY = "reduce_ef"
-
-_LEAF_DTYPES = {"codes": torch.int8, "master": torch.float32,
-                "scales": torch.float32, EF_KEY: torch.float32}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,10 +72,6 @@ class ParamStore:
             raise ValueError(
                 f"unknown param_store {self.fmt!r}; expected one of "
                 f"{list(STORE_FORMATS)}")
-        if self.fmt not in ("fp32", "q8_block"):
-            raise NotImplementedError(
-                f"param_store={self.fmt!r} is not ported yet (ROADMAP "
-                f"Queue 1 item 9)")
         if self.block < 1:
             raise ValueError(f"quant block must be >= 1, got {self.block}")
         if self.ef_m < 0:
@@ -80,8 +85,25 @@ class ParamStore:
         return self.fmt == "q8_block"
 
     @property
+    def fp8(self) -> bool:
+        """True for the float8 code + master formats."""
+        return self.fmt in FP8_DTYPES
+
+    @property
+    def fp8_dtype(self) -> torch.dtype:
+        """The float8 code dtype of an fp8 store."""
+        if not self.fp8:
+            raise ValueError(f"fp8_dtype on a {self.fmt!r} store")
+        return FP8_DTYPES[self.fmt]
+
+    @property
     def has_ef(self) -> bool:
         return self.ef_m > 0
+
+    @property
+    def storage_dtype(self) -> torch.dtype:
+        """Dtype of the trainable buffer (the leaf the gradient targets)."""
+        return torch.bfloat16 if self.fmt == "bf16" else torch.float32
 
     def align(self) -> int:
         """Planner alignment this store needs: a quantized store, and a
@@ -91,14 +113,23 @@ class ParamStore:
 
     def state_keys(self) -> tuple[str, ...] | None:
         """Leaf names of a dict state (None: the state is a bare tensor)."""
-        keys = Q8_KEYS if self.quantized else (
-            ("master",) if self.has_ef else None)
+        if self.quantized:
+            keys = Q8_KEYS
+        elif self.fp8:
+            keys = FP8_KEYS
+        else:
+            keys = ("master",) if self.has_ef else None
         if keys is None:
             return None
         return keys + ((EF_KEY,) if self.has_ef else ())
 
     def leaf_dtype(self, key: str) -> torch.dtype:
-        return _LEAF_DTYPES[key]
+        if key == "codes":
+            return self.fp8_dtype if self.fp8 else torch.int8
+        if key == "master":
+            return torch.float32 if (self.quantized or self.fp8) \
+                else self.storage_dtype
+        return {"scales": torch.float32, EF_KEY: torch.float32}[key]
 
     def leaf_shape(self, key: str, shape: tuple[int, ...]
                    ) -> tuple[int, ...]:
@@ -119,13 +150,19 @@ class ParamStore:
     # construction
     # ------------------------------------------------------------------ #
     def create(self, master: torch.Tensor):
-        """State from this rank's fp32 master shard, on its device: the
-        shard itself for fp32, else a dict whose codes and scales come from
-        ``ops.quantize`` (the kernel, on a card) and whose residual starts
-        at zero."""
+        """State from this rank's fp32 master shard (a leaf that requires
+        grad), on its device: the shard itself for fp32, its bf16 rounding
+        (a new leaf) for bf16, else a dict whose codes come from
+        ``fp8_encode`` or, with scales, from ``ops.quantize`` (the kernel,
+        on a card) and whose residual starts at zero."""
+        if self.fmt == "bf16":
+            master = master.detach().to(torch.bfloat16).requires_grad_(
+                master.requires_grad)
         if not self.state_keys():
             return master
         state = {"master": master}
+        if self.fp8:
+            state["codes"] = fp8_encode(master.detach(), self.fmt)
         if self.quantized:
             with torch.no_grad():
                 state["codes"], state["scales"] = ops.quantize(
@@ -145,8 +182,8 @@ class ParamStore:
         return state["master"] if isinstance(state, dict) else state
 
     def frozen(self, state):
-        """The rest of the state: the q8 codes and scales and the residual
-        (None for a bare fp32 state)."""
+        """The rest of the state: the q8 or fp8 codes, the q8 scales and
+        the residual (None for a bare state)."""
         if not isinstance(state, dict):
             return None
         return {k: v for k, v in state.items() if k != "master"}
@@ -160,7 +197,8 @@ class ParamStore:
 
     def wrap_core(self, core):
         """A rebuilt core (the fused update's output: a bare tensor, or the
-        q8 ``{"codes", "master", "scales"}`` dict) as this store's state,
+        q8 ``{"codes", "master", "scales"}`` or fp8 ``{"codes", "master"}``
+        dict) as this store's state,
         minus the residual (``attach_ef`` re-attaches it)."""
         if self.has_ef and not isinstance(core, dict):
             return {"master": core}
@@ -191,6 +229,9 @@ class ParamStore:
                 p = self.gather_payload(state, group)
                 return ops.dequantize_into(p["codes"], p["scales"],
                                            self.block, out_dtype=compute_dtype)
+            if self.fp8:
+                return payload_all_gather(state["codes"], group).to(
+                    compute_dtype)
             codec = sched.gather_codec(compute_dtype)
             return codec.decode(payload_all_gather(
                 codec.encode(self.trainable(state)), group), compute_dtype)
@@ -200,6 +241,9 @@ class ParamStore:
             return q8_gather(state["master"], state["codes"], state["scales"],
                              grad_sink, group, self.block, rcodec,
                              compute_dtype, ef)
+        if self.fp8:
+            return fp8_gather(state["master"], state["codes"], grad_sink,
+                              group, rcodec, compute_dtype, ef)
         return codec_gather(self.trainable(state), grad_sink, group,
                             sched.gather_codec(compute_dtype), rcodec,
                             compute_dtype, ef)
@@ -220,7 +264,10 @@ class ParamStore:
     # ------------------------------------------------------------------ #
     def wire_bytes(self, n_elements: int, wire_dtype: torch.dtype) -> int:
         """Bytes one all-gather of an ``n_elements`` buffer puts on the
-        wire in this format (per gathered copy)."""
+        wire in this format (per gathered copy): an fp8 store ships its
+        1-byte codes."""
+        if self.fp8:
+            return n_elements * self.fp8_dtype.itemsize
         if not self.quantized:
             return n_elements * wire_dtype.itemsize
         return WireCodec("q8_block", self.block).wire_bytes(n_elements)

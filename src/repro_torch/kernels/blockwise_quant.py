@@ -82,11 +82,9 @@ def quantize(x: torch.Tensor, block: int):
     return codes, scales
 
 
-def dequantize_into(codes: torch.Tensor, scales: torch.Tensor, block: int,
-                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Launch the dequantize-into kernel: int8 ``codes`` (..., n) and f32
-    ``scales`` (..., n // block) on one card -> ``out_dtype`` (fp32 or
-    bf16) in one pass."""
+def _dequantize(codes: torch.Tensor, scales: torch.Tensor, block: int,
+                out_dtype: torch.dtype) -> torch.Tensor:
+    """Check and launch the dequantize-into kernel (no launch count)."""
     n = codes.shape[-1]
     _check_blocking(n, block, "dequantize")
     _check_scales(n, block, scales.shape[-1], "dequantize")
@@ -110,10 +108,30 @@ def dequantize_into(codes: torch.Tensor, scales: torch.Tensor, block: int,
     _raise_on(fn(codes.data_ptr(), scales.data_ptr(), out.data_ptr(),
                  int(out_dtype == torch.bfloat16), codes.numel() // block,
                  block, stream), "dequantize")
+    return out
+
+
+def dequantize_into(codes: torch.Tensor, scales: torch.Tensor, block: int,
+                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Launch the dequantize-into kernel: int8 ``codes`` (..., n) and f32
+    ``scales`` (..., n // block) on one card -> ``out_dtype`` (fp32 or
+    bf16) in one pass (the gather's decode)."""
+    out = _dequantize(codes, scales, block, out_dtype)
     dequantize_into.launches += 1
+    return out
+
+
+def dequantize(codes: torch.Tensor, scales: torch.Tensor,
+               block: int) -> torch.Tensor:
+    """The fp32 case of the same kernel (the reference's ``dequantize`` at
+    ``:144``, which calls ``dequantize_into``: the q8 reduce route's
+    decode), its launches counted apart."""
+    out = _dequantize(codes, scales, block, torch.float32)
+    dequantize.launches += 1
     return out
 
 
 # launches of each kernel in this process (the main path's proof of route)
 quantize.launches = 0
 dequantize_into.launches = 0
+dequantize.launches = 0

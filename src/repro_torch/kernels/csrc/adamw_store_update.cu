@@ -1,24 +1,36 @@
 // Fused AdamW step + ParamStore epilogue for Hopper (sm_90a).
 //
-// Replaces two Pallas TPU kernels of repro/kernels/fused_update.py, both on
-// the math core _adam_math, launched by adamw_store_update:
-//   _adamw_flat_kernel (launched at :255) for the fp32 and bf16 stores;
-//   _adamw_q8_kernel   (launched at :198) for the q8_block store: the same
-//                      step, then the blockwise requantize of w'
-//                      (_requant, repro/kernels/adam8bit_update.py:25).
-// The flat epilogue is described first; the q8 one follows at adamw_q8.
+// Replaces four Pallas TPU kernels of the reference, all on the math core
+// _adam_math:
+//   _adamw_flat_kernel (repro/kernels/fused_update.py:85, launched at :255)
+//                      for the fp32 and bf16 stores;
+//   _adamw_fp8_kernel  (fused_update.py:93, launched at :242) for the fp8
+//                      stores: the fp8 codes of w' and the fp32 master w';
+//   _adamw_q8_kernel   (fused_update.py:102, launched at :198) for the
+//                      q8_block store: the same step, then the blockwise
+//                      requantize of w' (_requant, adam8bit_update.py:25);
+//   _adamw_kernel      (repro/kernels/adam_update.py:23, launched at :51):
+//                      the standalone adamw_update, the flat fp32 epilogue
+//                      on (n,), n % 128 == 0, behind its own launcher.
+// The flat and fp8 epilogues are described first; the q8 one follows at
+// adamw_q8.
 //
 // What it computes: the Adam step of adam.cuh per element, bitwise equal to
-// the plain PyTorch version (kernels/ref.py); it writes w' as fp32 or as
-// bf16 (round to nearest even), m' and v' as fp32.
+// the plain PyTorch version (kernels/ref.py).  w and g are read as fp32 or
+// bf16 (a bf16 store hands both over in bf16; g may carry the train step's
+// gradient scale, applied in fp32 as the reference's g * scale); it writes
+// w' as fp32 or bf16 (round to nearest even), or as the fp8 codes of w'
+// (fp8.cuh, the reference's overflow rule) plus the fp32 master, and m', v'
+// as fp32.
 //
-// Bound: memory.  Each element reads w, g, m, v, mask (20 B) and writes w',
-// m', v' (12 B fp32 / 10 B bf16): 32 B or 30 B per element against ~15
-// flops, far below Hopper's flop-per-byte balance.  The design moves each
-// byte once: one grid-stride pass, 16-byte vector loads and stores when
-// every pointer is 16-byte aligned and n % 4 == 0, a scalar pass otherwise.
-// The reference pads the tail to 128 lanes (a TPU tiling artifact); here
-// the scalar path covers any n without padding.
+// Bound: memory.  Each element reads w, g, m, v, mask and writes w', m', v'
+// (and a code): 32 B (fp32), 26 B (bf16 store: bf16 w, g and w'), 33 B
+// (fp8: 1 B of code beside the fp32 master) against ~16 flops, far below
+// Hopper's flop-per-byte balance.  The design moves each byte once: one
+// grid-stride pass, 16-byte fp32 (8-byte bf16, 4-byte code) vector accesses
+// when every pointer is aligned for them and n % 4 == 0, a scalar pass
+// otherwise.  The reference pads the tail to 128 lanes (a TPU tiling
+// artifact); here the scalar path covers any n without padding.
 //
 // Outputs may alias inputs (w_out == w, m_out == m, v_out == v): every
 // element is read before it is written, by the same thread, so no pointer is
@@ -30,6 +42,7 @@
 
 #include "adam.cuh"
 #include "blockwise.cuh"
+#include "fp8.cuh"
 
 namespace {
 
@@ -37,54 +50,50 @@ using adam::Scalars;
 using adam::adam_math;
 using adam::make_scalars;
 
-template <bool kBf16>
-__device__ __forceinline__ void store_w(void* w_out, int64_t i, float x) {
-  if (kBf16) {
-    reinterpret_cast<__nv_bfloat16*>(w_out)[i] = __float2bfloat16_rn(x);
-  } else {
-    reinterpret_cast<float*>(w_out)[i] = x;
+// the flat epilogues: w' as fp32, bf16, or fp8 codes + the fp32 master
+enum Out : int { kOutF32 = 0, kOutBf16 = 1, kOutE4M3 = 2, kOutE5M2 = 3 };
+
+template <int OUT>
+struct OutType { using T = float; };
+template <>
+struct OutType<kOutBf16> { using T = __nv_bfloat16; };
+
+template <int OUT, int V>
+__device__ __forceinline__ void store_out(void* w_out, uint8_t* codes, int64_t i,
+                                          const float (&wo)[V]) {
+  using T = typename OutType<OUT>::T;
+  bq::store<V>(reinterpret_cast<T*>(w_out) + i, wo);
+  if (OUT == kOutE4M3 || OUT == kOutE5M2) {
+    fp8::store_codes<OUT == kOutE4M3 ? fp8::kE4M3 : fp8::kE5M2, V>(codes + i, wo);
   }
 }
 
-template <bool kBf16>
-__global__ void adamw_flat_scalar(const float* w, const float* g, const float* m,
-                                  const float* v, const float* mask, void* w_out,
-                                  float* m_out, float* v_out, int64_t n, Scalars s) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    float w2, m2, v2;
-    adam_math(s, w[i], g[i], m[i], v[i], mask[i], w2, m2, v2);
-    store_w<kBf16>(w_out, i, w2);
-    m_out[i] = m2;
-    v_out[i] = v2;
-  }
-}
-
-template <bool kBf16>
-__global__ void adamw_flat_vec4(const float4* w, const float4* g, const float4* m,
-                                const float4* v, const float4* mask, void* w_out,
-                                float4* m_out, float4* v_out, int64_t n4, Scalars s) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4; i += stride) {
-    const float4 wi = w[i], gi = g[i], mi = m[i], vi = v[i], ki = mask[i];
-    float4 wo, mo, vo;
-    adam_math(s, wi.x, gi.x, mi.x, vi.x, ki.x, wo.x, mo.x, vo.x);
-    adam_math(s, wi.y, gi.y, mi.y, vi.y, ki.y, wo.y, mo.y, vo.y);
-    adam_math(s, wi.z, gi.z, mi.z, vi.z, ki.z, wo.z, mo.z, vo.z);
-    adam_math(s, wi.w, gi.w, mi.w, vi.w, ki.w, wo.w, mo.w, vo.w);
-    if (kBf16) {
-      // four bf16 values in one 8-byte store
-      __nv_bfloat162 lo = __floats2bfloat162_rn(wo.x, wo.y);
-      __nv_bfloat162 hi = __floats2bfloat162_rn(wo.z, wo.w);
-      uint2 packed;
-      packed.x = *reinterpret_cast<uint32_t*>(&lo);
-      packed.y = *reinterpret_cast<uint32_t*>(&hi);
-      reinterpret_cast<uint2*>(w_out)[i] = packed;
-    } else {
-      reinterpret_cast<float4*>(w_out)[i] = wo;
+// V consecutive elements per step (V = 4: vector accesses, V = 1: scalar);
+// i counts elements
+template <int V, typename TW, typename TG, int OUT>
+__global__ void adamw_flat(const TW* w, const TG* g, const float* m, const float* v,
+                           const float* mask, void* w_out, uint8_t* codes,
+                           float* m_out, float* v_out, int64_t n, Scalars s,
+                           const float* g_scale) {
+  const bool scaled = g_scale != nullptr;
+  const float gs = scaled ? *g_scale : 1.f;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x * V;
+  for (int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * V; i < n;
+       i += stride) {
+    float wi[V], gi[V], mi[V], vi[V], ki[V], wo[V], mo[V], vo[V];
+    bq::load<V>(w + i, wi);
+    bq::load<V>(g + i, gi);
+    bq::load<V>(m + i, mi);
+    bq::load<V>(v + i, vi);
+    bq::load<V>(mask + i, ki);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const float gk = scaled ? __fmul_rn(gi[k], gs) : gi[k];
+      adam_math(s, wi[k], gk, mi[k], vi[k], ki[k], wo[k], mo[k], vo[k]);
     }
-    m_out[i] = mo;
-    v_out[i] = vo;
+    store_out<OUT, V>(w_out, codes, i, wo);
+    bq::store<V>(m_out + i, mo);
+    bq::store<V>(v_out + i, vo);
   }
 }
 
@@ -95,27 +104,54 @@ inline bool aligned16(const void* p) {
 constexpr int kThreads = 256;
 constexpr int64_t kMaxBlocks = 132 * 32;  // H100: 132 SMs, grid-stride beyond
 
-template <bool kBf16>
-void launch(const float* w, const float* g, const float* m, const float* v,
-            const float* mask, void* w_out, float* m_out, float* v_out,
-            int64_t n, const Scalars& s, cudaStream_t stream) {
-  const bool vec = (n % 4 == 0) && aligned16(w) && aligned16(g) && aligned16(m) &&
-                   aligned16(v) && aligned16(mask) && aligned16(m_out) &&
-                   aligned16(v_out) &&
-                   ((reinterpret_cast<uintptr_t>(w_out) & (kBf16 ? 7u : 15u)) == 0);
+template <typename TW, typename TG, int OUT>
+cudaError_t launch(const void* w, const void* g, const float* m, const float* v,
+                   const float* mask, void* w_out, void* codes, float* m_out,
+                   float* v_out, int64_t n, const Scalars& s, const float* g_scale,
+                   cudaStream_t stream) {
+  const bool fp8_out = OUT == kOutE4M3 || OUT == kOutE5M2;
+  const bool vec = (n % 4 == 0) && bq::aligned(w, 4 * sizeof(TW)) &&
+                   bq::aligned(g, 4 * sizeof(TG)) && aligned16(m) && aligned16(v) &&
+                   aligned16(mask) && aligned16(m_out) && aligned16(v_out) &&
+                   bq::aligned(w_out, 4 * sizeof(typename OutType<OUT>::T)) &&
+                   (!fp8_out || bq::aligned(codes, 4));
   const int64_t work = vec ? n / 4 : n;
   int64_t blocks = (work + kThreads - 1) / kThreads;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   if (blocks < 1) blocks = 1;
+  const TW* wp = reinterpret_cast<const TW*>(w);
+  const TG* gp = reinterpret_cast<const TG*>(g);
+  uint8_t* cp = reinterpret_cast<uint8_t*>(codes);
   if (vec) {
-    adamw_flat_vec4<kBf16><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        reinterpret_cast<const float4*>(w), reinterpret_cast<const float4*>(g),
-        reinterpret_cast<const float4*>(m), reinterpret_cast<const float4*>(v),
-        reinterpret_cast<const float4*>(mask), w_out,
-        reinterpret_cast<float4*>(m_out), reinterpret_cast<float4*>(v_out), work, s);
+    adamw_flat<4, TW, TG, OUT><<<(unsigned)blocks, kThreads, 0, stream>>>(
+        wp, gp, m, v, mask, w_out, cp, m_out, v_out, n, s, g_scale);
   } else {
-    adamw_flat_scalar<kBf16><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        w, g, m, v, mask, w_out, m_out, v_out, n, s);
+    adamw_flat<1, TW, TG, OUT><<<(unsigned)blocks, kThreads, 0, stream>>>(
+        wp, gp, m, v, mask, w_out, cp, m_out, v_out, n, s, g_scale);
+  }
+  return cudaGetLastError();
+}
+
+template <typename TW, typename TG>
+cudaError_t dispatch_out(int out, const void* w, const void* g, const float* m,
+                         const float* v, const float* mask, void* w_out, void* codes,
+                         float* m_out, float* v_out, int64_t n, const Scalars& s,
+                         const float* g_scale, cudaStream_t st) {
+  switch (out) {
+    case kOutF32:
+      return launch<TW, TG, kOutF32>(w, g, m, v, mask, w_out, codes, m_out, v_out,
+                                     n, s, g_scale, st);
+    case kOutBf16:
+      return launch<TW, TG, kOutBf16>(w, g, m, v, mask, w_out, codes, m_out, v_out,
+                                      n, s, g_scale, st);
+    case kOutE4M3:
+      return launch<TW, TG, kOutE4M3>(w, g, m, v, mask, w_out, codes, m_out, v_out,
+                                      n, s, g_scale, st);
+    case kOutE5M2:
+      return launch<TW, TG, kOutE5M2>(w, g, m, v, mask, w_out, codes, m_out, v_out,
+                                      n, s, g_scale, st);
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 
@@ -183,27 +219,56 @@ cudaError_t launch_q8(const float* w, const float* g, const float* m, const floa
 
 }  // namespace
 
-// Plain C entry point of the flat epilogue, loaded with ctypes.  Pointers
-// are device pointers of contiguous tensors of n elements (w, g, m, v, mask, m_out, v_out fp32;
-// w_out fp32, or bf16 when out_bf16 != 0).  Launches on `stream` and returns
-// cudaGetLastError() (0 on success); it never synchronises.
-extern "C" int adamw_store_update_launch(const float* w, const float* g,
+// Plain C entry point of the flat and fp8 epilogues, loaded with ctypes.
+// Pointers are device pointers of contiguous tensors of n elements: w (bf16
+// when w_bf16 != 0, else fp32), g (bf16 when g_bf16 != 0, else fp32), m, v,
+// mask, m_out, v_out (fp32); w_out fp32 for out 0, 2 and 3 (the master), bf16
+// for out 1; codes (uint8, read for out 2 = e4m3 and 3 = e5m2 only).
+// g_scale: null, or a device pointer to one fp32 the gradient is multiplied
+// by.  Launches on `stream` and returns cudaGetLastError() (0 on success);
+// it never synchronises.
+extern "C" int adamw_store_update_launch(const void* w, const void* g,
                                          const float* m, const float* v,
                                          const float* mask, void* w_out,
-                                         float* m_out, float* v_out,
+                                         void* codes, float* m_out, float* v_out,
                                          long long n, float lr, float b1,
                                          float b2, float eps, float wd,
-                                         float c1, float c2, int out_bf16,
-                                         void* stream) {
+                                         float c1, float c2, int w_bf16,
+                                         int g_bf16, int out,
+                                         const float* g_scale, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   const Scalars s = make_scalars(lr, b1, b2, eps, wd, c1, c2);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (out_bf16) {
-    launch<true>(w, g, m, v, mask, w_out, m_out, v_out, (int64_t)n, s, st);
-  } else {
-    launch<false>(w, g, m, v, mask, w_out, m_out, v_out, (int64_t)n, s, st);
+  const int64_t nn = (int64_t)n;
+  if (w_bf16) {
+    return (int)(g_bf16 ? dispatch_out<__nv_bfloat16, __nv_bfloat16>(
+                              out, w, g, m, v, mask, w_out, codes, m_out, v_out, nn,
+                              s, g_scale, st)
+                        : dispatch_out<__nv_bfloat16, float>(
+                              out, w, g, m, v, mask, w_out, codes, m_out, v_out, nn,
+                              s, g_scale, st));
   }
-  return (int)cudaGetLastError();
+  return (int)(g_bf16 ? dispatch_out<float, __nv_bfloat16>(
+                            out, w, g, m, v, mask, w_out, codes, m_out, v_out, nn, s,
+                            g_scale, st)
+                      : dispatch_out<float, float>(out, w, g, m, v, mask, w_out,
+                                                   codes, m_out, v_out, nn, s,
+                                                   g_scale, st));
+}
+
+// Plain C entry point of the standalone adamw_update (the reference's
+// _adamw_kernel): every buffer fp32 of n elements, the fp32 flat epilogue.
+// Its own entry point, so that its launches are counted apart.
+extern "C" int adamw_update_launch(const float* w, const float* g, const float* m,
+                                   const float* v, const float* mask, float* w_out,
+                                   float* m_out, float* v_out, long long n,
+                                   float lr, float b1, float b2, float eps,
+                                   float wd, float c1, float c2, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  const Scalars s = make_scalars(lr, b1, b2, eps, wd, c1, c2);
+  return (int)launch<float, float, kOutF32>(
+      w, g, m, v, mask, w_out, nullptr, m_out, v_out, (int64_t)n, s, nullptr,
+      reinterpret_cast<cudaStream_t>(stream));
 }
 
 // Plain C entry point of the q8_block epilogue.  w, g, m, v, mask, w_out,

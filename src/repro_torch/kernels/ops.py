@@ -18,16 +18,19 @@ from .q8_matmul import QuantTensor, fold_scales, q8_slice_cols, \
     quant_eligible
 from ..quant.blockwise import dequantize_blockwise_log, \
     quantize_blockwise_log
-from .ref import (adam8bit_store_update_ref, adamw_store_update_ref,
+from .ref import (adam8bit_store_update_ref, adam8bit_update_ref,
+                  adamw_store_update_ref, adamw_update_ref,
                   dequantize_into_ref, encode_ef_ref, q8_matmul_ref,
                   quantize_ref, scalar_stack)
 
 __all__ = [
     "quantize", "dequantize", "dequantize_into", "encode_ef", "q8_matmul",
-    "adamw_store_update", "adam8bit_store_update", "quantize_log",
-    "dequantize_log", "q8_slice_cols", "QuantTensor", "quant_eligible",
-    "fold_scales",
+    "adamw_update", "adam8bit_update", "adamw_store_update",
+    "adam8bit_store_update", "quantize_log", "dequantize_log",
+    "q8_slice_cols", "QuantTensor", "quant_eligible", "fold_scales",
 ]
+# the leaves of a coded store's core, in ``out`` order
+_CORE_KEYS = ("codes", "master", "scales")
 
 
 def _device_kind(*tensors: torch.Tensor) -> str:
@@ -48,6 +51,19 @@ def _copy_out(out, results):
     for dst, src in zip(out, results):
         dst.copy_(src)
     return out
+
+
+def _store_out(out, core, *rest):
+    """A plain store update's result ``(core, *rest)``, copied into
+    ``out`` (the core's leaves first, in ``_CORE_KEYS`` order) when
+    given."""
+    if out is None:
+        return (core, *rest)
+    if not isinstance(core, dict):
+        return tuple(_copy_out(out, (core, *rest)))
+    keys = [k for k in _CORE_KEYS if k in core]
+    done = _copy_out(out, tuple(core[k] for k in keys) + rest)
+    return (dict(zip(keys, done)), *done[len(keys):])
 
 
 def quantize(x: torch.Tensor, block: int = 1024):
@@ -79,8 +95,10 @@ def dequantize_into(codes: torch.Tensor, scales: torch.Tensor,
 def dequantize(codes: torch.Tensor, scales: torch.Tensor,
                block: int = 1024) -> torch.Tensor:
     """Blockwise decode to fp32 (the q8 reduce route): ``dequantize_into``
-    with fp32 output.  PARITY: BITWISE."""
-    return dequantize_into(codes, scales, block, out_dtype=torch.float32)
+    with fp32 output, its launches counted apart.  PARITY: BITWISE."""
+    if _device_kind(codes, scales) == "cuda":
+        return blockwise_quant.dequantize(codes, scales, block)
+    return dequantize_into_ref(codes, scales, block, torch.float32)
 
 
 def encode_ef(ct: torch.Tensor, ef: torch.Tensor, block: int = 1024, *,
@@ -120,44 +138,90 @@ def q8_matmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
     return q8_matmul_ref(x, codes, scales, block, out_dtype)
 
 
+def adamw_update(w, g, m, v, mask, *, lr, b1, b2, eps, wd, c1, c2,
+                 out=None):
+    """The standalone fused AdamW update (the reference's ``adamw_update``):
+    flat buffers of n % 128 == 0 elements, a full-size decay mask; returns
+    fp32 ``(w', m', v')`` (``out=(w, m, v)`` updates in place).
+
+    PARITY: the CUDA kernel is BITWISE against the plain version on the
+    card; the plain version holds ``adamw_store_update``'s fp32 class
+    against the reference's interpreted ``_adamw_kernel``."""
+    scalars = scalar_stack(lr, b1, b2, eps, wd, c1, c2)
+    if _device_kind(w, g, m, v, mask) == "cuda":
+        return fused_update.adamw_update(w, g, m, v, mask, scalars, out=out)
+    return tuple(_copy_out(out, adamw_update_ref(w, g, m, v, mask,
+                                                 scalars)))
+
+
+def adam8bit_update(w, g, m8, v8, ms, vs, mask, *, lr, b1, b2, eps, wd, c1,
+                    c2, block: int = 1024, out=None):
+    """The standalone fused 8-bit Adam update (the reference's
+    ``adam8bit_update``): fp32 ``w``, ``g`` and full-size ``mask`` of n
+    elements, n % block == 0; int8 moments of w's shape and their fp32
+    scales (n / block); returns fp32 ``(w', m8', v8', ms', vs')``.
+
+    PARITY: the CUDA kernel is BITWISE against the plain version on the
+    card; the plain version holds ``adam8bit_store_update``'s class against
+    the reference's interpreted ``_adam8_kernel``."""
+    scalars = scalar_stack(lr, b1, b2, eps, wd, c1, c2)
+    if _device_kind(w, g, m8, v8, ms, vs, mask) == "cuda":
+        return fused_update.adam8bit_update(w, g, m8, v8, ms, vs, mask,
+                                            scalars, block=block, out=out)
+    n = w.numel()
+    if block < 1 or n % block:
+        raise ValueError(f"adam8bit_update needs n % block == 0, got {n} % "
+                         f"{block}")
+    shape = (n // block, block)
+    res = adam8bit_update_ref(
+        w.float().reshape(shape), g.float().reshape(shape),
+        m8.reshape(shape), v8.reshape(shape), ms.reshape(-1, 1),
+        vs.reshape(-1, 1), mask.float().reshape(shape), scalars, block)
+    res = tuple(r.reshape(t.shape) for r, t in
+                zip(res, (w, m8, v8, ms, vs)))
+    return tuple(_copy_out(out, res))
+
+
 def adamw_store_update(w, g, m, v, mask, *, lr, b1, b2, eps, wd, c1, c2,
-                       fmt: str = "fp32", block: int = 1024, out=None):
-    """Fused AdamW step + store epilogue.  Flat formats (fp32, bf16)
+                       fmt: str = "fp32", block: int = 1024, out=None,
+                       g_scale=None):
+    """Fused AdamW step + store epilogue.  ``w`` and ``g`` fp32 or bf16 (a
+    bf16 store passes both in bf16), ``g_scale`` None or a 0-d fp32 tensor
+    the gradient is multiplied by in fp32 first.  Flat formats (fp32, bf16)
     return ``(w', m', v')``, ``out=(w, m, v)`` updating in place (the
     optimizer's main path, which saves three transient copies of the
-    state).  ``fmt="q8_block"`` returns ``({"codes", "master", "scales"},
-    m', v')``; ``out=(codes, master, scales, m, v)``.
+    state).  ``fmt="fp8_e4m3"``/``"fp8_e5m2"`` return ``({"codes",
+    "master"}, m', v')``, ``out=(codes, master, m, v)``; ``fmt="q8_block"``
+    ``({"codes", "master", "scales"}, m', v')``, ``out=(codes, master,
+    scales, m, v)``.
 
     PARITY: the CUDA kernels are BITWISE against the plain version on the
     card; the plain version is within a few ulp of the reference's
-    interpreted kernel (see ``kernels.ref``)."""
+    interpreted kernel (see ``kernels.ref``), its fp8 codes bitwise the
+    encode of its w'."""
     scalars = scalar_stack(lr, b1, b2, eps, wd, c1, c2)
     if _device_kind(w, g, m, v, mask) == "cuda":
-        return fused_update.adamw_store_update(w, g, m, v, mask, scalars,
-                                               fmt=fmt, block=block, out=out)
-    core, m2, v2 = adamw_store_update_ref(w, g, m, v, mask, scalars, fmt,
-                                          block)
-    if out is None:
-        return core, m2, v2
-    if fmt == "q8_block":
-        codes, master, scales, m_out, v_out = _copy_out(
-            out, (core["codes"], core["master"], core["scales"], m2, v2))
-        return ({"codes": codes, "master": master, "scales": scales},
-                m_out, v_out)
-    return tuple(_copy_out(out, (core, m2, v2)))
+        return fused_update.adamw_store_update(
+            w, g, m, v, mask, scalars, fmt=fmt, block=block, out=out,
+            g_scale=g_scale)
+    return _store_out(out, *adamw_store_update_ref(
+        w, g, m, v, mask, scalars, fmt, block, g_scale))
 
 
 def adam8bit_store_update(w, g, m8, v8, ms, vs, mask, *, lr, b1, b2, eps, wd,
                           c1, c2, fmt: str = "fp32", block: int = 1024,
-                          out=None):
+                          out=None, g_scale=None):
     """Fused 8-bit Adam step + store epilogue: decode the int8 moments (m
     linear, v log-space), the Adam step, requantize both moments and write
     w' in the store's format.  ``mask`` is the (S,) uint8 weight-decay row
-    shared by every row of ``w`` (..., S).  Flat formats (fp32, bf16)
-    return ``(w', m8', v8', ms', vs')``, ``out=(w, m8, v8, ms, vs)``
-    updating in place (the optimizer's main path); ``fmt="q8_block"``
-    returns ``({"codes", "master", "scales"}, m8', v8', ms', vs')``,
-    ``out=(codes, master, scales, m8, v8, ms, vs)``.
+    shared by every row of ``w`` (..., S); ``g`` fp32 or bf16, times
+    ``g_scale`` (None or a 0-d fp32 tensor) in fp32.  Flat formats (fp32,
+    bf16) return ``(w', m8', v8', ms', vs')``, ``out=(w, m8, v8, ms, vs)``
+    updating in place (the optimizer's main path); the fp8 formats return
+    ``({"codes", "master"}, m8', v8', ms', vs')``, ``out=(codes, master,
+    m8, v8, ms, vs)``; ``fmt="q8_block"`` ``({"codes", "master",
+    "scales"}, m8', v8', ms', vs')``, ``out=(codes, master, scales, m8, v8,
+    ms, vs)``.
 
     PARITY: the CUDA kernel is BITWISE against the plain version on the
     card; the plain version is held to the reference's interpreted kernel
@@ -167,17 +231,9 @@ def adam8bit_store_update(w, g, m8, v8, ms, vs, mask, *, lr, b1, b2, eps, wd,
     if _device_kind(w, g, m8, v8, ms, vs, mask) == "cuda":
         return fused_update.adam8bit_store_update(
             w, g, m8, v8, ms, vs, mask, scalars, fmt=fmt, block=block,
-            out=out)
-    core, *moments = adam8bit_store_update_ref(w, g, m8, v8, ms, vs, mask,
-                                               scalars, fmt, block)
-    if out is None:
-        return (core, *moments)
-    if fmt == "q8_block":
-        done = _copy_out(out, (core["codes"], core["master"], core["scales"],
-                               *moments))
-        return ({"codes": done[0], "master": done[1], "scales": done[2]},
-                *done[3:])
-    return tuple(_copy_out(out, (core, *moments)))
+            out=out, g_scale=g_scale)
+    return _store_out(out, *adam8bit_store_update_ref(
+        w, g, m8, v8, ms, vs, mask, scalars, fmt, block, g_scale))
 
 
 def quantize_log(x: torch.Tensor, block: int = 1024):

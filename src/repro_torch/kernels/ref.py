@@ -13,10 +13,13 @@ from ..quant.blockwise import (INV_127, SCALE_FLOOR, _blocks,
                                _check_blocking, _check_scales,
                                dequantize_blockwise, log_codes, log_values,
                                quantize_blockwise)
+from ..quant.fp8 import FP8_DTYPES, fp8_encode
 from .q8_matmul import check_args, fold_scales
 
 # store epilogues of the flat AdamW update -> dtype of the written weights
 FLAT_OUT_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+# the reference's flat tiling: ``adamw_update`` takes n % 128 == 0
+LANES = 128
 
 
 def scalar_stack(lr, b1, b2, eps, wd, c1, c2) -> np.ndarray:
@@ -26,22 +29,29 @@ def scalar_stack(lr, b1, b2, eps, wd, c1, c2) -> np.ndarray:
 
 
 def adamw_store_update_ref(w, g, m, v, mask, scalars: np.ndarray,
-                           fmt: str = "fp32", block: int = 1024):
-    """AdamW step + flat store epilogue, op for op the reference's
+                           fmt: str = "fp32", block: int = 1024,
+                           g_scale: torch.Tensor | None = None):
+    """AdamW step + store epilogue, op for op the reference's
     ``_adam_math`` + ``_adamw_flat_kernel``, one eager op per step:
 
+        g   = g.f32 (* g_scale)
         m'  = b1*m + (1-b1)*g
         v'  = b2*v + (1-b2)*g*g
         upd = (m'/c1) / (sqrt(v'/c2) + eps)
-        w'  = w - lr*(upd + wd*mask*w)
+        w'  = w.f32 - lr*(upd + wd*mask*w.f32)
 
-    ``scalars`` is ``scalar_stack(...)``; 1-b1 and 1-b2 are formed in
-    fp32 from its entries, as the kernel does.  Returns ``(w', m', v')``
-    with w' in the epilogue's dtype (fp32, or bf16 rounded to nearest
-    even) and m', v' in fp32.  The ``q8_block`` epilogue (the reference's
-    ``_adamw_q8_kernel``) then requantizes w' blockwise (``_requant``) and
-    returns ``({"codes", "master", "scales"}, m', v')`` with master = w';
-    it needs ``w.shape[-1] % block == 0``.
+    ``w`` and ``g`` are fp32 or bf16 (a bf16 store hands both over in
+    bf16), ``m``, ``v``, ``mask`` fp32; ``g_scale`` (a 0-d fp32 tensor, or
+    None for 1) is the train step's gradient scale, applied in fp32 to a
+    gradient that still needs it.  ``scalars`` is ``scalar_stack(...)``;
+    1-b1 and 1-b2 are formed in fp32 from its entries, as the kernel does.
+    Returns ``(w', m', v')`` with w' in the epilogue's dtype (fp32, or bf16
+    rounded to nearest even) and m', v' in fp32.  The fp8 epilogues (the
+    reference's ``_adamw_fp8_kernel``) return ``({"codes", "master"}, m',
+    v')``: the fp8 codes of w' (``quant.fp8.fp8_encode``) and master = w'.
+    The ``q8_block`` epilogue (``_adamw_q8_kernel``) requantizes w'
+    blockwise (``_requant``) and returns ``({"codes", "master", "scales"},
+    m', v')``; it needs ``w.shape[-1] % block == 0``.
 
     PARITY vs the reference's interpreted Pallas kernel on the CPU:
     m' and v' within 1 ulp, w' within a few integer-view steps (XLA
@@ -53,11 +63,31 @@ def adamw_store_update_ref(w, g, m, v, mask, scalars: np.ndarray,
     check_store_fmt(fmt)
     if fmt == "q8_block":
         _check_block(w.shape, block, "q8_block store update")
-    w2, m2, v2 = _adam_math(w, g, m, v, mask, scalars)
+    w2, m2, v2 = _adam_math(w, g, m, v, mask, scalars, g_scale)
     return _store_epilogue(w2, fmt, block), m2, v2
 
 
-def _adam_math(w, g, m, v, mask, scalars: np.ndarray):
+def adamw_update_ref(w, g, m, v, mask, scalars: np.ndarray):
+    """The reference's standalone ``adamw_update`` (``_adamw_kernel``,
+    ``repro/kernels/adam_update.py``): the AdamW step of
+    ``adamw_store_update_ref`` on flat buffers of n % 128 == 0 elements,
+    every input cast to fp32 first, a full-size decay mask; returns fp32
+    ``(w', m', v')`` of w's shape.  PARITY: the class of
+    ``adamw_store_update_ref``'s fp32 epilogue (the same kernel body)."""
+    _check_lanes(w, "adamw_update")
+    return _adam_math(w.float(), g, m.float(), v.float(), mask.float(),
+                      scalars)
+
+
+def _check_lanes(w, who: str) -> None:
+    if w.numel() % LANES:
+        raise ValueError(
+            f"{who} takes flat buffers of n % {LANES} == 0 elements (the "
+            f"reference's lane tiling), got n = {w.numel()}")
+
+
+def _adam_math(w, g, m, v, mask, scalars: np.ndarray,
+               g_scale: torch.Tensor | None = None):
     """The Adam step of both updates (the reference's ``_adam_math`` /
     ``_adam8_math`` core) on fp32 moments; returns fp32 ``(w', m', v')``."""
     # 0-d tensors on w's device, not Python numbers: CUDA divides a tensor
@@ -67,6 +97,8 @@ def _adam_math(w, g, m, v, mask, scalars: np.ndarray):
     lr, b1, b2, eps, wd, c1, c2 = s[:7].unbind()
     one_m_b1, one_m_b2 = 1.0 - b1, 1.0 - b2
     g = g.float()
+    if g_scale is not None:
+        g = g * g_scale
     m2 = b1 * m + one_m_b1 * g
     v2 = b2 * v + one_m_b2 * g * g
     upd = (m2 / c1) / (torch.sqrt(v2 / c2) + eps)
@@ -76,16 +108,20 @@ def _adam_math(w, g, m, v, mask, scalars: np.ndarray):
 
 
 def _store_epilogue(w2: torch.Tensor, fmt: str, block: int):
-    """The store re-encode of an updated fp32 buffer: w' in the flat
-    format's dtype, or the q8 ``{"codes", "master", "scales"}`` dict."""
+    """The store re-encode of an updated fp32 buffer (the reference's
+    ``store_pack_ref``): w' in the flat format's dtype, the fp8
+    ``{"codes", "master"}`` or the q8 ``{"codes", "master", "scales"}``
+    dict."""
     if fmt == "q8_block":
         codes, scales = quantize_ref(w2, block)
         return {"codes": codes, "master": w2, "scales": scales}
+    if fmt in FP8_DTYPES:
+        return {"codes": fp8_encode(w2, fmt), "master": w2}
     return w2.to(FLAT_OUT_DTYPES[fmt])
 
 
 def adam8bit_update_ref(w, g, m8, v8, ms, vs, mask, scalars: np.ndarray,
-                        block: int):
+                        block: int, g_scale: torch.Tensor | None = None):
     """The 8-bit Adam step on blockwise-quantized moments, op for op the
     reference's ``_adam8_math`` followed by the moment requantize
     (``_requant``, ``_requant_log``; ``repro/kernels/adam8bit_update.py``)::
@@ -96,10 +132,13 @@ def adam8bit_update_ref(w, g, m8, v8, ms, vs, mask, scalars: np.ndarray,
         m8', ms' = quantize(m')              (absmax * f32(1/127))
         v8', vs' = log-quantize(v')          (vs' = max v' of the block)
 
-    ``w`` (..., S) fp32 or bf16, ``g`` fp32 of w's shape, ``m8``/``v8``
-    int8 of w's shape, ``ms``/``vs`` fp32 (..., S / block); ``mask`` the
-    (S,) uint8 0/1 weight-decay row shared by every row of a stacked
-    buffer.  Returns fp32 ``(w', m8', v8', ms', vs')``.
+    ``w`` (..., S) fp32 or bf16, ``g`` fp32 or bf16 of w's shape (times
+    ``g_scale`` in fp32 when given), ``m8``/``v8`` int8 of w's shape,
+    ``ms``/``vs`` fp32 (..., S / block); ``mask`` the (S,) uint8 0/1
+    weight-decay row shared by every row of a stacked buffer (the fused
+    update's) or a full-size fp32 mask of w's shape (the reference's
+    standalone ``adam8bit_update``, ``_adam8_kernel``).  Returns fp32
+    ``(w', m8', v8', ms', vs')``.
 
     PARITY vs the reference's interpreted kernel on the CPU: the log codec's
     class (``quant.blockwise``: XLA:CPU's own ``exp``/``log``) plus the
@@ -115,13 +154,16 @@ def adam8bit_update_ref(w, g, m8, v8, ms, vs, mask, scalars: np.ndarray,
             raise ValueError(
                 f"adam8bit store update: {k} {tuple(t.shape)} must be "
                 f"{tuple(w.shape[:-1]) + (nb,)} (one scale per quant block)")
-    if tuple(mask.shape) != (w.shape[-1],) or mask.dtype != torch.uint8:
+    row = tuple(mask.shape) == (w.shape[-1],) and mask.dtype == torch.uint8
+    full = tuple(mask.shape) == tuple(w.shape) and mask.dtype == torch.float32
+    if not (row or full):
         raise ValueError(
             f"adam8bit store update: mask must be one uint8 row of "
-            f"({w.shape[-1]},), got {mask.dtype} {tuple(mask.shape)}")
+            f"({w.shape[-1]},) or a float32 mask of w's shape "
+            f"{tuple(w.shape)}, got {mask.dtype} {tuple(mask.shape)}")
     m = dequantize_blockwise(m8, ms, block)
     v = log_values(_blocks(v8, block).float(), vs).reshape(w.shape)
-    w2, m2, v2 = _adam_math(w, g, m, v, mask.float(), scalars)
+    w2, m2, v2 = _adam_math(w, g, m, v, mask.float(), scalars, g_scale)
     m8o, mso = quantize_blockwise(m2, block)
     vb = _blocks(v2, block)
     vso = vb.amax(dim=-1)
@@ -131,29 +173,27 @@ def adam8bit_update_ref(w, g, m8, v8, ms, vs, mask, scalars: np.ndarray,
 
 def adam8bit_store_update_ref(w, g, m8, v8, ms, vs, mask,
                               scalars: np.ndarray, fmt: str = "fp32",
-                              block: int = 1024):
+                              block: int = 1024,
+                              g_scale: torch.Tensor | None = None):
     """8-bit Adam step + store epilogue, the reference's
-    ``_adam8_flat_kernel`` (fp32, bf16) and ``_adam8_q8_kernel``
-    (q8_block): ``adam8bit_update_ref``, then w' in the store's format.
+    ``_adam8_flat_kernel`` (fp32, bf16), ``_adam8_fp8_kernel`` (fp8) and
+    ``_adam8_q8_kernel`` (q8_block): ``adam8bit_update_ref``, then w' in
+    the store's format.
     Returns ``(core, m8', v8', ms', vs')`` with ``core`` as in
     ``adamw_store_update_ref``.  PARITY: as ``adam8bit_update_ref``; a q8
     code of w' inherits w''s class (it moves by one where w' sits within
     its difference of a rounding boundary)."""
-    check_store_fmt(fmt, "adam8bit_store_update", "Queue 2 item 7 / "
-                    "Queue 1 item 9")
+    check_store_fmt(fmt)
     w2, m8o, v8o, mso, vso = adam8bit_update_ref(w, g, m8, v8, ms, vs, mask,
-                                                 scalars, block)
+                                                 scalars, block, g_scale)
     return _store_epilogue(w2, fmt, block), m8o, v8o, mso, vso
 
 
-def check_store_fmt(fmt: str, who: str = "adamw_store_update",
-                    item: str = "Queue 2 item 7") -> None:
-    """The epilogues the port runs: fp32, bf16 and q8_block."""
-    if fmt in ("fp8_e4m3", "fp8_e5m2"):
-        raise NotImplementedError(
-            f"the {fmt!r} epilogue of {who} is not ported yet (ROADMAP "
-            f"{item})")
-    if fmt not in FLAT_OUT_DTYPES and fmt != "q8_block":
+def check_store_fmt(fmt: str) -> None:
+    """The store epilogues: fp32, bf16, fp8_e4m3, fp8_e5m2 and
+    q8_block (the reference's ``_check_fmt``)."""
+    if fmt not in FLAT_OUT_DTYPES and fmt not in FP8_DTYPES \
+            and fmt != "q8_block":
         raise ValueError(f"unknown store fmt {fmt!r} for the fused update")
 
 

@@ -1,15 +1,17 @@
 """Where the device time of one ZeRO-3 step (train or decode) goes.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_step \
-        [--config gemma2|qwen3-moe] [--q8 | --serve]
+        [--config gemma2|qwen3-moe] \
+        [--store fp32|bf16|fp8_e4m3|fp8_e5m2 | --q8 | --serve]
 
 Builds a configuration ``chip_smoke.py`` trains -- ``gemma2`` (default):
 gemma2-2b at published width, depth cut to 4 layers, batch 2 x 2048, AdamW;
 ``qwen3-moe``: qwen3-moe-235b-a22b at published width, depth cut to 1
-layer, ep=1, batch 1 x 2048, Adam8bit -- with bf16 compute and the fp32
-store (or, with ``--q8``, the q8_block store and the q8 gradient wire with
-error feedback on every group), runs two warm-up steps on one rank of a
-NCCL group, then one step under ``torch.profiler``.  ``--serve`` profiles
+layer, ep=1, batch 1 x 2048, Adam8bit -- with bf16 compute and the
+``--store`` parameter store (fp32 by default; or, with ``--q8``, the
+q8_block store and the q8 gradient wire with error feedback on every
+group), runs two warm-up steps on one rank of a NCCL group, then one step
+under ``torch.profiler``.  ``--serve`` profiles
 a decode step instead: the config on the q8_block store with
 ``serve_quant_matmul`` (``chip_smoke.py``'s ``serve`` phase: a prefill of
 4 x 512 tokens into a 1024-slot cache, two warm-up decode steps at batch
@@ -65,7 +67,7 @@ def train_step(cfg, args):
     """Warm a train step up; returns a closure running one more step (and
     its loss) and the schedule's name."""
     sched = CommSchedule(param_store="q8_block", reduce_wire="q8_block") \
-        if args.q8 else None
+        if args.q8 else CommSchedule(param_store=args.store)
     rt = FSDPRuntime(build_model(cfg), init_local_group("nccl"),
                      compute_dtype=torch.bfloat16, schedule=sched)
     params = rt.init_params(0)
@@ -87,7 +89,7 @@ def train_step(cfg, args):
             state["params"], state["opt"], state["step"], batch)
         return float(m["loss"])
 
-    return run, "q8_both_wires" if args.q8 else "default"
+    return run, "q8_both_wires" if args.q8 else f"param_store={args.store}"
 
 
 def decode_step(cfg, args):
@@ -123,6 +125,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", choices=list(CONFIGS), default="gemma2")
     mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--store", default="fp32",
+                      choices=("fp32", "bf16", "fp8_e4m3", "fp8_e5m2"),
+                      help="the parameter store of every group")
     mode.add_argument("--q8", action="store_true",
                       help="the q8_block store and q8 gradient wire")
     mode.add_argument("--serve", action="store_true",

@@ -203,9 +203,13 @@ def mlp(cfg, p, x: torch.Tensor, *, prefix: str = "") -> torch.Tensor:
 
 def embed(tokens: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
     """emb: (V, D).  Out-of-range ids embed to zero, as the reference's
-    masked take."""
+    masked take.  ``F.embedding``, not ``emb[ids]``: the gradient of an
+    index is a parallel atomic ``index_put_`` on the CPU, whose sum order
+    changes from run to run; the embedding's backward adds each row's
+    contributions in token order on the CPU and deterministically on the
+    card."""
     ok = (tokens >= 0) & (tokens < emb.shape[0])
-    x = emb[tokens.clamp(0, emb.shape[0] - 1)]
+    x = F.embedding(tokens.clamp(0, emb.shape[0] - 1), emb)
     return torch.where(ok[..., None], x, torch.zeros((), dtype=x.dtype,
                                                      device=x.device))
 

@@ -10,7 +10,8 @@ State per group: ``m8``, ``v8`` (int8 codes, the group's local shape) and
 ``ms``, ``vs`` (one fp32 scale per quant block, ``(..., S / block)``);
 ``m`` is linear, ``v`` log-space (linear INT8 underflows v and explodes
 the update).  The whole step -- moment decode, the Adam math, moment
-requantize and the store's epilogue -- is ONE fused launch per group
+requantize and the store's epilogue (bf16 round, fp8 encode, q8
+requantize) -- is ONE fused launch per group
 (``kernels.ops.adam8bit_store_update``: the hand-written CUDA kernel on the
 card, its plain version on the CPU), in place on the parameter and state
 buffers.  The weight-decay mask is one ``(S,)`` uint8 row per group,
@@ -23,7 +24,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops
-from .common import OptimizerBase, matrix_mask_local
+from .common import OptimizerBase, matrix_mask_local, store_outputs
 
 
 class Adam8bit(OptimizerBase):
@@ -55,7 +56,10 @@ class Adam8bit(OptimizerBase):
                 "ms": (torch.float32, bq), "vs": (torch.float32, bq)}
 
     @torch.no_grad()
-    def update(self, runtime, params, grads, state, step: int):
+    def update(self, runtime, params, grads, state, step: int,
+               grad_scale=None):
+        """One fused launch per group; ``grad_scale`` as in
+        ``AdamW.update``."""
         if set(self._masks) != set(params):
             raise RuntimeError("Adam8bit.update before Adam8bit.init(runtime)")
         lr, c1, c2 = self.host_scalars(step)
@@ -69,11 +73,12 @@ class Adam8bit(OptimizerBase):
                     f"optimizer quant block {bq}")
             buf = store.trainable(pstate)
             moments = tuple(state[k][name] for k in ("m8", "v8", "ms", "vs"))
-            out = (((pstate["codes"], buf, pstate["scales"])
-                    if store.quantized else (buf,)) + moments)
+            g = grads[name]
             core = ops.adam8bit_store_update(
-                buf, grads[name], *moments, self._masks[name], lr=lr,
+                buf, g, *moments, self._masks[name], lr=lr,
                 b1=self.b1, b2=self.b2, eps=self.eps, wd=self.wd, c1=c1,
-                c2=c2, fmt=store.fmt, block=bq, out=out)[0]
+                c2=c2, fmt=store.fmt, block=bq,
+                out=store_outputs(store, pstate, buf) + moments,
+                g_scale=grad_scale if g.dtype == torch.bfloat16 else None)[0]
             new_params[name] = store.wrap_core(core)
         return new_params, state

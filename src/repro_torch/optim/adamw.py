@@ -4,8 +4,9 @@ The whole per-group step -- moment update and weight write in the store's
 format -- is ONE fused kernel through the dispatch layer
 (``kernels.ops.adamw_store_update``: the hand-written CUDA kernel on the
 card, its plain PyTorch version on the CPU).  The update runs in place on
-the parameter and moment buffers; for a q8_block store the same launch
-rewrites the state's codes and scales from the updated master.  ``lr``, ``c1`` and ``c2`` are float32
+the parameter and moment buffers; for an fp8 or q8_block store the same
+launch rewrites the state's codes (and q8 scales) from the updated master,
+and a bf16 store's bf16 buffer and gradient go in as they are.  ``lr``, ``c1`` and ``c2`` are float32
 scalars computed on the host from the Python step counter, so the loop
 never waits on the device for them.
 """
@@ -14,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import ops
-from .common import OptimizerBase, matrix_mask_local
+from .common import OptimizerBase, matrix_mask_local, store_outputs
 
 
 class AdamW(OptimizerBase):
@@ -37,7 +38,11 @@ class AdamW(OptimizerBase):
         return {"m": (torch.float32, 1), "v": (torch.float32, 1)}
 
     @torch.no_grad()
-    def update(self, runtime, params, grads, state, step: int):
+    def update(self, runtime, params, grads, state, step: int,
+               grad_scale=None):
+        """One fused launch per group.  ``grad_scale`` (a 0-d fp32 tensor
+        or None): the scale the bf16 gradients still need (the train step
+        scales fp32 gradients in place), applied in fp32 by the kernel."""
         if set(self._masks) != set(params):
             raise RuntimeError("AdamW.update before AdamW.init(runtime)")
         lr, c1, c2 = self.host_scalars(step)
@@ -46,11 +51,12 @@ class AdamW(OptimizerBase):
             store = runtime.layouts[name].store
             buf = store.trainable(pstate)
             m, v = state["m"][name], state["v"][name]
-            out = ((pstate["codes"], buf, pstate["scales"], m, v)
-                   if store.quantized else (buf, m, v))
+            g = grads[name]
             core, _, _ = ops.adamw_store_update(
-                buf, grads[name], m, v, self._masks[name], lr=lr, b1=self.b1,
+                buf, g, m, v, self._masks[name], lr=lr, b1=self.b1,
                 b2=self.b2, eps=self.eps, wd=self.wd, c1=c1, c2=c2,
-                fmt=store.fmt, block=store.block, out=out)
+                fmt=store.fmt, block=store.block,
+                out=store_outputs(store, pstate, buf) + (m, v),
+                g_scale=grad_scale if g.dtype == torch.bfloat16 else None)
             new_params[name] = store.wrap_core(core)
         return new_params, state

@@ -30,6 +30,17 @@ def matrix_mask_local(layout, rank: int) -> np.ndarray:
     return mask
 
 
+def store_outputs(store, pstate, buf) -> tuple:
+    """The store's leaves a fused update writes in place, in its ``out``
+    order: the codes (and q8 scales) beside the master, or the flat buffer
+    alone."""
+    if store.quantized:
+        return (pstate["codes"], buf, pstate["scales"])
+    if store.fp8:
+        return (pstate["codes"], buf)
+    return (buf,)
+
+
 class OptimizerBase:
     def __init__(self, cfg):
         self.cfg = cfg

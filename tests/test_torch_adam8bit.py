@@ -265,8 +265,8 @@ def test_adam8bit_in_place_on_cpu():
 
 def test_adam8bit_wrapper_contracts():
     """CPU tensors never reach the kernel wrapper; the mask must be one
-    uint8 row; fp8 epilogues name their ROADMAP item; the blocking is
-    checked."""
+    uint8 row (or a full fp32 mask); the fp8 epilogue runs and an unknown
+    format raises; the blocking is checked."""
     arrs, kw = _inputs(2, 64 * 4, 64, True, seed=7)
     t = list(map(torch.from_numpy, arrs))
     sc = ref.scalar_stack(kw["lr"], B1, B2, EPS, WD, kw["c1"], kw["c2"])
@@ -277,8 +277,10 @@ def test_adam8bit_wrapper_contracts():
         fused_update.adam8bit_store_update(*t, sc, block=64)
     with pytest.raises(ValueError, match="uint8 row"):
         ops.adam8bit_store_update(*t[:6], t[6].float(), block=64, **kw)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 7"):
-        ops.adam8bit_store_update(*t, block=64, fmt="fp8_e4m3", **kw)
+    core = ops.adam8bit_store_update(*t, block=64, fmt="fp8_e4m3", **kw)[0]
+    assert list(core) == ["codes", "master"]  # the fp8 epilogue, ported
+    with pytest.raises(ValueError, match="unknown store fmt"):
+        ops.adam8bit_store_update(*t, block=64, fmt="int4", **kw)
     with pytest.raises(ValueError, match="block == 0"):
         ops.adam8bit_store_update(*t, block=96, **kw)
 

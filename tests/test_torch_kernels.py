@@ -133,9 +133,16 @@ def test_cuda_wrapper_rejects_cpu_tensors():
 
 
 def test_unported_epilogues_raise():
+    """Every epilogue of the reference is ported now: the fp8 one returns
+    the codes of w' beside the master on the CPU, and only an unknown
+    format raises."""
     arrs, kw = _inputs(64, True)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 7"):
-        ops.adamw_store_update(*map(torch.from_numpy, arrs), fmt="fp8_e4m3",
+    core, _, _ = ops.adamw_store_update(*map(torch.from_numpy, arrs),
+                                        fmt="fp8_e4m3", **kw)
+    assert core["codes"].dtype == torch.float8_e4m3fn
+    assert core["master"].dtype == torch.float32
+    with pytest.raises(ValueError, match="unknown store fmt"):
+        ops.adamw_store_update(*map(torch.from_numpy, arrs), fmt="fp8_e3m4",
                                **kw)
 
 

@@ -113,6 +113,33 @@ def test_softcapped_ce_matches():
     assert float(got[1]) == float(want[1])
 
 
+def test_embed_grad_is_the_token_order_sum():
+    """Forward bitwise the reference's masked take (ids out of range embed
+    to zero).  The gradient is bitwise the token-order sum (``np.add.at``)
+    on every run -- the gradient of ``emb[ids]`` is a parallel atomic
+    ``index_put_`` on the CPU whose sum order changes between runs -- and
+    within rtol 1e-6 of the reference's."""
+    r = _rng(6)
+    V, D = 40, 1024
+    tokens = r.integers(-3, V + 3, (8, 256))
+    emb = r.standard_normal((V, D)).astype(np.float32)
+    ct = r.standard_normal((8, 256, D)).astype(np.float32)
+    want, vjp = jax.vjp(lambda e: JL.embed(jnp.asarray(tokens), e),
+                        jnp.asarray(emb))
+    (want_grad,) = vjp(jnp.asarray(ct))
+    ok = (tokens >= 0) & (tokens < V)
+    order_sum = np.zeros_like(emb)
+    np.add.at(order_sum, np.clip(tokens, 0, V - 1).reshape(-1),
+              (ct * ok[..., None]).reshape(-1, D))
+    for _ in range(3):
+        e = torch.from_numpy(emb).requires_grad_()
+        got = TL.embed(torch.from_numpy(tokens), e)
+        got.backward(torch.from_numpy(ct))
+        np.testing.assert_array_equal(got.detach().numpy(), np.asarray(want))
+        np.testing.assert_array_equal(e.grad.numpy(), order_sum)
+    _close(e.grad, want_grad, 1e-6, 1e-6)
+
+
 def _jax_loss(cfg, dtype, tokens):
     rt = JaxRuntime(jax_build_model(cfg), make_local_mesh(1, 1),
                     compute_dtype=dtype)

@@ -191,9 +191,9 @@ def test_default_layer_plan_matches_reference(n):
     (dict(gather_mode="ring"), "Queue 1 item 10"),
     (dict(reduce_mode="ring_acc"), "Queue 1 item 10"),
     (dict(ring_chunk_elems=1024), "Queue 1 item 10"),
-    (dict(param_store="fp8_e4m3"), "Queue 1 item 9"),
     (dict(reduce_mode="ring_acc", reduce_wire="q8_block"), "Queue 1 item 10"),
-    (dict(param_store="bf16"), "Queue 1 item 9"),
+    (dict(reshard_after_forward=False), "Queue 1 item 10"),
+    (dict(sharded=False), "Queue 1 item 10"),
 ], ids=lambda x: str(x))
 def test_unported_schedule_knobs_raise(knob, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -366,8 +366,11 @@ def test_store_gather_payload_and_errors():
         store.ParamStore().gather_payload(state, group)
     with pytest.raises(ValueError, match="without an EF residual"):
         s.attach_ef(state, state["master"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        store.ParamStore("bf16")
+    # the bf16 store (ported): a bare bf16 leaf, no payload to gather raw
+    s16 = store.ParamStore("bf16")
+    assert s16.state_keys() is None and s16.storage_dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="quantized only"):
+        s16.gather_payload(s16.create(state["master"]), group)
 
 
 @pytest.mark.parametrize("fmt,block", [("fp32", 1024), ("bf16", 1024),
@@ -430,8 +433,11 @@ def test_schedule_q8_errors_match_reference():
     _raises_like(
         lambda: jax_schedule.CommSchedule(**kw).validate_for(jnp.bfloat16),
         lambda: schedule.CommSchedule(**kw).validate_for(torch.bfloat16))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        schedule.CommSchedule(reduce_wire="fp8_e4m3")
+    # the fp8 reduce wire (ported): the reference's cast codec
+    fp8 = dict(reduce_wire="fp8_e4m3")
+    assert schedule.CommSchedule(**fp8).reduce_codec(torch.bfloat16).fmt == \
+        jax_schedule.CommSchedule(**fp8).reduce_codec(jnp.bfloat16).fmt == \
+        "fp8_e4m3"
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         schedule.CommSchedule(reduce_wire="q8_block", reduce_mode="ring_acc")
 

@@ -230,3 +230,15 @@ def test_port_imports_no_jax_and_no_reference():
     hits = [f"{f.relative_to(REPO)}: {m.group(0).strip()}"
             for f in files for m in _FORBIDDEN.finditer(f.read_text())]
     assert not hits, hits
+
+
+def test_cpu_train_step_is_bitwise_repeatable():
+    """``launch/repeatability.py``'s set-up (gemma2-2b.reduced(), fp32,
+    two steps) gives the same loss and grad norm bit for bit on every
+    run of a seed: the card-vs-CPU parity checks read the CPU run as
+    their reference."""
+    from repro_torch.launch import repeatability as R
+
+    got = R.streams("gemma2-2b", "cpu", [0, 1], reps=2)
+    for seed, runs in got.items():
+        assert R.summary(runs) == {"distinct": 1, "max_rel_diff": 0.0}, seed
