@@ -29,7 +29,8 @@ non-zero):
                   gemma2-2b adam8bit q8 plan's shards: integer-view
                   difference (expected 0), median times, bound; then the
                   kernel alone at the full ``layers_experts`` and
-                  ``globals`` shards, where the plain version does not fit.
+                  ``globals`` shards, where the plain version does not fit,
+                  on the fp32 store and on the bf16 store (bf16 w and g).
   6. train     -- the fp32 path: gemma2-2b at published width cut to 4
                   layers (two local/global pairs), ZeRO-3 train step through
                   a one-rank NCCL group, bf16 compute, fp32 store, AdamW,
@@ -61,16 +62,20 @@ non-zero):
                   (a CPU reference whose sum order varies from run to run
                   moves the readings past their limits).
  11. kernel_q8mm -- the int8 x int8 ``q8_matmul`` against its plain version,
-                  bf16 x and out and fp32 x and out, at decode M = 4 and
-                  prefill M = 2048: gemma2-2b's case-A weights (2304, 2048),
-                  (2304, 1024), (2304, 9216), qwen3-moe's case-B (4096, 512)
-                  and (4096, 128), and a case-B shape with a trailing partial
-                  block (1001, 512): integer-view difference (expected 0),
-                  median device times of kernel and plain version as
-                  CUDA-graph replays (and the eager call's time, host
-                  launch path included), bound (int8 operations or bytes),
-                  the relative L2 against the dense x @ dequantize(w) and,
-                  at prefill, ``torch._int_mm`` on the same int8 operands.
+                  bf16 x and out and fp32 x and out, at decode M = 4 (the
+                  one-launch regime) and prefill M = 2048 (row quantization
+                  + ``wgmma`` GEMM): gemma2-2b's case-A weights (2304,
+                  2048), (2304, 1024), (2304, 9216), qwen3-moe's case-B
+                  (4096, 512) and (4096, 128), and a case-B shape with a
+                  trailing partial block (1001, 512): integer-view
+                  difference (expected 0), median device times of kernel
+                  and plain version as replays of a CUDA graph of 20 calls
+                  (and the eager call's time, host launch path included),
+                  bound (int8 operations or bytes), the relative L2 against
+                  the dense x @ dequantize(w) and, at prefill,
+                  ``torch._int_mm`` on the same int8 operands; then the
+                  crossover: both regimes forced at M = 8, 16 (decode's
+                  limit), 17 and 32 on gemma2-2b's shapes, each bitwise.
  12. serve     -- the serve path: gemma2-2b at published width, 4 layers, one
                   NCCL rank, bf16 compute, q8_block store with
                   ``serve_quant_matmul``: prefill of 4 x 512 prompt tokens
@@ -80,8 +85,10 @@ non-zero):
                   16 new tokens each); then the same through the
                   dense-dequant q8 serve on the same parameters.  Launch
                   counts must match the plan (``q8_matmul`` once per eligible
-                  weight per layer and call, ``dequantize_into`` per
-                  ineligible one and per ``globals`` gather).
+                  weight per layer and call -- the two prefills in its
+                  prefill regime, every decode and engine call in its
+                  decode regime -- ``dequantize_into`` per ineligible one and
+                  per ``globals`` gather).
  13. parity_serve -- gemma2-2b.reduced() and qwen3-moe-235b-a22b.reduced(),
                   fp32 compute, fp32 store and q8_block with
                   ``serve_quant_matmul``: prefill and 8 teacher-forced decode
@@ -180,6 +187,9 @@ ADAM8_Q8_SCHEDULE = {"param_store": "q8_block"}
 # NVIDIA's H100 SXM data sheet: dense int8 tensor cores at 1,979 TOP/s
 INT8_OPS = 1979e12
 Q8MM_M = (4, 2048)            # decode batch, prefill tokens (4 x 512)
+# M either side of the decode / prefill crossover (q8_matmul.DECODE_MAX_M
+# = 16), both regimes timed where the decode kernel takes M
+Q8MM_CROSSOVER_M = (8, 16, 17, 32)
 # (K, N) of q8_matmul calls: gemma2-2b's wq, wk/wv, w1/w3 (case A at block
 # 1024), qwen3-moe's wk/wv and router (case B), a trailing partial block
 Q8MM_SHAPES = ((2304, 2048), (2304, 1024), (2304, 9216), (4096, 512),
@@ -276,10 +286,10 @@ def median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def graph_ms(fn, reps: int = 20, iters: int = 10) -> float:
-    """Device time of one ``fn()`` as the median over ``iters`` timings of
-    ``reps`` back-to-back replays of a CUDA graph of it: a call small
-    enough that the host's launch path outlasts the kernels is measured on
-    the device alone."""
+    """Device time of one ``fn()``: the median over ``iters`` replays of a
+    CUDA graph of ``reps`` back-to-back calls, over ``reps``.  A call small
+    enough that the host's launch path (one graph launch included)
+    outlasts its kernels is measured on the device alone."""
     import torch
 
     fn()                                   # build, load, allocate first
@@ -290,13 +300,12 @@ def graph_ms(fn, reps: int = 20, iters: int = 10) -> float:
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
-
-    def replays():
         for _ in range(reps):
-            graph.replay()
-
-    return median_ms(replays, iters) / reps
+            fn()
+    ms = median_ms(graph.replay, iters) / reps
+    del graph
+    torch.cuda.empty_cache()
+    return ms
 
 
 def int_view_diff(a, b) -> int:
@@ -545,7 +554,8 @@ def phase_kernel_adam8(ops, ref, gemma_q8_shards) -> dict:
     summary = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                    "max_abs_err": 0.0} for k in ("flat", "q8")}
 
-    def inputs(shape, block, offset, w_dtype, codec_moments=True):
+    def inputs(shape, block, offset, w_dtype, codec_moments=True,
+               g_dtype=torch.float32):
         """Card tensors ``offset`` elements into their buffers (an odd
         offset takes the kernel's scalar path); moments from a previous
         step's codecs (or, for a timing alone, random codes and scales);
@@ -562,7 +572,7 @@ def phase_kernel_adam8(ops, ref, gemma_q8_shards) -> dict:
         def rnd(scale):
             return torch.randn(shape, generator=gen, device="cuda") * scale
 
-        w, g = view(rnd(0.05), w_dtype), view(rnd(1e-3), torch.float32)
+        w, g = view(rnd(0.05), w_dtype), view(rnd(1e-3), g_dtype)
         if codec_moments:
             m8, ms = ops.quantize(rnd(1e-4), block)
             v8, vs = ops.quantize_log(rnd(3e-4).square_(), block)
@@ -615,23 +625,31 @@ def phase_kernel_adam8(ops, ref, gemma_q8_shards) -> dict:
         del t
         torch.cuda.empty_cache()
     # the kernel alone at the full shards of the qwen3-moe step (in place,
-    # as the optimizer runs it): no room for the plain version's temporaries
-    for name in ("layers_experts", "globals"):
-        shape = (1, MOE_SHARDS[name]) if name != "globals" \
-            else (MOE_SHARDS[name],)
-        t = inputs(shape, 1024, 0, torch.float32, codec_moments=False)
-        out = (t[0], t[2], t[3], t[4], t[5])
-        ms = median_ms(lambda: ops.adam8bit_store_update(*t, block=1024,
-                                                         out=out, **kw),
-                       iters=5, warmup=1)
-        nbytes, flops = cost("fp32", shape, 1024)
-        bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
-        emit({"phase": "kernel_adam8", "name": "adam8bit_store_update",
-              "shape": list(shape), "fmt": "fp32", "block": 1024,
-              "alone": True, "ms": ms, "bound_ms": bound_ms, "bytes": nbytes,
-              "achieved_GBps": nbytes / ms / 1e6})
-        del t, out
-        torch.cuda.empty_cache()
+    # as the optimizer runs it): no room for the plain version's
+    # temporaries; the fp32 store (the train_moe path's) and the bf16 store
+    # (bf16 w and g, 10 B an element)
+    for fmt, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        for name in ("layers_experts", "globals"):
+            shape = (1, MOE_SHARDS[name]) if name != "globals" \
+                else (MOE_SHARDS[name],)
+            t = inputs(shape, 1024, 0, dtype, codec_moments=False,
+                       g_dtype=dtype)
+            out = (t[0], t[2], t[3], t[4], t[5])
+            ms = median_ms(lambda: ops.adam8bit_store_update(
+                *t, fmt=fmt, block=1024, out=out, **kw), iters=5, warmup=1)
+            n = math.prod(shape)
+            nbytes = (n * (ADAM8_BYTES[fmt] if fmt == "fp32"
+                           else NEW_BYTES["adam8bit_bf16"]) + shape[-1]
+                      + n // 1024 * ADAM8_BLOCK_BYTES[fmt])
+            bound_ms = max(nbytes / HBM_BYTES_PER_S,
+                           n * ADAM8_FLOPS[fmt] / FP32_FLOPS) * 1e3
+            emit({"phase": "kernel_adam8", "name": "adam8bit_store_update",
+                  "shape": list(shape), "fmt": fmt, "block": 1024,
+                  "alone": True, "ms": ms, "bound_ms": bound_ms,
+                  "bytes": nbytes, "achieved_GBps": nbytes / ms / 1e6,
+                  "share_of_bound": bound_ms / ms})
+            del t, out
+            torch.cuda.empty_cache()
     return summary
 
 
@@ -951,6 +969,8 @@ def launches_now(mods) -> dict:
 def reset_launches(mods) -> None:
     for fn in counted(mods).values():
         fn.launches = 0
+    q8mm = mods["q8_matmul"].q8_matmul
+    q8mm.decode_launches = q8mm.prefill_launches = 0
 
 
 def expected_q8_launches(rt, steps: int, keys) -> dict:
@@ -976,16 +996,35 @@ def rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
-def phase_kernel_q8mm(ops, ref) -> dict:
-    """``q8_matmul`` against its plain version.  Returns the summary the
-    kernels line carries: one decode step's calls on one gemma2-2b layer
-    (M = 4, bf16: wq, wk, wv, w1, w3), summed."""
+def phase_kernel_q8mm(ops, ref, q8mm) -> dict:
+    """``q8_matmul`` against its plain version.  Returns the two summaries
+    the kernels line carries, summed over one gemma2-2b layer's calls (wq,
+    wk, wv, w1, w3; bf16): ``decode`` at M = 4 (one decode step) and
+    ``prefill`` at M = 2048 (one prefill).  Then the crossover rows: both
+    regimes forced at M around ``q8mm.DECODE_MAX_M`` on gemma2-2b's
+    shapes, each bitwise against the plain version."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     block = 1024
-    summary = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-               "max_abs_err": 0.0}
+    summary = {r: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                   "max_abs_err": 0.0, "bound_by": b}
+               for r, b in (("decode", "bytes"), ("prefill", "operations"))}
+
+    def check(got, want, what):
+        torch.cuda.synchronize()
+        diff = int_view_diff(got, want)
+        if diff != 0:
+            fail(f"q8_matmul differs from its plain version at {what}: "
+                 f"{diff} integer-view steps")
+        return diff
+
+    def cost(m, k, n, n_scales, size):
+        nbytes = m * k * size + k * n + 4 * n_scales + m * n * size
+        nops = 2 * m * k * n
+        return nbytes, nops, max(nbytes / HBM_BYTES_PER_S,
+                                 nops / INT8_OPS) * 1e3
+
     for k, n in Q8MM_SHAPES:
         n_scales = -(-(k * n) // block)
         codes = torch.randint(-127, 128, (k, n), generator=gen,
@@ -1002,8 +1041,7 @@ def phase_kernel_q8mm(ops, ref) -> dict:
                      * 2.0).to(dtype)
                 got = ops.q8_matmul(x, codes, scales, block)
                 want = ref.q8_matmul_ref(x, codes, scales, block)
-                torch.cuda.synchronize()
-                diff = int_view_diff(got, want)
+                diff = check(got, want, f"M={m} ({k}, {n}) {dtype}")
                 abs_err = float((got.float() - want.float()).abs().max())
                 dense_rel = rel_l2(got.float(), x.float() @ dense_w)
                 del want
@@ -1012,13 +1050,12 @@ def phase_kernel_q8mm(ops, ref) -> dict:
                 ms = graph_ms(lambda: ops.q8_matmul(x, codes, scales, block))
                 plain_ms = graph_ms(lambda: ref.q8_matmul_ref(
                     x, codes, scales, block))
-                size = x.element_size()
-                nbytes = m * k * size + k * n + 4 * n_scales + m * n * size
-                nops = 2 * m * k * n
-                bound_ms = max(nbytes / HBM_BYTES_PER_S,
-                               nops / INT8_OPS) * 1e3
+                nbytes, nops, bound_ms = cost(m, k, n, n_scales,
+                                              x.element_size())
+                regime = q8mm.regime_for(m)
                 row = {"phase": "kernel_q8mm", "name": "q8_matmul",
-                       "M": m, "K": k, "N": n, "block": block,
+                       "regime": regime, "M": m, "K": k, "N": n,
+                       "block": block,
                        "case": "A" if n % block == 0 else "B",
                        "dtype": str(dtype)[6:],
                        "max_int_view_diff": diff, "max_abs_err": abs_err,
@@ -1028,9 +1065,10 @@ def phase_kernel_q8mm(ops, ref) -> dict:
                        >= nops / INT8_OPS else "operations",
                        "bytes": nbytes, "ops": nops,
                        "achieved_TOPs": nops / ms / 1e9,
+                       "share_of_bound": bound_ms / ms,
                        "rel_l2_vs_dense": dense_rel,
                        "parity": "bitwise" if diff == 0 else "DIFFERS"}
-                if m > 16 and k % 8 == 0:
+                if regime == "prefill" and k % 8 == 0:
                     # the int8 GEMM alone, for information (the port never
                     # calls it): the same int8 operands
                     a8 = torch.randint(-127, 128, (m, k), generator=gen,
@@ -1039,16 +1077,33 @@ def phase_kernel_q8mm(ops, ref) -> dict:
                         lambda: torch._int_mm(a8, codes))
                     del a8
                 emit(row)
-                if diff != 0:
-                    fail(f"q8_matmul differs from its plain version at M={m} "
-                         f"({k}, {n}) {dtype}: {diff} integer-view steps")
-                summary["max_abs_err"] = max(summary["max_abs_err"], abs_err)
                 calls = GEMMA_LAYER_Q8MM.get((k, n), 0)
-                if m == Q8MM_M[0] and dtype == torch.bfloat16 and calls:
+                if dtype == torch.bfloat16 and calls:
+                    st = summary[regime]
+                    st["max_abs_err"] = max(st["max_abs_err"], abs_err)
                     for key, val in (("ms", ms), ("plain_ms", plain_ms),
                                      ("bound_ms", bound_ms)):
-                        summary[key] += calls * val
+                        st[key] += calls * val
                 del x, got
+        if (k, n) in GEMMA_LAYER_Q8MM:
+            # the crossover: both regimes at the same M, bf16
+            for m in Q8MM_CROSSOVER_M:
+                x = (torch.randn(m, k, generator=gen, device="cuda")
+                     * 2.0).to(torch.bfloat16)
+                want = ref.q8_matmul_ref(x, codes, scales, block)
+                row = {"phase": "kernel_q8mm_crossover", "M": m, "K": k,
+                       "N": n, "dtype": "bfloat16",
+                       "bound_ms": cost(m, k, n, n_scales, 2)[2]}
+                for regime in ("decode", "prefill"):
+                    if regime == "decode" and m > q8mm.DECODE_MAX_M:
+                        continue
+                    run = lambda: q8mm.q8_matmul(  # noqa: E731
+                        x, codes, scales, block, torch.bfloat16,
+                        regime=regime)
+                    check(run(), want, f"M={m} ({k}, {n}) {regime}")
+                    row[f"{regime}_ms"] = graph_ms(run)
+                emit(row)
+                del x, want
         del codes, scales, padded, dense_w
         torch.cuda.empty_cache()
     return summary
@@ -1483,7 +1538,7 @@ def main() -> None:
                  f"{rtol}")
 
     # ---- 11. q8_matmul vs plain ----------------------------------------
-    q8mm_stats = phase_kernel_q8mm(ops, ref)
+    q8mm_stats = phase_kernel_q8mm(ops, ref, q8_matmul)
 
     # ---- 12. serve path: gemma2-2b at full width, int8 and dense q8 ----
     def serve_run(rt, model, params, prompts, requests):
@@ -1590,7 +1645,20 @@ def main() -> None:
             fail(f"serve {mode} prefill logits have shape "
                  f"{tuple(serve_logits[mode].shape)}")
         if mode == "q8_serve_matmul":
-            serve_launches = got["q8_matmul"]
+            # by regime: the two prefills (M = 4 x 512) and every decode
+            # and engine call (M <= the pool of 4)
+            per_call = want["q8_matmul"] // calls
+            serve_launches = {
+                "decode": q8_matmul.q8_matmul.decode_launches,
+                "prefill": q8_matmul.q8_matmul.prefill_launches}
+            serve_want = {"decode": per_call * (calls - 2),
+                          "prefill": per_call * 2}
+            emit({"phase": "serve", "mode": mode,
+                  "q8_matmul_launches_by_regime": serve_launches,
+                  "expected": serve_want})
+            if serve_launches != serve_want:
+                fail(f"serve {mode}: q8_matmul regimes {serve_launches}, "
+                     f"expected {serve_want}")
     quant_vs_dense = rel_l2(serve_logits["q8_serve_matmul"].float(),
                             serve_logits["q8_dense"].float())
     emit({"phase": "serve_summary", "prefill_rel_l2_int8_vs_dense":
@@ -1651,7 +1719,7 @@ def main() -> None:
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": st["max_abs_err"], "ms": st["ms"],
                 "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
-                "bound_by": "bytes", "library_ms": None}
+                "bound_by": st.get("bound_by", "bytes"), "library_ms": None}
 
     emit({"kernels": [
         entry("adamw_store_update", "adamw_store_update.cu",
@@ -1677,9 +1745,12 @@ def main() -> None:
         entry("adam8bit_store_update_q8", "adam8bit_store_update.cu",
               "src/repro/kernels/fused_update.py:145",
               a8q_launches["adam8bit_q8"], a8stats["q8"]),
-        entry("q8_matmul", "q8_matmul.cu",
-              "src/repro/kernels/q8_matmul.py:81", serve_launches,
-              q8mm_stats),
+        entry("q8_matmul_decode", "q8_matmul.cu",
+              "src/repro/kernels/q8_matmul.py:81", serve_launches["decode"],
+              q8mm_stats["decode"]),
+        entry("q8_matmul_prefill", "q8_matmul.cu",
+              "src/repro/kernels/q8_matmul.py:81", serve_launches["prefill"],
+              q8mm_stats["prefill"]),
         entry("adamw_store_update_fp8", "adamw_store_update.cu",
               "src/repro/kernels/fused_update.py:93",
               fp8_launches["train_fp8"]["adamw_fp8"], fp8stats["adamw_fp8"]),

@@ -29,14 +29,38 @@
 // bitwise equal to the plain PyTorch version (kernels/ref.py,
 // adam8bit_store_update_ref) on the card.
 //
-// Bound: memory.  Per element the fp32 epilogue reads w, g (8 B), m8, v8
-// (2 B) and writes w', m8', v8' (6 B): 16 B; bf16 store (bf16 w, g, w')
-// 10 B; fp8 and q8_block 17 B (+1 B of code); the standalone update +4 B
-// of fp32 mask.  Per quant block 16 B of moment scales (20 B with the weight
-// scale), and once per call the (S,) uint8 decay row every row shares.  Against ~40 operations per element, one expf and
-// one logf, far below the card's flop-per-byte balance.
+// Bound: memory in bytes, but close to the issue rate.  Per element the
+// fp32 epilogue reads w, g (8 B), m8, v8 (2 B) and writes w', m8', v8'
+// (6 B): 16 B; bf16 store (bf16 w, g, w') 10 B; fp8 and q8_block 17 B (+1 B
+// of code); the standalone update +4 B of fp32 mask.  Per quant block 16 B
+// of moment scales (20 B with the weight scale), and once per call the
+// (S,) uint8 decay row every row shares.  Per element ~100 instructions:
+// four IEEE divisions (m'/c1, v'/c2, the step, and x/absmax in the log
+// encode), one IEEE square root, one logf; at 10 B an element that is more
+// issue time than byte time on this card.
 //
-// Design: one CTA per quant block (grid-stride over blocks, as
+// The flat epilogue (fp32 and bf16 stores, the train_moe path's) has its own
+// kernel, adam8_flat_warp (redesigned for Hopper; PERF.md, row 9a):
+//   * the log decode reads a 128-entry table built once per CTA with the
+//     same expf, so only __fmul_rn(table[c], scale) is left per element --
+//     bitwise the same value, one transcendental an element gone;
+//   * kFlatWPB = 4 warps own a quant block of 1024 (8 elements a lane, as
+//     two 16-byte fp32 / 8-byte bf16 loads); m' and v' stay in registers;
+//     the block's two maxima reduce by warp shuffles and one exchange
+//     between its four warps under a named barrier -- no CTA barrier and no
+//     shared-memory staging of m', v';
+//   * a CTA keeps two blocks in flight, and each warp issues the next
+//     block's loads before this block's encode.
+//   Measured on the H100 (PERF.md): 1, 2, 4 and 8 warps a block ran the
+//   qwen3-moe expert shard in 25.8, 18.4, 15.3 and 16.3 ms, the CTA-per-block
+//   kernel below 20.8 ms.  At most 72 registers a thread and no spills
+//   (-Xptxas -v), three CTAs an SM; capping at 64 for a fourth CTA ran 4%
+//   faster but spilled, so the cap stays at three CTAs.  Block 64 or 96,
+//   and misaligned views, take the kernel's element-at-a-time path; blocks
+//   above 1024 or not a multiple of 32 the CTA-per-block kernel.
+//
+// The other epilogues (fp8, q8_block) and the standalone update keep the
+// first design: one CTA per quant block (grid-stride over blocks, as
 // blockwise_quant.cu).  Each thread loads its elements once (16-byte fp32 /
 // 8-byte bf16 / 4-byte int8 accesses when the block and every pointer
 // allow, else one element at a time), runs the step, writes w', and stages
@@ -50,9 +74,9 @@
 //
 // Outputs may alias inputs (w_out == w, m8_out == m8, v8_out == v8,
 // ms_out == ms, vs_out == vs): every thread reads its elements before it
-// writes them, and the scales are written by thread 0 after the block's
-// barriers, when every thread has read them -- so no pointer is
-// __restrict__.
+// writes them, and the scales are written by one thread after the block's
+// reductions, when every thread of the block has read them -- so no pointer
+// is __restrict__.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -152,6 +176,205 @@ __global__ void adam8_store(const WT* w, const GT* g, const int8_t* m8,
   }
 }
 
+// ---- the flat epilogue (fp32 and bf16 stores): warps per quant block -----
+constexpr int kFlatThreads = 256;
+constexpr int kFlatWarps = kFlatThreads / 32;
+constexpr int kFlatMaxBlock = 1024;
+
+// four consecutive elements as loaded: fp32 as a float4, bf16 as 8 bytes
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ uint2 ld4(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint2*>(p);
+}
+__device__ __forceinline__ uint32_t ld4(const int8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+__device__ __forceinline__ uint32_t ld4(const uint8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+// element k (a compile-time index after unrolling) as fp32
+__device__ __forceinline__ float el(const float4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ float el(const uint2& v, int k) {
+  const uint32_t w = k < 2 ? v.x : v.y;
+  return __uint_as_float((k & 1) ? (w & 0xffff0000u) : (w << 16));  // exact
+}
+__device__ __forceinline__ int sbyte(uint32_t w, int k) { return (int)(int8_t)(w >> (8 * k)); }
+__device__ __forceinline__ int ubyte(uint32_t w, int k) { return (int)((w >> (8 * k)) & 0xffu); }
+
+// The quant block's step on a lane's element: decode m (linear) and v (the
+// table: value of code c before the block scale), the Adam step; w' out,
+// m' and v' kept for the encode.
+__device__ __forceinline__ void flat_step(const Scalars& s, const float* vtab, float w,
+                                          float g, int mc, int vc, float mask,
+                                          float m_scale, float v_scale, float& wo,
+                                          float& m2, float& v2) {
+  const float m = __fmul_rn((float)mc, m_scale);
+  const float v = vc > 0 ? __fmul_rn(vtab[vc], v_scale) : 0.f;
+  adam::adam_math(s, w, g, m, v, mask, wo, m2, v2);
+}
+
+// A lane's inputs of one quant block on the 16-byte path: 4 consecutive
+// elements at (i * 32 * WPB + wq * 32 + lane) * 4, i < kGroups
+template <int WPB, typename WT, typename GT>
+struct FlatIn {
+  static constexpr int kGroups = kFlatMaxBlock / (128 * WPB);
+  decltype(ld4(static_cast<const WT*>(nullptr))) w[kGroups];
+  decltype(ld4(static_cast<const GT*>(nullptr))) g[kGroups];
+  uint32_t m[kGroups], v[kGroups], k[kGroups];  // m8, v8, mask bytes
+
+  __device__ __forceinline__ void load(const WT* w_, const GT* g_, const int8_t* m8,
+                                       const int8_t* v8, const uint8_t* mask,
+                                       long long base, long long mbase, int block,
+                                       int slot) {
+#pragma unroll
+    for (int i = 0; i < kGroups; ++i) {
+      const int e = (i * 32 * WPB + slot) * 4;
+      if (e < block) {
+        w[i] = ld4(w_ + base + e);
+        g[i] = ld4(g_ + base + e);
+        m[i] = ld4(m8 + base + e);
+        v[i] = ld4(v8 + base + e);
+        k[i] = ld4(mask + mbase + e);
+      }
+    }
+  }
+};
+
+// grid-stride over quant blocks, WPB warps each (a CTA keeps 8 / WPB blocks
+// in flight): the step on the lane's elements, w' out, the block's m' and
+// v' maxima by warp shuffles (and, for WPB > 1, one exchange between the
+// block's warps under a named barrier: no CTA barrier), then the codes.
+// m' and v' stay in registers.  VEC: 16-byte fp32 / 8-byte bf16 accesses
+// (block % (128 * WPB) == 0, every pointer aligned for it), and the next
+// block's inputs are loaded before this block's encode; else one element
+// at a time.  block <= 1024.  Outputs may alias inputs: every load of an
+// element comes before its store in program order.
+template <int WPB, bool VEC, typename WT, typename GT>
+__global__ void __launch_bounds__(kFlatThreads, WPB == 1 ? 1 : WPB == 2 ? 2 : 3)
+    adam8_flat_warp(const WT* w, const GT* g, const int8_t* m8, const int8_t* v8,
+                    const float* ms, const float* vs, const uint8_t* mask,
+                    long long mask_len, WT* w_out, int8_t* m8_out, int8_t* v8_out,
+                    float* ms_out, float* vs_out, long long n_blocks, int block, Scalars s,
+                    const float* g_scale) {
+  constexpr int kPerLane = kFlatMaxBlock / (32 * WPB);  // elements a lane holds
+  constexpr int kBlocksPerCta = kFlatWarps / WPB;
+  __shared__ float vtab[128];
+  __shared__ float2 red[2][kBlocksPerCta][WPB];
+  for (int c = threadIdx.x; c < 128; c += kFlatThreads) {
+    vtab[c] = expf(__fmul_rn(__fsub_rn((float)c, 127.f), bq::kLogStep));
+  }
+  __syncthreads();
+  const bool scaled = g_scale != nullptr;
+  const float gs = scaled ? *g_scale : 1.f;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int grp = warp / WPB, wq = warp % WPB;
+  const int slot = wq * 32 + lane;              // the lane's place in its block
+  const long long stride = (long long)gridDim.x * kBlocksPerCta;
+  long long qb = (long long)blockIdx.x * kBlocksPerCta + grp;
+  FlatIn<WPB, WT, GT> in;
+  if (VEC && qb < n_blocks) in.load(w, g, m8, v8, mask, qb * block, (qb * block) % mask_len,
+                                    block, slot);
+  for (int it = 0; qb < n_blocks; qb += stride, ++it) {
+    const long long base = qb * block;
+    const long long mbase = base % mask_len;
+    const float m_scale = ms[qb], v_scale = vs[qb];
+    float mo[kPerLane], vo[kPerLane];
+    float am = 0.f, av = 0.f;
+    if (VEC) {
+#pragma unroll
+      for (int i = 0; i < FlatIn<WPB, WT, GT>::kGroups; ++i) {
+        const int e = (i * 32 * WPB + slot) * 4;
+        if (e < block) {
+          float wo[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const float gk = scaled ? __fmul_rn(el(in.g[i], k), gs) : el(in.g[i], k);
+            flat_step(s, vtab, el(in.w[i], k), gk, sbyte(in.m[i], k), sbyte(in.v[i], k),
+                      (float)ubyte(in.k[i], k), m_scale, v_scale, wo[k], mo[4 * i + k],
+                      vo[4 * i + k]);
+            am = fmaxf(am, fabsf(mo[4 * i + k]));
+            av = fmaxf(av, vo[4 * i + k]);  // v' >= 0
+          }
+          bq::store<4>(w_out + base + e, wo);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kPerLane; ++i) {
+        const int e = i * 32 * WPB + slot;
+        if (e < block) {
+          const float gk = scaled ? __fmul_rn(bq::to_f32(g[base + e]), gs)
+                                  : bq::to_f32(g[base + e]);
+          float wo[1];
+          flat_step(s, vtab, bq::to_f32(w[base + e]), gk, (int)m8[base + e],
+                    (int)v8[base + e], (float)mask[mbase + e], m_scale, v_scale, wo[0],
+                    mo[i], vo[i]);
+          am = fmaxf(am, fabsf(mo[i]));
+          av = fmaxf(av, vo[i]);
+          bq::store<1>(w_out + base + e, wo);
+        }
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      am = fmaxf(am, __shfl_xor_sync(0xffffffffu, am, o));
+      av = fmaxf(av, __shfl_xor_sync(0xffffffffu, av, o));
+    }
+    if (WPB > 1) {
+      // the block's warps exchange their maxima; the buffer alternates, so
+      // one barrier a block suffices
+      if (lane == 0) red[it & 1][grp][wq] = make_float2(am, av);
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + grp), "r"(32 * WPB) : "memory");
+#pragma unroll
+      for (int q = 0; q < WPB; ++q) {
+        const float2 p = red[it & 1][grp][q];
+        am = fmaxf(am, p.x);
+        av = fmaxf(av, p.y);
+      }
+    }
+    float m_scale2, m_inv;
+    bq::scale_inv(am, m_scale2, m_inv);
+    if (VEC) {
+      const long long nq = qb + stride;  // the next block's loads, in flight
+      if (nq < n_blocks) in.load(w, g, m8, v8, mask, nq * block, (nq * block) % mask_len,
+                                 block, slot);
+#pragma unroll
+      for (int i = 0; i < FlatIn<WPB, WT, GT>::kGroups; ++i) {
+        const int e = (i * 32 * WPB + slot) * 4;
+        if (e < block) {
+          float qm[4], qv[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            qm[k] = bq::code_of(mo[4 * i + k], m_inv);
+            qv[k] = bq::log_code(vo[4 * i + k], av);
+          }
+          bq::store<4>(m8_out + base + e, qm);
+          bq::store<4>(v8_out + base + e, qv);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kPerLane; ++i) {
+        const int e = i * 32 * WPB + slot;
+        if (e < block) {
+          const float qm[1] = {bq::code_of(mo[i], m_inv)};
+          const float qv[1] = {bq::log_code(vo[i], av)};
+          bq::store<1>(m8_out + base + e, qm);
+          bq::store<1>(v8_out + base + e, qv);
+        }
+      }
+    }
+    if (slot == 0) {
+      ms_out[qb] = m_scale2;
+      vs_out[qb] = av;
+    }
+  }
+}
+
 struct Args {
   const void *w, *g, *m8, *v8;
   const float *ms, *vs;
@@ -198,12 +421,49 @@ cudaError_t dispatch(const Args& a, const Scalars& s, cudaStream_t stream) {
              : launch<1, WT, GT, MT, FMT>(a, s, stream);
 }
 
+// warps per quant block of the flat epilogue (measured on the H100:
+// PERF.md)
+constexpr int kFlatWPB = 4;
+
+template <int WPB, bool VEC, typename WT, typename GT>
+cudaError_t launch_flat(const Args& a, const Scalars& s, cudaStream_t stream) {
+  constexpr int per_cta = kFlatWarps / WPB;
+  const long long ctas = (a.n_blocks + per_cta - 1) / per_cta;
+  const unsigned grid = bq::grid_for(ctas);
+  adam8_flat_warp<WPB, VEC, WT, GT><<<grid, kFlatThreads, 0, stream>>>(
+      reinterpret_cast<const WT*>(a.w), reinterpret_cast<const GT*>(a.g),
+      reinterpret_cast<const int8_t*>(a.m8), reinterpret_cast<const int8_t*>(a.v8), a.ms,
+      a.vs, reinterpret_cast<const uint8_t*>(a.mask), a.mask_len,
+      reinterpret_cast<WT*>(a.w_out), reinterpret_cast<int8_t*>(a.m8_out),
+      reinterpret_cast<int8_t*>(a.v8_out), a.ms_out, a.vs_out, a.n_blocks, a.block, s,
+      a.g_scale);
+  return cudaGetLastError();
+}
+
+// the flat epilogue: kFlatWPB warps per quant block for block <= 1024 and a
+// multiple of 32 (16-byte fp32 / 8-byte bf16 accesses when block % (128 *
+// kFlatWPB) == 0 and every pointer allows), else the CTA-per-block kernel
+template <typename WT, typename GT, int FMT>
+cudaError_t dispatch_flat(const Args& a, const Scalars& s, cudaStream_t st) {
+  if (a.block > kFlatMaxBlock || a.block % 32 != 0) {
+    return dispatch<WT, GT, uint8_t, FMT>(a, s, st);
+  }
+  const bool vec = a.block % (128 * kFlatWPB) == 0 && a.mask_len % 4 == 0 &&
+                   bq::aligned(a.w, 4 * sizeof(WT)) &&
+                   bq::aligned(a.w_out, 4 * sizeof(WT)) &&
+                   bq::aligned(a.g, 4 * sizeof(GT)) && bq::aligned(a.m8, 4) &&
+                   bq::aligned(a.v8, 4) && bq::aligned(a.mask, 4) &&
+                   bq::aligned(a.m8_out, 4) && bq::aligned(a.v8_out, 4);
+  return vec ? launch_flat<kFlatWPB, true, WT, GT>(a, s, st)
+             : launch_flat<kFlatWPB, false, WT, GT>(a, s, st);
+}
+
 template <typename GT>
 cudaError_t dispatch_fmt(int fmt, const Args& a, const Scalars& s,
                          cudaStream_t st) {
   switch (fmt) {
-    case kFp32: return dispatch<float, GT, uint8_t, kFp32>(a, s, st);
-    case kBf16: return dispatch<__nv_bfloat16, GT, uint8_t, kBf16>(a, s, st);
+    case kFp32: return dispatch_flat<float, GT, kFp32>(a, s, st);
+    case kBf16: return dispatch_flat<__nv_bfloat16, GT, kBf16>(a, s, st);
     case kQ8: return dispatch<float, GT, uint8_t, kQ8>(a, s, st);
     case kE4M3: return dispatch<float, GT, uint8_t, kE4M3>(a, s, st);
     case kE5M2: return dispatch<float, GT, uint8_t, kE5M2>(a, s, st);

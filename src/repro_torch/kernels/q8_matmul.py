@@ -7,8 +7,10 @@ int8 from the all-gather through the matmul.  The per-block weight scale
 is folded into the activation, the scaled activation is quantized per row,
 int8 x int8 products accumulate exactly in int32 and the sum is rescaled
 by the activation's row scale.  The kernel is ``csrc/q8_matmul.cu``, built
-by ``kernels.build`` and called through its C launcher (two launches, one
-count); its plain PyTorch version is ``kernels.ref.q8_matmul_ref``.
+by ``kernels.build`` and called through its C launcher, one count a call:
+one launch at decode (M <= ``DECODE_MAX_M``), the row quantization and the
+``wgmma`` GEMM at prefill; its plain PyTorch version is
+``kernels.ref.q8_matmul_ref``.
 
 Scale algebra (the reference's).  A (K, N) weight is stored row-major in
 the flat buffer, so quant block ``b`` covers flat elements
@@ -45,9 +47,15 @@ from ..quant.blockwise import _check_blocking, _check_scales
 KERNEL = "q8_matmul"
 # the int32 sum of K products of int8 values in [-127, 127] must not wrap
 MAX_K = (2 ** 31 - 1) // (127 * 127)
-# the row stride of the row-quantized activation scratch: K padded to the
-# kernel's deepest shared-memory stage (csrc/q8_matmul.cu kKPad)
-K_PAD = 256
+# the row stride of the prefill's row-quantized activation scratch: K padded
+# to one TMA box of the GEMM (csrc/q8_matmul.cu kKPad)
+K_PAD = 128
+# the most rows of x that take the one-launch decode regime; more take the
+# prefill regime.  Set by measurement on the H100 (chip_smoke.py
+# kernel_q8mm's crossover rows, PERF.md): at M = 16 the decode kernel still
+# beats the prefill path at every gemma2-2b shape, and 16 is the most its
+# register tile takes (csrc/q8_matmul.cu kDecodeMaxM).
+DECODE_MAX_M = 16
 
 
 def quant_eligible(shape: tuple[int, ...], block: int) -> bool:
@@ -169,20 +177,35 @@ def q8_slice_cols(qt: QuantTensor, start: int, width: int):
 def _launcher():
     fn = build.load(KERNEL).q8_matmul_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
-                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                        ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4
+                       + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
+def regime_for(m: int) -> str:
+    """The kernel's regime for ``m`` rows of x: ``"decode"`` (one launch,
+    split K) or ``"prefill"`` (row quantization + ``wgmma`` GEMM)."""
+    return "decode" if m <= DECODE_MAX_M else "prefill"
+
+
 def q8_matmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
-              block: int, out_dtype: torch.dtype) -> torch.Tensor:
+              block: int, out_dtype: torch.dtype,
+              regime: str | None = None) -> torch.Tensor:
     """Launch the kernel: ``x`` (..., K) fp32 or bf16, ``codes`` (K, N)
     int8, ``scales`` the flat f32 block scales, all on one card (the
     arguments already checked by ``check_args``).  Returns (..., N) in
-    ``out_dtype`` (fp32 or bf16).  Two launches on the current stream --
-    the row-quantize prologue into an (nj, M, K_PAD-padded K) int8 scratch
-    and the int8 GEMM with its rescale epilogue -- counted once."""
+    ``out_dtype`` (fp32 or bf16), on the current stream, counted once.
+    ``regime`` forces ``"decode"`` or ``"prefill"`` for a measurement;
+    the serve path leaves it to ``regime_for(M)``.
+
+      * decode: one launch, K split across a thread block cluster.
+      * prefill: the row quantization into an (nj, M, K_PAD-padded K) int8
+        scratch, then the GEMM.  TMA needs 16-byte aligned codes rows and
+        column groups: codes that are not (a misaligned view, a group width
+        N / nj not a multiple of 16) are first copied into an aligned
+        buffer whose groups are padded to 16 columns."""
     k, n = codes.shape
     if x.dtype not in FLOAT_DTYPES or out_dtype not in FLOAT_DTYPES:
         raise ValueError(
@@ -208,18 +231,40 @@ def q8_matmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
         nj, r = n // block, 0
     else:
         nj, r = 1, block // n
-    kp = -(-k // K_PAD) * K_PAD
-    a8 = torch.empty((nj, m, kp), dtype=torch.int8, device=dev)
-    rs = torch.empty((nj, m), dtype=torch.float32, device=dev)
+    regime = regime or regime_for(m)
+    if regime not in ("decode", "prefill") or (
+            regime == "decode" and m > DECODE_MAX_M):
+        raise ValueError(f"q8_matmul: no {regime!r} regime for M={m}")
     stream = torch.cuda.current_stream(dev).cuda_stream
+    ncols = n // nj
+    kp, ldc, gstride = -(-k // K_PAD) * K_PAD, n, ncols
+    a8 = rs = torch.empty(0, device=dev)        # unused at decode
+    if regime == "prefill":
+        a8 = torch.empty((nj, m, kp), dtype=torch.int8, device=dev)
+        rs = torch.empty((nj, m), dtype=torch.float32, device=dev)
+        if ncols % 16 or codes.data_ptr() % 16:
+            gstride = -(-ncols // 16) * 16
+            ldc = nj * gstride
+            aligned = torch.empty((k, ldc), dtype=torch.int8, device=dev)
+            aligned.view(k, nj, gstride)[:, :, :ncols].copy_(
+                codes.view(k, nj, ncols))
+            codes = aligned
     _raise_on(_launcher()(xm.data_ptr(), int(xm.dtype == torch.bfloat16),
-                          codes.data_ptr(), scales.data_ptr(), a8.data_ptr(),
-                          rs.data_ptr(), out.data_ptr(),
+                          codes.data_ptr(), ldc, gstride, scales.data_ptr(),
+                          a8.data_ptr(), rs.data_ptr(), out.data_ptr(),
                           int(out_dtype == torch.bfloat16), m, k, n, nj, r,
-                          kp, stream), "q8_matmul")
+                          kp, 1 if regime == "decode" else 2, stream),
+              "q8_matmul")
     q8_matmul.launches += 1
+    if regime == "decode":
+        q8_matmul.decode_launches += 1
+    else:
+        q8_matmul.prefill_launches += 1
     return out.reshape(lead + (n,))
 
 
-# launches of the kernel in this process (the main path's proof of route)
+# calls of the kernel in this process (the main path's proof of route), and
+# the same split by regime
 q8_matmul.launches = 0
+q8_matmul.decode_launches = 0
+q8_matmul.prefill_launches = 0

@@ -40,7 +40,7 @@ from .mesh import init_local_group
 # kernel-name fragments -> category (cuBLAS/CUTLASS GEMM names, NCCL, ours)
 CATEGORIES = (
     ("q8 matmul", ("q8mm_",)),
-    ("optimizer", ("adamw_flat", "adamw_q8", "adam8_store")),
+    ("optimizer", ("adamw_flat", "adamw_q8", "adam8_store", "adam8_flat")),
     ("q8 codec", ("quantize_kernel", "dequantize_kernel", "encode_ef_kernel")),
     ("collective", ("nccl",)),
     ("matmul", ("gemm", "cutlass", "xmma", "nvjet", "cublas")),

@@ -19,6 +19,7 @@ tests).  Parity classes, measured:
   * the CUDA kernel vs the plain version on the card: BITWISE (``gpu``).
 """
 import dataclasses
+import itertools
 
 import numpy as np
 import pytest
@@ -346,8 +347,14 @@ def test_adam8bit_shard_alignment_errors():
 # --------------------------------------------------------------------------- #
 # (rows, n, block, element offset): the vector path, a misaligned view
 # (scalar path), an odd block (scalar path), a block staged above 48 KB
+# (rows, S, block, element offset): the flat epilogue's warp kernel with
+# 16-byte accesses (block 1024, and 256 with idle lanes), its element-wise
+# path (block 64, 96, and block 1024 at an odd offset), and the CTA-per-block
+# kernel (block 7, 8192)
 CARD_CASES = [(2, 1024 * 96, 1024, 0), (3, 64 * 50, 64, 0),
-              (2, 64 * 50, 64, 1), (2, 7 * 33, 7, 0), (1, 8192 * 3, 8192, 0)]
+              (2, 64 * 50, 64, 1), (2, 7 * 33, 7, 0), (1, 8192 * 3, 8192, 0),
+              (1, 1024 * 40, 1024, 1), (2, 256 * 12, 256, 0),
+              (2, 96 * 20, 96, 0)]
 
 
 def _card_args(rows, n, block, offset, seed, first_step=False):
@@ -388,32 +395,42 @@ def test_adam8bit_kernel_matches_plain_on_card(fmt):
     sc = ref.scalar_stack(*kw.values())
     wrapper = fused_update.adam8bit_q8_update if fmt == "q8_block" \
         else fused_update.adam8bit_store_update
-    for rows, n, block, offset in CARD_CASES:
-        for first in (True, False):
-            t = _card_args(rows, n, block, offset, seed=n + offset,
-                           first_step=first)
-            if fmt == "bf16":
-                t[0] = t[0].to(torch.bfloat16)
-            before = wrapper.launches
-            got = ops.adam8bit_store_update(*t, fmt=fmt, block=block, **kw)
-            assert wrapper.launches == before + 1
-            want = ref.adam8bit_store_update_ref(*t, sc, fmt, block)
-            torch.cuda.synchronize()
-            case = (fmt, rows, n, block, offset, first)
-            if fmt == "q8_block":
-                got = tuple(got[0][k] for k in ("codes", "master", "scales")) \
-                    + got[1:]
-                want = tuple(want[0][k] for k in ("codes", "master",
-                                                  "scales")) + want[1:]
-            for a, b in zip(got, want):
-                assert a.dtype == b.dtype and torch.equal(a, b), case
-            # in place on the state's tensors, as the optimizer runs it
-            w, m8, v8, ms, vs = (x.clone() for x in (t[0], *t[2:6]))
-            extra = (torch.empty_like(m8), w, torch.empty_like(ms)) \
-                if fmt == "q8_block" else (w,)
-            out = extra + (m8, v8, ms, vs)
-            ops.adam8bit_store_update(w, t[1], m8, v8, ms, vs, t[6],
-                                      fmt=fmt, block=block, out=out, **kw)
-            torch.cuda.synchronize()
-            for a, b in zip(out, want):
-                assert torch.equal(a, b), ("in place",) + case
+    # the flat epilogues also with the train step's gradient scale, and the
+    # bf16 store with its bf16 gradient
+    grads = [(torch.float32, None)] + (
+        [(torch.float32, 0.5)] if fmt == "fp32" else
+        [(torch.bfloat16, None), (torch.bfloat16, 0.5)] if fmt == "bf16"
+        else [])
+    for (rows, n, block, offset), first, (g_dtype, scale) in \
+            itertools.product(CARD_CASES, (True, False), grads):
+        t = _card_args(rows, n, block, offset, seed=n + offset,
+                       first_step=first)
+        if fmt == "bf16":
+            t[0] = t[0].to(torch.bfloat16)
+        t[1] = t[1].to(g_dtype)
+        gs = None if scale is None else torch.tensor(scale, device="cuda")
+        before = wrapper.launches
+        got = ops.adam8bit_store_update(*t, fmt=fmt, block=block,
+                                        g_scale=gs, **kw)
+        assert wrapper.launches == before + 1
+        want = ref.adam8bit_store_update_ref(*t, sc, fmt, block, gs)
+        torch.cuda.synchronize()
+        case = (fmt, rows, n, block, offset, first, g_dtype, scale)
+        if fmt == "q8_block":
+            got = tuple(got[0][k] for k in ("codes", "master", "scales")) \
+                + got[1:]
+            want = tuple(want[0][k] for k in ("codes", "master",
+                                              "scales")) + want[1:]
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b), case
+        # in place on the state's tensors, as the optimizer runs it
+        w, m8, v8, ms, vs = (x.clone() for x in (t[0], *t[2:6]))
+        extra = (torch.empty_like(m8), w, torch.empty_like(ms)) \
+            if fmt == "q8_block" else (w,)
+        out = extra + (m8, v8, ms, vs)
+        ops.adam8bit_store_update(w, t[1], m8, v8, ms, vs, t[6],
+                                  fmt=fmt, block=block, out=out,
+                                  g_scale=gs, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(out, want):
+            assert torch.equal(a, b), ("in place",) + case

@@ -220,28 +220,58 @@ def test_cuda_wrapper_rejects_cpu_tensors():
                        torch.from_numpy(scales), 64, torch.float32)
 
 
+def test_regime_is_chosen_by_m_alone():
+    """Decode (one launch, split K) up to DECODE_MAX_M rows, prefill
+    (row quantization + wgmma GEMM) above; the decode kernel's register
+    tile takes at most 16 rows."""
+    assert 1 <= q8mm.DECODE_MAX_M <= 16
+    assert [q8mm.regime_for(m) for m in (1, 4, q8mm.DECODE_MAX_M)] == \
+        ["decode"] * 3
+    assert [q8mm.regime_for(m) for m in (q8mm.DECODE_MAX_M + 1, 2048)] == \
+        ["prefill"] * 2
+
+
+# (K, N, block) on the card: case A with nj = 1 (K % 32 != 0), nj = 3 with a
+# ragged last column tile of both regimes (group width 320), gemma2-2b's wq;
+# case B with r = 8, with trailing partial blocks (K % r != 0), N = 7; a
+# case-A group width of 8 (byte loads at decode, the aligned copy at prefill)
+CARD_SHAPES = ((300, 64, 64), (1000, 960, 320), (2304, 2048, 1024),
+               (1000, 128, 1024), (1001, 128, 1024), (4097, 512, 1024),
+               (101, 7, 56), (97, 40, 8))
+CARD_M = (1, 4, 16, 17, 64, 2048)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("out", ["f32", "bf16"])
-def test_kernel_matches_plain_on_card(out):
-    """Kernel vs plain version on the card at odd M, K and N, both cases,
-    the decode (M <= 16) and prefill tilings, byte and 16-byte code loads:
-    0 integer-view steps; one launch count per call."""
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_kernel_matches_plain_on_card(dt):
+    """Kernel vs plain version on the card: M either side of the decode /
+    prefill crossover, both scale cases, K not a multiple of 32 or 256,
+    ragged column tiles, codes 16-byte aligned and not, fp32 and bf16 in
+    and out: 0 integer-view steps; one launch count a call, in its
+    regime's count."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    dtype = torch.float32 if out == "f32" else torch.bfloat16
-    shapes = [  # (M, K, N, block)
-        (1, 33, 8, 8), (3, 97, 40, 8), (16, 300, 64, 64), (17, 300, 64, 64),
-        (129, 1000, 192, 64), (4, 2304, 2048, 1024), (70, 4096, 128, 1024),
-        (5, 101, 7, 56), (33, 4097, 512, 1024), (64, 515, 24, 96)]
-    for m, k, n, block in shapes:
-        codes, scales = _weight(k, n, block, seed=m + k + n)
-        x = _x((m,), k, seed=m, dtype=dtype).cuda() if m > 1 else \
-            torch.randn(1, k, dtype=dtype).cuda()
-        c, s = torch.from_numpy(codes).cuda(), torch.from_numpy(scales).cuda()
-        before = q8mm.q8_matmul.launches
-        got = ops.q8_matmul(x, c, s, block)
-        assert q8mm.q8_matmul.launches == before + 1
-        want = q8_matmul_ref(x, c, s, block)
-        torch.cuda.synchronize()
-        diff = int((_int_view(got) - _int_view(want)).abs().max())
-        assert diff == 0, ((m, k, n, block), diff)
+    x_dtype, out_dtype = DTYPES[dt]
+    for k, n, block in CARD_SHAPES:
+        codes, scales = _weight(k, n, block, seed=k + n)
+        s = torch.from_numpy(scales).cuda()
+        for misaligned in (False, True):
+            buf = torch.zeros(k * n + 16, dtype=torch.int8, device="cuda")
+            off = 1 if misaligned else 0
+            c = buf[off:off + k * n].view(k, n)
+            c.copy_(torch.from_numpy(codes))
+            assert (c.data_ptr() % 16 != 0) == misaligned
+            for m in CARD_M:
+                x = _x((m,), k, seed=m, dtype=x_dtype).cuda() if m > 1 else \
+                    torch.randn(1, k, dtype=x_dtype).cuda()
+                regime = q8mm.regime_for(m)
+                before = (q8mm.q8_matmul.launches,
+                          getattr(q8mm.q8_matmul, f"{regime}_launches"))
+                got = ops.q8_matmul(x, c, s, block, out_dtype=out_dtype)
+                assert (q8mm.q8_matmul.launches, getattr(
+                    q8mm.q8_matmul, f"{regime}_launches")) == \
+                    (before[0] + 1, before[1] + 1)
+                want = q8_matmul_ref(x, c, s, block, out_dtype)
+                torch.cuda.synchronize()
+                diff = int((_int_view(got) - _int_view(want)).abs().max())
+                assert diff == 0, ((m, k, n, block, misaligned), diff)
