@@ -20,6 +20,10 @@ non-zero):
                   (77869056,) per layer, globals (589826048 + 1024,)) and a
                   block-64 case, fp32 and bf16 where a kernel takes both:
                   integer-view difference (expected 0), median times, bound.
+                  ``quantize`` (fp32) and ``dequantize_into`` (bf16 out)
+                  also at the shapes the main path (18) gives them:
+                  qwen2.5-14b's q8_block shards, (2, 275268608) per rebuild
+                  of the layers and (1557140480,) of ``globals``.
   5. kernel_adam8 -- the fused 8-bit Adam kernel (``adam8bit_store_update``:
                   fp32 and bf16 epilogues, and the q8_block epilogue)
                   against its plain version at qwen3-moe's ``layers`` shard
@@ -124,6 +128,33 @@ and 15 after 9, 17 with 10):
                   AdamW, fp8_e5m2 / Adam8bit and bf16 / AdamW: losses and
                   grad norms within PARITY_FP8_RTOL, and on each device the
                   fp8 codes bitwise the encode of the master.
+
+The non-element-wise optimizers (18 and 19 run after 15, 20 after 17):
+
+ 18. train_muon_q8 -- the slice's main path: qwen2.5-14b at published
+                  width (d_model 5120, 40/8 heads, head_dim 128, d_ff
+                  13824, vocab 152064, untied head, qkv bias) cut to 2
+                  layers, one NCCL rank, bf16 compute, q8_block store,
+                  Muon, batch 1 x 2048; one warm-up and three timed steps,
+                  each with the optimizer update's own ms (synchronised
+                  around ``optimizer.update``).  ``quantize`` must launch
+                  once per group at init and once per group and step (the
+                  store's rebuild), ``dequantize_into`` once per gather,
+                  nothing else.
+ 19. train_shampoo -- the same width at 1 layer, fp32 store, Shampoo, two
+                  steps (the per-step eigendecompositions are the
+                  reference's design), then ``torch.linalg.eigh`` of the
+                  largest factor (13824^2) and of a 5120^2 one timed with
+                  CUDA events; no kernel of the port may launch.
+ 20. parity_optim -- qwen2.5-14b.reduced(), fp32 compute, learning rate
+                  1e-2: three steps of SGD, Muon and Shampoo on the fp32
+                  store and of Muon on the q8_block store (the main path's
+                  update, rebuild and kernels together) on the CPU and on
+                  the card, each device twice (it must repeat bitwise);
+                  loss and grad-norm streams within PARITY_OPTIM_RTOL, the
+                  final masters within PARITY_OPTIM_MASTER, and on each
+                  device the q8 codes and scales bitwise the plain
+                  quantization of the final master.
 
 Then the ``kernels`` line, the card's name and power limit as nvidia-smi
 reports them, and a last line ``{"ok": true, "device": {...}}``.  The
@@ -249,6 +280,36 @@ BOUNDARY_CODES = {
                  0x7F, 0x01, 0x00, 0x01, 0x00, 0x00),
     "fp8_e5m2": (0x5F, 0x5F, 0x5F, 0x5F, 0x60, 0x71, 0x7B, 0x7B, 0x7C, 0x7C,
                  0x7E, 0x18, 0x14, 0x16, 0x01, 0x00)}
+
+# the non-element-wise optimizers (Muon, Shampoo, SGD) on qwen2.5-14b at
+# published width: depth cut 48 -> 2 (Muon, q8_block store) and -> 1
+# (Shampoo, fp32 store), batch 1 x 2048, one rank
+QWEN = "qwen2.5-14b"
+MUON_LAYERS, SHAMPOO_LAYERS, QWEN_BATCH, QWEN_SEQ = 2, 1, 1, 2048
+SHAMPOO_STEPS = 2
+QWEN_SHARDS = {"layers": 275_268_608, "globals": 1_557_140_480}
+MUON_SCHEDULE = {"param_store": "q8_block"}
+# card vs CPU, three fp32 steps of qwen2.5-14b.reduced() per case
+# (learning rate 1e-2, as the CPU tests run it): loss and grad-norm
+# streams, and the final masters' relative L2.  Each device repeats
+# bitwise, so a card and CPU of one kind give one reading (the same in two
+# H100 runs of the fp32-store cases).  The limits are four to eight times
+# those readings (PERF.md): streams 2.37e-7 (SGD, limit 8.4x), 1.19e-7
+# (Muon, 5.0x), 4.79e-7 (Shampoo, cuSOLVER's eigh against LAPACK's, 4.2x);
+# masters 6.6e-9 (7.6x), 2.73e-7 (7.3x), 7.95e-6 (5.0x).  Muon on the
+# q8_block store ("muon_q8") reads 7.54e-6 / 3.46e-5 (limits 4.0x): the
+# masters' last-bit differences flip a few weight codes, which the next
+# steps carry (1e-6 noise on Newton-Schulz moves one CPU run as much:
+# test_q8_store_turns_last_bit_noise_into_code_flips in
+# tests/test_torch_train_optim.py)
+PARITY_OPTIM_LR, PARITY_OPTIM_STEPS = 1e-2, 3
+PARITY_OPTIM_CASES = (("sgd", "sgd", None), ("muon", "muon", None),
+                      ("shampoo", "shampoo", None),
+                      ("muon_q8", "muon", MUON_SCHEDULE))
+PARITY_OPTIM_RTOL = {"sgd": 2e-6, "muon": 6e-7, "shampoo": 2e-6,
+                     "muon_q8": 3e-5}
+PARITY_OPTIM_MASTER = {"sgd": 5e-8, "muon": 2e-6, "shampoo": 4e-5,
+                       "muon_q8": 1.4e-4}
 
 
 def emit(obj) -> None:
@@ -428,12 +489,16 @@ def phase_kernel(fused_update, ref) -> dict:
     return step
 
 
-def phase_kernel_q8(ops, ref, layer_shard: int, globals_shard: int) -> dict:
+def phase_kernel_q8(ops, ref, layer_shard: int, globals_shard: int,
+                    muon_shards: dict) -> dict:
     """The q8 kernels at the q8 plan's shard shapes (one rank: a layer's
-    gathered buffer is its shard).  Returns per kernel the summary the
-    kernels line carries: one call at each group's main-path shape, summed
-    (init quantize of both groups, a bf16 gather and a bf16-cotangent
-    encode of each group, the update of each group)."""
+    gathered buffer is its shard), and ``quantize`` / ``dequantize_into``
+    at the shapes ``train_muon_q8`` gives them (``muon_shards``: its
+    plan's).  Returns per kernel the summary the kernels line carries: one
+    call at each group's ``train_q8`` shape, summed (init quantize of both
+    groups, a bf16 gather and a bf16-cotangent encode of each group, the
+    update of each group), and under ``by_path`` the same for
+    ``train_muon_q8`` (a rebuild and a bf16 gather of each group)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -454,16 +519,26 @@ def phase_kernel_q8(ops, ref, layer_shard: int, globals_shard: int) -> dict:
     def add(key, row, on_path):
         s = summary[key]
         s["max_abs_err"] = max(s["max_abs_err"], row["max_abs_err"])
+        if on_path == "train_muon_q8":
+            s = s.setdefault("by_path", {}).setdefault(on_path, {
+                "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                "max_abs_err": 0.0})
+            s["max_abs_err"] = max(s["max_abs_err"], row["max_abs_err"])
         if on_path:
             for k in ("ms", "plain_ms", "bound_ms"):
                 s[k] += row[k]
 
-    # quantize: the store's init (fp32 masters), a bf16 input, block 64
+    muon_layers, muon_globals = muon_shards["layers"], muon_shards["globals"]
+    # quantize: the store's init (fp32 masters), a bf16 input, block 64;
+    # the main path's rebuild of each group
     for shape, dtype, block, on_path in (
             ((L, layer_shard), torch.float32, 1024, True),
             ((globals_shard,), torch.float32, 1024, True),
             ((layer_shard,), torch.bfloat16, 1024, False),
-            (reduced_layer, torch.float32, 64, False)):
+            (reduced_layer, torch.float32, 64, False),
+            ((MUON_LAYERS, muon_layers), torch.float32, 1024,
+             "train_muon_q8"),
+            ((muon_globals,), torch.float32, 1024, "train_muon_q8")):
         x = rnd(shape, 0.05, dtype)
         n = x.numel()
         row = hold("quantize", {"shape": list(shape), "in": str(dtype)[6:],
@@ -474,14 +549,16 @@ def phase_kernel_q8(ops, ref, layer_shard: int, globals_shard: int) -> dict:
                    Q8_FLOPS["quantize"] * n)
         add("quantize", row, on_path)
         del x
-    # dequantize_into: the bf16 gathers; dequantize (its fp32 case, counted
-    # apart): the reduce route
+    # dequantize_into: the bf16 gathers (the main path's too); dequantize
+    # (its fp32 case, counted apart): the reduce route
     for shape, dtype, block, on_path in (
             ((layer_shard,), torch.bfloat16, 1024, True),
             ((globals_shard,), torch.bfloat16, 1024, True),
             ((layer_shard,), torch.float32, 1024, True),
             ((globals_shard,), torch.float32, 1024, True),
-            (reduced_layer, torch.float32, 64, False)):
+            (reduced_layer, torch.float32, 64, False),
+            ((muon_layers,), torch.bfloat16, 1024, "train_muon_q8"),
+            ((muon_globals,), torch.bfloat16, 1024, "train_muon_q8")):
         codes, scales = ops.quantize(rnd(shape, 0.05), block)
         n = codes.numel()
         out_bytes = torch.empty((), dtype=dtype).element_size()
@@ -1157,13 +1234,31 @@ def main() -> None:
     mods = {"fused_update": fused_update, "blockwise_quant": blockwise_quant,
             "encode_ef": encode_ef, "q8_matmul": q8_matmul}
 
+    class TimedUpdate:
+        """An optimizer whose ``update`` is timed on the host between two
+        synchronisations (its own ms inside the train step)."""
+
+        def __init__(self, opt, ms):
+            self.opt, self.ms = opt, ms
+
+        def update(self, *args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.opt.update(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
     def train(cfg, device, compute_dtype, stream, steps, schedule=None,
-              timings=None, seed=0, check=None):
+              timings=None, seed=0, check=None, keep=None,
+              time_update=False):
         """The quickstart loop through the public API; returns (metrics
         per step, step ms, runtime) and, into ``timings``, the set-up
-        seconds (runtime, init, optimizer state); ``check(rt, params)``
-        sees the final state.  Batches are made and placed outside the
-        timed region."""
+        seconds (runtime, init, optimizer state) and, with
+        ``time_update``, each step's ``update_ms``; ``check(rt, params)``
+        sees the final state, and ``keep`` (a dict) receives it with the
+        optimizer state.  Batches are made and placed outside the timed
+        region."""
         t_setup = time.perf_counter()
         rt = FSDPRuntime(build_model(cfg), group,
                          compute_dtype=compute_dtype, device=device,
@@ -1173,6 +1268,8 @@ def main() -> None:
         opt_state = opt.init(rt)
         if timings is not None:
             timings["setup_s"] = time.perf_counter() - t_setup
+            if time_update:
+                opt = TimedUpdate(opt, timings.setdefault("update_ms", []))
         step_fn = rt.make_train_step(opt)
         out, times, step = [], [], 0
         for i in range(steps):
@@ -1186,6 +1283,8 @@ def main() -> None:
             out.append({k: float(v) for k, v in m.items()})
         if check is not None:
             check(rt, params)
+        if keep is not None:
+            keep.update(params=params, opt_state=opt_state)
         return out, times, rt
 
     smi = nvidia_smi()
@@ -1218,8 +1317,16 @@ def main() -> None:
     q8_plan = plan(build_model(cfg), {"data": 1, "model": 1},
                    CommSchedule(**Q8_SCHEDULE))
     q8_shards = {n: e.plan.shard_size for n, e in q8_plan.groups.items()}
+    qwen_full = get_config(QWEN)
+    muon_cfg = dataclasses.replace(qwen_full, n_layers=MUON_LAYERS,
+                                   optimizer="muon")
+    muon_shards = {n: e.plan.shard_size for n, e in plan(
+        build_model(muon_cfg), {"data": 1, "model": 1},
+        CommSchedule(**MUON_SCHEDULE)).groups.items()}
+    if muon_shards != QWEN_SHARDS:
+        fail(f"qwen2.5-14b shard sizes {muon_shards}, expected {QWEN_SHARDS}")
     q8stats = phase_kernel_q8(ops, ref, q8_shards["layers"],
-                              q8_shards["globals"])
+                              q8_shards["globals"], muon_shards)
 
     # ---- 5. the 8-bit Adam kernel vs plain -----------------------------
     adam8_cfg = dataclasses.replace(cfg, optimizer="adam8bit")
@@ -1485,6 +1592,130 @@ def main() -> None:
         fail(f"standalone updates launched {sa_launches}, expected "
              f"{sa_want} (finite: {[v['finite'] for v in sa.values()]})")
 
+    # ---- 18. Muon on qwen2.5-14b's q8_block store at published width --
+    qwen_stream = SyntheticStream(DataConfig(muon_cfg.vocab, QWEN_SEQ,
+                                             QWEN_BATCH), muon_cfg)
+    qwen_tokens = QWEN_BATCH * QWEN_SEQ
+    qwen_loss0 = math.log(muon_cfg.vocab) + 2.0   # untied head, as qwen3
+    emit({"phase": "train_muon_q8_setup", "model": QWEN,
+          "cut": {"n_layers": [qwen_full.n_layers, MUON_LAYERS],
+                  "batch": [QWEN_BATCH, QWEN_SEQ]},
+          "d_model": muon_cfg.d_model,
+          "heads": [muon_cfg.n_heads, muon_cfg.n_kv_heads],
+          "head_dim": muon_cfg.hd, "d_ff": muon_cfg.d_ff,
+          "vocab": muon_cfg.vocab, "qkv_bias": muon_cfg.qkv_bias,
+          "tie_embeddings": muon_cfg.tie_embeddings,
+          "schedule": MUON_SCHEDULE, "optimizer": "muon"})
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(mods)
+    t0 = time.perf_counter()
+    muon_timing = {}
+    muon_metrics, muon_times, rt = train(
+        muon_cfg, "cuda", torch.bfloat16, qwen_stream, 1 + TIMED_STEPS,
+        CommSchedule(**MUON_SCHEDULE), timings=muon_timing,
+        time_update=True)
+    muon_launches = launches_now(mods)
+    muon_peak = torch.cuda.max_memory_allocated()
+    gathers = sum(2 * lo.n_layers if lo.n_layers else 1
+                  for lo in rt.layouts.values())
+    # quantize: once per group at init and once per group and step (the
+    # store's rebuild); dequantize_into: once per gather; nothing else
+    muon_want = {k: 0 for k in muon_launches}
+    muon_want.update(quantize=len(rt.layouts) * (1 + len(muon_metrics)),
+                     dequantize_into=gathers * len(muon_metrics))
+    shards = {n: lo.plan.shard_size for n, lo in rt.layouts.items()}
+    for i, (m, ms) in enumerate(zip(muon_metrics, muon_times)):
+        emit({"phase": "train_muon_q8", "step": i, "warmup": i == 0,
+              "loss": m["loss"], "grad_norm": m["grad_norm"],
+              "tokens": m["tokens"], "step_ms": ms,
+              "update_ms": muon_timing["update_ms"][i],
+              "tokens_per_s": qwen_tokens / (ms / 1e3)})
+    timed = muon_times[1:]
+    emit({"phase": "train_muon_q8_summary", "shard_sizes": shards,
+          "params": sum(math.prod(lo.local_shape())
+                        for lo in rt.layouts.values()),
+          "setup_s": muon_timing["setup_s"],
+          "setup_and_steps_s": time.perf_counter() - t0,
+          "step_ms_median": statistics.median(timed),
+          "update_ms_median": statistics.median(
+              muon_timing["update_ms"][1:]),
+          "tokens_per_s": qwen_tokens / (statistics.median(timed) / 1e3),
+          "max_memory_allocated": muon_peak,
+          "kernel_launches": muon_launches,
+          "expected_launches": muon_want,
+          "expected_first_loss": qwen_loss0})
+    if shards != QWEN_SHARDS:
+        fail(f"qwen2.5-14b shard sizes {shards}, expected {QWEN_SHARDS}")
+    if muon_launches != muon_want:
+        fail(f"train_muon_q8 launched {muon_launches}, expected {muon_want}")
+    for m in muon_metrics:
+        if not all(math.isfinite(m[k]) for k in ("loss", "grad_norm")):
+            fail(f"non-finite train_muon_q8 metrics {m}")
+    if abs(muon_metrics[0]["loss"] - qwen_loss0) > 1.0:
+        fail(f"first train_muon_q8 loss {muon_metrics[0]['loss']} far from "
+             f"{qwen_loss0}")
+    del rt
+    torch.cuda.empty_cache()
+
+    # ---- 19. Shampoo on qwen2.5-14b at published width, fp32 store -----
+    sh_cfg = dataclasses.replace(qwen_full, n_layers=SHAMPOO_LAYERS,
+                                 optimizer="shampoo")
+    emit({"phase": "train_shampoo_setup", "model": QWEN,
+          "cut": {"n_layers": [qwen_full.n_layers, SHAMPOO_LAYERS],
+                  "batch": [QWEN_BATCH, QWEN_SEQ]},
+          "schedule": "fp32 store", "optimizer": "shampoo",
+          "steps": SHAMPOO_STEPS})
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(mods)
+    t0 = time.perf_counter()
+    sh_timing, sh_keep = {}, {}
+    sh_metrics, sh_times, rt = train(
+        sh_cfg, "cuda", torch.bfloat16, qwen_stream, SHAMPOO_STEPS,
+        timings=sh_timing, keep=sh_keep, time_update=True)
+    sh_launches = launches_now(mods)
+    sh_peak = torch.cuda.max_memory_allocated()
+    factors = sh_keep["opt_state"]["factors"]
+    big = max(factors, key=lambda k: factors[k].shape[-1])
+    eig_ms = {}
+    for key in (big, "layers/wq/L"):
+        M = factors[key][0]
+        times_eig = []
+        for _ in range(2):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            w, V = torch.linalg.eigh(M)
+            b.record()
+            b.synchronize()
+            times_eig.append(a.elapsed_time(b))
+            del w, V
+        eig_ms[key] = {"n": M.shape[-1], "ms": times_eig}
+    for i, (m, ms) in enumerate(zip(sh_metrics, sh_times)):
+        emit({"phase": "train_shampoo", "step": i, "loss": m["loss"],
+              "grad_norm": m["grad_norm"], "tokens": m["tokens"],
+              "step_ms": ms, "update_ms": sh_timing["update_ms"][i]})
+    emit({"phase": "train_shampoo_summary",
+          "shard_sizes": {n: lo.plan.shard_size
+                          for n, lo in rt.layouts.items()},
+          "factors": {k: list(t.shape) for k, t in factors.items()},
+          "setup_s": sh_timing["setup_s"],
+          "setup_and_steps_s": time.perf_counter() - t0,
+          "max_memory_allocated": sh_peak, "eigh_ms": eig_ms,
+          "kernel_launches": sh_launches})
+    if sh_launches != {k: 0 for k in sh_launches}:
+        fail(f"train_shampoo launched {sh_launches}: the fp32 store and "
+             f"Shampoo run no kernel of the port")
+    if eig_ms[big]["n"] != qwen_full.d_ff:
+        fail(f"the largest factor {big} is {eig_ms[big]['n']} wide")
+    for m in sh_metrics:
+        if not all(math.isfinite(m[k]) for k in ("loss", "grad_norm")):
+            fail(f"non-finite train_shampoo metrics {m}")
+    if abs(sh_metrics[0]["loss"] - qwen_loss0) > 1.0:
+        fail(f"first train_shampoo loss {sh_metrics[0]['loss']} far from "
+             f"{qwen_loss0}")
+    del rt, sh_keep, factors, M
+    torch.cuda.empty_cache()
+
     # ---- 10. CPU (plain versions) vs card (kernels) --------------------
     small = get_config("gemma2-2b").reduced()
     moe_small = get_config(MOE).reduced()
@@ -1536,6 +1767,64 @@ def main() -> None:
         if not max(readings) <= rtol:
             fail(f"{phase}: CPU and card runs differ by {max(readings)} > "
                  f"{rtol}")
+
+    # ---- 20. the optimizers: CPU vs card, each repeating bitwise -------
+    qwen_small = get_config(QWEN).reduced()
+
+    def codes_of_q8_master(rt, params):
+        """On either device: every q8_block state's codes and scales are
+        bitwise the plain quantization of its master."""
+        for name, st in params.items():
+            store = rt.layouts[name].store
+            if store.quantized and any(
+                    int_view_diff(a, b) for a, b in zip(
+                        (st["codes"], st["scales"]),
+                        ref.quantize_ref(st["master"], store.block))):
+                fail(f"{name}: q8 codes differ from the quantization of "
+                     f"the master on {rt.device}")
+
+    for case, opt_name, sched in PARITY_OPTIM_CASES:
+        pcfg = dataclasses.replace(qwen_small, optimizer=opt_name,
+                                   learning_rate=PARITY_OPTIM_LR)
+        data = SyntheticStream(DataConfig(pcfg.vocab, 64, 8), pcfg)
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            for rep in range(2):
+                kept = {}
+                metrics = train(pcfg, dev, torch.float32, data,
+                                PARITY_OPTIM_STEPS,
+                                sched and CommSchedule(**sched), keep=kept,
+                                check=codes_of_q8_master)[0]
+                masters = {n: (p["master"] if isinstance(p, dict) else p)
+                           .detach().cpu() for n, p in kept["params"].items()}
+                if rep == 0:
+                    runs[dev] = (metrics, masters)
+                elif metrics != runs[dev][0] or any(
+                        int_view_diff(masters[n], runs[dev][1][n])
+                        for n in masters):
+                    fail(f"parity_optim {case}: not bitwise repeatable "
+                         f"on {dev}")
+        (cm, cmaster), (gm, gmaster) = runs["cpu"], runs["cuda"]
+        stream_diff = max(abs(a[k] - b[k]) / abs(b[k])
+                          for a, b in zip(gm, cm)
+                          for k in ("loss", "grad_norm"))
+        master_diff = max(rel_l2(gmaster[n], cmaster[n]) for n in cmaster)
+        emit({"phase": "parity_optim", "config": f"{QWEN}.reduced()",
+              "case": case, "optimizer": opt_name,
+              "schedule": sched or "default", "compute": "float32",
+              "steps": PARITY_OPTIM_STEPS, "lr": PARITY_OPTIM_LR,
+              "max_rel_diff": stream_diff, "rtol": PARITY_OPTIM_RTOL[case],
+              "master_rel_l2": master_diff,
+              "master_limit": PARITY_OPTIM_MASTER[case],
+              "losses": {"cpu": [m["loss"] for m in cm],
+                         "cuda": [m["loss"] for m in gm]},
+              "repeated_bitwise": True})
+        if not (stream_diff <= PARITY_OPTIM_RTOL[case]
+                and master_diff <= PARITY_OPTIM_MASTER[case]):
+            fail(f"parity_optim {case}: CPU and card differ by "
+                 f"{stream_diff} (streams) / {master_diff} (masters)")
+        if cm[-1]["loss"] == cm[0]["loss"]:
+            fail(f"parity_optim {case}: the loss did not move")
 
     # ---- 11. q8_matmul vs plain ----------------------------------------
     q8mm_stats = phase_kernel_q8mm(ops, ref, q8_matmul)
@@ -1727,12 +2016,19 @@ def main() -> None:
         entry("adamw_store_update_q8", "adamw_store_update.cu",
               "src/repro/kernels/fused_update.py:102",
               q8_launches["adamw_q8"], q8stats["adamw_q8"]),
-        entry("quantize", "blockwise_quant.cu",
-              "src/repro/kernels/blockwise_quant.py:56",
-              q8_launches["quantize"], q8stats["quantize"]),
-        entry("dequantize_into", "blockwise_quant.cu",
-              "src/repro/kernels/blockwise_quant.py:66",
-              q8_launches["dequantize_into"], q8stats["dequantize_into"]),
+        {**entry("quantize", "blockwise_quant.cu",
+                 "src/repro/kernels/blockwise_quant.py:56",
+                 q8_launches["quantize"], q8stats["quantize"]),
+         "launches_by_path": {"train_q8": q8_launches["quantize"],
+                              "train_muon_q8": muon_launches["quantize"]},
+         "by_path": q8stats["quantize"]["by_path"]},
+        {**entry("dequantize_into", "blockwise_quant.cu",
+                 "src/repro/kernels/blockwise_quant.py:66",
+                 q8_launches["dequantize_into"], q8stats["dequantize_into"]),
+         "launches_by_path": {
+             "train_q8": q8_launches["dequantize_into"],
+             "train_muon_q8": muon_launches["dequantize_into"]},
+         "by_path": q8stats["dequantize_into"]["by_path"]},
         entry("dequantize", "blockwise_quant.cu",
               "src/repro/kernels/blockwise_quant.py:144",
               q8_launches["dequantize"], q8stats["dequantize"]),

@@ -6,10 +6,16 @@ import importlib
 from .base import ModelConfig, ParallelConfig
 
 # public arch id -> module name (the reference registers twelve; the port
-# adds an id once it runs that family -- ROADMAP Queue 1 item 14)
+# adds an id once it runs that family -- ROADMAP Queue 1 item 14b)
 _MODULES = {
+    "qwen2.5-14b": "qwen2_5_14b",
+    "qwen1.5-32b": "qwen1_5_32b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "gemma2-2b": "gemma2_2b",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    # the paper's own evaluation models
+    "llama3-70b": "llama3_70b",
+    "gpt-oss-120b": "gpt_oss_120b",
 }
 
 ARCH_IDS = list(_MODULES)
@@ -19,7 +25,7 @@ def get_config(arch_id: str) -> ModelConfig:
     if arch_id not in _MODULES:
         raise NotImplementedError(
             f"{arch_id!r} is not ported yet (ported: {ARCH_IDS}); other "
-            f"families come with ROADMAP Queue 1 item 14")
+            f"families come with ROADMAP Queue 1 item 14b")
     mod = importlib.import_module(f".{_MODULES[arch_id]}", __package__)
     return mod.CONFIG
 
@@ -31,7 +37,7 @@ def build_model(cfg: ModelConfig):
         return DecoderLM(cfg)
     raise NotImplementedError(
         f"arch_type {cfg.arch_type!r} is not ported yet (ROADMAP Queue 1 "
-        f"item 14)")
+        f"item 14b)")
 
 
 __all__ = ["ModelConfig", "ParallelConfig", "ARCH_IDS", "get_config",

@@ -23,13 +23,17 @@ residual ``reduce_ef`` (``(L, m * S)``).  The train step then:
     ``reduce_ef``);
   * all-reduces the token-sum loss and the token count over the batch
     axes, scales the gradients by ``1/max(tokens, 1)``, runs the
-    optimizer (one fused kernel per group, in place: a q8 or fp8 store's
-    codes are rewritten in the same pass) and reports the norm of the
-    scaled gradients -- the reference's order.  The reference's ``g *
-    scale`` turns a bf16 gradient into fp32; the port keeps a bf16 store's
-    gradient bf16 and hands the scale to the fused update, which applies it
-    in fp32 (the same values, without a full-size fp32 copy).  The residual
-    is never scaled and never counted in the norm.
+    optimizer (AdamW and Adam8bit: one fused kernel per group, in place, a
+    q8 or fp8 store's codes rewritten in the same pass; SGD, Muon and
+    Shampoo: tensor code over chunks of the shard, then the store's
+    ``rebuild``) and reports the norm of the scaled gradients -- the
+    reference's order.  The reference's ``g * scale`` multiplies a bf16
+    gradient by an fp32 scalar, which promotes it to fp32; the port keeps
+    a bf16 store's gradient bf16 and hands the scale to the optimizer,
+    which casts and then scales in fp32 -- the fused kernels per element,
+    the others per chunk (``optim.common.grad_f32``): BITWISE the
+    reference's scaled gradient, without a full-size fp32 copy.  The
+    residual is never scaled and never counted in the norm.
 
 The serve steps (``make_prefill_step``, ``make_decode_step``) run the
 model's ``prefill``/``decode`` under ``torch.inference_mode()``: each
@@ -207,13 +211,16 @@ class FSDPRuntime:
         return a.astype(np.float32)
 
     def _place(self, name: str, global_buf: np.ndarray,
-               requires_grad: bool = True, dtype=torch.float32
-               ) -> torch.Tensor:
-        """This rank's columns of a global host buffer, on the device (its
-        equal share of the last axis), as ``dtype``.  Masters are leaves
-        that require grad: the gather's backward fills their ``.grad``."""
-        cols = global_buf.shape[-1] // dist.get_world_size(self.group)
-        local = global_buf[..., self.rank * cols:(self.rank + 1) * cols]
+               requires_grad: bool = True, dtype=torch.float32,
+               axis: int = -1) -> torch.Tensor:
+        """This rank's share of a global host buffer, on the device (its
+        equal share of ``axis``: the last, the columns, for a group's
+        buffer), as ``dtype``.  Masters are leaves that require grad: the
+        gather's backward fills their ``.grad``."""
+        n = global_buf.shape[axis] // dist.get_world_size(self.group)
+        index = [slice(None)] * global_buf.ndim
+        index[axis] = slice(self.rank * n, (self.rank + 1) * n)
+        local = global_buf[tuple(index)]
         return _host_tensor(local, dtype).to(self.device).requires_grad_(
             requires_grad)
 
@@ -274,7 +281,7 @@ class FSDPRuntime:
                 grads = {n: p.grad for n, p in trainable.items()}
                 scale = 1.0 / torch.clamp(w_g, min=1.0)
                 # fp32 gradients are scaled in place; a bf16 one by the
-                # fused update (see the module docstring)
+                # optimizer, in fp32 (see the module docstring)
                 for g in grads.values():
                     if g.dtype == torch.float32:
                         g.mul_(scale)
@@ -409,24 +416,28 @@ def load_reference_state(runtime: FSDPRuntime, params: Mapping[str, Any],
     store's leaves (``codes``, ``master``, ``scales``, ``reduce_ef``) at
     their global shapes; bf16 buffers and fp8 codes are ml_dtypes arrays or
     their raw uint16 / uint8 bytes, carried bit for bit; ``opt_state``
-    optionally the optimizer's state ``{key: {group: array}}`` at global
-    shapes, checked against the state of the
-    config's optimizer (``state_shapes``): its keys, and per leaf its dtype
-    and shape -- AdamW's fp32 ``m``, ``v`` at the buffer's shape, 8-bit
-    Adam's int8 ``m8``, ``v8`` at the buffer's shape and fp32 ``ms``,
-    ``vs`` at ``(..., total / quant_block)``.  Every leaf's shape is
-    checked against the port's layouts (which are bitwise the reference's,
-    so no re-layout is needed); each rank keeps its equal share of each
-    leaf's last axis on the runtime's device (the master requires grad).  Returns ``(params, opt_state)`` in
-    the port's form (``opt_state`` None when not given)."""
+    optionally the optimizer's state ``{key: {leaf: array}}`` at global
+    shapes, checked against the state of the config's optimizer
+    (``state_layout``): its keys, and per leaf its dtype and shape --
+    AdamW's fp32 ``m``, ``v``, SGD's ``m`` and Muon's and Shampoo's
+    ``mom``, ``m``, ``v`` at the buffer's shape per group, 8-bit Adam's
+    int8 ``m8``, ``v8`` at the buffer's shape and fp32 ``ms``, ``vs`` at
+    ``(..., total / quant_block)``, Shampoo's fp32 ``factors`` as
+    ``{"group/tensor/L" | "/R": (Lp, k, k)}`` over the padded layer axis.
+    Every leaf's shape is checked against the port's layouts (which are
+    bitwise the reference's, so no re-layout is needed); each rank keeps
+    its equal share of each leaf's sharded axis (a group leaf's last axis,
+    a factor's ``Lp / m`` layer rows) on the runtime's device (the master
+    requires grad).  Returns ``(params, opt_state)`` in the port's form
+    (``opt_state`` None when not given)."""
 
-    def check_groups(tree, what):
-        if set(tree) != set(runtime.layouts):
+    def check_keys(tree, want, what, of):
+        if set(tree) != set(want):
             raise ValueError(
-                f"{what} groups {sorted(tree)} do not match the runtime's "
-                f"{sorted(runtime.layouts)}")
+                f"{what} {of} {sorted(tree)} do not match the runtime's "
+                f"{sorted(want)}")
 
-    check_groups(params, "params")
+    check_keys(params, runtime.layouts, "params", "groups")
     new_params = {}
     for name, lo in runtime.layouts.items():
         state = params[name]
@@ -441,23 +452,24 @@ def load_reference_state(runtime: FSDPRuntime, params: Mapping[str, Any],
             for k in lo.store.state_keys()}
     if opt_state is None:
         return new_params, None
-    spec = make_optimizer(runtime.cfg).state_shapes(runtime, True)
-    if set(opt_state) != set(spec):
+    layout = make_optimizer(runtime.cfg).state_layout(runtime)
+    if set(opt_state) != set(layout):
         raise ValueError(
             f"opt_state keys {sorted(opt_state)} do not match the "
-            f"{runtime.cfg.optimizer} state's {sorted(spec)}")
+            f"{runtime.cfg.optimizer} state's {sorted(layout)}")
     new_opt = {}
-    for k, groups in spec.items():
+    for k, leaves in layout.items():
         what = f"opt_state[{k!r}]"
-        check_groups(opt_state[k], what)
+        check_keys(opt_state[k], leaves, what,
+                   "leaves" if k == "factors" else "groups")
         new_opt[k] = {}
-        for name, (dtype, shape) in groups.items():
+        for name, (dtype, shape, axis) in leaves.items():
             a = np.asarray(opt_state[k][name])
             if a.shape != shape or a.dtype != _NUMPY_DTYPES[dtype]:
                 raise ValueError(
                     f"{what}[{name!r}] is {a.dtype} of shape {a.shape}, the "
                     f"port's layout needs {dtype} of {shape}")
-            new_opt[k][name] = runtime._place(name, a, False, dtype)
+            new_opt[k][name] = runtime._place(name, a, False, dtype, axis)
     return new_params, new_opt
 
 

@@ -195,6 +195,39 @@ class ParamStore:
         return {k: trainable if k == "master" else frozen[k]
                 for k in self.state_keys()}
 
+    def master_f32(self, state) -> torch.Tensor:
+        """fp32 view of (a chunk of) the weights an optimizer updates: the
+        master itself for the fp32, fp8 and q8_block stores (so an update
+        writes it in place), an fp32 copy of a bf16 buffer.  ``state`` is a
+        store state or a view of its trainable buffer."""
+        buf = self.trainable(state)
+        return buf if buf.dtype == torch.float32 else buf.float()
+
+    @torch.no_grad()
+    def rebuild(self, state):
+        """Bring ``state``'s coded leaves in line with its updated master,
+        in place, and return the core state (``wrap_core``; the residual is
+        not touched).  The optimizer has already written the new fp32
+        values into the trainable buffer through ``master_f32`` (a bf16
+        buffer takes them by the round-to-nearest-even cast, chunk by
+        chunk: ``optim.common.write_decayed``).  An fp8 store re-encodes
+        its codes with ``fp8_encode`` (no library cast: JAX's e4m3 gives
+        NaN past 464 where torch saturates at 448); a q8_block store
+        requantizes codes and scales with ``ops.quantize`` (the kernel on a
+        card, one launch per group).  The leaves stay the same tensors, so
+        the gather reads them and ``.grad`` stays on the master.  PARITY:
+        BITWISE vs the reference's ``rebuild`` on the same master."""
+        buf = self.trainable(state)
+        if not (self.quantized or self.fp8):
+            return self.wrap_core(buf)
+        if self.fp8:
+            state["codes"].copy_(fp8_encode(buf, self.fmt))
+        else:
+            codes, scales = ops.quantize(buf, self.block)
+            state["codes"].copy_(codes)
+            state["scales"].copy_(scales)
+        return {k: state[k] for k in self.state_keys() if k != EF_KEY}
+
     def wrap_core(self, core):
         """A rebuilt core (the fused update's output: a bare tensor, or the
         q8 ``{"codes", "master", "scales"}`` or fp8 ``{"codes", "master"}``

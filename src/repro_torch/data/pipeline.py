@@ -30,7 +30,7 @@ class SyntheticStream:
         if model_cfg is not None and model_cfg.arch_type in ("vlm", "audio"):
             raise NotImplementedError(
                 f"{model_cfg.arch_type} inputs are not ported yet (ROADMAP "
-                f"Queue 1 item 14)")
+                f"Queue 1 item 14b)")
         rng = np.random.default_rng(cfg.seed)
         v = cfg.vocab
         ranks = np.arange(1, v + 1, dtype=np.float64)

@@ -1,13 +1,16 @@
 """Where the device time of one ZeRO-3 step (train or decode) goes.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_step \
-        [--config gemma2|qwen3-moe] \
-        [--store fp32|bf16|fp8_e4m3|fp8_e5m2 | --q8 | --serve]
+        [--config gemma2|qwen3-moe|qwen2.5-muon] \
+        [--store fp32|bf16|fp8_e4m3|fp8_e5m2|q8_block | --q8 | --serve]
 
 Builds a configuration ``chip_smoke.py`` trains -- ``gemma2`` (default):
 gemma2-2b at published width, depth cut to 4 layers, batch 2 x 2048, AdamW;
 ``qwen3-moe``: qwen3-moe-235b-a22b at published width, depth cut to 1
-layer, ep=1, batch 1 x 2048, Adam8bit -- with bf16 compute and the
+layer, ep=1, batch 1 x 2048, Adam8bit; ``qwen2.5-muon``: qwen2.5-14b at
+published width, depth cut to 2 layers, batch 1 x 2048, Muon
+(``train_muon_q8`` runs it with ``--store q8_block``) -- with bf16 compute
+and the
 ``--store`` parameter store (fp32 by default; or, with ``--q8``, the
 q8_block store and the q8 gradient wire with error feedback on every
 group), runs two warm-up steps on one rank of a NCCL group, then one step
@@ -55,9 +58,11 @@ def category(name: str) -> str:
     return "other"
 
 
-# config -> (arch id, layers, batch, sequence length)
-CONFIGS = {"gemma2": ("gemma2-2b", 4, 2, 2048),
-           "qwen3-moe": ("qwen3-moe-235b-a22b", 1, 1, 2048)}
+# config -> (arch id, layers, batch, sequence length, optimizer or None
+# for the config's own)
+CONFIGS = {"gemma2": ("gemma2-2b", 4, 2, 2048, None),
+           "qwen3-moe": ("qwen3-moe-235b-a22b", 1, 1, 2048, None),
+           "qwen2.5-muon": ("qwen2.5-14b", 2, 1, 2048, "muon")}
 WARMUP, TOP = 2, 15
 # the serve mode's batch, prompt length and cache length
 SERVE_BATCH, SERVE_PROMPT, SERVE_LEN = 4, 512, 1024
@@ -74,7 +79,7 @@ def train_step(cfg, args):
     opt = make_optimizer(cfg)
     opt_state = opt.init(rt)
     step_fn = rt.make_train_step(opt)
-    _, _, batch_size, seq = CONFIGS[args.config]
+    _, _, batch_size, seq, _ = CONFIGS[args.config]
     stream = SyntheticStream(DataConfig(cfg.vocab, seq, batch_size), cfg)
     state = {"params": params, "opt": opt_state, "step": 0}
     for i in range(WARMUP + 1):
@@ -126,14 +131,15 @@ def main() -> None:
     ap.add_argument("--config", choices=list(CONFIGS), default="gemma2")
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--store", default="fp32",
-                      choices=("fp32", "bf16", "fp8_e4m3", "fp8_e5m2"),
+                      choices=("fp32", "bf16", "fp8_e4m3", "fp8_e5m2",
+                               "q8_block"),
                       help="the parameter store of every group")
     mode.add_argument("--q8", action="store_true",
                       help="the q8_block store and q8 gradient wire")
     mode.add_argument("--serve", action="store_true",
                       help="a decode step of the int8 serve mode")
     args = ap.parse_args()
-    arch, layers, batch_size, seq = CONFIGS[args.config]
+    arch, layers, batch_size, seq, optimizer = CONFIGS[args.config]
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -142,7 +148,8 @@ def main() -> None:
     full = get_config(arch)
     # one rank: expert parallelism off (the port runs ep=1)
     cfg = dataclasses.replace(full, n_layers=layers, parallel=dataclasses
-                              .replace(full.parallel, ep=1))
+                              .replace(full.parallel, ep=1),
+                              optimizer=optimizer or full.optimizer)
     run, schedule = (decode_step if args.serve else train_step)(cfg, args)
     torch.cuda.synchronize()
 
@@ -193,7 +200,6 @@ def main() -> None:
         print(json.dumps({"kernel": name[:120], "category": category(name),
                           "ms": us / 1e3, "count": count}), flush=True)
     torch.distributed.destroy_process_group()
-
 
 
 if __name__ == "__main__":

@@ -132,8 +132,10 @@ def chunked_attention(q, k, v, *, q_pos, kv_pos, kv_valid=None,
 
 def attention(cfg, p, x: torch.Tensor, *, q_pos: torch.Tensor,
               cache=None, cache_index=0, window=None, prefix: str = ""):
-    """Causal self-attention (GQA, tp=1) with an optional ring-buffer KV
-    cache.  Returns ``(out, cache)``; ``cache`` is None without one.
+    """Causal self-attention (GQA, tp=1; with ``cfg.qkv_bias`` the q, k
+    and v projections add their biases ``wq_b``/``wk_b``/``wv_b``) with an
+    optional ring-buffer KV cache.  Returns ``(out, cache)``; ``cache`` is
+    None without one.
 
     ``cache``: None (training) or ``{"k", "v": (B, Hkv, W, hd), "pos":
     (B, W) int32}`` with ``pos`` -1 where a slot is empty.  The new keys
@@ -150,6 +152,10 @@ def attention(cfg, p, x: torch.Tensor, *, q_pos: torch.Tensor,
 
     def proj(name, h):
         y = dense(x, p[prefix + name])
+        if cfg.qkv_bias and prefix + name + "_b" in p:
+            # after the product, in the serve quant mode too (the bias is
+            # a 1-D tensor, so ``unpack_quant`` hands it over dense)
+            y = y + p[prefix + name + "_b"].to(x.dtype)
         return y.reshape(B, T, h, hd).transpose(1, 2)
 
     q = rope(proj("wq", cfg.n_heads), q_pos, cfg.rope_theta)

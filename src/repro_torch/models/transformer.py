@@ -9,14 +9,15 @@ gather inside the activation checkpoint), which is the ZeRO-3 schedule.
 
 Ported: the self-attention decoder with tp=1 -- the ``layers`` and
 ``globals`` groups, gemma2's alternating local/global windows, softcaps,
-post-norms and tied embeddings, the mlp kinds, the MoE layer at ep=1 (the
+post-norms and tied embeddings, the q/k/v projection biases (``qkv_bias``:
+qwen2.5 and qwen1.5), the mlp kinds, the MoE layer at ep=1 (the
 router in ``layers``, the experts in the ``layers_experts`` group scanned
 beside it, the load-balance term carried through the scan), the loss on
 the materialized-logits (``ce_chunk=0``) branch, and the serving API: the
 ring-buffer KV cache (``init_cache``, the reference's layout, bf16 K and
 V), ``prefill`` and ``decode`` (a scalar position, or per-row positions
 for continuous batching).  VLM cross-attention, tensor/expert
-parallelism, qkv bias and the vocab-chunked CE raise
+parallelism and the vocab-chunked CE raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -64,11 +65,10 @@ def _check_supported(cfg) -> None:
     par = cfg.parallel
     unported = (
         (cfg.cross_attn_interval > 0, "VLM cross-attention",
-         "Queue 1 item 14"),
+         "Queue 1 item 14b"),
         (par.tp > 1, f"tp={par.tp}", "Queue 1 item 18"),
         (par.ep > 1, f"ep={par.ep}", "Queue 1 item 18"),
         (par.sequence_parallel, "sequence_parallel", "Queue 1 item 18"),
-        (cfg.qkv_bias, "qkv_bias", "Queue 1 item 14"),
         (cfg.ce_chunk > 0, "ce_chunk (vocab-chunked CE)", "Queue 1 item 5"),
     )
     for hit, what, item in unported:
@@ -93,8 +93,12 @@ class DecoderLM:
         specs = [spec(cfg, "ln1", (D,)),
                  spec(cfg, "wq", (D, Hq * hd)),
                  spec(cfg, "wk", (D, Hkv * hd)),
-                 spec(cfg, "wv", (D, Hkv * hd)),
-                 spec(cfg, "wo", (Hq * hd, D))]
+                 spec(cfg, "wv", (D, Hkv * hd))]
+        if cfg.qkv_bias:
+            specs += [spec(cfg, "wq_b", (Hq * hd,)),
+                      spec(cfg, "wk_b", (Hkv * hd,)),
+                      spec(cfg, "wv_b", (Hkv * hd,))]
+        specs.append(spec(cfg, "wo", (Hq * hd, D)))
         if cfg.post_norms:
             specs.append(spec(cfg, "post_ln1", (D,)))
         specs.append(spec(cfg, "ln2", (D,)))

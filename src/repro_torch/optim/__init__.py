@@ -1,12 +1,17 @@
 from .adam8bit import Adam8bit
 from .adamw import AdamW
+from .muon import Muon
+from .sgd import SGDMomentum
+from .shampoo import Shampoo
 
-OPTIMIZERS = {"adamw": AdamW, "adam8bit": Adam8bit}
+OPTIMIZERS = {
+    "adamw": AdamW,
+    "sgd": SGDMomentum,
+    "adam8bit": Adam8bit,
+    "muon": Muon,
+    "shampoo": Shampoo,
+}
 
 
 def make_optimizer(cfg):
-    if cfg.optimizer not in OPTIMIZERS:
-        raise NotImplementedError(
-            f"optimizer {cfg.optimizer!r} is not ported yet (ROADMAP "
-            f"Queue 1 item 15)")
     return OPTIMIZERS[cfg.optimizer](cfg)

@@ -20,11 +20,10 @@ same for each layer): a byte per element once, not an fp32 copy per layer.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..kernels import ops
-from .common import OptimizerBase, matrix_mask_local, store_outputs
+from .common import OptimizerBase, mask_rows, store_outputs
 
 
 class Adam8bit(OptimizerBase):
@@ -43,11 +42,7 @@ class Adam8bit(OptimizerBase):
                 raise ValueError(
                     f"group {lo.name}: shard {lo.plan.shard_size} not "
                     f"aligned to quant block {bq} -- planner align missing?")
-        self._masks = {
-            name: torch.from_numpy(
-                matrix_mask_local(lo, runtime.rank).astype(np.uint8))
-            .to(runtime.device)
-            for name, lo in runtime.layouts.items()}
+        self._masks = mask_rows(runtime)
         return self.zero_state(runtime)
 
     def state_leaves(self):
