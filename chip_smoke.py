@@ -156,6 +156,29 @@ The non-element-wise optimizers (18 and 19 run after 15, 20 after 17):
                   device the q8 codes and scales bitwise the plain
                   quantization of the final master.
 
+The plan and the schedule (21 and 22 run after 7, on ``train``'s host
+init, repacked where a layout differs, so no variant draws the 901 M
+numbers again):
+
+ 21. train_sched -- gemma2-2b as in ``train`` (AdamW) under ``prefetch``,
+                  ``no_reshard``, ``keep_last``, ``overlap_all``,
+                  ``ring_overlap`` and an unsharded ``globals``, then the
+                  fsdp2 planner (its default and ``ring_overlap``), then
+                  the q8_block store's default and ``q8_ring_prefetch``,
+                  four steps each: each stream must equal its default's
+                  bitwise (``train``'s, the fsdp2 default's, the q8_block
+                  store's); the fsdp2 default's relative difference from
+                  ``train`` is printed.  Per run: step ms, peak memory, the
+                  measured gathered-buffer peak (``GatheredMeter``) against
+                  ``gathered_peak_bytes`` (never above it), the layer
+                  gathers against the schedule's, and the kernels against
+                  the plan.  One rank: the ring hops number zero (the ring
+                  routes across ranks run on gloo, in the CPU tests).
+ 22. train_ce_chunk -- ``train`` with ``ce_chunk=8192`` (32 chunks, the
+                  last padded by 6144): loss and grad norm within
+                  CE_CHUNK_RTOL of ``train``'s, peak memory below it, step
+                  ms beside it.
+
 Then the ``kernels`` line, the card's name and power limit as nvidia-smi
 reports them, and a last line ``{"ok": true, "device": {...}}``.  The
 script imports only the port (never JAX or the JAX package).
@@ -310,6 +333,13 @@ PARITY_OPTIM_RTOL = {"sgd": 2e-6, "muon": 6e-7, "shampoo": 2e-6,
                      "muon_q8": 3e-5}
 PARITY_OPTIM_MASTER = {"sgd": 5e-8, "muon": 2e-6, "shampoo": 4e-5,
                        "muon_q8": 1.4e-4}
+# the vocab-chunked CE at gemma2-2b's vocab (256000): 32 chunks, the last
+# padded by 6144.  Its streams against ``train``'s (bf16 compute: the
+# unchunked loss softcaps bf16 logits, the chunked one fp32 logits): on
+# the CPU, gemma2-2b.reduced() read loss 2.3e-4 and grad norm 1.9e-3 at
+# most over chunks 96, 128 and 200 (PERF.md); limits about ten times those
+CE_CHUNK = 8192
+CE_CHUNK_RTOL = {"loss": 2e-3, "grad_norm": 2e-2}
 
 
 def emit(obj) -> None:
@@ -1221,9 +1251,10 @@ def main() -> None:
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
     sys.path.insert(0, str(SRC))
     from repro_torch.configs import build_model, get_config
-    from repro_torch.core.fsdp import FSDPRuntime
+    from repro_torch.core.fsdp import FSDPRuntime, GatheredMeter
     from repro_torch.core.policy import plan
-    from repro_torch.core.schedule import CommSchedule
+    from repro_torch.core.schedule import (APPROX_VARIANTS, VARIANTS,
+                                           CommSchedule)
     from repro_torch.data.pipeline import DataConfig, SyntheticStream
     from repro_torch.kernels import (blockwise_quant, build, encode_ef,
                                      fused_update, ops, q8_matmul, ref)
@@ -1251,19 +1282,30 @@ def main() -> None:
 
     def train(cfg, device, compute_dtype, stream, steps, schedule=None,
               timings=None, seed=0, check=None, keep=None,
-              time_update=False):
+              time_update=False, planner="ragged", group_schedules=None,
+              init=None, keep_init=None, meter=False):
         """The quickstart loop through the public API; returns (metrics
         per step, step ms, runtime) and, into ``timings``, the set-up
         seconds (runtime, init, optimizer state) and, with
         ``time_update``, each step's ``update_ms``; ``check(rt, params)``
         sees the final state, and ``keep`` (a dict) receives it with the
-        optimizer state.  Batches are made and placed outside the timed
-        region."""
+        optimizer state.  ``init(rt)`` makes the parameters in place of
+        ``rt.init_params(seed)``; ``keep_init`` (a dict) receives host
+        copies of the initial masters with their layouts; ``meter``
+        attaches a ``GatheredMeter`` (``rt.gathered_meter``).  Batches are
+        made and placed outside the timed region."""
         t_setup = time.perf_counter()
         rt = FSDPRuntime(build_model(cfg), group,
                          compute_dtype=compute_dtype, device=device,
-                         schedule=schedule)
-        params = rt.init_params(seed)
+                         schedule=schedule, planner=planner,
+                         group_schedules=group_schedules)
+        if meter:
+            rt.gathered_meter = GatheredMeter()
+        params = init(rt) if init is not None else rt.init_params(seed)
+        if keep_init is not None:
+            keep_init.update({
+                n: ((p["master"] if isinstance(p, dict) else p).detach()
+                    .cpu(), rt.layouts[n]) for n, p in params.items()})
         opt = make_optimizer(cfg)
         opt_state = opt.init(rt)
         if timings is not None:
@@ -1356,10 +1398,12 @@ def main() -> None:
           "batch": [TRAIN_BATCH, TRAIN_SEQ]})
     torch.cuda.reset_peak_memory_stats()
     reset_launches(mods)
+    host_init = {}
     metrics, times, rt = train(cfg, "cuda", torch.bfloat16, stream,
-                               1 + TIMED_STEPS)
+                               1 + TIMED_STEPS, keep_init=host_init)
     launches = fused_update.adamw_store_update.launches
     peak = torch.cuda.max_memory_allocated()
+    train_step_ms = statistics.median(times[1:])
     shards = {n: lo.plan.shard_size for n, lo in rt.layouts.items()}
     n_params = sum(math.prod(lo.local_shape()) for lo in rt.layouts.values())
     tokens = TRAIN_BATCH * TRAIN_SEQ
@@ -1427,6 +1471,173 @@ def main() -> None:
         fail(f"first q8 loss {q8_metrics[0]['loss']} far from ln(vocab) "
              f"{math.log(cfg.vocab)}")
     del rt
+    torch.cuda.empty_cache()
+
+    # ---- 21. the schedule variants: gemma2-2b as in 6 -------------------
+    def init_from(host):
+        """``init(rt)`` from host masters ``{group: (tensor, layout)}``,
+        repacked tensor by tensor where rt's layout differs (the fsdp2
+        and q8 plans): the values ``rt.init_params(0)`` gives, without
+        drawing 901 M numbers again."""
+        def init(rt):
+            out = {}
+            for n, lo in rt.layouts.items():
+                t, src = host[n]
+                if src.plan != lo.plan:
+                    rows = t.numpy().reshape(-1, src.plan.total)
+                    t = torch.from_numpy(np.stack([
+                        lo.buffer.pack(src.buffer.unpack_np(r))
+                        for r in rows]).reshape(lo.local_shape()))
+                out[n] = lo.store.create(
+                    t.to(rt.device).requires_grad_(True))
+            return out
+        return init
+
+    def gathers_per_step(rt, layers_only=False) -> int:
+        """Gathers of one train step: a stacked group's layers in forward,
+        and again in backward where the schedule reshards (not the
+        split-out last layer); an unstacked group once."""
+        sched = rt.schedule
+        n = 0
+        for lo in rt.layouts.values():
+            if lo.n_layers:
+                lp = sched.plan_layers(lo.n_layers)
+                n += lo.n_layers + (lp.main if sched.reshard_after_forward
+                                    else 0)
+            elif not layers_only:
+                n += 1
+        return n
+
+    def stream_of(ms):
+        return [(m["loss"], m["grad_norm"]) for m in ms]
+
+    q8_store = APPROX_VARIANTS["q8_store"]
+    sched_runs = [
+        # (name, schedule, planner, group_schedules, default it must equal)
+        ("prefetch", VARIANTS["prefetch"], "ragged", None, "train"),
+        ("no_reshard", VARIANTS["no_reshard"], "ragged", None, "train"),
+        ("keep_last", VARIANTS["keep_last"], "ragged", None, "train"),
+        ("overlap_all", VARIANTS["overlap_all"], "ragged", None, "train"),
+        ("ring_overlap", VARIANTS["ring_overlap"], "ragged", None, "train"),
+        ("globals_unsharded", VARIANTS["default"], "ragged",
+         {"globals": {"sharded": False}}, "train"),
+        ("fsdp2", VARIANTS["default"], "fsdp2", None, "fsdp2"),
+        ("fsdp2_ring_overlap", VARIANTS["ring_overlap"], "fsdp2", None,
+         "fsdp2"),
+        ("q8_store", q8_store, "ragged", None, "q8_store"),
+        ("q8_ring_prefetch", APPROX_VARIANTS["q8_ring_prefetch"], "ragged",
+         None, "q8_store")]
+    emit({"phase": "train_sched_setup", "model": cfg.name,
+          "cut": {"n_layers": [full.n_layers, TRAIN_LAYERS]},
+          "batch": [TRAIN_BATCH, TRAIN_SEQ], "store": "fp32 (q8_block for "
+          "the q8 runs)", "optimizer": "adamw",
+          "runs": [r[0] for r in sched_runs],
+          "ring_hops": "zero: one rank has no peers; the ring and ring_acc "
+                       "routes across ranks run on gloo only (CPU tests)"})
+    sched_defaults = {"train": stream_of(metrics)}
+    sched_launches, sched_summary = {}, {}
+    t_sched = time.perf_counter()
+    for name, sched, planner, gs, default in sched_runs:
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(mods)
+        s_metrics, s_times, rt = train(
+            cfg, "cuda", torch.bfloat16, stream, 1 + TIMED_STEPS, sched,
+            planner=planner, group_schedules=gs,
+            init=init_from(host_init), meter=True)
+        got = launches_now(mods)
+        peak_s = torch.cuda.max_memory_allocated()
+        steps_run = len(s_metrics)
+        want = {k: 0 for k in got}
+        groups = len(rt.layouts)
+        if rt.layouts["layers"].store.quantized:
+            want.update(adamw_q8=groups * steps_run, quantize=groups,
+                        dequantize_into=gathers_per_step(rt) * steps_run)
+        else:
+            want["adamw_store_update"] = groups * steps_run
+        sched_launches[name] = got
+        stream_s = stream_of(s_metrics)
+        if name == default:
+            sched_defaults[name] = stream_s
+        ref_stream = sched_defaults[default]
+        meter = rt.gathered_meter
+        row = {"phase": "train_sched", "run": name,
+               "schedule": sched.describe(), "planner": planner,
+               "group_schedules": gs, "default": default,
+               "losses": [m[0] for m in stream_s],
+               "grad_norms": [m[1] for m in stream_s],
+               "bitwise_default": stream_s == ref_stream,
+               "step_ms": s_times,
+               "step_ms_median": statistics.median(s_times[1:]),
+               "max_memory_allocated": peak_s,
+               "gathered_peak_measured": meter.peak,
+               "gathered_peak_bytes": rt.gathered_peak_bytes(),
+               "layer_gathers": meter.gathers,
+               "layer_gathers_planned": gathers_per_step(rt, True)
+               * steps_run,
+               "kernel_launches": got, "expected_launches": want}
+        if planner == "fsdp2":
+            row["rel_diff_vs_ragged_default"] = max(
+                abs(a - b) / abs(b) for x, y in zip(stream_s,
+                                                    sched_defaults["train"])
+                for a, b in zip(x, y))
+        emit(row)
+        sched_summary[name] = {k: row[k] for k in (
+            "step_ms_median", "max_memory_allocated",
+            "gathered_peak_measured", "gathered_peak_bytes")}
+        if got != want:
+            fail(f"train_sched {name} launched {got}, expected {want}")
+        if stream_s != ref_stream:
+            fail(f"train_sched {name}: stream {stream_s} differs from its "
+                 f"default {default}'s {ref_stream}")
+        if meter.peak > rt.gathered_peak_bytes() or meter.live:
+            fail(f"train_sched {name}: gathered buffers peaked at "
+                 f"{meter.peak} B (bound {rt.gathered_peak_bytes()}), "
+                 f"{meter.live} B still live")
+        if meter.gathers != gathers_per_step(rt, True) * steps_run:
+            fail(f"train_sched {name}: {meter.gathers} layer gathers, the "
+                 f"schedule plans {gathers_per_step(rt, True) * steps_run}")
+        del rt
+        torch.cuda.empty_cache()
+    emit({"phase": "train_sched_summary", "runs": sched_summary,
+          "train": {"step_ms_median": train_step_ms,
+                    "max_memory_allocated": peak},
+          "seconds": time.perf_counter() - t_sched})
+
+    # ---- 22. the vocab-chunked cross entropy: gemma2-2b as in 6 ---------
+    ce_cfg = dataclasses.replace(cfg, ce_chunk=CE_CHUNK)
+    n_chunks = -(-cfg.vocab // CE_CHUNK)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(mods)
+    ce_metrics, ce_times, rt = train(ce_cfg, "cuda", torch.bfloat16, stream,
+                                     1 + TIMED_STEPS,
+                                     init=init_from(host_init))
+    ce_launches = launches_now(mods)
+    ce_peak = torch.cuda.max_memory_allocated()
+    ce_want = {k: 0 for k in ce_launches}
+    ce_want["adamw_store_update"] = len(rt.layouts) * len(ce_metrics)
+    ce_diff = {k: max(abs(a[k] - b[k]) / abs(b[k])
+                      for a, b in zip(ce_metrics, metrics))
+               for k in ("loss", "grad_norm")}
+    emit({"phase": "train_ce_chunk", "ce_chunk": CE_CHUNK,
+          "chunks": n_chunks, "last_chunk_pad": n_chunks * CE_CHUNK
+          - cfg.vocab, "losses": [m["loss"] for m in ce_metrics],
+          "grad_norms": [m["grad_norm"] for m in ce_metrics],
+          "rel_diff_vs_train": ce_diff, "limits": CE_CHUNK_RTOL,
+          "step_ms": ce_times,
+          "step_ms_median": statistics.median(ce_times[1:]),
+          "train_step_ms_median": train_step_ms,
+          "max_memory_allocated": ce_peak,
+          "train_max_memory_allocated": peak,
+          "kernel_launches": ce_launches, "expected_launches": ce_want})
+    if ce_launches != ce_want:
+        fail(f"train_ce_chunk launched {ce_launches}, expected {ce_want}")
+    for k, lim in CE_CHUNK_RTOL.items():
+        if not ce_diff[k] <= lim:
+            fail(f"train_ce_chunk: {k} {ce_diff[k]} from train's, limit "
+                 f"{lim}")
+    if not ce_peak < peak:
+        fail(f"train_ce_chunk peaked at {ce_peak} B, train at {peak} B")
+    del rt, host_init
     torch.cuda.empty_cache()
 
     # ---- 8. 8-bit Adam path: qwen3-moe at full width, depth cut to 1 ---
@@ -2010,24 +2221,38 @@ def main() -> None:
                 "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
                 "bound_by": st.get("bound_by", "bytes"), "library_ms": None}
 
+    sched_adamw = sum(v["adamw_store_update"] for v in
+                      sched_launches.values())
     emit({"kernels": [
-        entry("adamw_store_update", "adamw_store_update.cu",
-              "src/repro/kernels/fused_update.py:85", launches, kstats),
-        entry("adamw_store_update_q8", "adamw_store_update.cu",
-              "src/repro/kernels/fused_update.py:102",
-              q8_launches["adamw_q8"], q8stats["adamw_q8"]),
+        {**entry("adamw_store_update", "adamw_store_update.cu",
+                 "src/repro/kernels/fused_update.py:85", launches, kstats),
+         "launches_by_path": {"train": launches, "train_sched": sched_adamw,
+                              "train_ce_chunk":
+                                  ce_launches["adamw_store_update"]}},
+        {**entry("adamw_store_update_q8", "adamw_store_update.cu",
+                 "src/repro/kernels/fused_update.py:102",
+                 q8_launches["adamw_q8"], q8stats["adamw_q8"]),
+         "launches_by_path": {
+             "train_q8": q8_launches["adamw_q8"],
+             "train_sched": sum(v["adamw_q8"]
+                                for v in sched_launches.values())}},
         {**entry("quantize", "blockwise_quant.cu",
                  "src/repro/kernels/blockwise_quant.py:56",
                  q8_launches["quantize"], q8stats["quantize"]),
          "launches_by_path": {"train_q8": q8_launches["quantize"],
-                              "train_muon_q8": muon_launches["quantize"]},
+                              "train_muon_q8": muon_launches["quantize"],
+                              "train_sched": sum(
+                                  v["quantize"]
+                                  for v in sched_launches.values())},
          "by_path": q8stats["quantize"]["by_path"]},
         {**entry("dequantize_into", "blockwise_quant.cu",
                  "src/repro/kernels/blockwise_quant.py:66",
                  q8_launches["dequantize_into"], q8stats["dequantize_into"]),
          "launches_by_path": {
              "train_q8": q8_launches["dequantize_into"],
-             "train_muon_q8": muon_launches["dequantize_into"]},
+             "train_muon_q8": muon_launches["dequantize_into"],
+             "train_sched": sum(v["dequantize_into"]
+                                for v in sched_launches.values())},
          "by_path": q8stats["dequantize_into"]["by_path"]},
         entry("dequantize", "blockwise_quant.cu",
               "src/repro/kernels/blockwise_quant.py:144",

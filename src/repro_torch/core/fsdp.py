@@ -14,13 +14,22 @@ store adds its float8 codes, a q8_block store its int8 codes and fp32
 scales (``(L, S / block)``), and the q8 reduce wire an fp32 error-feedback
 residual ``reduce_ef`` (``(L, m * S)``).  The train step then:
 
-  * gathers ``globals`` once and, layer by layer, each layer's shard inside
-    one ``torch.utils.checkpoint`` (non-reentrant): forward all-gathers,
-    unpacks zero-copy views and computes; backward re-gathers the layer
-    (ZeRO-3) and its gather's backward reduce-scatters the gradient
-    straight into that layer's row of the stacked leaf's ``.grad`` (the
-    q8 reduce wire also writes that layer's new residual into its row of
-    ``reduce_ef``);
+  * gathers ``globals`` once and runs the layer loop the schedule's
+    ``LayerPlan`` lays out (``_ParamGetter.scan``).  By default each
+    layer's gather, unpack and compute run inside one
+    ``torch.utils.checkpoint`` (non-reentrant), so backward re-gathers the
+    layer (ZeRO-3); ``prefetch`` checkpoints layer pairs whose two gathers
+    are issued before either layer's compute; ``reshard_after_forward=
+    False`` gathers outside the checkpoint, so every gathered buffer is
+    saved into backward; ``keep_last_gathered`` does so for the last layer
+    alone.  Each gather's backward reduce-scatters the gradient straight
+    into that layer's row of the stacked leaf's ``.grad`` (the q8 reduce
+    wire also writes that layer's new residual into its row of
+    ``reduce_ef``).  An unsharded group (``sharded=False``) is held whole
+    on every rank: its gather moves nothing and its gradient is
+    all-reduced over the process group after backward, in the schedule's
+    accumulate dtype when ``reduce_dtype`` or ``reduce_wire`` pins one
+    (the reference's ``_reduce_grads``);
   * all-reduces the token-sum loss and the token count over the batch
     axes, scales the gradients by ``1/max(tokens, 1)``, runs the
     optimizer (AdamW and Adam8bit: one fused kernel per group, in place, a
@@ -54,6 +63,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import weakref
 import zlib
 from typing import Any, Mapping
 
@@ -85,6 +95,12 @@ class GroupLayout:
     fsdp_axis_sizes: tuple[int, ...]
     n_layers: int | None
     store: ParamStore = ParamStore()
+    # the axes an unsharded group's gradient is all-reduced over
+    grad_sync_axes: tuple[str, ...] = ()
+
+    @property
+    def sharded(self) -> bool:
+        return bool(self.fsdp_axes)
 
     def global_shape(self) -> tuple[int, ...]:
         d = (self.plan.total,)
@@ -158,11 +174,15 @@ class FSDPRuntime:
                 name=name, gdef=gdefs[name], local_specs=e.local_specs,
                 plan=e.plan, buffer=DBuffer(e.plan), fsdp_axes=e.fsdp_axes,
                 fsdp_axis_sizes=e.fsdp_axis_sizes, n_layers=e.n_layers,
-                store=e.store)
+                store=e.store, grad_sync_axes=e.grad_sync_axes)
             for name, e in plan.groups.items()
         }
+        # instrumentation, off by default: a GatheredMeter here records the
+        # live and peak bytes of the gathered layer buffers
+        self.gathered_meter: GatheredMeter | None = None
         for lo in self.layouts.values():
-            if math.prod(lo.fsdp_axis_sizes) != self.axis_sizes["data"]:
+            if lo.sharded and (math.prod(lo.fsdp_axis_sizes)
+                               != self.axis_sizes["data"]):
                 raise ValueError(
                     f"group {lo.name} shards over {lo.fsdp_axes}, not over "
                     f"the process group's {self.axis_sizes['data']} ranks")
@@ -171,6 +191,45 @@ class FSDPRuntime:
 
     def sched_for(self, name: str) -> CommSchedule:
         return self._group_scheds.get(name, self.schedule)
+
+    def group_of(self, name: str):
+        """The process group a group's collectives run over: None for an
+        unsharded group, which gathers nothing."""
+        return self.group if self.layouts[name].sharded else None
+
+    # ------------------------------------------------------------------ #
+    # accounting (the reference's, from the plan)
+    # ------------------------------------------------------------------ #
+    def gathered_peak_bytes(self) -> int:
+        """Analytic peak of simultaneously live gathered layer buffers in
+        the train step: 2 slots with prefetch, 1 without, +1 for the
+        split-out last layer, or every layer without resharding.
+        PARITY: BITWISE vs the reference's ``gathered_peak_bytes``."""
+        itemsize = self.compute_dtype.itemsize
+        per_layer, n = 0, 0
+        for lo in self.layouts.values():
+            if lo.n_layers and lo.sharded:
+                per_layer += lo.plan.total * itemsize
+                n = max(n, lo.n_layers)
+        if not n:
+            return 0
+        if not self.schedule.reshard_after_forward:
+            slots = n
+        else:
+            lp = self.schedule.plan_layers(n, remat=True)
+            main_slots = (2 if lp.prefetch else 1) if lp.main else 0
+            slots = main_slots + int(lp.split_last)
+        return per_layer * slots
+
+    def gather_wire_bytes(self) -> int:
+        """Bytes the parameter all-gathers of one forward pass put on the
+        wire, per gathered copy (``ShardingPlan.gather_wire_bytes``)."""
+        return self.plan.gather_wire_bytes()
+
+    def reduce_wire_bytes(self) -> int:
+        """Bytes one gradient reduce-scatter pass puts on the wire, per
+        reduced copy (``ShardingPlan.reduce_wire_bytes``)."""
+        return self.plan.reduce_wire_bytes()
 
     def _axis_index(self, axis: str) -> int:
         return self.rank if axis == "data" else 0
@@ -212,15 +271,18 @@ class FSDPRuntime:
 
     def _place(self, name: str, global_buf: np.ndarray,
                requires_grad: bool = True, dtype=torch.float32,
-               axis: int = -1) -> torch.Tensor:
+               axis: int | None = -1) -> torch.Tensor:
         """This rank's share of a global host buffer, on the device (its
         equal share of ``axis``: the last, the columns, for a group's
-        buffer), as ``dtype``.  Masters are leaves that require grad: the
-        gather's backward fills their ``.grad``."""
-        n = global_buf.shape[axis] // dist.get_world_size(self.group)
-        index = [slice(None)] * global_buf.ndim
-        index[axis] = slice(self.rank * n, (self.rank + 1) * n)
-        local = global_buf[tuple(index)]
+        buffer; the whole buffer when ``axis`` is None, as for an
+        unsharded group), as ``dtype``.  Masters are leaves that require
+        grad: the gather's backward fills their ``.grad``."""
+        local = global_buf
+        if axis is not None:
+            n = global_buf.shape[axis] // dist.get_world_size(self.group)
+            index = [slice(None)] * global_buf.ndim
+            index[axis] = slice(self.rank * n, (self.rank + 1) * n)
+            local = global_buf[tuple(index)]
         return _host_tensor(local, dtype).to(self.device).requires_grad_(
             requires_grad)
 
@@ -237,7 +299,8 @@ class FSDPRuntime:
                                      for s in lo.gdef.specs})
                      for li in layers]
             arr = np.stack(flats) if lo.n_layers else flats[0]
-            params[name] = lo.store.create(self._place(name, arr))
+            params[name] = lo.store.create(self._place(
+                name, arr, axis=-1 if lo.sharded else None))
         return params
 
     # ------------------------------------------------------------------ #
@@ -274,6 +337,7 @@ class FSDPRuntime:
             nll, w = self.model.loss(pg, batch)
             nll.backward()
             with torch.no_grad():
+                self._reduce_grads(trainable)
                 stats = torch.stack([nll.detach(), w])
                 if self.batch_axes:
                     dist.all_reduce(stats, group=self.group)
@@ -300,6 +364,26 @@ class FSDPRuntime:
             return params, opt_state, step + 1, metrics
 
         return step_fn
+
+    @torch.no_grad()
+    def _reduce_grads(self, trainable) -> None:
+        """All-reduce each unsharded group's gradient in place over the
+        process group (its ``grad_sync_axes``): in the schedule's
+        accumulate dtype when ``reduce_dtype`` or ``reduce_wire`` pins one
+        (the casts run on one rank too, as the reference's psum over a
+        size-1 axis keeps them), else in the gradient's own dtype."""
+        for name, p in trainable.items():
+            lo = self.layouts[name]
+            if not lo.grad_sync_axes:
+                continue
+            g, sched = p.grad, self.sched_for(name)
+            pinned = (sched.reduce_dtype is not None
+                      or sched.reduce_wire is not None)
+            ad = sched.accum_dtype(self.compute_dtype) if pinned else g.dtype
+            t = g if ad == g.dtype else g.to(ad)
+            dist.all_reduce(t, group=self.group)
+            if t is not g:
+                g.copy_(t)
 
     # ------------------------------------------------------------------ #
     # serve steps (ZeRO-3 inference: per-layer gather, sharded at rest)
@@ -372,15 +456,42 @@ class FSDPRuntime:
 
 
 def _global_norm(runtime: FSDPRuntime, grads, scale) -> torch.Tensor:
-    """sqrt of the sum over groups of each group's all-reduced sum of
-    squares of the scaled gradients (a bf16 gradient is scaled in fp32
-    here, as the fused update scales it; groups added in the reference's
-    order)."""
-    sq = torch.stack([(g.float() if g.dtype == torch.float32
-                       else g.float() * scale).square().sum()
-                      for g in grads.values()])
-    dist.all_reduce(sq, group=runtime.group)
-    return torch.sqrt(sum(sq.unbind()))
+    """sqrt of the sum over groups of each group's sum of squares of the
+    scaled gradients, all-reduced for a sharded group (an unsharded one
+    holds the whole gradient on every rank); a bf16 gradient is scaled in
+    fp32 here, as the fused update scales it; groups added in the
+    reference's order."""
+    sq = [(g.float() if g.dtype == torch.float32
+           else g.float() * scale).square().sum() for g in grads.values()]
+    sharded = [runtime.layouts[n].sharded for n in grads]
+    if any(sharded):
+        part = torch.stack([s if sh else torch.zeros_like(s)
+                            for s, sh in zip(sq, sharded)])
+        dist.all_reduce(part, group=runtime.group)
+        sq = [p if sh else s
+              for p, s, sh in zip(part.unbind(), sq, sharded)]
+    return torch.sqrt(sum(sq))
+
+
+class GatheredMeter:
+    """Live and peak bytes of the gathered layer buffers of a runtime
+    (set ``FSDPRuntime.gathered_meter``): each buffer counts from its
+    gather until autograd and the model release it (a view of it keeps it
+    alive), so the peak is the measured counterpart of
+    ``FSDPRuntime.gathered_peak_bytes``."""
+
+    def __init__(self):
+        self.live = self.peak = self.gathers = 0
+
+    def add(self, t: torch.Tensor) -> None:
+        n = t.numel() * t.element_size()
+        self.live += n
+        self.gathers += 1
+        self.peak = max(self.peak, self.live)
+        weakref.finalize(t, self._free, n)
+
+    def _free(self, n: int) -> None:
+        self.live -= n
 
 
 _NUMPY_DTYPES = {torch.float32: np.dtype(np.float32),
@@ -427,9 +538,10 @@ def load_reference_state(runtime: FSDPRuntime, params: Mapping[str, Any],
     Every leaf's shape is checked against the port's layouts (which are
     bitwise the reference's, so no re-layout is needed); each rank keeps
     its equal share of each leaf's sharded axis (a group leaf's last axis,
-    a factor's ``Lp / m`` layer rows) on the runtime's device (the master
-    requires grad).  Returns ``(params, opt_state)`` in the port's form
-    (``opt_state`` None when not given)."""
+    a factor's ``Lp / m`` layer rows; the whole leaf of an unsharded
+    group) on the runtime's device (the master requires grad).  Returns
+    ``(params, opt_state)`` in the port's form (``opt_state`` None when
+    not given)."""
 
     def check_keys(tree, want, what, of):
         if set(tree) != set(want):
@@ -442,13 +554,14 @@ def load_reference_state(runtime: FSDPRuntime, params: Mapping[str, Any],
     for name, lo in runtime.layouts.items():
         state = params[name]
         check_state(lo.store, state, lo.global_shape(), f"params[{name!r}]")
+        axis = -1 if lo.sharded else None
         if lo.store.state_keys() is None:
             new_params[name] = runtime._place(name, np.asarray(state), True,
-                                              lo.store.storage_dtype)
+                                              lo.store.storage_dtype, axis)
             continue
         new_params[name] = {
             k: runtime._place(name, np.asarray(state[k]), k == "master",
-                              lo.store.leaf_dtype(k))
+                              lo.store.leaf_dtype(k), axis)
             for k in lo.store.state_keys()}
     if opt_state is None:
         return new_params, None
@@ -489,56 +602,139 @@ class _ParamGetter:
         self.quant_matmul = quant_matmul
         self.compute_dtype = runtime.compute_dtype
 
-    def _gather(self, name: str, layer: int | None = None) -> torch.Tensor:
-        """Gather one group (one layer of a stacked group: row ``layer`` of
-        every leaf of its state)."""
+    def _state(self, name: str, layer: int | None):
         state = self.params[name]
-        store = self.rt.layouts[name].store
-        sink = None if self.serve else store.trainable(state).grad
-        if layer is not None:
-            sink = None if sink is None else sink[layer]
-            state = _row(state, layer)
-        return store.gather(state, sink, self.rt.group,
-                            self.rt.sched_for(name), self.compute_dtype)
+        return state if layer is None else _row(state, layer)
 
-    def _layer(self, name: str, layer: int) -> dict:
-        """One layer of a stacked group, unpacked: the q8 payload into
-        ``QuantTensor``s and per-tensor decodes in the serve quant mode,
-        else zero-copy views of the gathered buffer."""
+    def _quant(self, name: str, layer: int | None) -> bool:
+        """The serve quant mode's layer gathers keep the q8 payload
+        (``globals`` always take the dense gather)."""
+        return (self.quant_matmul and layer is not None
+                and self.rt.layouts[name].store.quantized)
+
+    def _start(self, name: str, layer: int | None = None):
+        """Issue one group's gather (one layer of a stacked group: row
+        ``layer`` of every leaf of its state) without waiting; None in the
+        serve quant mode, whose payload gather is not split."""
+        if self._quant(name, layer):
+            return None
+        return self.rt.layouts[name].store.start_gather(
+            self._state(name, layer), self.rt.group_of(name),
+            self.rt.sched_for(name), self.compute_dtype)
+
+    def _gather(self, name: str, layer: int | None = None, started=None):
+        """Gather one group (or one layer of it): the flat compute-dtype
+        buffer, or in the serve quant mode the q8 payload.  ``started``:
+        its ``_start``, issued earlier."""
         lo = self.rt.layouts[name]
-        if self.quant_matmul and lo.store.quantized:
-            payload = lo.store.gather_payload(
-                _row(self.params[name], layer), self.rt.group)
-            return lo.buffer.unpack_quant(payload, lo.store.block,
+        state = self._state(name, layer)
+        if self._quant(name, layer):
+            return lo.store.gather_payload(state, self.rt.group_of(name),
+                                           self.rt.sched_for(name))
+        sink = None if self.serve else \
+            lo.store.trainable(self.params[name]).grad
+        if layer is not None and sink is not None:
+            sink = sink[layer]
+        out = lo.store.gather(state, sink, self.rt.group_of(name),
+                              self.rt.sched_for(name), self.compute_dtype,
+                              started)
+        meter = self.rt.gathered_meter
+        if meter is not None and layer is not None and lo.sharded:
+            meter.add(out)
+        return out
+
+    def _unpack(self, name: str, gathered) -> dict:
+        """A gathered flat buffer as tensors, or a gathered q8 payload as
+        ``QuantTensor``s and decodes."""
+        lo = self.rt.layouts[name]
+        if isinstance(gathered, dict):
+            return lo.buffer.unpack_quant(gathered, lo.store.block,
                                           self.compute_dtype)
-        return lo.buffer.unpack(self._gather(name, layer))
+        return lo.buffer.unpack(gathered)
 
     def globals(self, group: str) -> dict[str, torch.Tensor]:
-        return self.rt.layouts[group].buffer.unpack(self._gather(group))
+        return self._unpack(group, self._gather(group))
 
     def scan(self, groups, body, carry, xs=None):
         """The FSDP layer loop: for each layer, gather every group's layer
-        shard, unpack and run ``body(p, carry, x)`` -> ``(carry, y)``.  In
-        training all of it runs inside one non-reentrant activation
-        checkpoint, so backward re-gathers the layer (ZeRO-3) and keeps
-        only the layer inputs alive between forward and backward; the serve
-        getter runs it plainly.  Returns ``(carry, ys)`` (``ys`` None when
-        every ``y`` is None)."""
-        n = self.rt.layouts[groups[0]].n_layers
+        shard, unpack and run ``body(p, carry, x)`` -> ``(carry, y)``, in
+        the structure ``CommSchedule.plan_layers`` resolves (the
+        reference's ``scan``):
 
-        def layer(i, c):
+          * default -- gather, unpack and compute inside one non-reentrant
+            activation checkpoint per layer: backward re-gathers (ZeRO-3)
+            and only the layer inputs live between forward and backward;
+          * prefetch -- one checkpoint per layer pair, whose two gathers
+            are both issued (asynchronously on the xla route) before either
+            layer's compute; slot 1 is waited for after slot 0's compute,
+            so it overlaps it, and no gathered buffer outlives the pair
+            body (an odd tail layer runs as in the default);
+          * reshard_after_forward=False -- the gathers run outside the
+            checkpoint, which takes the gathered buffers as inputs, so they
+            are saved into backward while activations are recomputed;
+          * keep_last_gathered -- the last layer runs so (gathered outside
+            its checkpoint); the rest as above.
+
+        The serve getter runs the same structure with no checkpoint.
+        Returns ``(carry, ys)`` (``ys`` None when every ``y`` is None)."""
+        n = self.rt.layouts[groups[0]].n_layers
+        sched = self.rt.schedule
+        remat = not self.serve
+        reshard = sched.reshard_after_forward
+        lp = sched.plan_layers(n, remat)
+
+        def ckpt(fn, *args):
+            return checkpoint(fn, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+
+        def start(i):
+            return [self._start(g, i) for g in groups]
+
+        def gather(i, started=None):
+            started = started or [None] * len(groups)
+            return [self._gather(g, i, st) for g, st in zip(groups, started)]
+
+        def compute(gathered, c, i):
             p = {}
-            for g in groups:
-                p.update(self._layer(g, i))
+            for g, gb in zip(groups, gathered):
+                p.update(self._unpack(g, gb))
             return body(p, c, None if xs is None else xs[i])
 
+        # gathered buffers enter the checkpoint as inputs: saved into
+        # backward, no re-gather
+        inner = ((lambda g, c, i: ckpt(compute, g, c, i))
+                 if remat and not reshard else compute)
+
+        def seq(i, c):
+            return inner(gather(i), c, i)
+
+        def pair(i, c):
+            s0, s1 = start(i), start(i + 1)
+            c, y0 = inner(gather(i, s0), c, i)
+            c, y1 = inner(gather(i + 1, s1), c, i + 1)
+            return c, (y0, y1)
+
         ys = []
-        for i in range(n):
-            if self.serve:
-                carry, y = layer(i, carry)
+        if lp.prefetch:
+            for k in range(lp.pairs):
+                if remat and reshard:
+                    carry, y2 = ckpt(pair, 2 * k, carry)
+                else:
+                    carry, y2 = pair(2 * k, carry)
+                ys.extend(y2)
+            tail = range(2 * lp.pairs, lp.main)
+        else:
+            tail = range(lp.main)
+        for i in tail:
+            if remat and reshard:
+                carry, y = ckpt(seq, i, carry)
             else:
-                carry, y = checkpoint(layer, i, carry, use_reentrant=False,
-                                      preserve_rng_state=False)
+                carry, y = seq(i, carry)
+            ys.append(y)
+        if lp.split_last:
+            # gathered outside the checkpointed compute: its buffer lives
+            # into backward, where it is needed first
+            carry, y = ckpt(compute, gather(n - 1), carry, n - 1)
             ys.append(y)
         return carry, (None if all(y is None for y in ys) else ys)
 

@@ -10,9 +10,15 @@ for a fixed S, tensors are placed in order at their earliest feasible
 offset, and feasibility is monotone in k for S = k*g, so k is
 binary-searched.
 
+The baseline planners reproduce the systems the paper compares against:
+``plan_fsdp2`` (per-parameter even Shard(0) + padding, interleaved
+layout), ``plan_megatron`` (concatenation padded to device-row
+boundaries) and ``plan_naive`` (concatenation, blocks straddle shard
+boundaries -- Fig. 6(a)).  ``plan_exact`` is the brute-force oracle of
+tiny instances.
+
 Pure integer work: plans are BITWISE the reference's (same placements,
-shard size and padding).  The baseline planners (fsdp2, megatron, naive)
-come with ROADMAP Queue 1 item 10.
+shard size and padding).
 """
 from __future__ import annotations
 
@@ -159,13 +165,132 @@ def plan_group(tensors: Sequence[TensorSpec], num_shards: int, *,
     return plan
 
 
+def plan_exact(tensors: Sequence[TensorSpec], num_shards: int, *,
+               g_coll: int = 1, max_S: int | None = None) -> GroupPlan:
+    """Brute force over S (multiples of ``g_coll``) with an exhaustive
+    placement search; exponential -- the oracle that tests hold the
+    heuristic against on tiny instances."""
+    m = num_shards
+    total = sum(t.size for t in tensors)
+    lb = max(-(-total // m), max(t.granularity for t in tensors), g_coll)
+    lb = -(-lb // g_coll) * g_coll
+    ub = max_S if max_S is not None else (total + g_coll) * 2
+
+    def dfs(i: int, pos: int, S: int, acc: list[Placement]
+            ) -> list[Placement] | None:
+        if i == len(tensors):
+            return list(acc)
+        t = tensors[i]
+        l = pos
+        while l + t.size <= m * S:
+            if all((k * S - l) % t.granularity == 0
+                   for k in range(l // S + 1, (l + t.size - 1) // S + 1)):
+                acc.append(Placement(t, l))
+                res = dfs(i + 1, l + t.size, S, acc)
+                if res is not None:
+                    return res
+                acc.pop()
+            l += 1
+        return None
+
+    S = lb
+    while S <= ub:
+        res = dfs(0, 0, S, [])
+        if res is not None:
+            plan = GroupPlan(tuple(res), shard_size=S, num_shards=m)
+            plan.validate()
+            return plan
+        S += g_coll
+    raise ValueError("exact planner: no feasible S <= ub")
+
+
+def plan_fsdp2(tensors: Sequence[TensorSpec], num_shards: int) -> GroupPlan:
+    """FSDP2 / fully_shard: per-parameter even Shard(0), each parameter
+    padded to a multiple of m.  In the gathered buffer each parameter is
+    interleaved rank-major (``DBuffer``'s fsdp2 layout), which is what
+    forces FSDP2's Copy-Out."""
+    m = num_shards
+    offset = 0
+    placements = []
+    for t in tensors:
+        placements.append(Placement(t, offset))
+        offset += -(-t.size // m) * m
+    return GroupPlan(tuple(placements), shard_size=offset // m,
+                     num_shards=m, mode="fsdp2")
+
+
+def plan_megatron(tensors: Sequence[TensorSpec], num_shards: int
+                  ) -> GroupPlan:
+    """Megatron-FSDP: concatenation with every tensor padded to a multiple
+    of m * row_size, so each begins at a device-row boundary."""
+    m = num_shards
+    offset = 0
+    placements = []
+    for t in tensors:
+        unit = m * max(t.row_size(), 1)
+        placements.append(Placement(t, offset))
+        offset += -(-t.size // unit) * unit
+    return GroupPlan(tuple(placements), shard_size=offset // m,
+                     num_shards=m, mode="megatron")
+
+
+def plan_naive(tensors: Sequence[TensorSpec], num_shards: int, *,
+               g_coll: int = LANE) -> GroupPlan:
+    """Fig. 6(a): concatenation with no planning; blocks straddle shard
+    boundaries and only the tail is padded, to a multiple of m * g_coll."""
+    m = num_shards
+    offset = 0
+    placements = []
+    for t in tensors:
+        placements.append(Placement(t, offset))
+        offset += t.size
+    S = -(-offset // (m * g_coll)) * g_coll
+    return GroupPlan(tuple(placements), shard_size=S, num_shards=m,
+                     mode="naive")
+
+
+def straddled_blocks(plan: GroupPlan) -> int:
+    """Blocks split across shard boundaries (0 for a valid ragged plan)."""
+    S = plan.shard_size
+    count = 0
+    for p in plan.placements:
+        g = p.spec.granularity
+        for k in range(p.offset // S + 1, (p.end - 1) // S + 1):
+            if (k * S - p.offset) % g != 0:
+                count += 1
+    return count
+
+
+def plan_from_checkpoint_index(index: dict, shard_size: int, num_shards: int,
+                               mode: str = "ragged") -> GroupPlan:
+    """A ``GroupPlan`` from a checkpoint index (``ragged.checkpoint_index``
+    as round-tripped through JSON): placements sorted by offset, no planner
+    run."""
+    placements = []
+    for name, ent in index.items():
+        spec = TensorSpec(name, tuple(int(s) for s in ent["shape"]),
+                          ent.get("dtype", "float32"),
+                          int(ent.get("granularity", 1)))
+        placements.append(Placement(spec, int(ent["offset"])))
+    placements.sort(key=lambda p: p.offset)
+    return GroupPlan(tuple(placements), int(shard_size), int(num_shards),
+                     mode=mode)
+
+
+PLANNERS = {
+    "ragged": plan_group,
+    "fsdp2": plan_fsdp2,
+    "megatron": plan_megatron,
+    "naive": plan_naive,
+}
+
+
 def get_planner(mode: str):
-    """Planner lookup: only Algorithm 1 is ported."""
-    if mode == "ragged":
-        return plan_group
-    if mode in ("fsdp2", "megatron", "naive"):
-        raise NotImplementedError(
-            f"planner {mode!r} is not ported yet (ROADMAP Queue 1 item 10)")
-    raise ValueError(
-        f"unknown planner mode {mode!r}; expected one of "
-        f"['fsdp2', 'megatron', 'naive', 'ragged']")
+    """Planner lookup; an unknown mode raises ``ValueError`` listing the
+    choices."""
+    try:
+        return PLANNERS[mode]
+    except KeyError:
+        raise ValueError(
+            f"unknown planner mode {mode!r}; expected one of "
+            f"{sorted(PLANNERS)}") from None

@@ -204,3 +204,13 @@ def compose_granularity(spec: TensorSpec, outer: ShardDim | None,
         if _prod(shape) % g:
             g = stride
     return TensorSpec(spec.name, tuple(shape), spec.dtype, g)
+
+
+def checkpoint_index(plan: GroupPlan) -> dict:
+    """A DCP-style index of a plan: name -> (shape, dtype, granularity,
+    offset); ``planner.plan_from_checkpoint_index`` reads it back."""
+    return {
+        p.spec.name: dict(shape=list(p.spec.shape), dtype=p.spec.dtype,
+                          granularity=p.spec.granularity, offset=p.offset)
+        for p in plan.placements
+    }

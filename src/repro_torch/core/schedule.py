@@ -30,15 +30,32 @@ It also runs block-wise quantized training:
 
 It serves, too: ``serve_quant_matmul=True`` (with
 ``param_store="q8_block"`` only: ``validate_for`` raises the reference's
-``ValueError`` otherwise)
-keeps eligible gathered layer weights in int8 through the serve steps'
-matmuls (``ops.q8_matmul``); the train step ignores it.
+``ValueError`` otherwise) keeps eligible gathered layer weights in int8
+through the serve steps' matmuls (``ops.q8_matmul``); the train step
+ignores it.
 
-Knobs the reference has and the port does not run yet raise
-``NotImplementedError`` at construction, naming the ROADMAP item that will
-port them: ``prefetch``, ``keep_last_gathered``,
-``reshard_after_forward=False``, ``gather_mode="ring"``,
-``reduce_mode="ring_acc"``, ``ring_chunk_elems`` and ``sharded=False``.
+The scan structure (``plan_layers`` resolves its small-n fallbacks):
+
+  * ``prefetch`` -- two-slot double buffering: the layer loop runs over
+    layer pairs, and both slots' gathers are issued before either layer's
+    compute, inside one checkpoint, so backward re-gathers the pair and at
+    most two gathered layer buffers are live.
+  * ``reshard_after_forward=False`` -- the gather moves outside the
+    activation checkpoint: every gathered buffer is saved into backward
+    (no re-gather), while activations are still recomputed.
+  * ``keep_last_gathered`` -- the last layer is gathered outside its
+    checkpoint, so its buffer lives into backward, where it is needed
+    first.
+
+The wire routes: ``gather_mode="ring"`` runs the all-gather as n-1
+point-to-point hops (``core.wire``) and its match-mode reduce-scatter
+routes chunks un-reduced to their destinations;
+``reduce_mode="ring_acc"`` accumulates in flight; ``ring_chunk_elems``
+bounds a ring message.  ``sharded=False`` keeps a group replicated: no
+gather, its gradient all-reduced.
+
+``VARIANTS`` and ``APPROX_VARIANTS`` are the reference's named schedules:
+on one rank every ``VARIANTS`` entry trains bitwise like the default.
 """
 from __future__ import annotations
 
@@ -65,11 +82,6 @@ _REDUCE_MODES = ("match", "ring_acc")
 GROUP_OVERRIDE_KEYS = frozenset(
     {"gather_mode", "gather_dtype", "reduce_dtype", "sharded",
      "reduce_mode", "param_store", "reduce_wire", "ring_chunk_elems"})
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP {item})")
 
 
 def _check_name(name: str | None) -> None:
@@ -135,24 +147,20 @@ class CommSchedule:
             raise ValueError(
                 f"unknown param_store {self.param_store!r}; expected one of "
                 f"{list(STORE_FORMATS)}")
-        unported = (
-            (self.prefetch, "prefetch", "Queue 1 item 10"),
-            (self.keep_last_gathered, "keep_last_gathered",
-             "Queue 1 item 10"),
-            (not self.reshard_after_forward, "reshard_after_forward=False",
-             "Queue 1 item 10"),
-            (self.gather_mode == "ring", "gather_mode='ring'",
-             "Queue 1 item 10"),
-            (self.reduce_mode == "ring_acc", "reduce_mode='ring_acc'",
-             "Queue 1 item 10"),
-            (self.ring_chunk_elems is not None, "ring_chunk_elems",
-             "Queue 1 item 10"),
-            (not self.sharded, "sharded=False (replicated groups)",
-             "Queue 1 item 10"),
-        )
-        for hit, what, item in unported:
-            if hit:
-                raise _not_ported(what, item)
+        if self.ring_chunk_elems is not None:
+            if (not isinstance(self.ring_chunk_elems, int)
+                    or isinstance(self.ring_chunk_elems, bool)
+                    or self.ring_chunk_elems < 1):
+                raise ValueError(
+                    f"ring_chunk_elems must be a positive int or None, got "
+                    f"{self.ring_chunk_elems!r}")
+            if (self.gather_mode != "ring" and self.reduce_mode != "ring_acc"
+                    and self.reduce_wire != "q8_block"):
+                raise ValueError(
+                    "ring_chunk_elems only affects the manual ring routes; "
+                    "this schedule has none (gather_mode='xla', "
+                    "reduce_mode='match', cast reduce wire) -- drop the "
+                    "knob or pick a ring mode")
 
     @classmethod
     def from_parallel(cls, par) -> "CommSchedule":
@@ -206,10 +214,8 @@ class CommSchedule:
         """Resolve the wire/accum dtype path against the actual compute
         dtype: a ``None`` dtype inherits it, so e.g. fp16 compute fails at
         runtime construction.  Also the reference's q8 rules: a quantized
-        store fixes the gather payload, and ``serve_quant_matmul`` needs
-        the q8_block store.  (Its rule that the q8 reduce wire
-        needs a sharded group comes with ``sharded=False``, Queue 1 item
-        10.)"""
+        store fixes the gather payload, the q8 reduce wire needs a sharded
+        group, and ``serve_quant_matmul`` needs the q8_block store."""
         supported = set(_DTYPES.values())
         for role, dt in (("gather", self.wire_dtype(compute_dtype)),
                          ("reduce", self.accum_dtype(compute_dtype))):
@@ -228,6 +234,12 @@ class CommSchedule:
                 f"param_store={self.param_store!r} fixes the all-gather "
                 "payload (the fp8 codes themselves); gather_dtype must "
                 f"stay None, got {self.gather_dtype!r}")
+        if self.reduce_wire == "q8_block" and not self.sharded:
+            raise ValueError(
+                "reduce_wire='q8_block' quantizes the gradient "
+                "reduce-scatter; a schedule-unsharded (replicated) group "
+                "has no reduce-scatter to quantize -- its grads are "
+                "psum'd in full precision")
         if self.serve_quant_matmul and self.param_store != "q8_block":
             raise ValueError(
                 "serve_quant_matmul runs the int8 GEMM on gathered q8_block "
@@ -244,6 +256,18 @@ class CommSchedule:
         tail = main - 2 * pairs if prefetch else 0
         return LayerPlan(n_layers=n, main=main, split_last=split_last,
                          prefetch=prefetch, pairs=pairs, tail=tail)
+
+    def describe(self) -> str:
+        return (f"prefetch={int(self.prefetch)} "
+                f"reshard={int(self.reshard_after_forward)} "
+                f"keep_last={int(self.keep_last_gathered)} "
+                f"mode={self.gather_mode} "
+                f"rmode={self.reduce_mode} "
+                f"store={self.param_store} "
+                f"gather={self.gather_dtype or 'compute'} "
+                f"reduce={self.reduce_wire or self.reduce_dtype or 'wire'}"
+                + (f" chunk={self.ring_chunk_elems}"
+                   if self.ring_chunk_elems is not None else ""))
 
 
 def resolve_group_schedules(base: CommSchedule, overrides) -> dict:
@@ -267,3 +291,44 @@ def resolve_group_schedules(base: CommSchedule, overrides) -> dict:
             ov["reduce_wire"] = None
         out[name] = dataclasses.replace(base, **ov)
     return out
+
+
+# The reference's named variants: on one rank every VARIANTS entry trains
+# bitwise like the default, and each ring variant like its xla twin.
+VARIANTS: dict[str, CommSchedule] = {
+    "default": CommSchedule(),
+    "prefetch": CommSchedule(prefetch=True),
+    "no_reshard": CommSchedule(reshard_after_forward=False),
+    "keep_last": CommSchedule(keep_last_gathered=True),
+    "fp32_wire": CommSchedule(gather_dtype="fp32"),
+    "fp32_reduce": CommSchedule(reduce_dtype="fp32"),
+    "overlap_all": CommSchedule(prefetch=True, keep_last_gathered=True,
+                                reduce_dtype="fp32"),
+    "ring": CommSchedule(gather_mode="ring"),
+    "ring_overlap": CommSchedule(gather_mode="ring", prefetch=True,
+                                 keep_last_gathered=True,
+                                 reduce_dtype="fp32"),
+}
+
+# Variants that change the numerics, not only the comm path: ring_acc
+# reduces in ring order, the quantized stores train on decoded weights and
+# the q8 reduce wire on quantized gradients.
+APPROX_VARIANTS: dict[str, CommSchedule] = {
+    "ring_acc": CommSchedule(gather_mode="ring", reduce_mode="ring_acc",
+                             reduce_dtype="fp32"),
+    "q8_store": CommSchedule(param_store="q8_block"),
+    "q8_ring_prefetch": CommSchedule(param_store="q8_block",
+                                     gather_mode="ring", prefetch=True),
+    "q8_reduce": CommSchedule(reduce_wire="q8_block"),
+    "q8_both_wires": CommSchedule(param_store="q8_block",
+                                  reduce_wire="q8_block"),
+    "q8_reduce_ring_acc": CommSchedule(gather_mode="ring",
+                                       reduce_mode="ring_acc",
+                                       reduce_wire="q8_block"),
+    "q8_serve_matmul": CommSchedule(param_store="q8_block",
+                                    serve_quant_matmul=True),
+    "fp8_store": CommSchedule(param_store="fp8_e4m3"),
+    "fp8_e5m2_store": CommSchedule(param_store="fp8_e5m2"),
+    "fp8_ring_prefetch": CommSchedule(param_store="fp8_e4m3",
+                                      gather_mode="ring", prefetch=True),
+}

@@ -47,8 +47,9 @@ import torch
 from ..kernels import ops
 from ..quant.fp8 import FP8_DTYPES, fp8_encode
 from .schedule import CommSchedule
-from .wire import (STORE_FORMATS, WireCodec, codec_gather, fp8_gather,
-                   payload_all_gather, q8_gather)
+from .wire import (STORE_FORMATS, ReduceRoute, WireCodec, codec_gather,
+                   fp8_gather, payload_all_gather, q8_gather,
+                   start_codec_gather, start_fp8_gather, start_q8_gather)
 
 # q8_block state keys, in the reference's (tree-sorted) order; a state with
 # a residual appends EF_KEY (see ``state_keys``)
@@ -248,49 +249,69 @@ class ParamStore:
     # ------------------------------------------------------------------ #
     # the gather
     # ------------------------------------------------------------------ #
+    def start_gather(self, state, group, sched: CommSchedule,
+                     compute_dtype: torch.dtype):
+        """Issue the all-gather of one rank-local (one-layer) state without
+        waiting for it (the prefetch schedule issues two layers' before
+        either's compute); hand the result to ``gather(started=...)``,
+        which waits and decodes."""
+        mode, rc = sched.gather_mode, sched.ring_chunk_elems
+        if self.quantized:
+            return start_q8_gather(state["codes"], state["scales"], group,
+                                   self.block, mode, rc)
+        if self.fp8:
+            return start_fp8_gather(state["codes"], group, mode, rc)
+        return start_codec_gather(self.trainable(state), group,
+                                  sched.gather_codec(compute_dtype), mode,
+                                  rc)
+
     def gather(self, state, grad_sink: torch.Tensor | None, group,
-               sched: CommSchedule, compute_dtype: torch.dtype
-               ) -> torch.Tensor:
+               sched: CommSchedule, compute_dtype: torch.dtype,
+               started=None) -> torch.Tensor:
         """All-gather one rank-local (one-layer) state into the flat
-        compute-dtype buffer the model unpacks; backward reduce-scatters
-        into ``grad_sink`` through the schedule's reduce codec, and with a
-        residual writes the new one into ``state["reduce_ef"]``.  With
-        ``grad_sink`` None (the serve steps) only the forward runs: the same
-        gather and decode, no autograd node and no gradient route."""
+        compute-dtype buffer the model unpacks, by the schedule's gather
+        mode; backward reduce-scatters into ``grad_sink`` through the
+        schedule's reduce codec and route, and with a residual writes the
+        new one into ``state["reduce_ef"]``.  A ``group`` of None (an
+        unsharded group) moves nothing.  With ``grad_sink`` None (the
+        serve steps) only the forward runs: the same gather and decode, no
+        autograd node and no gradient route.  ``started``: this state's
+        ``start_gather``, issued earlier."""
+        if started is None:
+            started = self.start_gather(state, group, sched, compute_dtype)
         if grad_sink is None:
-            if self.quantized:
-                p = self.gather_payload(state, group)
-                return ops.dequantize_into(p["codes"], p["scales"],
-                                           self.block, out_dtype=compute_dtype)
-            if self.fp8:
-                return payload_all_gather(state["codes"], group).to(
-                    compute_dtype)
-            codec = sched.gather_codec(compute_dtype)
-            return codec.decode(payload_all_gather(
-                codec.encode(self.trainable(state)), group), compute_dtype)
-        rcodec = sched.reduce_codec(compute_dtype, self.block)
+            return started(compute_dtype)
+        route = ReduceRoute(sched.reduce_codec(compute_dtype, self.block),
+                            sched.gather_mode, sched.reduce_mode,
+                            sched.ring_chunk_elems)
         ef = state[EF_KEY] if self.has_ef else None
         if self.quantized:
             return q8_gather(state["master"], state["codes"], state["scales"],
-                             grad_sink, group, self.block, rcodec,
-                             compute_dtype, ef)
+                             grad_sink, group, self.block, route,
+                             compute_dtype, ef, started)
         if self.fp8:
             return fp8_gather(state["master"], state["codes"], grad_sink,
-                              group, rcodec, compute_dtype, ef)
+                              group, route, compute_dtype, ef, started)
         return codec_gather(self.trainable(state), grad_sink, group,
-                            sched.gather_codec(compute_dtype), rcodec,
-                            compute_dtype, ef)
+                            sched.gather_codec(compute_dtype), route,
+                            compute_dtype, ef, started)
 
-    def gather_payload(self, state, group) -> dict[str, torch.Tensor]:
+    def gather_payload(self, state, group, sched: CommSchedule | None = None
+                       ) -> dict[str, torch.Tensor]:
         """All-gather a quantized state's payload without decoding:
         ``{"codes", "scales"}`` of the full flat buffer, pure data movement
-        (the serve quant mode keeps these in int8 and unpacks them with
-        ``DBuffer.unpack_quant``).  PARITY: BITWISE."""
+        by the schedule's gather mode (the serve quant mode keeps these in
+        int8 and unpacks them with ``DBuffer.unpack_quant``).  PARITY:
+        BITWISE."""
         if not self.quantized:
             raise ValueError(
                 f"gather_payload on a {self.fmt!r} store (quantized only)")
-        return {"codes": payload_all_gather(state["codes"], group),
-                "scales": payload_all_gather(state["scales"], group)}
+        mode = sched.gather_mode if sched is not None else "xla"
+        rc = sched.ring_chunk_elems if sched is not None else None
+        return {"codes": payload_all_gather(state["codes"], group, mode, rc),
+                "scales": payload_all_gather(
+                    state["scales"], group, mode,
+                    max(rc // self.block, 1) if rc else None)}
 
     # ------------------------------------------------------------------ #
     # accounting

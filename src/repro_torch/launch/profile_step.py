@@ -2,7 +2,9 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile_step \
         [--config gemma2|qwen3-moe|qwen2.5-muon] \
-        [--store fp32|bf16|fp8_e4m3|fp8_e5m2|q8_block | --q8 | --serve]
+        [--store fp32|bf16|fp8_e4m3|fp8_e5m2|q8_block | --q8 | --serve
+         | --schedule NAME] [--planner ragged|fsdp2|megatron|naive]
+        [--ce-chunk N]
 
 Builds a configuration ``chip_smoke.py`` trains -- ``gemma2`` (default):
 gemma2-2b at published width, depth cut to 4 layers, batch 2 x 2048, AdamW;
@@ -13,8 +15,11 @@ published width, depth cut to 2 layers, batch 1 x 2048, Muon
 and the
 ``--store`` parameter store (fp32 by default; or, with ``--q8``, the
 q8_block store and the q8 gradient wire with error feedback on every
-group), runs two warm-up steps on one rank of a NCCL group, then one step
-under ``torch.profiler``.  ``--serve`` profiles
+group, or a named schedule of ``core.schedule.VARIANTS`` /
+``APPROX_VARIANTS`` with ``--schedule``), laid out by ``--planner``
+(ragged by default) and with the vocab-chunked cross entropy when
+``--ce-chunk`` is above 0, runs two warm-up steps on one rank of a NCCL
+group, then one step under ``torch.profiler``.  ``--serve`` profiles
 a decode step instead: the config on the q8_block store with
 ``serve_quant_matmul`` (``chip_smoke.py``'s ``serve`` phase: a prefill of
 4 x 512 tokens into a 1024-slot cache, two warm-up decode steps at batch
@@ -35,7 +40,7 @@ import torch
 
 from ..configs import build_model, get_config
 from ..core.fsdp import FSDPRuntime
-from ..core.schedule import CommSchedule
+from ..core.schedule import APPROX_VARIANTS, VARIANTS, CommSchedule
 from ..data.pipeline import DataConfig, SyntheticStream
 from ..optim import make_optimizer
 from .mesh import init_local_group
@@ -64,6 +69,7 @@ CONFIGS = {"gemma2": ("gemma2-2b", 4, 2, 2048, None),
            "qwen3-moe": ("qwen3-moe-235b-a22b", 1, 1, 2048, None),
            "qwen2.5-muon": ("qwen2.5-14b", 2, 1, 2048, "muon")}
 WARMUP, TOP = 2, 15
+NAMED = {**VARIANTS, **APPROX_VARIANTS}
 # the serve mode's batch, prompt length and cache length
 SERVE_BATCH, SERVE_PROMPT, SERVE_LEN = 4, 512, 1024
 
@@ -71,10 +77,17 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_LEN = 4, 512, 1024
 def train_step(cfg, args):
     """Warm a train step up; returns a closure running one more step (and
     its loss) and the schedule's name."""
-    sched = CommSchedule(param_store="q8_block", reduce_wire="q8_block") \
-        if args.q8 else CommSchedule(param_store=args.store)
+    if args.schedule:
+        sched, name = NAMED[args.schedule], args.schedule
+    elif args.q8:
+        sched = CommSchedule(param_store="q8_block", reduce_wire="q8_block")
+        name = "q8_both_wires"
+    else:
+        sched, name = (CommSchedule(param_store=args.store),
+                       f"param_store={args.store}")
     rt = FSDPRuntime(build_model(cfg), init_local_group("nccl"),
-                     compute_dtype=torch.bfloat16, schedule=sched)
+                     compute_dtype=torch.bfloat16, schedule=sched,
+                     planner=args.planner)
     params = rt.init_params(0)
     opt = make_optimizer(cfg)
     opt_state = opt.init(rt)
@@ -94,7 +107,7 @@ def train_step(cfg, args):
             state["params"], state["opt"], state["step"], batch)
         return float(m["loss"])
 
-    return run, "q8_both_wires" if args.q8 else f"param_store={args.store}"
+    return run, name
 
 
 def decode_step(cfg, args):
@@ -138,6 +151,13 @@ def main() -> None:
                       help="the q8_block store and q8 gradient wire")
     mode.add_argument("--serve", action="store_true",
                       help="a decode step of the int8 serve mode")
+    mode.add_argument("--schedule", choices=list(NAMED),
+                      help="a named communication schedule")
+    ap.add_argument("--planner", default="ragged",
+                    choices=("ragged", "fsdp2", "megatron", "naive"))
+    ap.add_argument("--ce-chunk", type=int, default=0,
+                    help="vocab chunk of the cross entropy (0: the full "
+                         "logits)")
     args = ap.parse_args()
     arch, layers, batch_size, seq, optimizer = CONFIGS[args.config]
     if not torch.cuda.is_available():
@@ -149,7 +169,8 @@ def main() -> None:
     # one rank: expert parallelism off (the port runs ep=1)
     cfg = dataclasses.replace(full, n_layers=layers, parallel=dataclasses
                               .replace(full.parallel, ep=1),
-                              optimizer=optimizer or full.optimizer)
+                              optimizer=optimizer or full.optimizer,
+                              ce_chunk=args.ce_chunk)
     run, schedule = (decode_step if args.serve else train_step)(cfg, args)
     torch.cuda.synchronize()
 
@@ -187,7 +208,8 @@ def main() -> None:
     print(json.dumps({
         "phase": "profile", "model": cfg.name, "n_layers": layers,
         "optimizer": None if args.serve else cfg.optimizer,
-        "schedule": schedule, "batch": batch, "compute": "bf16",
+        "schedule": schedule, "planner": args.planner,
+        "ce_chunk": args.ce_chunk, "batch": batch, "compute": "bf16",
         "device": torch.cuda.get_device_name(0),
         ("mean_abs_logit" if args.serve else "loss"): value,
         "step_ms": wall_ms, "device_busy_ms": busy_us / 1e3,

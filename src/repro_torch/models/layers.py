@@ -16,6 +16,9 @@ Conventions kept from the reference so the tests compare like with like:
   * serving: ``attention`` keeps a ring-buffer KV cache, updated in place;
     ``dense`` multiplies a gathered-but-still-int8 weight (``QuantTensor``)
     through ``ops.q8_matmul``
+  * ``chunked_ce``, the vocab-chunked cross entropy, never materializes
+    the (B, T, V) logits: each chunk's head product runs inside an
+    activation checkpoint
 
 PARITY: ALLCLOSE -- fp32 compute agrees with the reference to float
 rounding (transcendentals and matmul sums differ in the last bits); bf16
@@ -28,6 +31,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
 
@@ -242,4 +246,56 @@ def vocab_parallel_ce(logits: torch.Tensor, labels: torch.Tensor,
                           [..., None])[..., 0]
     label_logit = torch.where(ok, picked, torch.zeros_like(picked))
     nll = torch.log(sumexp) + m - label_logit
+    return (nll * mask).sum(), mask.sum()
+
+
+def _ce_chunk_step(x, head_c, labels, m, s, picked, lo: int, chunk: int,
+                   softcap):
+    """One vocab chunk of ``chunked_ce``: the logits of the columns
+    ``head_c`` holds, ``[lo, lo + chunk)``, in fp32 (softcapped in fp32;
+    the columns past the vocab masked to NEG_INF), folded into the running
+    max ``m``, the rescaled sum of exponentials ``s`` and the picked label
+    logit."""
+    lg = (x @ head_c.to(x.dtype)).float()
+    if softcap is not None:
+        lg = softcap * torch.tanh(lg / softcap)
+    if head_c.shape[1] < chunk:
+        lg = F.pad(lg, (0, chunk - head_c.shape[1]), value=NEG_INF)
+    m_new = torch.maximum(m, lg.detach().amax(dim=-1))
+    s = s * torch.exp(m - m_new) + torch.exp(lg - m_new[..., None]).sum(-1)
+    loc = labels - lo
+    ok = (loc >= 0) & (loc < chunk)
+    got = torch.gather(lg, -1, loc.clamp(0, chunk - 1)[..., None])[..., 0]
+    picked = picked + torch.where(ok, got, torch.zeros_like(got))
+    return m_new, s, picked
+
+
+def chunked_ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+               mask: torch.Tensor, *, vocab_chunk: int = 8192, softcap=None):
+    """Cross entropy without the (B, T, V) logits (the reference's
+    ``chunked_ce``, ``tp_axis=None``): an online max / logsumexp over vocab
+    chunks of ``vocab_chunk`` columns, the last one padded to NEG_INF past
+    the vocab.  Each chunk's head product and fp32 softcap run inside a
+    non-reentrant checkpoint, so backward recomputes the chunk (one more
+    head product) and no chunk's logits live past its step, as the
+    reference's remat'd scan body.  The head is split into its chunks once
+    (``torch.split``), so backward concatenates the chunks' gradients in
+    one pass rather than adding a head-sized gradient per chunk.  x:
+    (B, T, D) in the compute dtype, head: (D, V).  Returns (sum_loss,
+    sum_weight).
+
+    PARITY: ALLCLOSE -- the same online recurrence; the sums run in
+    PyTorch's order, not XLA's (tests/test_torch_chunked_ce.py states the
+    bounds)."""
+    B, T, _ = x.shape
+    dev = x.device
+    m = torch.full((B, T), NEG_INF, dtype=torch.float32, device=dev)
+    s = torch.zeros((B, T), dtype=torch.float32, device=dev)
+    picked = torch.zeros((B, T), dtype=torch.float32, device=dev)
+    for i, head_c in enumerate(head.split(vocab_chunk, dim=1)):
+        m, s, picked = checkpoint(
+            _ce_chunk_step, x, head_c, labels, m, s, picked, i * vocab_chunk,
+            vocab_chunk, softcap, use_reentrant=False,
+            preserve_rng_state=False)
+    nll = torch.log(s) + m - picked
     return (nll * mask).sum(), mask.sum()

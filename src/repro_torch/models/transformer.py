@@ -4,8 +4,8 @@
 The model is written against the ParamGetter protocol of
 ``core.fsdp``: ``pg.globals(group)`` returns the gathered, unpacked tensors
 of an unstacked group; ``pg.scan(groups, body, carry, xs)`` runs the FSDP
-layer loop (per-layer all-gather -> zero-copy unpack -> body, with the
-gather inside the activation checkpoint), which is the ZeRO-3 schedule.
+layer loop (per-layer all-gather -> unpack -> body, in the structure the
+communication schedule lays out), which is the ZeRO-3 schedule.
 
 Ported: the self-attention decoder with tp=1 -- the ``layers`` and
 ``globals`` groups, gemma2's alternating local/global windows, softcaps,
@@ -69,7 +69,6 @@ def _check_supported(cfg) -> None:
         (par.tp > 1, f"tp={par.tp}", "Queue 1 item 18"),
         (par.ep > 1, f"ep={par.ep}", "Queue 1 item 18"),
         (par.sequence_parallel, "sequence_parallel", "Queue 1 item 18"),
-        (cfg.ce_chunk > 0, "ce_chunk (vocab-chunked CE)", "Queue 1 item 5"),
     )
     for hit, what, item in unported:
         if hit:
@@ -206,12 +205,21 @@ class DecoderLM:
         q_pos = torch.arange(T, device=tokens.device)[None].expand(B, T)
         x, g = self._embed_in(pg, tokens)
         x, aux = self._backbone(pg, x, q_pos)
-        logits = self._logits(g, x)
-        nll, w = L.vocab_parallel_ce(
-            logits[:, :-1], tokens[:, 1:],
-            torch.ones((B, T - 1), dtype=torch.float32,
-                       device=tokens.device))
-        return nll + aux * w / max(self.cfg.n_layers, 1), w
+        cfg = self.cfg
+        ones = torch.ones((B, T - 1), dtype=torch.float32,
+                          device=tokens.device)
+        if cfg.ce_chunk:
+            # vocab-chunked online-logsumexp CE: the (B, T, V) fp32
+            # logits never exist
+            x = L.rms_norm(x, g["final_ln"], cfg.norm_eps)
+            head = g["emb"].T if cfg.tie_embeddings else g["head"]
+            nll, w = L.chunked_ce(
+                x[:, :-1], head.to(pg.compute_dtype), tokens[:, 1:], ones,
+                vocab_chunk=cfg.ce_chunk, softcap=cfg.final_softcap)
+        else:
+            logits = self._logits(g, x)
+            nll, w = L.vocab_parallel_ce(logits[:, :-1], tokens[:, 1:], ones)
+        return nll + aux * w / max(cfg.n_layers, 1), w
 
     # ---------------- serving ------------------------------------------------
     def cache_window(self, seq_len: int) -> int:

@@ -241,15 +241,17 @@ class OptimizerBase:
 
     def state_layout(self, runtime) -> dict[str, dict[str, tuple]]:
         """Every leaf as ``(dtype, global shape, sharded axis)``: the
-        per-group ``state_leaves`` (sharded on the last axis), then the
-        ``extra_leaves``.  Each rank holds its equal share of the sharded
-        axis."""
+        per-group ``state_leaves`` (sharded on the last axis; an unsharded
+        group's axis is None), then the ``extra_leaves``.  Each rank holds
+        its equal share of the sharded axis, and the whole of a leaf whose
+        axis is None."""
         out = {}
         for k, (dtype, div) in self.state_leaves().items():
             out[k] = {}
             for name, lo in runtime.layouts.items():
                 shape = lo.global_shape()
-                out[k][name] = (dtype, shape[:-1] + (shape[-1] // div,), -1)
+                out[k][name] = (dtype, shape[:-1] + (shape[-1] // div,),
+                                -1 if lo.fsdp_axes else None)
         out.update(self.extra_leaves(runtime))
         return out
 
@@ -262,7 +264,8 @@ class OptimizerBase:
             out[k] = {}
             for name, (dtype, shape, axis) in leaves.items():
                 shape = list(shape)
-                shape[axis] //= m
+                if axis is not None:
+                    shape[axis] //= m
                 out[k][name] = (dtype, tuple(shape))
         return out
 

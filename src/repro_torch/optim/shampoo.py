@@ -66,7 +66,8 @@ class Shampoo(OptimizerBase):
 
     def extra_leaves(self, runtime):
         """The Kronecker factors, ``(Lp, a, a)`` and ``(Lp, b, b)`` per 2-D
-        tensor of a stacked group, sharded over the padded layer axis."""
+        tensor of a stacked group, sharded over the padded layer axis (whole
+        on every rank for an unsharded group)."""
         facs = {}
         for gname, lo in runtime.layouts.items():
             if lo.n_layers is None:
@@ -78,8 +79,9 @@ class Shampoo(OptimizerBase):
                     continue
                 a, b = pl.spec.shape
                 kl, kr = factor_keys(gname, pl.spec.name)
-                facs[kl] = (torch.float32, (lp, a, a), 0)
-                facs[kr] = (torch.float32, (lp, b, b), 0)
+                axis = 0 if lo.fsdp_axes else None
+                facs[kl] = (torch.float32, (lp, a, a), axis)
+                facs[kr] = (torch.float32, (lp, b, b), axis)
         return {"factors": facs}
 
     # ------------------------------------------------------------------ #

@@ -196,18 +196,32 @@ def test_default_layer_plan_matches_reference(n):
     (dict(sharded=False), "Queue 1 item 10"),
 ], ids=lambda x: str(x))
 def test_unported_schedule_knobs_raise(knob, item):
-    with pytest.raises(NotImplementedError, match=item):
-        CommSchedule(**knob)
+    """The knobs ``item`` ported: each now constructs as the reference's
+    does (its ``describe()``), or raises the reference's ``ValueError``
+    (``ring_chunk_elems`` without a ring route)."""
+    from repro.core.schedule import CommSchedule as JaxSchedule
+
+    del item
+    try:
+        want = JaxSchedule(**knob)
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            CommSchedule(**knob)
+        assert str(got.value) == str(e)
+        return
+    assert CommSchedule(**knob).describe() == want.describe()
 
 
 def test_unported_planners_and_configs_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        get_planner("fsdp2")
+    from repro.core.planner import get_planner as jax_get_planner
+
+    for mode in ("fsdp2", "megatron", "naive"):
+        assert get_planner(mode).__name__ == jax_get_planner(mode).__name__
     with pytest.raises(NotImplementedError, match="Queue 1 item 14b"):
         get_config("xlstm-125m")
     moe = get_config("qwen3-moe-235b-a22b")  # the config's own ep=16
     with pytest.raises(NotImplementedError, match="Queue 1 item 18"):
         build_model(moe)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         plan(build_model(get_config("gemma2-2b").reduced()),
              {"data": 1, "model": 1}, policies="auto")

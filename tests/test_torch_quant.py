@@ -438,8 +438,10 @@ def test_schedule_q8_errors_match_reference():
     assert schedule.CommSchedule(**fp8).reduce_codec(torch.bfloat16).fmt == \
         jax_schedule.CommSchedule(**fp8).reduce_codec(jnp.bfloat16).fmt == \
         "fp8_e4m3"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        schedule.CommSchedule(reduce_wire="q8_block", reduce_mode="ring_acc")
+    # the q8 ring_acc route (ported): the reference's schedule
+    kw = dict(reduce_wire="q8_block", reduce_mode="ring_acc")
+    assert schedule.CommSchedule(**kw).describe() == \
+        jax_schedule.CommSchedule(**kw).describe()
 
 
 def test_group_override_displaces_the_other_reduce_spelling():

@@ -211,9 +211,8 @@ def test_unported_runtime_options_raise():
         cfg.parallel, microbatches=2))
     with pytest.raises(NotImplementedError, match="Queue 1 item 18"):
         FSDPRuntime(build_model(micro), group, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        FSDPRuntime(build_model(cfg), group, device="cpu",
-                    group_schedules={"layers": {"gather_mode": "ring"}})
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        FSDPRuntime(build_model(cfg), group, device="cpu", policies="auto")
 
 
 _FORBIDDEN = re.compile(
