@@ -179,6 +179,42 @@ numbers again):
                   CE_CHUNK_RTOL of ``train``'s, peak memory below it, step
                   ms beside it.
 
+The plan's life cycle (23 and 24 run after 22, on ``train``'s host init):
+
+ 23. auto_plan -- ``launch.bench_comm`` times the port's gathers and
+                  reduce-scatters (xla, ring, ring_acc; fp32, bf16,
+                  q8_block) at 2^20 and 2^24 elements on the one NCCL rank
+                  into a temporary profile; ``CostModel.from_profile``
+                  prices ``policies="auto"`` for gemma2-2b as in ``train``
+                  (``prefetch`` and ``keep_last_gathered``: 4 layers).  Its
+                  run must equal bitwise a run of the same decisions given
+                  as explicit rules; the builtin roofline's auto plan (one
+                  rank: fp32 and the cast wire everywhere) must equal
+                  ``train``'s stream bitwise; each run launches the
+                  kernels its plan implies.  Printed: the
+                  profile's name, hash and fitted curves, ``describe()``
+                  with its ``auto_ms``/``builtin_ms`` columns, and (host
+                  only) the builtin roofline's decisions under
+                  ``launch.mesh``'s H100 constants for every registered
+                  config at 8 and 64 ranks.
+ 24. ckpt      -- gemma2-2b at published width cut to 2 layers, fp32
+                  store, AdamW, batch 2 x 2048: two steps, ``ckpt.save``
+                  (8.95 GB of master and moments) into a temporary
+                  directory, two more; a fresh runtime loads it and runs the
+                  same two steps, whose losses, grad norms and final master
+                  must be bitwise the uninterrupted run's.  The checkpoint
+                  loads into a ``q8_both_wires`` runtime (the master exact
+                  tensor by tensor, codes and scales bitwise
+                  ``ops.quantize`` of it, the residual zero, ``quantize``
+                  once per group, one finite step with the q8 path's
+                  launches), and ``python -m repro_torch.tools.reshard
+                  --planner fsdp2 --drop-opt`` rewrites it for the fsdp2
+                  planner, which loads bitwise on the master.  Printed:
+                  save and load seconds and GB/s beside one ``np.save`` of a
+                  contiguous buffer of the same bytes to the same disk.
+                  The free disk is checked first; the directory is removed
+                  when the phase ends.
+
 Then the ``kernels`` line, the card's name and power limit as nvidia-smi
 reports them, and a last line ``{"ok": true, "device": {...}}``.  The
 script imports only the port (never JAX or the JAX package).
@@ -188,9 +224,12 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -339,6 +378,10 @@ PARITY_OPTIM_MASTER = {"sgd": 5e-8, "muon": 2e-6, "shampoo": 4e-5,
 # the CPU, gemma2-2b.reduced() read loss 2.3e-4 and grad norm 1.9e-3 at
 # most over chunks 96, 128 and 200 (PERF.md); limits about ten times those
 CE_CHUNK = 8192
+# phase 23: the comm sweep's buffer sizes (elements)
+AUTO_BENCH_SIZES = (1 << 20, 1 << 24)
+# phase 24: gemma2-2b cut to 2 layers, two steps before and after the save
+CKPT_LAYERS, CKPT_STEPS = 2, 2
 CE_CHUNK_RTOL = {"loss": 2e-3, "grad_norm": 2e-2}
 
 
@@ -1250,14 +1293,18 @@ def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
     sys.path.insert(0, str(SRC))
+    from repro_torch.checkpoint import ckpt
     from repro_torch.configs import build_model, get_config
     from repro_torch.core.fsdp import FSDPRuntime, GatheredMeter
-    from repro_torch.core.policy import plan
+    from repro_torch.core.policy import CostModel, plan
+    from repro_torch.core.profile import load_profile
+    from repro_torch.core.reshard import GroupIndex, buffer_reader
     from repro_torch.core.schedule import (APPROX_VARIANTS, VARIANTS,
                                            CommSchedule)
     from repro_torch.data.pipeline import DataConfig, SyntheticStream
     from repro_torch.kernels import (blockwise_quant, build, encode_ef,
                                      fused_update, ops, q8_matmul, ref)
+    from repro_torch.launch import auto_decisions, bench_comm, mesh
     from repro_torch.launch.mesh import init_local_group
     from repro_torch.optim import make_optimizer
     from repro_torch.serve.engine import Request, ServeEngine
@@ -1283,7 +1330,8 @@ def main() -> None:
     def train(cfg, device, compute_dtype, stream, steps, schedule=None,
               timings=None, seed=0, check=None, keep=None,
               time_update=False, planner="ragged", group_schedules=None,
-              init=None, keep_init=None, meter=False):
+              init=None, keep_init=None, meter=False, policies=None,
+              cost_model=None):
         """The quickstart loop through the public API; returns (metrics
         per step, step ms, runtime) and, into ``timings``, the set-up
         seconds (runtime, init, optimizer state) and, with
@@ -1298,7 +1346,8 @@ def main() -> None:
         rt = FSDPRuntime(build_model(cfg), group,
                          compute_dtype=compute_dtype, device=device,
                          schedule=schedule, planner=planner,
-                         group_schedules=group_schedules)
+                         group_schedules=group_schedules,
+                         policies=policies, cost_model=cost_model)
         if meter:
             rt.gathered_meter = GatheredMeter()
         params = init(rt) if init is not None else rt.init_params(seed)
@@ -1328,6 +1377,215 @@ def main() -> None:
         if keep is not None:
             keep.update(params=params, opt_state=opt_state)
         return out, times, rt
+
+    def run_ckpt_phase(ck_cfg, ck_dir: Path, ck_bytes: int) -> dict:
+        """Phase 24: the save/resume, cross-format and offline-reshard
+        checks of gemma2-2b at ``CKPT_LAYERS`` layers; returns the phase's
+        kernel launches (those made only to compare are not counted)."""
+        path = ck_dir / "ckpt"
+        n_groups = 2
+
+        def init(rt):
+            # train's host masters, layer rows cut to this depth (a layer's
+            # init does not depend on the model's depth)
+            out = {}
+            for n, lo in rt.layouts.items():
+                t, src = host_init[n]
+                if src.plan != lo.plan:
+                    fail(f"ckpt: group {n}'s plan differs from train's")
+                t = t[:lo.n_layers] if lo.n_layers else t
+                out[n] = lo.store.create(
+                    t.to(rt.device).requires_grad_(True))
+            return out
+
+        def run(rt, opt, params, opt_state, first, n):
+            step_fn = rt.make_train_step(opt)
+            out, step = [], first
+            for i in range(first, first + n):
+                batch = stream.shard(stream.batch(i), rt)
+                params, opt_state, step, m = step_fn(params, opt_state,
+                                                     step, batch)
+                out.append((float(m["loss"]), float(m["grad_norm"])))
+            return params, opt_state, out
+
+        def masters(params):
+            return {n: (p["master"] if isinstance(p, dict) else p).detach()
+                    for n, p in params.items()}
+
+        meta_groups = {}
+
+        def master_matches(params, rt, src_path) -> bool:
+            """Every tensor of every layer of ``params``' masters bitwise
+            the one saved under ``src_path`` (read through both
+            layouts' shard indices)."""
+            if not meta_groups:
+                meta = json.loads((src_path / "meta.json").read_text())
+                meta_groups.update(meta["groups"])
+            src_idx = {g: GroupIndex.from_meta(sg)
+                       for g, sg in meta_groups.items()}
+            owner = {t: g for g, sg in meta_groups.items()
+                     for t in sg["index"]}
+            for n, lo in rt.layouts.items():
+                host = masters(params)[n].float().cpu().numpy()
+                dst = GroupIndex.from_layout(lo)
+                read_dst = buffer_reader(host, dst.num_rows)
+                for name in lo.plan.names:
+                    g = owner[name]
+                    read_src = ckpt.group_master_reader(src_path / "shards", g)
+                    for li in (range(lo.n_layers) if lo.n_layers
+                               else [None]):
+                        a = dst.read_tensor(name, read_dst, li)
+                        b = src_idx[g].read_tensor(name, read_src, li)
+                        if not np.array_equal(a.view(np.uint32),
+                                              b.view(np.uint32)):
+                            return False
+            return True
+
+        def since(before):
+            now = launches_now(mods)
+            return {k: now[k] - before[k] for k in now}
+
+        reset_launches(mods)
+        # the uninterrupted run: two steps, save, two more
+        rt = FSDPRuntime(build_model(ck_cfg), group,
+                         compute_dtype=torch.bfloat16, device="cuda")
+        opt = make_optimizer(ck_cfg)
+        params, opt_state, first = run(rt, opt, init(rt), opt.init(rt), 0,
+                                       CKPT_STEPS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save(path, rt, params, opt_state, step=CKPT_STEPS)
+        save_s = time.perf_counter() - t0
+        disk = sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+        params, opt_state, second = run(rt, opt, params, opt_state,
+                                        CKPT_STEPS, CKPT_STEPS)
+        want_master = masters(params)
+        del params, opt_state, rt
+        torch.cuda.empty_cache()
+
+        # the resumed run: a fresh runtime loads the checkpoint
+        rt = FSDPRuntime(build_model(ck_cfg), group,
+                         compute_dtype=torch.bfloat16, device="cuda")
+        opt = make_optimizer(ck_cfg)
+        like = opt.init(rt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, step, opt_state = ckpt.load(path, rt, like)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        del like
+        params, opt_state, resumed = run(rt, opt, params, opt_state, step,
+                                         CKPT_STEPS)
+        got = masters(params)
+        resume_master = all(torch.equal(got[n], want_master[n])
+                            for n in want_master)
+        del params, opt_state, rt, got, want_master
+        torch.cuda.empty_cache()
+
+        # the format's floor: one np.save of a contiguous buffer of the
+        # checkpoint's bytes to the same disk
+        buf = np.ones(ck_bytes // 4, np.float32)
+        t0 = time.perf_counter()
+        np.save(ck_dir / "floor.npy", buf)
+        floor_s = time.perf_counter() - t0
+        (ck_dir / "floor.npy").unlink()
+        del buf
+
+        # the cross-format restore: the q8_block store, q8 gradient wire
+        rt = FSDPRuntime(build_model(ck_cfg), group,
+                         compute_dtype=torch.bfloat16, device="cuda",
+                         schedule=CommSchedule(**Q8_SCHEDULE))
+        before = launches_now(mods)
+        t0 = time.perf_counter()
+        params, step = ckpt.load(path, rt)
+        torch.cuda.synchronize()
+        q8_load_s = time.perf_counter() - t0
+        q8_load_launches = since(before)
+        q8_master = master_matches(params, rt, path)
+        # compare the codes with ops.quantize(master) on the card; these
+        # launches are the comparison's, not the path's
+        snap = launches_now(mods)
+        codes_ok, ef_zero = True, True
+        for n, lo in rt.layouts.items():
+            codes, scales = ops.quantize(params[n]["master"].detach(),
+                                         lo.store.block)
+            codes_ok &= (torch.equal(codes, params[n]["codes"])
+                         and torch.equal(scales, params[n]["scales"]))
+            ef_zero &= not bool(params[n]["reduce_ef"].count_nonzero())
+        for k, fn in counted(mods).items():
+            fn.launches = snap[k]
+        opt = make_optimizer(ck_cfg)
+        params, _, q8_step = run(rt, opt, params, opt.init(rt), step, 1)
+        q8_launches_total = since(before)
+        q8_want = expected_q8_launches(rt, 1, q8_launches_total)
+        del params, rt
+        torch.cuda.empty_cache()
+
+        # the offline tool: ragged -> fsdp2, no optimizer state
+        dst = ck_dir / "fsdp2"
+        cmd = [sys.executable, "-m", "repro_torch.tools.reshard", str(path),
+               str(dst), "--arch", ck_cfg.name, "--full", "--layers",
+               str(CKPT_LAYERS), "--data", "1", "--planner", "fsdp2",
+               "--drop-opt"]
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        t0 = time.perf_counter()
+        tool = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                              timeout=900)
+        tool_s = time.perf_counter() - t0
+        if tool.returncode:
+            fail(f"ckpt: the reshard tool exited {tool.returncode}: "
+                 f"{tool.stderr[-2000:]}")
+        rt = FSDPRuntime(build_model(ck_cfg), group,
+                         compute_dtype=torch.bfloat16, device="cuda",
+                         planner="fsdp2")
+        params, _ = ckpt.load(dst, rt)
+        tool_plan = ckpt.load_plan(dst).dumps() == rt.plan.dumps()
+        tool_master = master_matches(params, rt, path)
+        del params, rt
+        torch.cuda.empty_cache()
+        total = launches_now(mods)
+        res = {"phase": "ckpt", "steps": [CKPT_STEPS, CKPT_STEPS],
+               "uninterrupted": first + second,
+               "resumed": first + resumed,
+               "bitwise_stream": resumed == second,
+               "bitwise_master": resume_master,
+               "checkpoint_bytes_on_disk": disk,
+               "save_s": save_s, "save_gb_per_s": disk / save_s / 1e9,
+               "load_s": load_s, "load_gb_per_s": disk / load_s / 1e9,
+               "np_save_floor_s": floor_s,
+               "np_save_floor_gb_per_s": ck_bytes / floor_s / 1e9,
+               "q8_restore": {"load_s": q8_load_s, "master_exact": q8_master,
+                              "codes_bitwise_quantize": codes_ok,
+                              "ef_zero": ef_zero, "step": q8_step,
+                              "load_launches": q8_load_launches,
+                              "launches": q8_launches_total,
+                              "expected_launches": q8_want},
+               "tool": {"cmd": " ".join(cmd[1:]), "seconds": tool_s,
+                        "plan_equal": tool_plan,
+                        "master_bitwise": tool_master,
+                        "stdout": tool.stdout.splitlines()[-4:]},
+               "kernel_launches": total}
+        emit(res)
+        if resumed != second or not resume_master:
+            fail("ckpt: the resumed run is not bitwise the uninterrupted one")
+        if not (q8_master and codes_ok and ef_zero):
+            fail(f"ckpt: cross-format restore master {q8_master}, codes "
+                 f"{codes_ok}, residual zero {ef_zero}")
+        if q8_load_launches["quantize"] != n_groups \
+                or q8_launches_total != q8_want:
+            fail(f"ckpt: the q8 restore and step launched "
+                 f"{q8_launches_total}, expected {q8_want}")
+        if not all(math.isfinite(v) for v in q8_step[0]):
+            fail(f"ckpt: the step after the q8 restore gave {q8_step}")
+        if not (tool_plan and tool_master):
+            fail(f"ckpt: the resharded checkpoint's plan {tool_plan}, "
+                 f"master {tool_master}")
+        want_adamw = n_groups * (3 * CKPT_STEPS)
+        if total["adamw_store_update"] != want_adamw:
+            fail(f"ckpt: adamw_store_update launched "
+                 f"{total['adamw_store_update']}, expected {want_adamw}")
+        return total
 
     smi = nvidia_smi()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1637,7 +1895,140 @@ def main() -> None:
                  f"{lim}")
     if not ce_peak < peak:
         fail(f"train_ce_chunk peaked at {ce_peak} B, train at {peak} B")
-    del rt, host_init
+    del rt
+    torch.cuda.empty_cache()
+    # ---- 23. auto_plan: a measured profile prices policies="auto" ------
+    t_auto = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        prof_path = Path(tmp) / "comm_profile.json"
+        reset_launches(mods)
+        prof = bench_comm.run(group, torch.device("cuda"),
+                              sizes=AUTO_BENCH_SIZES, out=str(prof_path),
+                              verbose=False)
+        prof = load_profile(prof_path)
+    cm = CostModel.from_profile(prof)
+    auto_plan = plan(build_model(cfg), {"data": 1, "model": 1}, "auto",
+                     cost_model=cm)
+    emit({"phase": "auto_plan_profile", "name": prof.name,
+          "hash": prof.content_hash(), "backend": prof.backend,
+          "world": prof.world, "entries": len(prof.entries),
+          "ici_bw_fit": cm.ici_bw,
+          "curves": {f"{d}/{f}/{m}": [round(v, 12) for v in
+                                      prof.linear(d, f, m)]
+                     for d, f, m in sorted({s.key() for s in prof.entries})},
+          "seconds": time.perf_counter() - t_auto})
+    emit({"phase": "auto_plan_describe",
+          "lines": auto_plan.describe().splitlines()})
+    auto_pols = {n: e.policy.describe() for n, e in auto_plan.groups.items()}
+    if auto_plan.profile_hash != prof.content_hash() or not (
+            auto_plan.base.prefetch and auto_plan.base.keep_last_gathered):
+        fail(f"auto_plan: the plan must record the profile and overlap its "
+             f"4 layers; got {auto_plan.profile_name}@"
+             f"{auto_plan.profile_hash}, base {auto_plan.base.describe()}")
+
+    def auto_launches_want(rt, steps, keys):
+        """The kernels an auto plan's run launches: the fused update once
+        per group and step; a q8 gradient wire (one rank, ring_acc: one
+        encode and one decode per reduce) an encode_ef and a dequantize
+        per reduce; a q8 store as ``train_q8``."""
+        if any(lo.store.quantized for lo in rt.layouts.values()):
+            return expected_q8_launches(rt, steps, keys)
+        want = {k: 0 for k in keys}
+        want["adamw_store_update"] = len(rt.layouts) * steps
+        ef_reduces = sum(lo.n_layers or 1 for lo in rt.layouts.values()
+                         if lo.store.has_ef)
+        want.update(encode_ef=ef_reduces * steps,
+                    dequantize=ef_reduces * steps)
+        return want
+
+    # three runs on train's host init: the measured model's plan, the same
+    # decisions given as explicit rules, and the builtin roofline's plan
+    auto_runs = {}
+    for name, pols, cmodel in (
+            ("measured", "auto", cm),
+            ("measured_explicit", auto_plan.policy_set(), None),
+            ("builtin", "auto", None)):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(mods)
+        a_metrics, a_times, rt = train(cfg, "cuda", torch.bfloat16, stream,
+                                       1 + TIMED_STEPS, policies=pols,
+                                       cost_model=cmodel,
+                                       init=init_from(host_init))
+        got = launches_now(mods)
+        want = auto_launches_want(rt, len(a_metrics), got)
+        auto_runs[name] = {
+            "plan": rt.plan, "stream": stream_of(a_metrics),
+            "step_ms": a_times, "launches": got, "want": want,
+            "peak": torch.cuda.max_memory_allocated()}
+        del rt
+        torch.cuda.empty_cache()
+    builtin_plan = auto_runs["builtin"]["plan"]
+    for name, r in auto_runs.items():
+        emit({"phase": "auto_plan", "run": name,
+              "profile": [r["plan"].profile_name, r["plan"].profile_hash],
+              "policies": {n: e.policy.describe()
+                           for n, e in r["plan"].groups.items()},
+              "pricing": dict(r["plan"].pricing),
+              "losses": [m[0] for m in r["stream"]],
+              "grad_norms": [m[1] for m in r["stream"]],
+              "bitwise_train": r["stream"] == sched_defaults["train"],
+              "bitwise_measured": r["stream"]
+              == auto_runs["measured"]["stream"],
+              "step_ms": r["step_ms"],
+              "step_ms_median": statistics.median(r["step_ms"][1:]),
+              "train_step_ms_median": train_step_ms,
+              "max_memory_allocated": r["peak"],
+              "kernel_launches": r["launches"],
+              "expected_launches": r["want"]})
+        if r["launches"] != r["want"]:
+            fail(f"auto_plan {name} launched {r['launches']}, expected "
+                 f"{r['want']}")
+    auto_launches = {k: sum(r["launches"][k] for r in auto_runs.values())
+                     for k in auto_runs["measured"]["launches"]}
+    if auto_runs["measured"]["plan"].dumps() != auto_plan.dumps():
+        fail("auto_plan: the runtime's plan differs from plan(..., 'auto')")
+    if auto_runs["measured_explicit"]["stream"] != \
+            auto_runs["measured"]["stream"]:
+        fail("auto_plan: the measured plan's stream differs from its "
+             "decisions given as explicit rules")
+    # one rank under the roofline: no wire is priced, so every group keeps
+    # the exact fp32 store and cast gradient wire, with prefetch and
+    # keep_last: the stream must be train's
+    if any(e.policy.store != "fp32" or e.policy.reduce_wire is not None
+           for e in builtin_plan.groups.values()) or \
+            auto_runs["builtin"]["stream"] != sched_defaults["train"]:
+        fail(f"auto_plan builtin: {builtin_plan.describe()} stream "
+             f"{auto_runs['builtin']['stream']} is not train's")
+    # host only: the builtin roofline's decisions under launch.mesh's H100
+    # constants for every registered config (tp = ep = 1)
+    emit({"phase": "auto_plan_decisions", "constants": {
+        "ICI_BW": mesh.ICI_BW, "HBM_BW": mesh.HBM_BW,
+        "PEAK_FLOPS_BF16": mesh.PEAK_FLOPS_BF16},
+        "decisions": {f"{arch}@data={d}": groups for (arch, d), groups
+                      in auto_decisions.decisions((8, 64)).items()}})
+
+    # ---- 24. ckpt: save, resume, cross-format restore, offline reshard --
+    ck_cfg = dataclasses.replace(full, n_layers=CKPT_LAYERS)
+    ck_elems = sum(math.prod(lo_shape) for lo_shape in (
+        (CKPT_LAYERS, LAYERS_SHAPE[1]), GLOBALS_SHAPE))
+    ck_bytes = 12 * ck_elems           # master, m, v in fp32
+    need = 2 * ck_bytes + 4 * ck_elems  # checkpoint + floor file + tool
+    ck_dir = Path(tempfile.mkdtemp(prefix="repro_torch_ckpt_"))
+    free = shutil.disk_usage(ck_dir).free
+    emit({"phase": "ckpt_setup", "model": ck_cfg.name,
+          "cut": {"n_layers": [full.n_layers, CKPT_LAYERS]},
+          "batch": [TRAIN_BATCH, TRAIN_SEQ], "store": "fp32",
+          "optimizer": ck_cfg.optimizer, "elements": ck_elems,
+          "checkpoint_bytes": ck_bytes, "disk_free": free,
+          "disk_needed": need, "dir": str(ck_dir)})
+    try:
+        if free < need:
+            fail(f"ckpt: {need} bytes of free disk needed under {ck_dir}, "
+                 f"{free} free")
+        ckpt_launches = run_ckpt_phase(ck_cfg, ck_dir, ck_bytes)
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    del host_init
     torch.cuda.empty_cache()
 
     # ---- 8. 8-bit Adam path: qwen3-moe at full width, depth cut to 1 ---
@@ -2228,14 +2619,18 @@ def main() -> None:
                  "src/repro/kernels/fused_update.py:85", launches, kstats),
          "launches_by_path": {"train": launches, "train_sched": sched_adamw,
                               "train_ce_chunk":
-                                  ce_launches["adamw_store_update"]}},
+                                  ce_launches["adamw_store_update"],
+                              "auto_plan":
+                                  auto_launches["adamw_store_update"],
+                              "ckpt": ckpt_launches["adamw_store_update"]}},
         {**entry("adamw_store_update_q8", "adamw_store_update.cu",
                  "src/repro/kernels/fused_update.py:102",
                  q8_launches["adamw_q8"], q8stats["adamw_q8"]),
          "launches_by_path": {
              "train_q8": q8_launches["adamw_q8"],
              "train_sched": sum(v["adamw_q8"]
-                                for v in sched_launches.values())}},
+                                for v in sched_launches.values()),
+             "ckpt": ckpt_launches["adamw_q8"]}},
         {**entry("quantize", "blockwise_quant.cu",
                  "src/repro/kernels/blockwise_quant.py:56",
                  q8_launches["quantize"], q8stats["quantize"]),
@@ -2243,7 +2638,8 @@ def main() -> None:
                               "train_muon_q8": muon_launches["quantize"],
                               "train_sched": sum(
                                   v["quantize"]
-                                  for v in sched_launches.values())},
+                                  for v in sched_launches.values()),
+                              "ckpt": ckpt_launches["quantize"]},
          "by_path": q8stats["quantize"]["by_path"]},
         {**entry("dequantize_into", "blockwise_quant.cu",
                  "src/repro/kernels/blockwise_quant.py:66",
@@ -2252,14 +2648,21 @@ def main() -> None:
              "train_q8": q8_launches["dequantize_into"],
              "train_muon_q8": muon_launches["dequantize_into"],
              "train_sched": sum(v["dequantize_into"]
-                                for v in sched_launches.values())},
+                                for v in sched_launches.values()),
+             "ckpt": ckpt_launches["dequantize_into"]},
          "by_path": q8stats["dequantize_into"]["by_path"]},
-        entry("dequantize", "blockwise_quant.cu",
-              "src/repro/kernels/blockwise_quant.py:144",
-              q8_launches["dequantize"], q8stats["dequantize"]),
-        entry("encode_ef", "encode_ef.cu",
-              "src/repro/kernels/encode_ef.py:30",
-              q8_launches["encode_ef"], q8stats["encode_ef"]),
+        {**entry("dequantize", "blockwise_quant.cu",
+                 "src/repro/kernels/blockwise_quant.py:144",
+                 q8_launches["dequantize"], q8stats["dequantize"]),
+         "launches_by_path": {"train_q8": q8_launches["dequantize"],
+                              "auto_plan": auto_launches["dequantize"],
+                              "ckpt": ckpt_launches["dequantize"]}},
+        {**entry("encode_ef", "encode_ef.cu",
+                 "src/repro/kernels/encode_ef.py:30",
+                 q8_launches["encode_ef"], q8stats["encode_ef"]),
+         "launches_by_path": {"train_q8": q8_launches["encode_ef"],
+                              "auto_plan": auto_launches["encode_ef"],
+                              "ckpt": ckpt_launches["encode_ef"]}},
         entry("adam8bit_store_update", "adam8bit_store_update.cu",
               "src/repro/kernels/fused_update.py:116",
               moe_launches["adam8bit_store_update"], a8stats["flat"]),

@@ -3,9 +3,12 @@
 q8_block stores, with cast (fp8 among them) or q8 gradient wires, and the
 ZeRO-3 serve steps).
 
-``FSDPRuntime`` wraps a model for a process group.  Construction lowers the
-``ParallelConfig`` knobs (or ``schedule=``/``group_schedules=``/
-``policies=``) onto a ``ShardingPlan``: per communication group the
+``FSDPRuntime`` wraps a model for a process group.  Construction takes a
+``ShardingPlan`` (``plan=``, e.g. a checkpoint's ``load_plan``, checked
+against the group's mesh and the compute dtype) or resolves one from the
+``ParallelConfig`` knobs, ``schedule=``/``group_schedules=`` or
+``policies=`` (``"auto"``: the ``cost_model``'s choices): per
+communication group the
 planner's RaggedShard placements (Algorithm 1) over the group's ranks and a
 flat DBuffer.  Rank r holds columns ``[r*S, (r+1)*S)`` of each group's
 buffer (``(L, S)`` for the layer stack, ``(S,)`` otherwise) as a leaf
@@ -51,6 +54,10 @@ activation checkpoint and no gradient route.  With ``serve_quant_matmul``
 a q8_block layer group's payload is gathered as int8 codes and scales and
 unpacked by ``DBuffer.unpack_quant`` (eligible weights multiply through
 ``ops.q8_matmul``); ``globals`` always take the dense gather.
+
+``replan`` moves live parameters and optimizer state onto another plan of
+the same model on the same process group (``core.reshard``'s extent map;
+the classes of a checkpoint load).
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 without a card and without that, construction raises.
@@ -102,6 +109,12 @@ class GroupLayout:
     def sharded(self) -> bool:
         return bool(self.fsdp_axes)
 
+    @property
+    def outer_size(self) -> int:
+        """Outer (TP/EP) parts of the buffer: 1 until tp/ep > 1 are ported
+        (ROADMAP Queue 1 item 18)."""
+        return 1
+
     def global_shape(self) -> tuple[int, ...]:
         d = (self.plan.total,)
         return (self.n_layers,) + d if self.n_layers else d
@@ -130,7 +143,8 @@ class FSDPRuntime:
                  compute_dtype: torch.dtype = torch.bfloat16, device=None,
                  schedule: CommSchedule | None = None,
                  group_schedules: Mapping[str, Any] | None = None,
-                 policies=None):
+                 policies=None, plan: ShardingPlan | None = None,
+                 cost_model=None):
         self.device = _resolve_device(device)
         if group is None:
             if not dist.is_initialized():
@@ -151,17 +165,42 @@ class FSDPRuntime:
                 "(ROADMAP Queue 1 item 18)")
         self.axis_sizes = mesh_axes(group)
 
-        if policies is None:
-            policies = PolicySet.from_parallel_config(
-                par, schedule=schedule, group_schedules=group_schedules)
-        elif schedule is not None or group_schedules is not None:
-            raise ValueError(
-                "pass either policies= or schedule=/group_schedules=, "
-                "not both")
-        plan: ShardingPlan = make_plan(model, self.axis_sizes, policies,
-                                       planner=planner,
-                                       compute_dtype=compute_dtype)
+        # the plan the runtime consumes: an explicit one (say, a
+        # checkpoint's), a policies spec ("auto" among them), or the
+        # config's knobs with the schedule/group_schedules overrides
+        if plan is not None:
+            if (policies is not None or schedule is not None
+                    or group_schedules is not None):
+                raise ValueError(
+                    "pass either plan= or policies=/schedule="
+                    "/group_schedules=, not both")
+            got = {a: int(n) for a, n in plan.axis_sizes.items()}
+            if got != self.axis_sizes:
+                raise ValueError(
+                    f"plan was resolved for mesh axes {got}, the runtime's "
+                    f"process group has {self.axis_sizes}; re-plan for it")
+            cd_name = str(compute_dtype).split(".")[-1]
+            if plan.compute_dtype != cd_name:
+                raise ValueError(
+                    f"plan was resolved for compute dtype "
+                    f"{plan.compute_dtype}, the runtime uses {cd_name}")
+            if set(plan.groups) != set(model.groups()):
+                raise ValueError(
+                    f"plan groups {sorted(plan.groups)} do not match this "
+                    f"model's groups {sorted(model.groups())}")
+        else:
+            if policies is None:
+                policies = PolicySet.from_parallel_config(
+                    par, schedule=schedule, group_schedules=group_schedules)
+            elif schedule is not None or group_schedules is not None:
+                raise ValueError(
+                    "pass either policies= or schedule=/group_schedules=, "
+                    "not both")
+            plan = make_plan(model, self.axis_sizes, policies,
+                             planner=planner, compute_dtype=compute_dtype,
+                             cost_model=cost_model)
         self.plan = plan
+        self.planner_mode = plan.planner
         self.schedule = plan.base_schedule()
         self._group_scheds = plan.schedules()
         self.schedule.validate_for(compute_dtype)
@@ -302,6 +341,198 @@ class FSDPRuntime:
             params[name] = lo.store.create(self._place(
                 name, arr, axis=-1 if lo.sharded else None))
         return params
+
+    # ------------------------------------------------------------------ #
+    # in-job resharding
+    # ------------------------------------------------------------------ #
+    def replan(self, params, opt_state=None, *, plan: ShardingPlan | None
+               = None, policies=None, schedule: CommSchedule | None = None,
+               group_schedules: Mapping[str, Any] | None = None,
+               planner: str | None = None, cost_model=None, optimizer=None,
+               mesh: Mapping[str, int] | None = None):
+        """Move live state onto a new plan of the same model on the same
+        process group -- new policies (``"auto"`` among them), store
+        formats, planner or schedule -- without a save/load round trip.
+        Returns ``(new_runtime, new_params, new_opt_state)``
+        (``new_opt_state`` None unless ``opt_state`` and ``optimizer`` are
+        given; ``optimizer`` is initialised for the new runtime).
+
+        ``layout_changed_groups`` splits the groups: an unchanged layout
+        and store keeps its state tensors as they are (bitwise, the
+        residual included); a changed group streams its fp32 master tensor
+        by tensor through the extent map into this rank's row (gathering
+        the old group's shards over the process group) and rebuilds its
+        store (codes requantized, the residual zero).  Optimizer buffers
+        follow their tensors' extents, Shampoo's factors are re-padded --
+        the classes of a checkpoint load.  Another world size goes
+        through ``checkpoint.save`` and ``load``; a mesh with a model axis
+        raises (ROADMAP Queue 1 item 18)."""
+        from .policy import layout_changed_groups
+        from .reshard import (GroupIndex, buffer_reader, row_writer,
+                              stream_tensors)
+
+        if mesh is not None:
+            mesh = {a: int(n) for a, n in mesh.items()}
+            if mesh.get("model", 1) > 1:
+                raise NotImplementedError(
+                    "replan onto a mesh with a model axis (tensor or expert "
+                    "parallelism) is not ported yet (ROADMAP Queue 1 item "
+                    "18)")
+            if mesh.get("data", 1) != self.axis_sizes["data"]:
+                raise ValueError(
+                    f"replan stays on the runtime's process group "
+                    f"({self.axis_sizes['data']} ranks); move to "
+                    f"{mesh.get('data', 1)} ranks through checkpoint.save "
+                    f"and checkpoint.load")
+        kwargs: dict[str, Any] = {}
+        if plan is not None:
+            kwargs["plan"] = plan
+        elif policies is not None:
+            kwargs.update(policies=policies, cost_model=cost_model)
+        elif schedule is not None or group_schedules is not None:
+            kwargs.update(schedule=schedule, group_schedules=group_schedules)
+        else:
+            # keep this runtime's resolved per-group decisions
+            kwargs["policies"] = self.plan.policy_set()
+        new_rt = FSDPRuntime(self.model, self.group,
+                             planner=planner or self.planner_mode,
+                             compute_dtype=self.compute_dtype,
+                             device=self.device, **kwargs)
+
+        changed = layout_changed_groups(self.plan, new_rt.plan)
+        old_idx = {n: GroupIndex.from_layout(lo)
+                   for n, lo in self.layouts.items()}
+        tensor_src = {t: n for n, lo in self.layouts.items()
+                      for t in lo.plan.names}
+        masters: dict[str, np.ndarray] = {}
+
+        def src_master(gname: str) -> np.ndarray:
+            if gname not in masters:
+                lo = self.layouts[gname]
+                t = lo.store.trainable(params[gname]).detach().float()
+                masters[gname] = self._host_global(
+                    t, -1 if lo.sharded else None)
+            return masters[gname]
+
+        new_params = {}
+        for name, lo in new_rt.layouts.items():
+            if name in self.layouts and name not in changed:
+                new_params[name] = params[name]
+                continue
+            master = np.zeros(lo.local_shape() if lo.sharded
+                              else lo.global_shape(), np.float32)
+
+            def lookup(tname, name=name):
+                g = tensor_src.get(tname)
+                if g is None:
+                    raise ValueError(
+                        f"tensor {tname!r} (group {name!r}) does not exist "
+                        f"in the current runtime; replan cannot invent "
+                        f"parameters")
+                return old_idx[g], buffer_reader(src_master(g),
+                                                 old_idx[g].num_rows)
+
+            stream_tensors(GroupIndex.from_layout(lo),
+                           row_writer(master, new_rt.rank
+                                       if lo.sharded else 0), lookup)
+            new_params[name] = lo.store.create(
+                torch.from_numpy(master).to(self.device).requires_grad_())
+        if opt_state is None:
+            return new_rt, new_params, None
+        if optimizer is None:
+            raise ValueError(
+                "replan(opt_state=...) needs optimizer= to lay out the new "
+                "state")
+        old_layout = optimizer.state_layout(self)
+        like = optimizer.init(new_rt)
+        gathered: dict[tuple[str, str], np.ndarray] = {}
+        new_opt = {}
+        for k, leaves in optimizer.state_layout(new_rt).items():
+            new_opt[k] = {}
+            for leaf, (dtype, shape, axis) in leaves.items():
+                new_opt[k][leaf] = self._replan_opt_leaf(
+                    new_rt, (k, leaf), shape, axis, like[k][leaf],
+                    opt_state, old_layout, old_idx, tensor_src, changed,
+                    gathered)
+        return new_rt, new_params, new_opt
+
+    def _host_global(self, t: torch.Tensor, axis) -> np.ndarray:
+        """The global host array of a rank-local tensor sharded along
+        ``axis`` over the process group (``t`` itself for None)."""
+        world = dist.get_world_size(self.group)
+        if axis is None or world == 1:
+            return t.detach().cpu().numpy()
+        parts = [torch.empty_like(t) for _ in range(world)]
+        dist.all_gather(parts, t.contiguous(), group=self.group)
+        return torch.cat(parts, dim=axis).cpu().numpy()
+
+    def _replan_opt_leaf(self, new_rt, keys, shape, axis, like, opt_state,
+                         old_layout, old_idx, tensor_src, changed, gathered):
+        from ..checkpoint.ckpt import _classify_opt_leaf, _share
+        from .reshard import (GroupIndex, buffer_reader, copy_tensor,
+                              row_writer)
+
+        pathname = "/".join(keys)
+        kind, g_new, div = _classify_opt_leaf(new_rt, keys, shape)
+        old = opt_state.get(keys[0], {}).get(keys[1])
+        if kind != "buffer":
+            if old is None:
+                raise ValueError(
+                    f"optimizer state leaf {pathname!r} has no counterpart "
+                    f"in the current state")
+            a = self._host_global(old, old_layout[keys[0]][keys[1]][2])
+            if kind == "factor":
+                L = self.layouts[g_new].n_layers
+                if a.shape[1:] != tuple(shape[1:]) or shape[0] < L:
+                    raise ValueError(
+                        f"optimizer state {pathname!r}: factor shape "
+                        f"{a.shape} incompatible with {tuple(shape)}")
+                out = np.zeros(shape, a.dtype)
+                out[:L] = a[:L]
+                a = out
+            elif tuple(a.shape) != tuple(shape):
+                raise ValueError(
+                    f"optimizer state {pathname!r}: shape {a.shape} != "
+                    f"expected {tuple(shape)}")
+            return like.copy_(torch.from_numpy(
+                np.ascontiguousarray(_share(new_rt, a, axis))))
+        lo = new_rt.layouts[g_new]
+        if g_new not in changed and old is not None \
+                and old.shape == like.shape:
+            return old
+        dst = GroupIndex.from_layout(lo)
+        dest = np.zeros(tuple(like.shape), _NUMPY_DTYPES[like.dtype])
+        write = row_writer(dest, new_rt.rank if lo.sharded else 0)
+        aligned = div > 1 or dest.dtype.kind in "iu"
+        for name in lo.plan.names:
+            g_old = tensor_src.get(name)
+            src = opt_state.get(keys[0], {}).get(g_old) \
+                if g_old is not None else None
+            if src is None:
+                raise ValueError(
+                    f"optimizer state {pathname!r}: no source buffer for "
+                    f"tensor {name!r} (old group {g_old!r})")
+            s_lo = self.layouts[g_old]
+            if (keys[0], g_old) not in gathered:
+                gathered[keys[0], g_old] = self._host_global(
+                    src, -1 if s_lo.sharded else None)
+            src = gathered[keys[0], g_old]
+            src_div = s_lo.global_shape()[-1] // src.shape[-1]
+            if src_div != div:
+                raise ValueError(
+                    f"optimizer state {pathname!r}: block granularity "
+                    f"changed ({src_div} -> {div}); 8-bit optimizer state "
+                    f"cannot be resharded across it")
+            s_idx = old_idx[g_old]
+            if (s_idx.n_layers or 0) != (lo.n_layers or 0):
+                raise ValueError(
+                    f"optimizer state {pathname!r}: layer count changed "
+                    f"for {name!r} ({s_idx.n_layers} -> {lo.n_layers})")
+            read = buffer_reader(src, s_idx.num_rows)
+            for li in (range(lo.n_layers) if lo.n_layers else [None]):
+                copy_tensor(s_idx, dst, name, read, write,
+                            layer=li, div=div, aligned=aligned)
+        return like.copy_(torch.from_numpy(dest))
 
     # ------------------------------------------------------------------ #
     # train step

@@ -13,16 +13,25 @@
     the wire-byte accounting, ``describe()`` (the audit table),
     ``to_json``/``dumps``/``from_json`` (plan JSON version 3) and ``diff``.
 
+  * ``CostModel`` / ``auto_policies`` -- ``policies="auto"``: per group
+    the store format, gather mode, reduce wire, ring chunk and replication
+    with the least predicted comm time, priced by the closed-form roofline
+    over the ``launch/mesh.py`` constants (the H100's) or by a measured
+    ``CommProfile`` (``CostModel.from_profile``).  An auto plan records
+    the profile's name and content hash and, per group, the chosen
+    policy's price under the model and under the builtin roofline
+    (``pricing``: ``describe()``'s ``auto_ms``/``builtin_ms`` columns).
+
 ``FSDPRuntime`` takes, by default, the legacy ``ParallelConfig`` knobs
 lowered onto a ``PolicySet`` (``PolicySet.from_parallel_config``: a default
-policy plus one exact-name rule per ``group_schedules`` entry).
-``policies="auto"`` (the reference's ``CostModel`` planner) needs the comm
-profiles of ROADMAP Queue 1 item 12 and raises until they are ported; a
-plan that no cost model priced carries the profile ``{"name": "none",
-"hash": ""}`` and an empty pricing table, as the reference's does.
+policy plus one exact-name rule per ``group_schedules`` entry).  A plan
+that no cost model priced carries the profile ``{"name": "none", "hash":
+""}`` and an empty pricing table, as the reference's does.
 
-PARITY: BITWISE -- pure metadata; every resolved plan entry and
-``dumps()`` string equals the reference's.
+PARITY: BITWISE -- pure metadata and Python float arithmetic in the
+reference's order; every resolved plan entry, every cost-model price and
+``dumps()`` string equals the reference's under the same constants and
+profile.
 """
 from __future__ import annotations
 
@@ -37,10 +46,12 @@ import numpy as np
 import torch
 
 from .planner import get_planner, plan_group
+from .profile import CommProfile, builtin_profile, load_profile
 from .ragged import LANE, GroupPlan, Placement, TensorSpec, \
     compose_granularity
 from .schedule import CommSchedule, resolve_group_schedules
 from .store import ParamStore
+from .wire import STORE_FORMATS, WireCodec
 
 # structural tags a PolicyRule can select on (see group_tag)
 TAGS = ("layers", "experts", "globals")
@@ -335,7 +346,7 @@ class ShardingPlan:
     planner: str
     compute_dtype: str  # dtype name, e.g. "bfloat16"
     # the comm profile a cost model priced the plan with ("none": not
-    # priced) and its per-group pricing table -- always unpriced here
+    # priced) and its per-group pricing table
     profile_name: str = "none"
     profile_hash: str = ""
     pricing: Mapping[str, Mapping[str, float]] = dataclasses.field(
@@ -346,6 +357,15 @@ class ShardingPlan:
 
     def schedules(self) -> dict[str, CommSchedule]:
         return {n: e.schedule() for n, e in self.groups.items()}
+
+    def policy_set(self) -> PolicySet:
+        """The plan's policies as an exact-name PolicySet (re-planning the
+        same model under the same per-group decisions)."""
+        return PolicySet(
+            rules=tuple(PolicyRule(match=n, policy=e.policy)
+                        for n, e in self.groups.items()
+                        if e.policy != self.base),
+            default=self.base)
 
     def gather_wire_bytes(self) -> int:
         return sum(e.gather_wire_bytes(self.compute_dtype)
@@ -531,6 +551,318 @@ def layout_changed_groups(old: ShardingPlan, new: ShardingPlan) -> set[str]:
     return changed & (set(old.groups) | set(new.groups))
 
 
+
+# --------------------------------------------------------------------------- #
+# the auto planner's cost model
+# --------------------------------------------------------------------------- #
+
+@dataclasses.dataclass(frozen=True)
+class CostModel:
+    """The terms ``policies="auto"`` scores candidate policies with.
+
+    * **builtin roofline** (``profile`` None or a ``builtin=True``
+      profile): ``gathers_per_step * wire_bytes * (m-1)/m / ici_bw`` per
+      group, plus, for coded payloads, the analytic encode/decode HBM
+      traffic, and a per-collective issue latency per mode (one
+      ``xla_latency_s`` for the collective, ``ring_hop_latency_s`` per hop
+      of a ring: m - 1 hops).
+    * **measured profile** (``from_profile``): per (direction, fmt, mode)
+      latency/bandwidth lines fitted from a ``CommProfile``; end-to-end
+      curves include the codec cost, so no HBM term is added.
+
+    The candidate with the least predicted time wins, ties toward the
+    earlier (more exact) one, so one rank (m = 1) keeps fp32 everywhere.
+    The fp8 stores compete only on a measured fp8 gather curve and must
+    beat the incumbent by more than ``FP8_NEAR_TIE_RTOL``.  Small
+    unstacked groups (at most ``replicate_bytes`` of fp32 master) stay
+    replicated: their gather latency outweighs the memory a shard saves.
+    """
+
+    ici_bw: float
+    hbm_bw: float
+    peak_flops: float
+    xla_latency_s: float = 5e-6       # per collective issue
+    ring_hop_latency_s: float = 5e-6  # per ring hop (a ring pays m - 1)
+    replicate_bytes: int = 4 << 20
+    profile: Optional[CommProfile] = None
+
+    # store formats in preference order (ties break toward the left)
+    CANDIDATES = ("fp32", "bf16", "q8_block")
+    # scored after CANDIDATES, on measured evidence only
+    FP8_CANDIDATES = tuple(f for f in STORE_FORMATS if f.startswith("fp8_"))
+    FP8_NEAR_TIE_RTOL = 0.02
+    # gather modes in preference order (xla wins ties)
+    GATHER_MODES = ("xla", "ring")
+
+    @classmethod
+    def default(cls) -> "CostModel":
+        """The builtin roofline over ``launch.mesh``'s constants (read at
+        call time)."""
+        from ..launch import mesh
+
+        return cls(ici_bw=mesh.ICI_BW, hbm_bw=mesh.HBM_BW,
+                   peak_flops=mesh.PEAK_FLOPS_BF16)
+
+    @classmethod
+    def from_profile(cls, profile, hbm_bw: float | None = None,
+                     peak_flops: float | None = None) -> "CostModel":
+        """A CostModel pricing from a measured ``CommProfile`` (the object
+        or a path to one).  ``ici_bw`` is back-derived from the fitted fp32
+        gather curve (for reporting and for curves the profile lacks); the
+        HBM and FLOP rates stay ``launch.mesh``'s."""
+        from ..launch import mesh
+
+        if not isinstance(profile, CommProfile):
+            profile = load_profile(profile)
+        ici = mesh.ICI_BW
+        for mode in ("xla", "ring"):
+            if profile.has("gather", "fp32", mode):
+                _, slope = profile.linear("gather", "fp32", mode)
+                if slope > 0:
+                    ici = 4.0 / slope  # fp32: 4 wire bytes per element
+                    break
+        return cls(ici_bw=ici, hbm_bw=hbm_bw or mesh.HBM_BW,
+                   peak_flops=peak_flops or mesh.PEAK_FLOPS_BF16,
+                   profile=profile)
+
+    # ---- provenance ------------------------------------------------------ #
+    @property
+    def measured(self) -> bool:
+        return self.profile is not None and not self.profile.builtin
+
+    def provenance_profile(self) -> CommProfile:
+        """The profile this model prices with: the attached one, or the
+        builtin roofline rendered from its own constants."""
+        if self.profile is not None:
+            return self.profile
+        return builtin_profile(self.ici_bw, self.xla_latency_s)
+
+    # ---- shared pricing helpers ------------------------------------------ #
+    def _latency(self, mode: str, m: int) -> float:
+        """Issue latency under the roofline: none at m = 1; one xla issue,
+        or m - 1 ring hops."""
+        if m <= 1:
+            return 0.0
+        if mode == "xla":
+            return self.xla_latency_s
+        return self.ring_hop_latency_s * (m - 1)
+
+    def _measured_time(self, direction: str, fmt: str, mode: str,
+                       elems: float, m: int) -> Optional[float]:
+        """One collective's seconds from the measured curve (None without
+        a measured entry for the key); the fitted slope carries the
+        profile world's (w-1)/w ring volume, rescaled to the group's m (0
+        at m = 1)."""
+        if not (self.measured and self.profile.has(direction, fmt, mode)):
+            return None
+        lat, slope = self.profile.linear(direction, fmt, mode)
+        w = self.profile.world
+        rw = (w - 1) / w if w > 1 else 1.0
+        rm = (m - 1) / m if m > 1 else 0.0
+        return lat + elems * slope * (rm / rw)
+
+    def gather_time(self, fmt: str, elems_per_layer: int, n_layers: int,
+                    m: int, quant_block: int, compute_itemsize: int,
+                    reshard: bool = True, mode: str = "xla") -> float:
+        """Predicted per-step parameter-gather seconds of one group under
+        store ``fmt`` and gather ``mode`` (forward and, when resharding,
+        the backward re-gather)."""
+        gathers = 2.0 if reshard else 1.0
+        measured = self._measured_time("gather", fmt, mode,
+                                       elems_per_layer, m)
+        if measured is not None:
+            t = gathers * n_layers * measured
+            if not self.profile.end_to_end and fmt == "q8_block":
+                deq = elems_per_layer * (
+                    1 + 4.0 / quant_block + compute_itemsize)
+                t += gathers * n_layers * deq / self.hbm_bw
+            if not self.profile.end_to_end and fmt.startswith("fp8_"):
+                # scale-free decode: fp8 codes in, compute dtype out
+                deq = elems_per_layer * (1 + compute_itemsize)
+                t += gathers * n_layers * deq / self.hbm_bw
+            return t
+        store = ParamStore(fmt, quant_block)
+        # only the itemsize matters
+        wire_dtype = torch.float32 if compute_itemsize == 4 else torch.float16
+        wire = store.wire_bytes(elems_per_layer, wire_dtype)
+        ring = (m - 1) / m if m > 1 else 0.0
+        t = gathers * n_layers * (
+            wire * ring / self.ici_bw + self._latency(mode, m))
+        if store.quantized:
+            # local decode: codes and scales in, compute dtype out
+            deq = elems_per_layer * (1 + 4.0 / quant_block + compute_itemsize)
+            t += gathers * n_layers * deq / self.hbm_bw
+        elif store.fp8:
+            deq = elems_per_layer * (1 + compute_itemsize)
+            t += gathers * n_layers * deq / self.hbm_bw
+        return t
+
+    def choose_store(self, elems_per_layer: int, n_layers: int, m: int,
+                     quant_block: int, compute_itemsize: int,
+                     reshard: bool = True, mode: str = "xla") -> str:
+        best, best_t = None, None
+        for fmt in self.CANDIDATES:
+            t = self.gather_time(fmt, elems_per_layer, n_layers, m,
+                                 quant_block, compute_itemsize, reshard,
+                                 mode)
+            if best_t is None or t < best_t:
+                best, best_t = fmt, t
+        for fmt in self.FP8_CANDIDATES:
+            if self._measured_time("gather", fmt, mode,
+                                   elems_per_layer, m) is None:
+                continue  # fp8 competes on measured evidence only
+            t = self.gather_time(fmt, elems_per_layer, n_layers, m,
+                                 quant_block, compute_itemsize, reshard,
+                                 mode)
+            if t < best_t * (1.0 - self.FP8_NEAR_TIE_RTOL):
+                best, best_t = fmt, t
+        return best
+
+    def choose_gather(self, elems_per_layer: int, n_layers: int, m: int,
+                      quant_block: int, compute_itemsize: int,
+                      reshard: bool = True) -> tuple[str, str]:
+        """Joint (store format, gather mode) choice: strict less-than over
+        formats, then modes, xla first -- so under the roofline (where a
+        ring never strictly beats the collective) it matches
+        ``choose_store``."""
+        best, best_t = None, None
+        for fmt in self.CANDIDATES:
+            for mode in self.GATHER_MODES:
+                t = self.gather_time(fmt, elems_per_layer, n_layers, m,
+                                     quant_block, compute_itemsize, reshard,
+                                     mode)
+                if best_t is None or t < best_t:
+                    best, best_t = (fmt, mode), t
+        for fmt in self.FP8_CANDIDATES:
+            for mode in self.GATHER_MODES:
+                if self._measured_time("gather", fmt, mode,
+                                       elems_per_layer, m) is None:
+                    continue
+                t = self.gather_time(fmt, elems_per_layer, n_layers, m,
+                                     quant_block, compute_itemsize, reshard,
+                                     mode)
+                if t < best_t * (1.0 - self.FP8_NEAR_TIE_RTOL):
+                    best, best_t = (fmt, mode), t
+        return best
+
+    # ---- reduce direction (the gradient wire) ---------------------------- #
+    # None keeps the cast wire (exact); "q8_block" is the quantized
+    # gradient wire.  Ties break toward the exact wire.
+    REDUCE_CANDIDATES = (None, "q8_block")
+
+    def reduce_time(self, fmt: Optional[str], elems_per_layer: int,
+                    n_layers: int, m: int, quant_block: int,
+                    compute_itemsize: int,
+                    mode: Optional[str] = None) -> float:
+        """Predicted per-step gradient reduce-scatter seconds of one group
+        under reduce wire ``fmt`` (one reduce per layer and step); the q8
+        wire adds its encode/decode HBM traffic and the residual's read
+        and write.  ``mode`` is the route (xla, ring, ring_acc); None
+        takes the one ``auto_policies`` pairs with the wire: xla for a
+        cast wire, ring_acc for q8."""
+        codec = (WireCodec("q8_block", quant_block) if fmt == "q8_block"
+                 else WireCodec("fp32" if compute_itemsize == 4 else "bf16"))
+        if mode is None:
+            mode = "ring_acc" if codec.quantized else "xla"
+        measured = self._measured_time("reduce", codec.fmt, mode,
+                                       elems_per_layer, m)
+        if measured is not None and self.profile.end_to_end:
+            return n_layers * measured
+        wire = codec.wire_bytes(elems_per_layer)
+        ring = (m - 1) / m if m > 1 else 0.0
+        t = n_layers * (wire * ring / self.ici_bw + self._latency(mode, m))
+        if codec.quantized:
+            # encode (read fp32 ct + ef, write codes, scales, ef) and decode
+            # (read m contributions' codes and scales, write the fp32 shard)
+            enc = elems_per_layer * (4 + 1 + 4.0 / quant_block + 2 * 4)
+            dec = elems_per_layer * (1 + 4.0 / quant_block) + 4 * (
+                elems_per_layer / max(m, 1))
+            t += n_layers * (enc + dec) / self.hbm_bw
+        return t
+
+    def choose_reduce_wire(self, elems_per_layer: int, n_layers: int,
+                           m: int, quant_block: int,
+                           compute_itemsize: int) -> Optional[str]:
+        best, best_t = None, None
+        for fmt in self.REDUCE_CANDIDATES:
+            t = self.reduce_time(fmt, elems_per_layer, n_layers, m,
+                                 quant_block, compute_itemsize)
+            if best_t is None or t < best_t:
+                best, best_t = fmt, t
+        return best
+
+    # ---- ring chunking --------------------------------------------------- #
+    def choose_ring_chunk(self, direction: str, fmt: str,
+                          shard_elems: int) -> Optional[int]:
+        """A ring group's message size from the measured profile's chunk
+        sweep (None: keep the shard-sized default, always the answer under
+        the roofline)."""
+        if not self.measured:
+            return None
+        best = self.profile.best_ring_chunk(direction, fmt)
+        if best is None or best >= shard_elems:
+            return None
+        return best
+
+
+def auto_policies(model, axis_sizes: Mapping[str, int],
+                  compute_dtype=None,
+                  cost_model: CostModel | None = None) -> PolicySet:
+    """``policies="auto"``: the cost model's choice for every group as an
+    exact-name PolicySet (so the decisions stand in the ShardingPlan)."""
+    cm = cost_model or CostModel.default()
+    cfg = model.cfg
+    cd = _torch_dtype(compute_dtype or torch.bfloat16)
+    groups = model.groups()
+
+    # overlap gathers where there is a stack to overlap
+    max_layers = max((g.n_layers or 0) for g in groups.values())
+    default = ShardingPolicy(
+        prefetch=max_layers >= 3, keep_last_gathered=max_layers >= 3)
+
+    rules = []
+    for name, gdef in groups.items():
+        elems, m, _axes = _group_shape(name, gdef, cfg.parallel, axis_sizes)
+        n_layers = gdef.n_layers or 1
+        master_bytes = elems * n_layers * 4  # fp32 master weights
+        if gdef.n_layers is None and m > 1 and (
+                master_bytes <= cm.replicate_bytes):
+            pol = dataclasses.replace(default, sharded=False)
+        else:
+            fmt, gmode = cm.choose_gather(elems, n_layers, m,
+                                          cfg.quant_block, cd.itemsize,
+                                          reshard=default.reshard_after_forward)
+            # the gradient direction: the q8 wire's residual does not
+            # compose with accumulation or with replica gradient axes, so
+            # only legal candidates are scored
+            replica_grads = (
+                ("pod" in axis_sizes and not cfg.parallel.pod_fsdp)
+                or (gdef.replicated_over_model and cfg.parallel.tp > 1))
+            rwire = (None if (cfg.parallel.microbatches > 1 or replica_grads)
+                     else cm.choose_reduce_wire(elems, n_layers, m,
+                                                cfg.quant_block,
+                                                cd.itemsize))
+            pol = dataclasses.replace(default, store=fmt, gather_mode=gmode,
+                                      reduce_wire=rwire)
+            if rwire == "q8_block":
+                # priced on the bandwidth-optimal route: pair the q8 wire
+                # with the accumulate-in-flight ring
+                pol = dataclasses.replace(pol, reduce_mode="ring_acc")
+            chunk = None
+            if pol.gather_mode == "ring":
+                chunk = cm.choose_ring_chunk("gather", fmt, elems // max(m, 1))
+            elif pol.reduce_mode == "ring_acc" or pol.reduce_wire == "q8_block":
+                rfmt = pol.reduce_wire or ("fp32" if cd.itemsize == 4
+                                           else "bf16")
+                chunk = cm.choose_ring_chunk("reduce", rfmt,
+                                             elems // max(m, 1))
+            if chunk is not None:
+                pol = dataclasses.replace(pol, ring_chunk_elems=int(chunk))
+        if pol != default:
+            rules.append(PolicyRule(match=name, policy=pol))
+    return PolicySet(rules=tuple(rules), default=default)
+
+
 def _group_axes(name: str, gdef, par, axis_sizes: Mapping[str, int]):
     """The (outer_axis, outer_size, local_specs, fsdp_axes) decomposition
     of one group -- TP/EP outer sharding composed before FSDP."""
@@ -553,14 +885,42 @@ def _group_axes(name: str, gdef, par, axis_sizes: Mapping[str, int]):
     return outer_axis, outer_size, tuple(local_specs), fsdp_axes
 
 
-def _resolve_policies(policies, model) -> PolicySet:
+def _group_shape(name: str, gdef, par, axis_sizes: Mapping[str, int]):
+    """(per-layer local payload elements, FSDP world size, fsdp_axes): what
+    the cost model scores."""
+    _, _, local_specs, fsdp_axes = _group_axes(name, gdef, par, axis_sizes)
+    m = int(np.prod([axis_sizes[a] for a in fsdp_axes])) or 1
+    return sum(s.size for s in local_specs), m, fsdp_axes
+
+
+def _price_entry(cm: CostModel, e: GroupPlanEntry, compute_itemsize: int
+                 ) -> float:
+    """Predicted per-step comm seconds (both directions) of one resolved
+    group under ``cm``; an unsharded group prices 0."""
+    if not e.fsdp_axes:
+        return 0.0
+    elems = sum(s.size for s in e.local_specs)
+    n_layers = e.n_layers or 1
+    m = e.fsdp_world
+    pol = e.policy
+    t = cm.gather_time(pol.store, elems, n_layers, m, e.quant_block,
+                       compute_itemsize, reshard=pol.reshard_after_forward,
+                       mode=pol.gather_mode)
+    rmode = ("ring_acc" if pol.reduce_mode == "ring_acc"
+             else pol.gather_mode)
+    t += cm.reduce_time(pol.reduce_wire, elems, n_layers, m, e.quant_block,
+                        compute_itemsize, mode=rmode)
+    return t
+
+
+def _resolve_policies(policies, model, axis_sizes, compute_dtype,
+                      cost_model) -> PolicySet:
     if policies is None:
         return PolicySet.from_parallel_config(model.cfg.parallel)
     if isinstance(policies, str):
         if policies == "auto":
-            raise NotImplementedError(
-                "policies='auto' (the CostModel planner, priced from comm "
-                "profiles) is not ported yet (ROADMAP Queue 1 item 12)")
+            return auto_policies(model, axis_sizes, compute_dtype,
+                                 cost_model)
         raise ValueError(
             f"unknown policies spec {policies!r}; expected 'auto', a "
             f"PolicySet, a ShardingPolicy, a CommSchedule, or None")
@@ -577,14 +937,19 @@ def _resolve_policies(policies, model) -> PolicySet:
 
 def plan(model, axis_sizes: Mapping[str, int], policies=None, *,
          planner: str = "ragged",
-         compute_dtype: torch.dtype = torch.bfloat16) -> ShardingPlan:
-    """Resolve ``policies`` against the model's communication groups on a
-    mesh given as ``{axis: size}`` into a ``ShardingPlan``.  Rules that
-    match no group raise."""
+         compute_dtype: torch.dtype = torch.bfloat16,
+         cost_model: CostModel | None = None) -> ShardingPlan:
+    """Resolve ``policies`` (a ``PolicySet``, ``ShardingPolicy``,
+    ``CommSchedule``, None for the config's knobs, or ``"auto"``: the
+    ``cost_model``'s choices, by default the builtin roofline) against the
+    model's communication groups on a mesh given as ``{axis: size}`` into a
+    ``ShardingPlan``.  Rules that match no group raise."""
     axis_sizes = {a: int(s) for a, s in axis_sizes.items()}
     cfg = model.cfg
     par = cfg.parallel
-    pset = _resolve_policies(policies, model)
+    compute_dtype = _torch_dtype(compute_dtype)
+    pset = _resolve_policies(policies, model, axis_sizes, compute_dtype,
+                             cost_model)
     planner_fn = get_planner(planner)
 
     entries: dict[str, GroupPlanEntry] = {}
@@ -641,6 +1006,24 @@ def plan(model, axis_sizes: Mapping[str, int], policies=None, *,
         raise ValueError(
             f"policy rules matched no communication group: {unmatched}; "
             f"this model's groups: {sorted(entries)}")
+    profile_name, profile_hash = "none", ""
+    pricing: dict[str, dict[str, float]] = {}
+    if isinstance(policies, str) and policies == "auto":
+        # the profile that priced the decisions, and each chosen policy's
+        # price under it and under the builtin roofline
+        cm = cost_model or CostModel.default()
+        prof = cm.provenance_profile()
+        profile_name, profile_hash = prof.name, prof.content_hash()
+        builtin_cm = CostModel.default()
+        isz = compute_dtype.itemsize
+        for name, e in entries.items():
+            pricing[name] = {
+                "auto_ms": round(_price_entry(cm, e, isz) * 1e3, 6),
+                "builtin_ms": round(_price_entry(builtin_cm, e, isz) * 1e3,
+                                    6),
+            }
     return ShardingPlan(base=pset.default, groups=entries,
                         axis_sizes=axis_sizes, planner=planner,
-                        compute_dtype=str(compute_dtype).split(".")[-1])
+                        compute_dtype=str(compute_dtype).split(".")[-1],
+                        profile_name=profile_name,
+                        profile_hash=profile_hash, pricing=pricing)

@@ -95,6 +95,37 @@ class LocalPiece:
 
 
 @dataclasses.dataclass(frozen=True)
+class Extent:
+    """One contiguous piece of one tensor inside one uniform shard:
+    ``shards[shard][lo:hi] == tensor[tensor_lo : tensor_lo + hi - lo]``
+    (flat), under any plan mode.  A tensor's extents cover it exactly, in
+    flat order -- the per-tensor shard index ``core.reshard`` streams
+    through."""
+
+    shard: int
+    lo: int
+    hi: int
+    tensor_lo: int
+
+    @property
+    def size(self) -> int:
+        return self.hi - self.lo
+
+    def scaled(self, div: int) -> "Extent":
+        """The same extent in ``div``-element units (one quant scale per
+        ``div`` elements): ``lo`` and ``tensor_lo`` must be multiples of
+        ``div`` (the planner's align); ``hi`` rounds up, so a tensor's
+        partial tail block keeps its scale."""
+        if self.lo % div or self.tensor_lo % div:
+            raise ValueError(
+                f"extent (shard {self.shard}, lo {self.lo}, tensor_lo "
+                f"{self.tensor_lo}) not aligned to block {div}; this layout "
+                f"cannot carry block-granular state")
+        return Extent(self.shard, self.lo // div, -(-self.hi // div),
+                      self.tensor_lo // div)
+
+
+@dataclasses.dataclass(frozen=True)
 class GroupPlan:
     """Output of the planner for one communication group.
 
@@ -157,6 +188,30 @@ class GroupPlan:
                         f"{p.spec.name}: shard boundary {k}*{S} splits a "
                         f"block (granularity {g})"
                     )
+
+    def tensor_extents(self, name: str) -> tuple[Extent, ...]:
+        """Every ``(shard, lo, hi, tensor_lo)`` extent holding tensor
+        ``name`` under this plan, in flat-tensor order: the contiguous modes
+        intersect the tensor's interval with the shard windows, the fsdp2
+        interleaved layout gives one extent per shard chunk."""
+        p = self.placement(name)
+        S, m = self.shard_size, self.num_shards
+        exts: list[Extent] = []
+        if self.mode == "fsdp2":
+            chunk = -(-p.spec.size // m)
+            col = p.offset // m
+            for k in range(m):
+                t_lo = k * chunk
+                n = min((k + 1) * chunk, p.spec.size) - t_lo
+                if n <= 0:
+                    break
+                exts.append(Extent(k, col, col + n, t_lo))
+        else:
+            k0, k1 = p.offset // S, (p.end - 1) // S
+            for k in range(k0, k1 + 1):
+                a, b = max(p.offset, k * S), min(p.end, (k + 1) * S)
+                exts.append(Extent(k, a - k * S, b - k * S, a - p.offset))
+        return tuple(exts)
 
     def local_layout(self, device: int) -> tuple[LocalPiece, ...]:
         """Which (whole-block) pieces of which tensors live on ``device``."""

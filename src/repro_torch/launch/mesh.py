@@ -52,3 +52,12 @@ def init_local_group(backend: str = "nccl", *, rank: int = 0,
 def mesh_axes(group) -> dict[str, int]:
     """The mesh of ``group`` as ``{axis: size}`` (what the planner takes)."""
     return {"data": dist.get_world_size(group), "model": 1}
+
+
+# Hardware constants of the cost model's builtin roofline (core.policy
+# CostModel.default, core.profile.builtin_profile), per card: datasheet
+# figures of the NVIDIA H100 80GB HBM3 (SXM5) at its 700 W power limit, not
+# measurements.  A card capped below 700 W runs slower under load.
+PEAK_FLOPS_BF16 = 989e12  # FLOP/s: dense bf16 tensor cores (H100 SXM5, 700 W)
+HBM_BW = 3.35e12          # B/s: HBM3 bandwidth (H100 SXM5, 700 W)
+ICI_BW = 450e9            # B/s: NVLink 4, per direction (H100 SXM5, 700 W)

@@ -283,11 +283,12 @@ def test_diff_and_layout_changed_groups_match_reference():
     assert policy.layout_changed_groups(p4, p8) == {"layers", "globals"}
 
 
-def test_policy_rule_selectors_and_errors_match_reference():
+def test_policy_rule_selectors_and_errors_match_reference(monkeypatch):
     """``tag=``/``where=`` selection (first match wins, the rule's index
     reported), and the reference's errors: a rule without a selector, an
     unknown tag, a rule that matches no group, a scan-structure knob in a
-    rule; ``policies="auto"`` waits for the comm profiles."""
+    rule; ``policies="auto"`` resolves as the reference's (at its
+    constants; tests/test_torch_profile.py covers every config)."""
     jm, tm = _models("qwen3-moe-235b-a22b", reduced=True)
     mesh = {"data": 2, "model": 1}
     q8 = policy.ShardingPolicy(store="q8_block")
@@ -334,5 +335,10 @@ def test_policy_rule_selectors_and_errors_match_reference():
                                   policy=jax_policy.ShardingPolicy(
                                       sharded=False,
                                       reduce_wire="q8_block")),))))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        policy.plan(tm, mesh, "auto")
+    import repro.launch.mesh as jax_mesh
+    import repro_torch.launch.mesh as mesh_mod
+
+    for k in ("ICI_BW", "HBM_BW", "PEAK_FLOPS_BF16"):
+        monkeypatch.setattr(mesh_mod, k, getattr(jax_mesh, k))
+    assert policy.plan(tm, mesh, "auto").dumps() == \
+        jax_policy.plan(jm, mesh, "auto").dumps()

@@ -222,6 +222,7 @@ def test_unported_planners_and_configs_raise():
     moe = get_config("qwen3-moe-235b-a22b")  # the config's own ep=16
     with pytest.raises(NotImplementedError, match="Queue 1 item 18"):
         build_model(moe)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        plan(build_model(get_config("gemma2-2b").reduced()),
-             {"data": 1, "model": 1}, policies="auto")
+    # policies="auto" is ported: the builtin roofline prices it
+    auto = plan(build_model(get_config("gemma2-2b").reduced()),
+                {"data": 1, "model": 1}, policies="auto")
+    assert auto.profile_name == "builtin-roofline" and auto.pricing

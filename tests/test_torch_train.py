@@ -211,8 +211,10 @@ def test_unported_runtime_options_raise():
         cfg.parallel, microbatches=2))
     with pytest.raises(NotImplementedError, match="Queue 1 item 18"):
         FSDPRuntime(build_model(micro), group, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        FSDPRuntime(build_model(cfg), group, device="cpu", policies="auto")
+    # policies="auto" is ported; a replan across a model axis is not
+    rt = FSDPRuntime(build_model(cfg), group, device="cpu", policies="auto")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 18"):
+        rt.replan(rt.init_params(0), mesh={"data": 1, "model": 2})
 
 
 _FORBIDDEN = re.compile(
