@@ -197,6 +197,22 @@ The plan's life cycle (23 and 24 run after 22, on ``train``'s host init):
                   only) the builtin roofline's decisions under
                   ``launch.mesh``'s H100 constants for every registered
                   config at 8 and 64 ranks.
+ 7b. train_micro -- ``train_q8`` with gradient accumulation: the same
+                  model, batch and host init in 2 microbatches of 1 x 2048,
+                  whose q8 gradient wire defers its error feedback to the
+                  accumulation boundary.  The loss and grad norm streams
+                  must follow ``train_q8``'s within TRAIN_MICRO_LOSS_RTOL
+                  and TRAIN_MICRO_GNORM_RTOL, and the final masters lie
+                  within TRAIN_MICRO_MASTER_RTOL of ``train_q8``'s, relative
+                  to ``train_q8``'s whole update; ``encode_ef``
+                  must launch once per group-layer per step (5, as in
+                  ``train_q8``: never once per microbatch) and
+                  ``dequantize_into`` once per gather of each microbatch.
+                  Printed beside ``train_q8``'s: step ms, tokens/s, peak.
+ 10b. parity_micro -- the ``parity_q8`` case (gemma2-2b.reduced(),
+                  ``q8_both_wires``, fp32 compute, two steps of 8 x 64 per
+                  seed) at 2 microbatches, card against CPU within
+                  PARITY_Q8_RTOL.
  24. ckpt      -- gemma2-2b at published width cut to 2 layers, fp32
                   store, AdamW, batch 2 x 2048: two steps, ``ckpt.save``
                   (8.95 GB of master and moments) into a temporary
@@ -250,6 +266,17 @@ BYTES_PER_ELEM = {"fp32": 32, "bf16": 30}
 # fp32 operations per element of the AdamW chain (kernels/ref.py)
 FLOPS_PER_ELEM = 16
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 4, 2, 2048
+# train_micro: microbatches of train_q8's batch, and the bounds on its
+# streams and final masters against train_q8's, each between the readings
+# of a sound accumulation and of planted faults (one microbatch trains; the
+# state never changes) that tests/test_torch_micro_bounds.py takes on the
+# CPU at gemma2-2b.reduced() and checks against these limits: loss 1.3e-4
+# sound, 1.3e-3 still; grad norm 6.7e-4 sound, 0.38 half; masters
+# ||W_micro - W_q8|| / ||W_q8 - W_init|| 0.018 sound, 0.70 half, 1.0 still
+TRAIN_MICRO = 2
+TRAIN_MICRO_LOSS_RTOL = 4e-4
+TRAIN_MICRO_GNORM_RTOL = 3e-2
+TRAIN_MICRO_MASTER_RTOL = 0.2
 TIMED_STEPS = 3
 # card vs CPU, two fp32 steps of a reduced config from each of
 # PARITY_SEEDS: limits about four times the largest relative difference of
@@ -1123,21 +1150,22 @@ def reset_launches(mods) -> None:
     q8mm.decode_launches = q8mm.prefill_launches = 0
 
 
-def expected_q8_launches(rt, steps: int, keys) -> dict:
+def expected_q8_launches(rt, steps: int, keys, micro: int = 1) -> dict:
     """What the q8 path must launch: quantize once per group at init; per
-    step a dequantize_into per gather (a layer twice: forward and the
-    backward's re-gather; globals once), an fp32 dequantize per
-    reduce-scatter (the one-rank q8 route decodes the encoded cotangent),
-    an encode_ef per reduce-scatter (a layer once, globals once) and one
-    update per group."""
+    step a dequantize_into per gather of each of ``micro`` microbatches (a
+    layer twice: forward and the backward's re-gather; globals once), an
+    fp32 dequantize per reduce-scatter (the one-rank q8 route decodes the
+    encoded cotangent), an encode_ef per reduce-scatter (a layer once,
+    globals once: once a step, at the accumulation boundary, however many
+    microbatches) and one update per group."""
     gathers = sum(2 * lo.n_layers if lo.n_layers else 1
                   for lo in rt.layouts.values())
     reduces = sum(lo.n_layers or 1 for lo in rt.layouts.values())
     groups = len(rt.layouts)
     want = {k: 0 for k in keys}
     want.update(adamw_q8=groups * steps, quantize=groups,
-                dequantize_into=gathers * steps, dequantize=reduces * steps,
-                encode_ef=reduces * steps)
+                dequantize_into=gathers * micro * steps,
+                dequantize=reduces * steps, encode_ef=reduces * steps)
     return want
 
 
@@ -1699,8 +1727,10 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     reset_launches(mods)
     t0 = time.perf_counter()
+    q8_init, q8_keep = {}, {}
     q8_metrics, q8_times, rt = train(cfg, "cuda", torch.bfloat16, stream,
-                                     1 + TIMED_STEPS, q8_sched)
+                                     1 + TIMED_STEPS, q8_sched,
+                                     keep_init=q8_init, keep=q8_keep)
     q8_launches = launches_now(mods)
     q8_peak = torch.cuda.max_memory_allocated()
     q8_want = expected_q8_launches(rt, len(q8_metrics), q8_launches)
@@ -1728,7 +1758,10 @@ def main() -> None:
     if abs(q8_metrics[0]["loss"] - math.log(cfg.vocab)) > 1.0:
         fail(f"first q8 loss {q8_metrics[0]['loss']} far from ln(vocab) "
              f"{math.log(cfg.vocab)}")
-    del rt
+    # the final masters on the host, for train_micro's comparison
+    q8_final = {n: rt.layouts[n].store.trainable(p).detach().cpu()
+                for n, p in q8_keep.pop("params").items()}
+    del rt, q8_keep
     torch.cuda.empty_cache()
 
     # ---- 21. the schedule variants: gemma2-2b as in 6 -------------------
@@ -1768,6 +1801,79 @@ def main() -> None:
 
     def stream_of(ms):
         return [(m["loss"], m["grad_norm"]) for m in ms]
+
+    # ---- 7b. train_micro: train_q8 in microbatches, deferred EF --------
+    micro_cfg = dataclasses.replace(cfg, parallel=dataclasses.replace(
+        cfg.parallel, microbatches=TRAIN_MICRO))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(mods)
+    t0 = time.perf_counter()
+    mi_keep = {}
+    mi_metrics, mi_times, rt = train(micro_cfg, "cuda", torch.bfloat16,
+                                     stream, 1 + TIMED_STEPS, q8_sched,
+                                     init=init_from(host_init), keep=mi_keep)
+    micro_launches = launches_now(mods)
+    mi_peak = torch.cuda.max_memory_allocated()
+    # ||W_micro - W_q8|| / ||W_q8 - W_init|| over every group, on the card
+    num = den = 0.0
+    with torch.no_grad():
+        for n, p in mi_keep.pop("params").items():
+            lo = rt.layouts[n]
+            if q8_init[n][1].plan != lo.plan:
+                fail(f"train_micro's {n} plan differs from train_q8's")
+            w = lo.store.trainable(p).detach()
+            w1 = q8_final[n].to(w.device)
+            num += float(torch.linalg.vector_norm(w - w1)) ** 2
+            den += float(torch.linalg.vector_norm(
+                w1 - q8_init[n][0].to(w.device))) ** 2
+            del w1
+    mi_master_rel = math.sqrt(num / den)
+    del mi_keep, q8_init, q8_final
+    mi_want = expected_q8_launches(rt, len(mi_metrics), micro_launches,
+                                   TRAIN_MICRO)
+    for i, (m, ms) in enumerate(zip(mi_metrics, mi_times)):
+        emit({"phase": "train_micro", "step": i, "warmup": i == 0,
+              "loss": m["loss"], "grad_norm": m["grad_norm"],
+              "tokens": m["tokens"], "step_ms": ms,
+              "tokens_per_s": tokens / (ms / 1e3),
+              "train_q8_loss": q8_metrics[i]["loss"]})
+    mi_rel, mi_gn_rel = (max(abs(a[k] - b[k]) / abs(b[k])
+                             for a, b in zip(mi_metrics, q8_metrics))
+                         for k in ("loss", "grad_norm"))
+    emit({"phase": "train_micro_summary", "schedule": Q8_SCHEDULE,
+          "microbatches": TRAIN_MICRO,
+          "microbatch": [TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ],
+          "setup_and_steps_s": time.perf_counter() - t0,
+          "step_ms_median": statistics.median(mi_times[1:]),
+          "tokens_per_s": tokens / (statistics.median(mi_times[1:]) / 1e3),
+          "max_memory_allocated": mi_peak,
+          "train_q8_step_ms_median": statistics.median(q8_times[1:]),
+          "train_q8_max_memory_allocated": q8_peak,
+          "loss_max_rel_diff_vs_train_q8": mi_rel,
+          "grad_norm_max_rel_diff_vs_train_q8": mi_gn_rel,
+          "master_drift_vs_train_q8_update": mi_master_rel,
+          "rtol": {"loss": TRAIN_MICRO_LOSS_RTOL,
+                   "grad_norm": TRAIN_MICRO_GNORM_RTOL,
+                   "masters": TRAIN_MICRO_MASTER_RTOL},
+          "kernel_launches": micro_launches,
+          "expected_launches": mi_want})
+    if micro_launches != mi_want:
+        fail(f"train_micro launched {micro_launches}, expected {mi_want}")
+    for m in mi_metrics:
+        if not all(math.isfinite(m[k]) for k in ("loss", "grad_norm")):
+            fail(f"non-finite train_micro metrics {m}")
+    if not mi_rel <= TRAIN_MICRO_LOSS_RTOL:
+        fail(f"train_micro's losses differ from train_q8's by {mi_rel} > "
+             f"{TRAIN_MICRO_LOSS_RTOL}")
+    if not mi_gn_rel <= TRAIN_MICRO_GNORM_RTOL:
+        fail(f"train_micro's grad norms differ from train_q8's by "
+             f"{mi_gn_rel} > {TRAIN_MICRO_GNORM_RTOL}")
+    if not mi_master_rel <= TRAIN_MICRO_MASTER_RTOL:
+        fail(f"train_micro's final masters lie {mi_master_rel} of "
+             f"train_q8's update from train_q8's > "
+             f"{TRAIN_MICRO_MASTER_RTOL}")
+    del rt
+    torch.cuda.empty_cache()
 
     q8_store = APPROX_VARIANTS["q8_store"]
     sched_runs = [
@@ -2337,7 +2443,11 @@ def main() -> None:
         ("parity", small, None, PARITY_RTOL),
         ("parity_q8", small, Q8_SCHEDULE, PARITY_Q8_RTOL),
         ("parity_moe", moe_small, None, PARITY_RTOL),
-        ("parity_moe", moe_small, ADAM8_Q8_SCHEDULE, PARITY_Q8_RTOL)]
+        ("parity_moe", moe_small, ADAM8_Q8_SCHEDULE, PARITY_Q8_RTOL),
+        ("parity_micro", dataclasses.replace(small, parallel=dataclasses
+                                             .replace(small.parallel,
+                                                      microbatches=2)),
+         Q8_SCHEDULE, PARITY_Q8_RTOL)]
     parity_cases += [("parity_fp8", dataclasses.replace(small,
                                                         optimizer=opt_name),
                       sched, PARITY_FP8_RTOL)
@@ -2628,6 +2738,7 @@ def main() -> None:
                  q8_launches["adamw_q8"], q8stats["adamw_q8"]),
          "launches_by_path": {
              "train_q8": q8_launches["adamw_q8"],
+             "train_micro": micro_launches["adamw_q8"],
              "train_sched": sum(v["adamw_q8"]
                                 for v in sched_launches.values()),
              "ckpt": ckpt_launches["adamw_q8"]}},
@@ -2635,6 +2746,7 @@ def main() -> None:
                  "src/repro/kernels/blockwise_quant.py:56",
                  q8_launches["quantize"], q8stats["quantize"]),
          "launches_by_path": {"train_q8": q8_launches["quantize"],
+                              "train_micro": micro_launches["quantize"],
                               "train_muon_q8": muon_launches["quantize"],
                               "train_sched": sum(
                                   v["quantize"]
@@ -2646,6 +2758,7 @@ def main() -> None:
                  q8_launches["dequantize_into"], q8stats["dequantize_into"]),
          "launches_by_path": {
              "train_q8": q8_launches["dequantize_into"],
+             "train_micro": micro_launches["dequantize_into"],
              "train_muon_q8": muon_launches["dequantize_into"],
              "train_sched": sum(v["dequantize_into"]
                                 for v in sched_launches.values()),
@@ -2655,12 +2768,14 @@ def main() -> None:
                  "src/repro/kernels/blockwise_quant.py:144",
                  q8_launches["dequantize"], q8stats["dequantize"]),
          "launches_by_path": {"train_q8": q8_launches["dequantize"],
+                              "train_micro": micro_launches["dequantize"],
                               "auto_plan": auto_launches["dequantize"],
                               "ckpt": ckpt_launches["dequantize"]}},
         {**entry("encode_ef", "encode_ef.cu",
                  "src/repro/kernels/encode_ef.py:30",
                  q8_launches["encode_ef"], q8stats["encode_ef"]),
          "launches_by_path": {"train_q8": q8_launches["encode_ef"],
+                              "train_micro": micro_launches["encode_ef"],
                               "auto_plan": auto_launches["encode_ef"],
                               "ckpt": ckpt_launches["encode_ef"]}},
         entry("adam8bit_store_update", "adam8bit_store_update.cu",

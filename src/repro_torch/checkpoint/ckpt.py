@@ -234,10 +234,21 @@ def _save_factor(runtime, f: pathlib.Path, t: torch.Tensor, axis, L: int):
         del mm
 
 
+def _check_no_model_axis(runtime, what: str) -> None:
+    """A runtime with a model axis has outer rows this format's rank rows
+    do not lay out yet: raise rather than write or read a wrong file."""
+    if runtime.axis_sizes.get("model", 1) > 1:
+        raise NotImplementedError(
+            f"checkpoint {what} on a mesh with a model axis (tensor or "
+            f"expert parallelism) is not ported yet (ROADMAP Queue 1 item "
+            f"18b)")
+
+
 def save(path, runtime, params, opt_state=None, step: int = 0) -> None:
     """Write ``params`` (and ``opt_state``) of ``runtime`` at ``step`` as a
     format v2 checkpoint under ``path``; every rank of the runtime's group
     calls it."""
+    _check_no_model_axis(runtime, "save")
     path = pathlib.Path(path)
     shards = path / "shards"
     shards.mkdir(parents=True, exist_ok=True)
@@ -357,6 +368,7 @@ def load(path, runtime, opt_state_like=None):
     requantized, the residual zero).  Optimizer buffers follow their
     tensors' extents the same way (block-granular 8-bit state on the
     aligned path), Shampoo's factors are re-padded to the plan."""
+    _check_no_model_axis(runtime, "load")
     path = pathlib.Path(path)
     meta = json.loads((path / "meta.json").read_text())
     if int(meta.get("version", 1)) < 2:

@@ -16,6 +16,7 @@ _MODULES = {
     # the paper's own evaluation models
     "llama3-70b": "llama3_70b",
     "gpt-oss-120b": "gpt_oss_120b",
+    "nemotron-4-340b": "nemotron_4_340b",
 }
 
 ARCH_IDS = list(_MODULES)

@@ -16,12 +16,13 @@ from typing import Any, Mapping, Optional
 
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
-    """How one architecture maps onto the mesh.  The port's mesh is
-    ``{"data": world_size, "model": 1}`` over one ``torch.distributed``
-    process group, so ``fsdp_axes``/``batch_axes`` resolve to the data
-    axis.  The schedule knobs lower onto ``core.schedule.CommSchedule``;
-    the ones the port does not run yet raise ``NotImplementedError`` there
-    or in ``core.fsdp.FSDPRuntime``."""
+    """How one architecture maps onto the mesh: the port's ``(data,
+    model)`` mesh over one ``torch.distributed`` process group
+    (``launch.mesh``; a bare group is ``(world_size, 1)``).  ``tp`` and
+    ``ep`` run over the model axis and must equal its size when above 1.
+    The schedule knobs lower onto ``core.schedule.CommSchedule``; the ones
+    the port does not run yet raise ``NotImplementedError`` there or in
+    ``core.fsdp.FSDPRuntime``."""
 
     fsdp_axes: tuple[str, ...] = ("data", "model")
     batch_axes: tuple[str, ...] = ("data", "model")

@@ -1,8 +1,8 @@
 """Qwen3-235B-A22B [hf:Qwen/Qwen3-30B-A3B family scaled per assignment]:
 94L, d_model=4096, 64H (GQA kv=4), 128 experts top-8, d_ff=1536/expert,
-vocab=151936.  EP=16 over the model axis in the reference (experts
-Shard(0) then RaggedShard, the paper's Fig. 5 composition; the port runs
-ep=1 until ROADMAP Queue 1 item 18); 8-bit Adam for the optimizer states."""
+vocab=151936.  EP=16 over the model axis (experts Shard(0) then
+RaggedShard, the paper's Fig. 5 composition; a run on fewer ranks sets
+``ep`` to the model axis it has); 8-bit Adam for the optimizer states."""
 from .base import ModelConfig, ParallelConfig
 
 CONFIG = ModelConfig(

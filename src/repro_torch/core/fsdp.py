@@ -1,9 +1,15 @@
 """veScale-FSDP runtime over ``torch.distributed`` (port of
 ``repro/core/fsdp.py``: the ZeRO-3 train step on the fp32, bf16, fp8 and
-q8_block stores, with cast (fp8 among them) or q8 gradient wires, and the
-ZeRO-3 serve steps).
+q8_block stores, with cast (fp8 among them) or q8 gradient wires, tensor
+and expert parallelism over the mesh's model axis, gradient accumulation,
+and the ZeRO-3 serve steps).
 
-``FSDPRuntime`` wraps a model for a process group.  Construction takes a
+``FSDPRuntime`` wraps a model for a mesh (``launch.mesh.Mesh``: ``(data,
+model)`` over one process group; a bare process group is ``(world,
+1)``).  A group the model splits over the model axis (the reference's
+outer TP/EP sharding) holds ``outer_size`` rows of its planned buffer, and
+rank (d, m) holds row m's FSDP shard over the group's FSDP axes; the
+gathers and reduce-scatters run over those axes only.  Construction takes a
 ``ShardingPlan`` (``plan=``, e.g. a checkpoint's ``load_plan``, checked
 against the group's mesh and the compute dtype) or resolves one from the
 ``ParallelConfig`` knobs, ``schedule=``/``group_schedules=`` or
@@ -33,8 +39,15 @@ residual ``reduce_ef`` (``(L, m * S)``).  The train step then:
     all-reduced over the process group after backward, in the schedule's
     accumulate dtype when ``reduce_dtype`` or ``reduce_wire`` pins one
     (the reference's ``_reduce_grads``);
+  * with ``microbatches`` > 1 runs forward and backward per microbatch,
+    the gradients accumulating in ``.grad`` (a q8 reduce wire defers its
+    error feedback to the accumulation boundary: ``make_train_step``);
+    all-reduces ``layers_rep``'s gradient over the model axis under tensor
+    parallelism;
   * all-reduces the token-sum loss and the token count over the batch
-    axes, scales the gradients by ``1/max(tokens, 1)``, runs the
+    axes, scales the gradients by ``1/max(tokens, 1)`` (and by the model
+    axis's size where it holds the same tokens on each rank and sums
+    their gradients: ``_grad_div``), runs the
     optimizer (AdamW and Adam8bit: one fused kernel per group, in place, a
     q8 or fp8 store's codes rewritten in the same pass; SGD, Muon and
     Shampoo: tensor code over chunks of the shard, then the store's
@@ -57,14 +70,18 @@ unpacked by ``DBuffer.unpack_quant`` (eligible weights multiply through
 
 ``replan`` moves live parameters and optimizer state onto another plan of
 the same model on the same process group (``core.reshard``'s extent map;
-the classes of a checkpoint load).
+the classes of a checkpoint load).  Serving, ``replan`` and checkpoints on
+a mesh with a model axis raise (ROADMAP Queue 1 item 18b).
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 without a card and without that, construction raises.
 
 PARITY: ``init_params`` and the planned layouts are BITWISE the reference's;
 the train step is ALLCLOSE (tests/test_torch_train.py states the bounds),
-and so are the serve steps (tests/test_torch_serve.py).
+and so are the serve steps (tests/test_torch_serve.py).  Under a model
+axis the step follows the one-device gradient, which the reference's does
+not (tp or ep times it where a batch is replicated over the axis; ROADMAP
+Queue 3, tests/test_torch_tp.py, tests/test_torch_ep.py).
 """
 from __future__ import annotations
 
@@ -79,7 +96,7 @@ import torch
 import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
-from ..launch.mesh import mesh_axes
+from ..launch.mesh import AXES, as_mesh
 from ..models.transformer import GroupDef
 from ..optim import make_optimizer
 from ..quant.fp8 import FP8_DTYPES
@@ -88,7 +105,7 @@ from .policy import PolicySet, ShardingPlan, plan as make_plan
 from .ragged import TensorSpec
 from .schedule import CommSchedule
 from .store import EF_KEY, ParamStore, check_state
-from .wire import payload_all_gather
+from .wire import codec_reduce_scatter, payload_all_gather
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,24 +121,35 @@ class GroupLayout:
     store: ParamStore = ParamStore()
     # the axes an unsharded group's gradient is all-reduced over
     grad_sync_axes: tuple[str, ...] = ()
+    # the TP/EP axis the buffer is split on before FSDP (the reference's
+    # outer sharding, paper Fig. 5): ``outer_size`` rows of ``plan.total``
+    outer_axis: str | None = None
+    outer_size: int = 1
 
     @property
     def sharded(self) -> bool:
         return bool(self.fsdp_axes)
 
     @property
-    def outer_size(self) -> int:
-        """Outer (TP/EP) parts of the buffer: 1 until tp/ep > 1 are ported
-        (ROADMAP Queue 1 item 18)."""
-        return 1
+    def sharded_dim(self) -> int:
+        return self.outer_size * self.plan.total
 
     def global_shape(self) -> tuple[int, ...]:
-        d = (self.plan.total,)
+        d = (self.sharded_dim,)
         return (self.n_layers,) + d if self.n_layers else d
 
     def local_shape(self) -> tuple[int, ...]:
         d = (self.plan.shard_size,)
         return (self.n_layers,) + d if self.n_layers else d
+
+    @property
+    def dup_names(self) -> tuple[str, ...]:
+        """Tensors of an outer-split group that are not split: every outer
+        row holds a whole copy (``globals``' ``final_ln`` under tp)."""
+        if self.outer_size == 1:
+            return ()
+        return tuple(s.name for s in self.gdef.specs
+                     if s.name not in self.gdef.outer)
 
 
 def _resolve_device(device) -> torch.device:
@@ -152,18 +180,14 @@ class FSDPRuntime:
                     "FSDPRuntime needs a process group: pass one, or create "
                     "the default group first (launch.mesh.init_local_group)")
             group = dist.group.WORLD
-        self.group = group
-        self.rank = dist.get_rank(group)
+        self.mesh = as_mesh(group)
+        self.group = self.mesh.group
+        self.rank = dist.get_rank(self.group)
         self.model = model
         self.cfg = model.cfg
         self.compute_dtype = compute_dtype
         par = self.cfg.parallel
-        if par.microbatches > 1:
-            raise NotImplementedError(
-                "microbatches > 1 (gradient accumulation, with the deferred "
-                "error feedback of the q8 reduce wire) is not ported yet "
-                "(ROADMAP Queue 1 item 18)")
-        self.axis_sizes = mesh_axes(group)
+        self.axis_sizes = dict(self.mesh.axis_sizes)
 
         # the plan the runtime consumes: an explicit one (say, a
         # checkpoint's), a policies spec ("auto" among them), or the
@@ -213,28 +237,56 @@ class FSDPRuntime:
                 name=name, gdef=gdefs[name], local_specs=e.local_specs,
                 plan=e.plan, buffer=DBuffer(e.plan), fsdp_axes=e.fsdp_axes,
                 fsdp_axis_sizes=e.fsdp_axis_sizes, n_layers=e.n_layers,
-                store=e.store, grad_sync_axes=e.grad_sync_axes)
+                store=e.store, grad_sync_axes=e.grad_sync_axes,
+                outer_axis=e.outer_axis, outer_size=e.outer_size)
             for name, e in plan.groups.items()
         }
         # instrumentation, off by default: a GatheredMeter here records the
         # live and peak bytes of the gathered layer buffers
         self.gathered_meter: GatheredMeter | None = None
         for lo in self.layouts.values():
-            if lo.sharded and (math.prod(lo.fsdp_axis_sizes)
-                               != self.axis_sizes["data"]):
+            for axes in (lo.fsdp_axes, lo.grad_sync_axes):
+                if axes != tuple(a for a in AXES if a in axes):
+                    raise ValueError(
+                        f"group {lo.name} spans mesh axes {axes}; the port "
+                        f"takes them in the mesh's order {AXES}")
+        # the model axis: tensor parallelism (activations split over it)
+        # or expert parallelism (experts split over it), never both
+        self.tp, self.ep = par.tp, par.ep
+        model_size = self.axis_sizes["model"]
+        for what, n in (("tp", par.tp), ("ep", par.ep)):
+            if n > 1 and n != model_size:
                 raise ValueError(
-                    f"group {lo.name} shards over {lo.fsdp_axes}, not over "
-                    f"the process group's {self.axis_sizes['data']} ranks")
+                    f"{what}={n} runs over the mesh's model axis, which has "
+                    f"{model_size} ranks")
+        if par.tp > 1 and par.ep > 1:
+            raise ValueError("tp and ep both take the model axis")
+        self.tp_axis = "model" if par.tp > 1 else None
+        self.ep_axis = "model" if par.ep > 1 else None
+        self.model_group = self.mesh.group_for(("model",))
         self.batch_axes = tuple(a for a in par.batch_axes
                                 if a in self.axis_sizes)
+        if par.tp > 1 and "model" in self.batch_axes:
+            raise ValueError(
+                "tensor parallelism needs the same tokens on every rank of "
+                "the model axis: batch_axes must not include 'model'")
+        if (model_size > 1 and par.tp == 1 and par.ep == 1
+                and not any("model" in lo.fsdp_axes + lo.grad_sync_axes
+                            for lo in self.layouts.values())):
+            raise ValueError(
+                f"the mesh's model axis ({model_size} ranks) carries "
+                f"neither tp, ep nor FSDP")
 
     def sched_for(self, name: str) -> CommSchedule:
         return self._group_scheds.get(name, self.schedule)
 
     def group_of(self, name: str):
-        """The process group a group's collectives run over: None for an
-        unsharded group, which gathers nothing."""
-        return self.group if self.layouts[name].sharded else None
+        """The process group a group's gather and reduce-scatter run over
+        (its FSDP axes: never across the outer axis, whose rows hold other
+        parts of the tensors): None for an unsharded group, which gathers
+        nothing."""
+        lo = self.layouts[name]
+        return self.mesh.group_for(lo.fsdp_axes) if lo.sharded else None
 
     # ------------------------------------------------------------------ #
     # accounting (the reference's, from the plan)
@@ -271,20 +323,20 @@ class FSDPRuntime:
         return self.plan.reduce_wire_bytes()
 
     def _axis_index(self, axis: str) -> int:
-        return self.rank if axis == "data" else 0
+        return self.mesh.coords[axis]
 
     def batch_slice(self, batch: int) -> tuple[int, int]:
         """This rank's rows ``[lo, hi)`` of a global batch: sharded over
         the longest run of batch axes that divides it, replicated on the
         rest (the reference's ``_usable_batch_axes``/``batch_pspec``)."""
-        shards, idx, rem = 1, 0, batch
+        usable, rem = [], batch
         for a in self.batch_axes:
             size = self.axis_sizes[a]
             if rem % size == 0 and rem >= size:
-                idx = idx * size + self._axis_index(a)
-                shards *= size
+                usable.append(a)
                 rem //= size
-        per = batch // shards
+        per = batch // self.mesh.size(usable)
+        idx = self.mesh.index(usable)
         return idx * per, (idx + 1) * per
 
     # ------------------------------------------------------------------ #
@@ -308,38 +360,71 @@ class FSDPRuntime:
             a = np.zeros(spec.shape)
         return a.astype(np.float32)
 
+    def _block_index(self, lo: GroupLayout) -> int:
+        """This rank's column block of a group's global buffer: the
+        blocks run over the outer axis, then the FSDP axes, row-major (the
+        reference's pspec ``(outer_axis, *fsdp_axes)``)."""
+        idx = self.mesh.coords[lo.outer_axis] if lo.outer_axis else 0
+        if lo.sharded:
+            idx = idx * math.prod(lo.fsdp_axis_sizes) \
+                + self.mesh.index(lo.fsdp_axes)
+        return idx
+
     def _place(self, name: str, global_buf: np.ndarray,
                requires_grad: bool = True, dtype=torch.float32,
                axis: int | None = -1) -> torch.Tensor:
         """This rank's share of a global host buffer, on the device (its
-        equal share of ``axis``: the last, the columns, for a group's
-        buffer; the whole buffer when ``axis`` is None, as for an
-        unsharded group), as ``dtype``.  Masters are leaves that require
-        grad: the gather's backward fills their ``.grad``."""
+        column block of ``axis`` -- the last, for a group's buffer and its
+        optimizer leaves: ``outer_size`` rows of the group's FSDP shards,
+        or of the whole buffer for an unsharded group; None: the whole
+        array; a leaf that is not a group's buffer takes an equal share per
+        rank), as ``dtype``.  Masters are leaves that require grad: the
+        gather's backward fills their ``.grad``."""
         local = global_buf
         if axis is not None:
-            n = global_buf.shape[axis] // dist.get_world_size(self.group)
+            lo = self.layouts.get(name)
+            if lo is None:
+                # not a group's buffer (Shampoo's factors): an equal share
+                # per rank of the process group
+                blocks, i = dist.get_world_size(self.group), self.rank
+            else:
+                blocks = lo.outer_size * (math.prod(lo.fsdp_axis_sizes)
+                                          if lo.sharded else 1)
+                i = self._block_index(lo)
+            n = global_buf.shape[axis] // blocks
             index = [slice(None)] * global_buf.ndim
-            index[axis] = slice(self.rank * n, (self.rank + 1) * n)
+            index[axis] = slice(i * n, (i + 1) * n)
             local = global_buf[tuple(index)]
         return _host_tensor(local, dtype).to(self.device).requires_grad_(
             requires_grad)
 
     def init_params(self, seed: int = 0) -> dict[str, Any]:
-        """Host-side init; every rank builds the global fp32 buffer, keeps
-        its shard on the device and builds its store state there (a bf16
-        store rounds it, an fp8 store encodes it, a q8 store quantizes it
-        through ``ops.quantize``).  PARITY: BITWISE vs the reference's
-        ``init_params``."""
+        """Host-side init; every rank builds its outer row of the global
+        fp32 buffer (the tensors split over the outer axis cut to this
+        rank's part), keeps its shard on the device and builds its store
+        state there (a bf16 store rounds it, an fp8 store encodes it, a q8
+        store quantizes it through ``ops.quantize``).  PARITY: BITWISE vs
+        the reference's ``init_params`` (this rank's columns of it)."""
         params = {}
         for name, lo in self.layouts.items():
+            r = self.mesh.coords[lo.outer_axis] if lo.outer_axis else 0
             layers = list(range(lo.n_layers)) if lo.n_layers else [None]
-            flats = [lo.buffer.pack({s.name: self._init_tensor(s, seed, li)
-                                     for s in lo.gdef.specs})
-                     for li in layers]
+            flats = []
+            for li in layers:
+                arrays = {}
+                for s in lo.gdef.specs:
+                    a = self._init_tensor(s, seed, li)
+                    sd = lo.gdef.outer.get(s.name)
+                    if sd is not None and lo.outer_size > 1:
+                        a = np.split(a, lo.outer_size, axis=sd.dim)[r]
+                    arrays[s.name] = a
+                flats.append(lo.buffer.pack(arrays))
             arr = np.stack(flats) if lo.n_layers else flats[0]
-            params[name] = lo.store.create(self._place(
-                name, arr, axis=-1 if lo.sharded else None))
+            n = lo.plan.shard_size if lo.sharded else lo.plan.total
+            f = self.mesh.index(lo.fsdp_axes) if lo.sharded else 0
+            params[name] = lo.store.create(
+                _host_tensor(arr[..., f * n:(f + 1) * n], torch.float32)
+                .to(self.device).requires_grad_(True))
         return params
 
     # ------------------------------------------------------------------ #
@@ -366,18 +451,19 @@ class FSDPRuntime:
         follow their tensors' extents, Shampoo's factors are re-padded --
         the classes of a checkpoint load.  Another world size goes
         through ``checkpoint.save`` and ``load``; a mesh with a model axis
-        raises (ROADMAP Queue 1 item 18)."""
+        raises (ROADMAP Queue 1 item 18b)."""
         from .policy import layout_changed_groups
         from .reshard import (GroupIndex, buffer_reader, row_writer,
                               stream_tensors)
 
+        if self.axis_sizes["model"] > 1 or (
+                mesh is not None and int(mesh.get("model", 1)) > 1):
+            raise NotImplementedError(
+                "replan on or onto a mesh with a model axis (tensor or "
+                "expert parallelism) is not ported yet (ROADMAP Queue 1 "
+                "item 18b)")
         if mesh is not None:
             mesh = {a: int(n) for a, n in mesh.items()}
-            if mesh.get("model", 1) > 1:
-                raise NotImplementedError(
-                    "replan onto a mesh with a model axis (tensor or expert "
-                    "parallelism) is not ported yet (ROADMAP Queue 1 item "
-                    "18)")
             if mesh.get("data", 1) != self.axis_sizes["data"]:
                 raise ValueError(
                     f"replan stays on the runtime's process group "
@@ -542,9 +628,31 @@ class FSDPRuntime:
         step + 1, metrics)``; ``step`` is a Python int (the host counter),
         ``metrics`` holds 0-d device tensors ``loss``, ``tokens`` and
         ``grad_norm`` (reading them is the only host sync).  Parameters and
-        optimizer state are updated in place."""
+        optimizer state are updated in place.
+
+        With ``microbatches`` > 1 (clamped to a divisor of the local batch)
+        each microbatch runs forward and backward in turn, its gradients
+        accumulating in ``.grad``; a group with the q8 reduce wire then
+        defers its error feedback: no microbatch's backward encodes or
+        reduces, each adds its fp32 cotangent to a gathered-size
+        accumulator, and at the accumulation boundary one
+        ``codec_reduce_scatter`` per layer applies the residual, encodes
+        and reduce-scatters -- the wire numerics and residual of one batch
+        of the same size (the reference's deferred EF)."""
+        par = self.cfg.parallel
         ef_groups = tuple(n for n, lo in self.layouts.items()
                           if lo.store.has_ef)
+        for n in ef_groups:
+            # a model-replicated group's gradient is all-reduced over the
+            # model axis after its reduce-scatter: each replica would keep
+            # its own residual (the reference's ValueError)
+            if self.layouts[n].gdef.replicated_over_model and self.tp > 1:
+                raise ValueError(
+                    f"reduce_wire='q8_block' on group {n!r} is unsupported "
+                    f"with replica gradient axes ['model']: the error-"
+                    f"feedback residual would diverge across replicas "
+                    f"(quantized replica reductions are future work; use a "
+                    f"cast reduce wire for this group)")
 
         def step_fn(params, opt_state, step: int, batch):
             if not isinstance(step, int):
@@ -562,19 +670,39 @@ class FSDPRuntime:
                     p.grad = torch.zeros_like(p)
                 else:
                     p.grad.zero_()
-            pg = _ParamGetter(self, {
-                n: self.layouts[n].store.combine(trainable[n], frozen[n])
-                for n in params})
-            nll, w = self.model.loss(pg, batch)
-            nll.backward()
+            state = {n: self.layouts[n].store.combine(trainable[n],
+                                                      frozen[n])
+                     for n in params}
+            b_loc = next(iter(batch.values())).shape[0]
+            micro = par.microbatches
+            while b_loc % micro:
+                micro -= 1
+            # deferred EF: each group's fp32 cotangent sum, gathered-sized
+            defer = {n: torch.zeros_like(params[n][EF_KEY])
+                     for n in ef_groups} if micro > 1 else None
+            nll = w = None
+            per = b_loc // micro
+            for i in range(micro):
+                mb = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
+                pg = _ParamGetter(self, state, defer=defer)
+                nll_i, w_i = self.model.loss(pg, mb)
+                nll_i.backward()
+                nll_i = nll_i.detach()
+                nll, w = (nll_i, w_i) if nll is None else (nll + nll_i,
+                                                          w + w_i)
             with torch.no_grad():
+                if defer is not None:
+                    self._boundary_reduce(params, trainable, defer)
                 self._reduce_grads(trainable)
-                stats = torch.stack([nll.detach(), w])
-                if self.batch_axes:
-                    dist.all_reduce(stats, group=self.group)
+                stats = torch.stack([nll, w])
+                bgroup = self.mesh.group_for(self.batch_axes)
+                if bgroup is not None:
+                    dist.all_reduce(stats, group=bgroup)
                 nll_g, w_g = stats.unbind()
                 grads = {n: p.grad for n, p in trainable.items()}
                 scale = 1.0 / torch.clamp(w_g, min=1.0)
+                if self._grad_div > 1:
+                    scale = scale / self._grad_div
                 # fp32 gradients are scaled in place; a bf16 one by the
                 # optimizer, in fp32 (see the module docstring)
                 for g in grads.values():
@@ -596,25 +724,67 @@ class FSDPRuntime:
 
         return step_fn
 
+    @property
+    def _grad_div(self) -> int:
+        """How many times the gradient sums each token beyond the batch
+        axes' count: a model axis that is not a batch axis and not the
+        tensor-parallel axis (expert parallelism, or FSDP over it) holds
+        the same tokens on each of its ranks and sums their gradients.
+        The reference sums them (its gradient is that many times the
+        one-device gradient); the port divides, so each token counts once.
+        Under tensor parallelism the conjugate collectives of
+        ``models.layers`` give each rank the true gradient already."""
+        m = self.axis_sizes["model"]
+        if m > 1 and self.tp == 1 and "model" not in self.batch_axes:
+            return m
+        return 1
+
+    @torch.no_grad()
+    def _boundary_reduce(self, params, trainable, defer) -> None:
+        """The accumulation boundary of the deferred EF groups: per layer,
+        the summed cotangent, the residual and one ``codec_reduce_scatter``
+        (encode once, route, decode) into the master's gradient; the new
+        residual replaces the old in place (the reference's boundary
+        ``lax.scan`` of ``codec_reduce_scatter``)."""
+        for n, acc in defer.items():
+            lo, sched = self.layouts[n], self.sched_for(n)
+            rcodec = sched.reduce_codec(self.compute_dtype, lo.store.block)
+            ef, grad = params[n][EF_KEY], trainable[n].grad
+            for row in (range(lo.n_layers) if lo.n_layers else [None]):
+                at = (lambda t: t) if row is None else (lambda t: t[row])
+                at(grad).copy_(codec_reduce_scatter(
+                    at(acc), at(ef), rcodec, self.group_of(n), grad.dtype,
+                    sched.gather_mode, sched.reduce_mode,
+                    sched.ring_chunk_elems))
+
     @torch.no_grad()
     def _reduce_grads(self, trainable) -> None:
-        """All-reduce each unsharded group's gradient in place over the
-        process group (its ``grad_sync_axes``): in the schedule's
-        accumulate dtype when ``reduce_dtype`` or ``reduce_wire`` pins one
-        (the casts run on one rank too, as the reference's psum over a
-        size-1 axis keeps them), else in the gradient's own dtype."""
+        """The reductions beyond each gather's reduce-scatter, in place: a
+        model-replicated group (``layers_rep``) all-reduces its gradient
+        over the model axis under tp (each rank holds its partial sum),
+        and an unsharded group over its ``grad_sync_axes``; in the
+        schedule's accumulate dtype when ``reduce_dtype`` or
+        ``reduce_wire`` pins one (the casts run on one rank too, as the
+        reference's psum over a size-1 axis keeps them), else in the
+        gradient's own dtype (the reference's ``_reduce_grads``)."""
         for name, p in trainable.items():
             lo = self.layouts[name]
-            if not lo.grad_sync_axes:
+            axes = []
+            if lo.gdef.replicated_over_model and self.tp > 1:
+                axes.append(("model",))
+            if lo.grad_sync_axes:
+                axes.append(lo.grad_sync_axes)
+            if not axes:
                 continue
             g, sched = p.grad, self.sched_for(name)
             pinned = (sched.reduce_dtype is not None
                       or sched.reduce_wire is not None)
             ad = sched.accum_dtype(self.compute_dtype) if pinned else g.dtype
-            t = g if ad == g.dtype else g.to(ad)
-            dist.all_reduce(t, group=self.group)
-            if t is not g:
-                g.copy_(t)
+            for a in axes:
+                t = g if ad == g.dtype else g.to(ad)
+                dist.all_reduce(t, group=self.mesh.group_for(a))
+                if t is not g:
+                    g.copy_(t)
 
     # ------------------------------------------------------------------ #
     # serve steps (ZeRO-3 inference: per-layer gather, sharded at rest)
@@ -626,6 +796,11 @@ class FSDPRuntime:
         when the batch is split, so every rank returns the global logits.
         The cache holds the global batch; a rank writes its own rows in
         place."""
+        if self.axis_sizes["model"] > 1:
+            raise NotImplementedError(
+                "serving on a mesh with a model axis (the replicated-KV "
+                "cache layout of tensor parallelism) is not ported yet "
+                "(ROADMAP Queue 1 item 18b)")
         tokens = batch["tokens"]
         B = tokens.shape[0]
         lo, hi = self.batch_slice(B)
@@ -688,20 +863,47 @@ class FSDPRuntime:
 
 def _global_norm(runtime: FSDPRuntime, grads, scale) -> torch.Tensor:
     """sqrt of the sum over groups of each group's sum of squares of the
-    scaled gradients, all-reduced for a sharded group (an unsharded one
-    holds the whole gradient on every rank); a bf16 gradient is scaled in
-    fp32 here, as the fused update scales it; groups added in the
-    reference's order."""
-    sq = [(g.float() if g.dtype == torch.float32
-           else g.float() * scale).square().sum() for g in grads.values()]
-    sharded = [runtime.layouts[n].sharded for n in grads]
-    if any(sharded):
-        part = torch.stack([s if sh else torch.zeros_like(s)
-                            for s, sh in zip(sq, sharded)])
+    scaled gradients (a bf16 gradient is scaled in fp32 here, as the fused
+    update scales it), each parameter counted once: a group's sums are
+    all-reduced over the process group from one rank of each distinct
+    shard (the ranks at index 0 of every mesh axis the group is neither
+    sharded nor split over, whose ranks hold the same gradient), the
+    copies an outer-split group keeps of its unsplit tensors count on
+    outer row 0 alone, and a group unsharded and unsplit holds the whole
+    gradient on every rank.  Groups are added in the reference's order.
+    The reference counts such copies once per outer row; its norm also
+    carries its gradient's factor (ROADMAP Queue 3)."""
+    mesh = runtime.mesh
+    sq, reduce = [], []
+    for name, g in grads.items():
+        lo = runtime.layouts[name]
+        g = g.float() if g.dtype == torch.float32 else g.float() * scale
+        if lo.dup_names and mesh.coords[lo.outer_axis]:
+            g = g[..., _unique_cols(runtime, lo)]
+        s = g.square().sum()
+        owned = lo.fsdp_axes + ((lo.outer_axis,) if lo.outer_axis else ())
+        if owned and any(mesh.coords[a] for a in AXES if a not in owned):
+            s = torch.zeros_like(s)
+        sq.append(s)
+        reduce.append(bool(owned))
+    if any(reduce):
+        part = torch.stack([s if r else torch.zeros_like(s)
+                            for s, r in zip(sq, reduce)])
         dist.all_reduce(part, group=runtime.group)
-        sq = [p if sh else s
-              for p, s, sh in zip(part.unbind(), sq, sharded)]
+        sq = [p if r else s for p, s, r in zip(part.unbind(), sq, reduce)]
     return torch.sqrt(sum(sq))
+
+
+def _unique_cols(runtime: FSDPRuntime, lo: GroupLayout) -> torch.Tensor:
+    """The local columns of an outer-split group's shard that hold split
+    tensors (every column but those of its ``dup_names`` copies)."""
+    keep = np.ones(lo.plan.shard_size, bool)
+    f = runtime.mesh.index(lo.fsdp_axes) if lo.sharded else 0
+    for name in lo.dup_names:
+        for e in lo.plan.tensor_extents(name):
+            if e.shard == f:
+                keep[e.lo:e.hi] = False
+    return torch.from_numpy(np.flatnonzero(keep)).to(runtime.device)
 
 
 class GatheredMeter:
@@ -753,8 +955,9 @@ def load_reference_state(runtime: FSDPRuntime, params: Mapping[str, Any],
                          opt_state: Mapping[str, Mapping[str, Any]] | None
                          = None):
     """Carry the reference runtime's state across: ``params`` is ``{group:
-    state}`` as numpy arrays -- the global flat buffer (``(L, total)`` or
-    ``(total,)``) for a bare fp32 or bf16 state, else the dict of the
+    state}`` as numpy arrays -- the global flat buffer (``(L, outer_size *
+    total)`` or ``(outer_size * total,)``) for a bare fp32 or bf16 state,
+    else the dict of the
     store's leaves (``codes``, ``master``, ``scales``, ``reduce_ef``) at
     their global shapes; bf16 buffers and fp8 codes are ml_dtypes arrays or
     their raw uint16 / uint8 bytes, carried bit for bit; ``opt_state``
@@ -768,9 +971,11 @@ def load_reference_state(runtime: FSDPRuntime, params: Mapping[str, Any],
     ``{"group/tensor/L" | "/R": (Lp, k, k)}`` over the padded layer axis.
     Every leaf's shape is checked against the port's layouts (which are
     bitwise the reference's, so no re-layout is needed); each rank keeps
-    its equal share of each leaf's sharded axis (a group leaf's last axis,
-    a factor's ``Lp / m`` layer rows; the whole leaf of an unsharded
-    group) on the runtime's device (the master requires grad).  Returns
+    its share of each leaf's sharded axis (of a group leaf's last axis its
+    column block: its outer row's FSDP shard, the whole outer row of an
+    unsharded group; a factor's ``Lp / m`` layer rows; the whole leaf of
+    an unsharded, unsplit group) on the runtime's device (the master
+    requires grad).  Returns
     ``(params, opt_state)`` in the port's form (``opt_state`` None when
     not given)."""
 
@@ -785,7 +990,7 @@ def load_reference_state(runtime: FSDPRuntime, params: Mapping[str, Any],
     for name, lo in runtime.layouts.items():
         state = params[name]
         check_state(lo.store, state, lo.global_shape(), f"params[{name!r}]")
-        axis = -1 if lo.sharded else None
+        axis = -1 if lo.sharded or lo.outer_size > 1 else None
         if lo.store.state_keys() is None:
             new_params[name] = runtime._place(name, np.asarray(state), True,
                                               lo.store.storage_dtype, axis)
@@ -826,12 +1031,20 @@ class _ParamGetter:
     eligible weights int8 (``DBuffer.unpack_quant``)."""
 
     def __init__(self, runtime: FSDPRuntime, params, *, serve: bool = False,
-                 quant_matmul: bool = False):
+                 quant_matmul: bool = False, defer=None):
         self.rt = runtime
         self.params = params
         self.serve = serve
         self.quant_matmul = quant_matmul
+        # deferred EF: {group: fp32 cotangent accumulator}, whose groups'
+        # gathers add their cotangent there instead of reducing it
+        self.defer = defer or {}
         self.compute_dtype = runtime.compute_dtype
+        # the model axis: the TP group (activations) and the EP group
+        # (expert exchange), None where the config has neither
+        self.tp_group = runtime.model_group if runtime.tp > 1 else None
+        self.ep_group = runtime.model_group if runtime.ep > 1 else None
+        self.tp_rank = runtime.mesh.coords["model"] if runtime.tp > 1 else 0
 
     def _state(self, name: str, layer: int | None):
         state = self.params[name]
@@ -864,11 +1077,13 @@ class _ParamGetter:
                                            self.rt.sched_for(name))
         sink = None if self.serve else \
             lo.store.trainable(self.params[name]).grad
+        acc = self.defer.get(name)
         if layer is not None and sink is not None:
             sink = sink[layer]
+            acc = None if acc is None else acc[layer]
         out = lo.store.gather(state, sink, self.rt.group_of(name),
                               self.rt.sched_for(name), self.compute_dtype,
-                              started)
+                              started, defer_acc=acc)
         meter = self.rt.gathered_meter
         if meter is not None and layer is not None and lo.sharded:
             meter.add(out)

@@ -267,7 +267,8 @@ class ParamStore:
 
     def gather(self, state, grad_sink: torch.Tensor | None, group,
                sched: CommSchedule, compute_dtype: torch.dtype,
-               started=None) -> torch.Tensor:
+               started=None, defer_acc: torch.Tensor | None = None
+               ) -> torch.Tensor:
         """All-gather one rank-local (one-layer) state into the flat
         compute-dtype buffer the model unpacks, by the schedule's gather
         mode; backward reduce-scatters into ``grad_sink`` through the
@@ -276,7 +277,11 @@ class ParamStore:
         unsharded group) moves nothing.  With ``grad_sink`` None (the
         serve steps) only the forward runs: the same gather and decode, no
         autograd node and no gradient route.  ``started``: this state's
-        ``start_gather``, issued earlier."""
+        ``start_gather``, issued earlier.  ``defer_acc`` (the residual's
+        shape, fp32; a store with a residual only): the deferred error
+        feedback of gradient accumulation -- the backward adds the
+        cotangent there and neither encodes nor reduces (the reference's
+        ``*_defer_ef`` gathers)."""
         if started is None:
             started = self.start_gather(state, group, sched, compute_dtype)
         if grad_sink is None:
@@ -285,16 +290,19 @@ class ParamStore:
                             sched.gather_mode, sched.reduce_mode,
                             sched.ring_chunk_elems)
         ef = state[EF_KEY] if self.has_ef else None
+        if defer_acc is not None and ef is None:
+            raise ValueError("defer_acc on a store without an EF residual")
         if self.quantized:
             return q8_gather(state["master"], state["codes"], state["scales"],
                              grad_sink, group, self.block, route,
-                             compute_dtype, ef, started)
+                             compute_dtype, ef, started, defer_acc)
         if self.fp8:
             return fp8_gather(state["master"], state["codes"], grad_sink,
-                              group, route, compute_dtype, ef, started)
+                              group, route, compute_dtype, ef, started,
+                              defer_acc)
         return codec_gather(self.trainable(state), grad_sink, group,
                             sched.gather_codec(compute_dtype), route,
-                            compute_dtype, ef, started)
+                            compute_dtype, ef, started, defer_acc)
 
     def gather_payload(self, state, group, sched: CommSchedule | None = None
                        ) -> dict[str, torch.Tensor]:

@@ -59,8 +59,11 @@ A ``group`` of None stands for a group with no FSDP axes (an unsharded
 one): no collective runs, as in the reference with empty ``axes``.  With
 no peers (n = 1) the ring routes return the reference's n = 1 result.
 
-Not ported yet: the deferred error feedback of gradient accumulation
-(ROADMAP Queue 1 item 18).
+With gradient accumulation a gather can defer its error feedback
+(``defer``): its backward adds the fp32 cotangent to an accumulator and
+the runtime reduce-scatters the sum once at the accumulation boundary
+(the reference's ``*_defer_ef`` primitives: one encode per step, never
+one per microbatch).
 
 PARITY: the casts, encodes and decodes are op-for-op the reference's (the
 kernels' classes are in ``kernels.ops``; ``fp8_encode`` is BITWISE).  The
@@ -605,21 +608,26 @@ def _check_ef(ef: torch.Tensor | None, group, shard: torch.Tensor) -> None:
 class _Gather(torch.autograd.Function):
     """Forward: ``fetch()`` (a gather and its decode); backward: the
     cotangent reduce-scattered into ``grad_sink`` (the master's
-    gradient)."""
+    gradient), or with ``defer`` (deferred error feedback) added to that
+    fp32 accumulator, with no encode and no collective: the boundary
+    reduce-scatters the sum once (``core.fsdp``)."""
 
     @staticmethod
-    def forward(ctx, master, grad_sink, ef, group, route, fetch):
-        ctx.grad_sink, ctx.ef = grad_sink, ef
+    def forward(ctx, master, grad_sink, ef, group, route, fetch, defer):
+        ctx.grad_sink, ctx.ef, ctx.defer = grad_sink, ef, defer
         ctx.group, ctx.route = group, route
         return fetch()
 
     @staticmethod
     def backward(ctx, ct):
+        if ctx.defer is not None:
+            ctx.defer.add_(ct)
+            return (None,) * 7
         sink, r = ctx.grad_sink, ctx.route
         sink.add_(codec_reduce_scatter(ct, ctx.ef, r.codec, ctx.group,
                                        sink.dtype, r.mode, r.reduce_mode,
                                        r.ring_chunk))
-        return (None,) * 6
+        return (None,) * 7
 
 
 def start_codec_gather(shard: torch.Tensor, group, gather_codec: WireCodec,
@@ -637,7 +645,8 @@ def start_codec_gather(shard: torch.Tensor, group, gather_codec: WireCodec,
 def codec_gather(shard: torch.Tensor, grad_sink: torch.Tensor, group,
                  gather_codec: WireCodec, route: ReduceRoute,
                  out_dtype: torch.dtype, ef: torch.Tensor | None = None,
-                 started=None) -> torch.Tensor:
+                 started=None, defer: torch.Tensor | None = None
+                 ) -> torch.Tensor:
     """All-gather one rank's flat shard ``shard`` (``S`` elements) into the
     ``world * S`` compute-dtype buffer.  ``shard`` must require grad (it is
     a view of a parameter leaf) for the backward to be recorded; its
@@ -648,13 +657,16 @@ def codec_gather(shard: torch.Tensor, grad_sink: torch.Tensor, group,
     error-feedback residual; the backward replaces it with the new one (the
     reference's ``codec_gather_ef``, whose updated residual comes back as
     ``ef``'s cotangent).  ``started``: the ``start_codec_gather`` of the
-    same shard, issued earlier."""
+    same shard, issued earlier.  ``defer`` (``ef``'s shape, fp32): the
+    backward adds the cotangent there instead, and neither encodes nor
+    reduces (the reference's ``codec_gather_defer_ef``)."""
     _check_sink(shard, grad_sink)
     _check_ef(ef, group, shard)
+    _check_ef(defer, group, shard)
     finish = started or start_codec_gather(shard, group, gather_codec,
                                            route.mode, route.ring_chunk)
     return _Gather.apply(shard, grad_sink, ef, group, route,
-                         lambda: finish(out_dtype))
+                         lambda: finish(out_dtype), defer)
 
 
 def start_q8_gather(codes: torch.Tensor, scales: torch.Tensor, group,
@@ -672,19 +684,22 @@ def start_q8_gather(codes: torch.Tensor, scales: torch.Tensor, group,
 def q8_gather(master: torch.Tensor, codes: torch.Tensor,
               scales: torch.Tensor, grad_sink: torch.Tensor, group,
               block: int, route: ReduceRoute, out_dtype: torch.dtype,
-              ef: torch.Tensor | None = None, started=None) -> torch.Tensor:
+              ef: torch.Tensor | None = None, started=None,
+              defer: torch.Tensor | None = None) -> torch.Tensor:
     """The quantized store's gather: all-gather this rank's ``codes``
     (``S`` int8) and ``scales`` (``S / block`` fp32) and decode them into
     the ``world * S`` compute-dtype buffer.  The gradient goes straight
     through to the fp32 ``master`` shard: backward reduce-scatters the
     cotangent through ``route`` into ``grad_sink`` (and, with a q8 reduce
     wire, updates the residual ``ef``), as ``codec_gather`` does.
-    ``master`` must require grad for the backward to be recorded.
+    ``master`` must require grad for the backward to be recorded;
+    ``defer`` as in ``codec_gather`` (``codec_grad_proxy_defer_ef``).
 
     PARITY: BITWISE -- the reference's ``deq + codec_grad_proxy(...)``
     without the +0.0 add (see the module docstring)."""
     _check_sink(master, grad_sink)
     _check_ef(ef, group, master)
+    _check_ef(defer, group, master)
     if codes.shape != master.shape or scales.numel() * block != codes.numel():
         raise ValueError(
             f"q8 payload codes {tuple(codes.shape)} / scales "
@@ -693,7 +708,7 @@ def q8_gather(master: torch.Tensor, codes: torch.Tensor,
     finish = started or start_q8_gather(codes, scales, group, block,
                                         route.mode, route.ring_chunk)
     return _Gather.apply(master, grad_sink, ef, group, route,
-                         lambda: finish(out_dtype))
+                         lambda: finish(out_dtype), defer)
 
 
 def start_fp8_gather(codes: torch.Tensor, group, mode: str = "xla",
@@ -707,14 +722,16 @@ def start_fp8_gather(codes: torch.Tensor, group, mode: str = "xla",
 def fp8_gather(master: torch.Tensor, codes: torch.Tensor,
                grad_sink: torch.Tensor, group, route: ReduceRoute,
                out_dtype: torch.dtype, ef: torch.Tensor | None = None,
-               started=None) -> torch.Tensor:
+               started=None, defer: torch.Tensor | None = None
+               ) -> torch.Tensor:
     """The fp8 store's gather: all-gather this rank's float8 ``codes``
     (``S`` elements, 1 B each) and cast them to the compute dtype; the
     gradient goes straight through to the fp32 ``master`` shard, as in
-    ``q8_gather``.  PARITY: BITWISE but for the sign of a zero (the module
-    docstring)."""
+    ``q8_gather`` (``defer`` likewise).  PARITY: BITWISE but for the sign
+    of a zero (the module docstring)."""
     _check_sink(master, grad_sink)
     _check_ef(ef, group, master)
+    _check_ef(defer, group, master)
     if codes.shape != master.shape or codes.dtype not in _FP8:
         raise ValueError(
             f"fp8 payload {codes.dtype} {tuple(codes.shape)} does not match "
@@ -722,4 +739,4 @@ def fp8_gather(master: torch.Tensor, codes: torch.Tensor,
     finish = started or start_fp8_gather(codes, group, route.mode,
                                          route.ring_chunk)
     return _Gather.apply(master, grad_sink, ef, group, route,
-                         lambda: finish(out_dtype))
+                         lambda: finish(out_dtype), defer)

@@ -4,7 +4,7 @@
         [--config gemma2|qwen3-moe|qwen2.5-muon] \
         [--store fp32|bf16|fp8_e4m3|fp8_e5m2|q8_block | --q8 | --serve
          | --schedule NAME] [--planner ragged|fsdp2|megatron|naive]
-        [--ce-chunk N]
+        [--ce-chunk N] [--microbatches N]
 
 Builds a configuration ``chip_smoke.py`` trains -- ``gemma2`` (default):
 gemma2-2b at published width, depth cut to 4 layers, batch 2 x 2048, AdamW;
@@ -18,7 +18,9 @@ q8_block store and the q8 gradient wire with error feedback on every
 group, or a named schedule of ``core.schedule.VARIANTS`` /
 ``APPROX_VARIANTS`` with ``--schedule``), laid out by ``--planner``
 (ragged by default) and with the vocab-chunked cross entropy when
-``--ce-chunk`` is above 0, runs two warm-up steps on one rank of a NCCL
+``--ce-chunk`` is above 0, in ``--microbatches`` microbatches (gradient
+accumulation; the q8 wire's error feedback deferred to the boundary),
+runs two warm-up steps on one rank of a NCCL
 group, then one step under ``torch.profiler``.  ``--serve`` profiles
 a decode step instead: the config on the q8_block store with
 ``serve_quant_matmul`` (``chip_smoke.py``'s ``serve`` phase: a prefill of
@@ -158,6 +160,9 @@ def main() -> None:
     ap.add_argument("--ce-chunk", type=int, default=0,
                     help="vocab chunk of the cross entropy (0: the full "
                          "logits)")
+    ap.add_argument("--microbatches", type=int, default=1,
+                    help="gradient accumulation over this many "
+                         "microbatches")
     args = ap.parse_args()
     arch, layers, batch_size, seq, optimizer = CONFIGS[args.config]
     if not torch.cuda.is_available():
@@ -168,7 +173,8 @@ def main() -> None:
     full = get_config(arch)
     # one rank: expert parallelism off (the port runs ep=1)
     cfg = dataclasses.replace(full, n_layers=layers, parallel=dataclasses
-                              .replace(full.parallel, ep=1),
+                              .replace(full.parallel, ep=1,
+                                       microbatches=args.microbatches),
                               optimizer=optimizer or full.optimizer,
                               ce_chunk=args.ce_chunk)
     run, schedule = (decode_step if args.serve else train_step)(cfg, args)
@@ -210,6 +216,7 @@ def main() -> None:
         "optimizer": None if args.serve else cfg.optimizer,
         "schedule": schedule, "planner": args.planner,
         "ce_chunk": args.ce_chunk, "batch": batch, "compute": "bf16",
+        "microbatches": cfg.parallel.microbatches,
         "device": torch.cuda.get_device_name(0),
         ("mean_abs_logit" if args.serve else "loss"): value,
         "step_ms": wall_ms, "device_busy_ms": busy_us / 1e3,

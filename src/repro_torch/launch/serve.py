@@ -10,7 +10,7 @@ decode tokens greedily, with ZeRO-3 parameter gathering per layer
 The reference's arguments, plus ``--device`` (``cuda``, the default, or
 ``cpu``).  ``--data N`` runs N ranks (one process each: gloo on the CPU,
 NCCL with one card per rank); the batch is split over them.  ``--model``
-above 1 (tensor parallelism) is not ported (ROADMAP Queue 1 item 18).
+above 1 (tensor parallelism) is not ported (ROADMAP Queue 1 item 18b).
 """
 from __future__ import annotations
 
@@ -37,7 +37,7 @@ def parse_args(argv=None):
     if args.model > 1:
         raise NotImplementedError(
             f"--model {args.model} (tensor parallelism) is not ported yet "
-            f"(ROADMAP Queue 1 item 18)")
+            f"(ROADMAP Queue 1 item 18b)")
     if args.data < 1 or args.gen < 1:
         raise ValueError("--data and --gen must be >= 1")
     return args

@@ -9,10 +9,18 @@ Conventions kept from the reference so the tests compare like with like:
     reference's ``lax.scan`` over KV blocks; it is plain tensor code in the
     reference too (no Pallas kernel), and SDPA cannot stand in for it: it
     has no logit softcap
-  * tensor parallelism (``tp_axis``) is not ported: every collective of the
-    reference's layers is the identity here, and the replicated-KV branch
-    of ``attention`` (tp > n_kv_heads) comes with it (ROADMAP Queue 1 item
-    18; ``DecoderLM`` refuses tp > 1 at construction)
+  * tensor parallelism: ``tp_group`` is the process group of the model
+    axis or None (no collective runs).  The reference's collectives
+    (``psum``, ``reduce_out``, ``gather_seq``) are written as autograd
+    Functions in Megatron's conjugate pairs -- ``reduce_out``: all-reduce
+    forward, identity backward (under sequence parallelism: reduce-scatter
+    over the sequence forward, all-gather backward); ``gather_seq``, at the
+    input of each column-parallel product: identity forward, all-reduce
+    backward (all-gather forward, reduce-scatter backward) -- so every TP
+    rank holds the one-device gradient of what it computes.  The
+    reference's ``psum`` transposes to ``psum`` under its shard_map, which
+    sums a replicated cotangent once per model rank (ROADMAP Queue 3); the
+    port does not copy that
   * serving: ``attention`` keeps a ring-buffer KV cache, updated in place;
     ``dense`` multiplies a gathered-but-still-int8 weight (``QuantTensor``)
     through ``ops.q8_matmul``
@@ -30,6 +38,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
@@ -57,6 +66,180 @@ def to_dense(w, dtype: torch.dtype) -> torch.Tensor:
         return ops.dequantize_into(w.codes.reshape(-1), w.scales, w.block,
                                    out_dtype=dtype).reshape(k, n)
     return w.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel collectives (Megatron's conjugate pairs)
+# ---------------------------------------------------------------------------
+
+# the single-tensor collectives were renamed; take the current spelling
+# where the installed torch has it (as core.wire does)
+_all_gather = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
+_reduce_scatter = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
+
+
+def _tp_size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM
+                ) -> torch.Tensor:
+    out = x.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=op, group=group)
+    return out
+
+
+def _seq_all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """(B, t, ...) per rank -> (B, n * t, ...), rank-major on dim 1."""
+    n = _tp_size(group)
+    x = x.detach().contiguous()
+    out = torch.empty((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+    _all_gather(out.view(-1), x.view(-1), group=group)
+    return out.movedim(0, 1).reshape(
+        (x.shape[0], n * x.shape[1]) + tuple(x.shape[2:]))
+
+
+def _seq_reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
+    """(B, T, ...) per rank -> this rank's (B, T / n, ...) rows of dim 1,
+    summed over the ranks."""
+    n, B, T = _tp_size(group), x.shape[0], x.shape[1]
+    if T % n:
+        raise ValueError(f"sequence {T} does not split over {n} TP ranks")
+    chunks = x.detach().reshape((B, n, T // n) + tuple(x.shape[2:])) \
+        .movedim(1, 0).contiguous()
+    out = torch.empty(chunks.shape[1:], dtype=x.dtype, device=x.device)
+    _reduce_scatter(out.view(-1), chunks.view(-1), op=dist.ReduceOp.SUM,
+                    group=group)
+    return out
+
+
+def _seq_slice(x: torch.Tensor, group) -> torch.Tensor:
+    n = _tp_size(group)
+    t = x.shape[1] // n
+    return x.narrow(1, dist.get_rank(group) * t, t).contiguous()
+
+
+class _ReduceOut(torch.autograd.Function):
+    """All-reduce forward, identity backward (Megatron's ``g``)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct, None
+
+
+class _CopyIn(torch.autograd.Function):
+    """Identity forward, all-reduce backward (Megatron's ``f``)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _all_reduce(ct, ctx.group), None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """Reduce-scatter over the sequence forward, all-gather backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _seq_reduce_scatter(x, group)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _seq_all_gather(ct, ctx.group), None
+
+
+class _GatherSeq(torch.autograd.Function):
+    """All-gather over the sequence forward; backward reduce-scatters a
+    partial cotangent (``reduce``) or takes this rank's rows of a whole
+    one."""
+
+    @staticmethod
+    def forward(ctx, x, group, reduce):
+        ctx.group, ctx.reduce = group, reduce
+        return _seq_all_gather(x, group)
+
+    @staticmethod
+    def backward(ctx, ct):
+        if ctx.reduce:
+            return _seq_reduce_scatter(ct, ctx.group), None, None
+        return _seq_slice(ct, ctx.group), None, None
+
+
+class _ShareGrad(torch.autograd.Function):
+    """Identity forward; backward divides the gradient by the TP size."""
+
+    @staticmethod
+    def forward(ctx, w, n):
+        ctx.n = n
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct / ctx.n, None
+
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum over the TP ranks (all-reduce forward, identity backward: each
+    rank's cotangent is already the whole one)."""
+    return x if group is None else _ReduceOut.apply(x, group)
+
+
+def reduce_out(x: torch.Tensor, group, sp: bool) -> torch.Tensor:
+    """Row-parallel output reduction: ``psum``, or under sequence
+    parallelism a reduce-scatter over the sequence (dim 1), so activations
+    between blocks stay split over the TP ranks."""
+    if group is None:
+        return x
+    return _ScatterSeq.apply(x, group) if sp else _ReduceOut.apply(x, group)
+
+
+def gather_seq(x: torch.Tensor, group, sp: bool) -> torch.Tensor:
+    """The conjugate of ``reduce_out`` at the input of column-parallel
+    products: under sequence parallelism an all-gather of the sequence
+    whose backward reduce-scatters the ranks' partial cotangents; without
+    it, the identity whose backward all-reduces them."""
+    if group is None:
+        return x
+    return _GatherSeq.apply(x, group, True) if sp else _CopyIn.apply(x, group)
+
+
+def gather_seq_whole(x: torch.Tensor, group, sp: bool) -> torch.Tensor:
+    """All-gather the sequence where the cotangent that comes back is the
+    same whole one on every rank (before the final norm, whose output
+    enters the head through ``gather_seq``): backward takes this rank's
+    rows."""
+    if group is None or not sp:
+        return x
+    return _GatherSeq.apply(x, group, False)
+
+
+def share_grad(w: torch.Tensor, group, sp: bool) -> torch.Tensor:
+    """A replicated weight applied to the same replicated activations on
+    every TP rank (no sequence parallelism) gets the same whole gradient
+    on each; the runtime all-reduces a ``layers_rep`` gradient over the
+    model axis (each rank's part of it), so such a weight enters through
+    here and each rank's gradient is divided by the TP size."""
+    if group is None or sp:
+        return w
+    return _ShareGrad.apply(w, _tp_size(group))
+
+
+def pmax(x: torch.Tensor, group) -> torch.Tensor:
+    """Max over the TP ranks, no gradient (a stabilizer)."""
+    if group is None:
+        return x.detach()
+    return _all_reduce(x, group, dist.ReduceOp.MAX)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -134,12 +317,37 @@ def chunked_attention(q, k, v, *, q_pos, kv_pos, kv_valid=None,
     return out.reshape(B, Hq, Tq, hd).to(q.dtype)
 
 
+def tp_head_counts(n_heads: int, n_kv: int, tp: int
+                   ) -> tuple[int, int, bool]:
+    """Local (q heads, KV heads in the weight, KV replicated).  tp <= n_kv:
+    the KV projections are split over the TP ranks like Q (n_kv / tp heads
+    each).  tp > n_kv: the KV weights are replicated (the ``layers_rep``
+    group) and each rank computes the one KV head its q heads read, from
+    a column slice of the weight.  The reference's rule and messages."""
+    if n_heads % tp:
+        raise ValueError(f"n_heads={n_heads} not divisible by tp={tp}")
+    if tp <= n_kv:
+        if n_kv % tp:
+            raise ValueError(f"n_kv_heads={n_kv} not divisible by tp={tp}")
+        return n_heads // tp, n_kv // tp, False
+    if tp % n_kv:
+        raise ValueError(f"tp={tp} not divisible by n_kv_heads={n_kv}")
+    return n_heads // tp, n_kv, True
+
+
 def attention(cfg, p, x: torch.Tensor, *, q_pos: torch.Tensor,
-              cache=None, cache_index=0, window=None, prefix: str = ""):
-    """Causal self-attention (GQA, tp=1; with ``cfg.qkv_bias`` the q, k
-    and v projections add their biases ``wq_b``/``wk_b``/``wv_b``) with an
+              cache=None, cache_index=0, window=None, prefix: str = "",
+              tp_group=None, sp: bool = False):
+    """Causal self-attention (GQA; with ``cfg.qkv_bias`` the q, k and v
+    projections add their biases ``wq_b``/``wk_b``/``wv_b``) with an
     optional ring-buffer KV cache.  Returns ``(out, cache)``; ``cache`` is
     None without one.
+
+    Under tensor parallelism (``tp_group``) ``x`` is the input the caller
+    passed through ``gather_seq`` and the weights are this rank's: its
+    ``n_heads / tp`` q heads, its KV heads (or, past ``n_kv_heads`` ranks,
+    the replicated KV weights, of which it takes the columns of the one KV
+    head its q heads read); the output goes through ``reduce_out``.
 
     ``cache``: None (training) or ``{"k", "v": (B, Hkv, W, hd), "pos":
     (B, W) int32}`` with ``pos`` -1 where a slot is empty.  The new keys
@@ -153,18 +361,30 @@ def attention(cfg, p, x: torch.Tensor, *, q_pos: torch.Tensor,
     step, ``core/fsdp.py:814``) and returned."""
     B, T, _ = x.shape
     hd = cfg.hd
+    tp = 1 if tp_group is None else dist.get_world_size(tp_group)
+    hq, hkv, kv_rep = tp_head_counts(cfg.n_heads, cfg.n_kv_heads, tp)
+    col = None
+    if kv_rep:
+        group_size = cfg.n_heads // cfg.n_kv_heads
+        col = (dist.get_rank(tp_group) * hq) // group_size * hd
+        hkv = 1
 
-    def proj(name, h):
-        y = dense(x, p[prefix + name])
-        if cfg.qkv_bias and prefix + name + "_b" in p:
+    def proj(name, h, kv=False):
+        w = p[prefix + name]
+        b = p.get(prefix + name + "_b") if cfg.qkv_bias else None
+        if kv and kv_rep:
+            w = to_dense(w, x.dtype).narrow(1, col, hd)
+            b = None if b is None else b.narrow(0, col, hd)
+        y = dense(x, w)
+        if b is not None:
             # after the product, in the serve quant mode too (the bias is
             # a 1-D tensor, so ``unpack_quant`` hands it over dense)
-            y = y + p[prefix + name + "_b"].to(x.dtype)
+            y = y + b.to(x.dtype)
         return y.reshape(B, T, h, hd).transpose(1, 2)
 
-    q = rope(proj("wq", cfg.n_heads), q_pos, cfg.rope_theta)
-    k = rope(proj("wk", cfg.n_kv_heads), q_pos, cfg.rope_theta)
-    v = proj("wv", cfg.n_kv_heads)
+    q = rope(proj("wq", hq), q_pos, cfg.rope_theta)
+    k = rope(proj("wk", hkv, kv=True), q_pos, cfg.rope_theta)
+    v = proj("wv", hkv, kv=True)
     if cache is None:
         out = chunked_attention(q, k, v, q_pos=q_pos, kv_pos=q_pos,
                                 window=window, softcap=cfg.attn_softcap,
@@ -191,14 +411,17 @@ def attention(cfg, p, x: torch.Tensor, *, q_pos: torch.Tensor,
                                 kv_valid=cpos >= 0, window=window,
                                 softcap=cfg.attn_softcap,
                                 chunk=cfg.attn_chunk)
-    out = out.transpose(1, 2).reshape(B, T, cfg.n_heads * hd)
-    return dense(out, p[prefix + "wo"]), cache
+    out = out.transpose(1, 2).reshape(B, T, hq * hd)
+    return reduce_out(dense(out, p[prefix + "wo"]), tp_group, sp), cache
 
 
-def mlp(cfg, p, x: torch.Tensor, *, prefix: str = "") -> torch.Tensor:
+def mlp(cfg, p, x: torch.Tensor, *, prefix: str = "", tp_group=None,
+        sp: bool = False) -> torch.Tensor:
     """The dense feed-forward of ``cfg.mlp``: swiglu (silu gate), geglu
     (``jax.nn.gelu(approximate=True)`` is the tanh form) or squared_relu
-    (nemotron-4, no gate projection)."""
+    (nemotron-4, no gate projection).  Under tensor parallelism ``x`` came
+    through ``gather_seq``, the weights are this rank's columns of w1/w3
+    and rows of w2, and the output goes through ``reduce_out``."""
     if cfg.mlp == "swiglu":
         h = F.silu(dense(x, p[prefix + "w1"])) * dense(x, p[prefix + "w3"])
     elif cfg.mlp == "geglu":
@@ -208,18 +431,22 @@ def mlp(cfg, p, x: torch.Tensor, *, prefix: str = "") -> torch.Tensor:
         h = torch.square(F.relu(dense(x, p[prefix + "w1"])))
     else:
         raise ValueError(f"unknown mlp kind {cfg.mlp!r}")
-    return dense(h, p[prefix + "w2"])
+    return reduce_out(dense(h, p[prefix + "w2"]), tp_group, sp)
 
 
-def embed(tokens: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-    """emb: (V, D).  Out-of-range ids embed to zero, as the reference's
-    masked take.  ``F.embedding``, not ``emb[ids]``: the gradient of an
-    index is a parallel atomic ``index_put_`` on the CPU, whose sum order
-    changes from run to run; the embedding's backward adds each row's
-    contributions in token order on the CPU and deterministically on the
-    card."""
-    ok = (tokens >= 0) & (tokens < emb.shape[0])
-    x = F.embedding(tokens.clamp(0, emb.shape[0] - 1), emb)
+def embed(tokens: torch.Tensor, emb: torch.Tensor,
+          vocab_start: int = 0) -> torch.Tensor:
+    """emb: (V_local, D), the rows ``[vocab_start, vocab_start + V_local)``
+    of the table (vocab-parallel: the caller combines the ranks' parts
+    with ``reduce_out``).  Ids outside them embed to zero, as the
+    reference's masked take.  ``F.embedding``, not ``emb[ids]``: the
+    gradient of an index is a parallel atomic ``index_put_`` on the CPU,
+    whose sum order changes from run to run; the embedding's backward adds
+    each row's contributions in token order on the CPU and
+    deterministically on the card."""
+    ids = tokens - vocab_start if vocab_start else tokens
+    ok = (ids >= 0) & (ids < emb.shape[0])
+    x = F.embedding(ids.clamp(0, emb.shape[0] - 1), emb)
     return torch.where(ok[..., None], x, torch.zeros((), dtype=x.dtype,
                                                      device=x.device))
 
@@ -235,16 +462,22 @@ def lm_logits(x: torch.Tensor, head: torch.Tensor, *,
 
 
 def vocab_parallel_ce(logits: torch.Tensor, labels: torch.Tensor,
-                      mask: torch.Tensor):
-    """fp32 cross entropy over (B, T, V) logits (the reference's
+                      mask: torch.Tensor, *, tp_group=None,
+                      vocab_start: int = 0):
+    """fp32 cross entropy over (B, T, V_local) logits, the columns
+    ``[vocab_start, vocab_start + V_local)`` of the vocab: the max, the sum
+    of exponentials and the label's logit are combined over the TP ranks
+    (``pmax``, ``psum``; without ``tp_group`` the reference's
     ``tp_axis=None`` branch).  Returns (sum_loss, sum_weight)."""
     lg = logits.float()
-    m = lg.amax(dim=-1).detach()  # stabilizer only: a constant shift
-    sumexp = torch.exp(lg - m[..., None]).sum(dim=-1)
-    ok = (labels >= 0) & (labels < lg.shape[-1])
-    picked = torch.gather(lg, -1, labels.clamp(0, lg.shape[-1] - 1)
+    m = pmax(lg.amax(dim=-1).detach(), tp_group)  # stabilizer: a constant
+    sumexp = psum(torch.exp(lg - m[..., None]).sum(dim=-1), tp_group)
+    ids = labels - vocab_start if vocab_start else labels
+    ok = (ids >= 0) & (ids < lg.shape[-1])
+    picked = torch.gather(lg, -1, ids.clamp(0, lg.shape[-1] - 1)
                           [..., None])[..., 0]
-    label_logit = torch.where(ok, picked, torch.zeros_like(picked))
+    label_logit = psum(torch.where(ok, picked, torch.zeros_like(picked)),
+                       tp_group)
     nll = torch.log(sumexp) + m - label_logit
     return (nll * mask).sum(), mask.sum()
 
@@ -271,7 +504,8 @@ def _ce_chunk_step(x, head_c, labels, m, s, picked, lo: int, chunk: int,
 
 
 def chunked_ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
-               mask: torch.Tensor, *, vocab_chunk: int = 8192, softcap=None):
+               mask: torch.Tensor, *, vocab_chunk: int = 8192, softcap=None,
+               tp_group=None, vocab_start: int = 0):
     """Cross entropy without the (B, T, V) logits (the reference's
     ``chunked_ce``, ``tp_axis=None``): an online max / logsumexp over vocab
     chunks of ``vocab_chunk`` columns, the last one padded to NEG_INF past
@@ -281,7 +515,10 @@ def chunked_ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
     reference's remat'd scan body.  The head is split into its chunks once
     (``torch.split``), so backward concatenates the chunks' gradients in
     one pass rather than adding a head-sized gradient per chunk.  x:
-    (B, T, D) in the compute dtype, head: (D, V).  Returns (sum_loss,
+    (B, T, D) in the compute dtype, head: (D, V), or under tensor
+    parallelism this rank's (D, V_local) columns from ``vocab_start``,
+    whose running max, sum and picked logit are then combined over the TP
+    ranks (the reference's ``tp_axis`` composition).  Returns (sum_loss,
     sum_weight).
 
     PARITY: ALLCLOSE -- the same online recurrence; the sums run in
@@ -292,10 +529,17 @@ def chunked_ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
     m = torch.full((B, T), NEG_INF, dtype=torch.float32, device=dev)
     s = torch.zeros((B, T), dtype=torch.float32, device=dev)
     picked = torch.zeros((B, T), dtype=torch.float32, device=dev)
+    ids = labels - vocab_start if vocab_start else labels
     for i, head_c in enumerate(head.split(vocab_chunk, dim=1)):
         m, s, picked = checkpoint(
-            _ce_chunk_step, x, head_c, labels, m, s, picked, i * vocab_chunk,
+            _ce_chunk_step, x, head_c, ids, m, s, picked, i * vocab_chunk,
             vocab_chunk, softcap, use_reentrant=False,
             preserve_rng_state=False)
+    if tp_group is not None:
+        # vocab-parallel composition: each rank covered its vocab part
+        m_glob = pmax(m, tp_group)
+        s = psum(s * torch.exp(m - m_glob), tp_group)
+        picked = psum(picked, tp_group)
+        m = m_glob
     nll = torch.log(s) + m - picked
     return (nll * mask).sum(), mask.sum()

@@ -1,13 +1,17 @@
-"""Mixture-of-Experts FFN with top-k routing (port of
-``repro/models/moe.py`` at ep=1).
+"""Mixture-of-Experts FFN with top-k routing and expert parallelism (port
+of ``repro/models/moe.py``).
 
 GShard-style capacity dispatch [Lepikhin et al. 2020]: tokens are ranked
 within their expert by a sort-based position count (no (N*k, E, C) one-hot
 tensors), copied into an (E * cap, D) buffer, run through the experts'
 SwiGLU as one batched product, and combined with the router weights.  It is
-plain tensor code, as in the reference (no Pallas kernel).  Expert
-parallelism (the two all-to-alls over the EP axis) comes with ROADMAP
-Queue 1 item 18.
+plain tensor code, as in the reference (no Pallas kernel).  Under expert
+parallelism (``ep`` > 1) each rank of the model axis holds ``E / ep``
+experts (their outer split, ``ShardDim(0, "model")``, then RaggedShard:
+the paper's Fig. 5 composition); the dispatch buffer's expert rows travel
+to their owners and the outputs back by two ``all_to_all_single``
+exchanges over the model axis (``_Exchange``, whose backward is the
+inverse exchange).
 
 Determinism on the card: every scatter of the reference is written so that
 no two contributions meet in an atomic add.  The dispatch is an index copy
@@ -25,6 +29,7 @@ state what they see).
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from .layers import dense
@@ -47,17 +52,40 @@ def _positions_within_expert(flat_e: torch.Tensor) -> torch.Tensor:
     return rank
 
 
-def moe_ffn(cfg, p, x: torch.Tensor, *, ep: int = 1, prefix: str = "moe_"):
+class _Exchange(torch.autograd.Function):
+    """``all_to_all_single`` over the EP group: row block j of the
+    ``(ep * n, ...)`` input goes to rank j, and row block i of the output
+    came from rank i (the reference's ``lax.all_to_all`` with
+    ``split_axis=concat_axis=0``).  Its transpose is the same exchange."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _exchange(ct, ctx.group), None
+
+
+def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+    x = x.detach().contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+def moe_ffn(cfg, p, x: torch.Tensor, *, ep: int = 1, ep_group=None,
+            prefix: str = "moe_"):
     """x: (B, T, D) tokens.  Returns ``(out (B, T, D), aux)`` with ``aux``
     the fp32 Switch load-balance loss ``E * sum_e me_e * ce_e * coef``
     (``ce`` is a count and carries no gradient).
 
-    ``p[prefix + "router"]``: (D, E); ``p[prefix + "w1"/"w3"]``: (E, D, F),
-    ``p[prefix + "w2"]``: (E, F, D)."""
-    if ep > 1:
-        raise NotImplementedError(
-            f"expert parallelism (ep={ep}) is not ported yet (ROADMAP "
-            f"Queue 1 item 18)")
+    ``p[prefix + "router"]``: (D, E); ``p[prefix + "w1"/"w3"]``: (E_local,
+    D, F), ``p[prefix + "w2"]``: (E_local, F, D), ``E_local = E / ep``
+    (``ep_group`` the model axis's process group when ``ep`` > 1)."""
+    if ep > 1 and (ep_group is None or dist.get_world_size(ep_group) != ep):
+        raise ValueError(f"ep={ep} needs an EP process group of {ep} ranks")
     B, T, D = x.shape
     N = B * T
     E, k = cfg.n_experts, cfg.top_k
@@ -92,8 +120,17 @@ def moe_ffn(cfg, p, x: torch.Tensor, *, ep: int = 1, prefix: str = "moe_"):
     buf = xf.new_zeros(spare + 1, D).index_put(
         (torch.where(keep, slot, spare),), x_rep)[:spare]
 
-    # expert SwiGLU batched over the experts
-    h = buf.reshape(E, cap, D)
+    e_loc = E // ep
+    if ep > 1:
+        # (ep, e_loc * cap, D): block j to rank j; back, block i came from
+        # rank i -> (e_loc, ep * cap, D), each local expert's slots from
+        # every source rank
+        h = _Exchange.apply(buf, ep_group).reshape(ep, e_loc, cap, D) \
+            .transpose(0, 1).reshape(e_loc, ep * cap, D)
+    else:
+        h = buf.reshape(E, cap, D)
+
+    # expert SwiGLU batched over the local experts
     w1 = p[prefix + "w1"].to(x.dtype)
     w2 = p[prefix + "w2"].to(x.dtype)
     if prefix + "w3" in p:
@@ -101,7 +138,12 @@ def moe_ffn(cfg, p, x: torch.Tensor, *, ep: int = 1, prefix: str = "moe_"):
                                                  .to(x.dtype))
     else:
         h = F.silu(torch.bmm(h, w1))
-    out_flat = torch.bmm(h, w2).reshape(E * cap, D)
+    out_e = torch.bmm(h, w2)
+    if ep > 1:
+        out_e = _Exchange.apply(
+            out_e.reshape(e_loc, ep, cap, D).transpose(0, 1)
+            .reshape(E * cap, D), ep_group)
+    out_flat = out_e.reshape(E * cap, D)
 
     # combine: each token's k weighted contributions, added in order
     gathered = (out_flat[slot] * (flat_w * keep)[:, None]).reshape(N, k, D)

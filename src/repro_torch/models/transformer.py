@@ -7,17 +7,29 @@ of an unstacked group; ``pg.scan(groups, body, carry, xs)`` runs the FSDP
 layer loop (per-layer all-gather -> unpack -> body, in the structure the
 communication schedule lays out), which is the ZeRO-3 schedule.
 
-Ported: the self-attention decoder with tp=1 -- the ``layers`` and
-``globals`` groups, gemma2's alternating local/global windows, softcaps,
-post-norms and tied embeddings, the q/k/v projection biases (``qkv_bias``:
-qwen2.5 and qwen1.5), the mlp kinds, the MoE layer at ep=1 (the
-router in ``layers``, the experts in the ``layers_experts`` group scanned
-beside it, the load-balance term carried through the scan), the loss on
-the materialized-logits (``ce_chunk=0``) branch, and the serving API: the
-ring-buffer KV cache (``init_cache``, the reference's layout, bf16 K and
-V), ``prefill`` and ``decode`` (a scalar position, or per-row positions
-for continuous batching).  VLM cross-attention, tensor/expert
-parallelism and the vocab-chunked CE raise
+Ported: the self-attention decoder -- the ``layers`` and ``globals``
+groups, gemma2's alternating local/global windows, softcaps, post-norms
+and tied embeddings, the q/k/v projection biases (``qkv_bias``: qwen2.5
+and qwen1.5), the mlp kinds, the MoE layer (the router in ``layers``, the
+experts in the ``layers_experts`` group scanned beside it, the
+load-balance term carried through the scan), both losses (materialized
+logits and the vocab-chunked CE), and the serving API: the ring-buffer KV
+cache (``init_cache``, the reference's layout, bf16 K and V), ``prefill``
+and ``decode`` (a scalar position, or per-row positions for continuous
+batching).
+
+The model axis (the reference's outer sharding, paper Fig. 5): under
+tensor parallelism (``tp`` > 1) each tensor with a TP dim is split over
+the model axis before FSDP (the ``layers`` group; ``emb`` over the vocab
+rows and ``head`` over its columns in ``globals``), the rest of a layer
+(norms, the router, and past ``n_kv_heads`` ranks the KV projections)
+lives in ``layers_rep``, replicated over the model axis, whose gradient
+the runtime all-reduces over it; the embedding and the cross entropy are
+vocab-parallel, and with ``sequence_parallel`` the activations between the
+blocks are split over the sequence.  Under expert parallelism (``ep`` >
+1) the experts are split over the model axis on their expert dim and the
+tokens travel to them and back by two all-to-alls (``models.moe``).
+Serving with a model axis, and VLM cross-attention, raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -62,72 +74,92 @@ def spec(cfg, name, shape) -> TensorSpec:
 
 
 def _check_supported(cfg) -> None:
-    par = cfg.parallel
-    unported = (
-        (cfg.cross_attn_interval > 0, "VLM cross-attention",
-         "Queue 1 item 14b"),
-        (par.tp > 1, f"tp={par.tp}", "Queue 1 item 18"),
-        (par.ep > 1, f"ep={par.ep}", "Queue 1 item 18"),
-        (par.sequence_parallel, "sequence_parallel", "Queue 1 item 18"),
-    )
-    for hit, what, item in unported:
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP {item})")
+    if cfg.cross_attn_interval > 0:
+        raise NotImplementedError(
+            "VLM cross-attention is not ported yet (ROADMAP Queue 1 item "
+            "14b)")
 
 
 class DecoderLM:
     def __init__(self, cfg):
         _check_supported(cfg)
         self.cfg = cfg
+        self.tp = cfg.parallel.tp
+        self.ep = cfg.parallel.ep
         # no VLM cross-attention blocks: one self layer per scanned block
         self.n_blocks = cfg.n_layers
         self.selfs_per_block = 1
 
     # ---------------- specs ------------------------------------------------
-    def _self_layer_specs(self) -> list[TensorSpec]:
+    def _self_layer_specs(self):
+        """(specs split over the model axis, replicated specs, outer
+        dims): under tp > 1 a tensor with a TP dim is split on it, the
+        rest is replicated; at tp = 1 every tensor is in the first list
+        (the reference's ``_self_layer_specs``)."""
         cfg = self.cfg
         D, hd = cfg.d_model, cfg.hd
         Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
-        specs = [spec(cfg, "ln1", (D,)),
-                 spec(cfg, "wq", (D, Hq * hd)),
-                 spec(cfg, "wk", (D, Hkv * hd)),
-                 spec(cfg, "wv", (D, Hkv * hd))]
+        tp = self.tp
+        kv_dim = 1 if min(tp, Hkv) == tp else None
+        sharded, replicated, outer = [], [], {}
+
+        def add(name, shape, dim=None):
+            s = spec(cfg, name, shape)
+            if tp > 1 and dim is not None:
+                outer[name] = ShardDim(dim, "model")
+            (replicated if tp > 1 and dim is None else sharded).append(s)
+
+        add("ln1", (D,))
+        add("wq", (D, Hq * hd), dim=1)
+        add("wk", (D, Hkv * hd), dim=kv_dim)
+        add("wv", (D, Hkv * hd), dim=kv_dim)
         if cfg.qkv_bias:
-            specs += [spec(cfg, "wq_b", (Hq * hd,)),
-                      spec(cfg, "wk_b", (Hkv * hd,)),
-                      spec(cfg, "wv_b", (Hkv * hd,))]
-        specs.append(spec(cfg, "wo", (Hq * hd, D)))
+            add("wq_b", (Hq * hd,), dim=0)
+            add("wk_b", (Hkv * hd,), dim=None if kv_dim is None else 0)
+            add("wv_b", (Hkv * hd,), dim=None if kv_dim is None else 0)
+        add("wo", (Hq * hd, D), dim=0)
         if cfg.post_norms:
-            specs.append(spec(cfg, "post_ln1", (D,)))
-        specs.append(spec(cfg, "ln2", (D,)))
+            add("post_ln1", (D,))
+        add("ln2", (D,))
         if cfg.n_experts:
             # the router lives in the layer group; the experts are a group
             # of their own (see groups())
-            specs.append(spec(cfg, "moe_router", (D, cfg.n_experts)))
+            add("moe_router", (D, cfg.n_experts))
         else:
-            specs.append(spec(cfg, "w1", (D, cfg.d_ff)))
+            add("w1", (D, cfg.d_ff), dim=1)
             if cfg.mlp in ("swiglu", "geglu"):
-                specs.append(spec(cfg, "w3", (D, cfg.d_ff)))
-            specs.append(spec(cfg, "w2", (cfg.d_ff, D)))
+                add("w3", (D, cfg.d_ff), dim=1)
+            add("w2", (cfg.d_ff, D), dim=0)
         if cfg.post_norms:
-            specs.append(spec(cfg, "post_ln2", (D,)))
-        return specs
+            add("post_ln2", (D,))
+        return sharded, replicated, outer
 
     def groups(self) -> dict[str, GroupDef]:
         cfg = self.cfg
-        gl = [spec(cfg, "emb", (cfg.vocab, cfg.d_model)),
-              spec(cfg, "final_ln", (cfg.d_model,))]
-        if not cfg.tie_embeddings:
-            gl.append(spec(cfg, "head", (cfg.d_model, cfg.vocab)))
-        groups = {"layers": GroupDef(tuple(self._self_layer_specs()),
-                                     n_layers=self.n_blocks)}
+        sharded, replicated, outer = self._self_layer_specs()
+        groups = {"layers": GroupDef(tuple(sharded), n_layers=self.n_blocks,
+                                     outer=outer)}
+        if replicated:
+            groups["layers_rep"] = GroupDef(
+                tuple(replicated), n_layers=self.n_blocks,
+                replicated_over_model=True)
         if cfg.n_experts:
             E, D, F = cfg.n_experts, cfg.d_model, cfg.d_ff
+            especs = (spec(cfg, "moe_w1", (E, D, F)),
+                      spec(cfg, "moe_w3", (E, D, F)),
+                      spec(cfg, "moe_w2", (E, F, D)))
             groups["layers_experts"] = GroupDef(
-                (spec(cfg, "moe_w1", (E, D, F)), spec(cfg, "moe_w3", (E, D, F)),
-                 spec(cfg, "moe_w2", (E, F, D))), n_layers=self.n_blocks)
-        groups["globals"] = GroupDef(tuple(gl))
+                especs, n_layers=self.n_blocks,
+                outer={s.name: ShardDim(0, "model") for s in especs}
+                if self.ep > 1 else {})
+        gl = [spec(cfg, "emb", (cfg.vocab, cfg.d_model)),
+              spec(cfg, "final_ln", (cfg.d_model,))]
+        gout = {"emb": ShardDim(0, "model")} if self.tp > 1 else {}
+        if not cfg.tie_embeddings:
+            gl.append(spec(cfg, "head", (cfg.d_model, cfg.vocab)))
+            if self.tp > 1:
+                gout["head"] = ShardDim(1, "model")
+        groups["globals"] = GroupDef(tuple(gl), outer=gout)
         return groups
 
     # ---------------- forward ------------------------------------------------
@@ -142,30 +174,47 @@ class DecoderLM:
             return [cfg.sliding_window] * cfg.n_layers
         return [GLOBAL_WINDOW] * cfg.n_layers
 
-    def _self_block(self, p, x, q_pos, window, cache=None, cache_index=0):
+    def _self_block(self, pg, p, x, q_pos, window, cache=None,
+                    cache_index=0, sp=False):
         """One layer; returns ``(x, aux)``, aux the MoE load-balance term
         (0.0 for a dense layer).  With a ``cache`` (this layer's views) the
-        attention writes its keys and values into it in place."""
+        attention writes its keys and values into it in place.  Under
+        tensor parallelism the attention and the MLP run between
+        ``gather_seq`` and ``reduce_out``; the replicated weights that act
+        on the replicated activations enter through ``share_grad``."""
         cfg = self.cfg
-        h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+        tpg = pg.tp_group
+
+        def rep(name):
+            return L.share_grad(p[name], tpg, sp)
+
+        h = L.gather_seq(L.rms_norm(x, rep("ln1"), cfg.norm_eps), tpg, sp)
         out, _ = L.attention(cfg, p, h, q_pos=q_pos, cache=cache,
-                             cache_index=cache_index, window=window)
+                             cache_index=cache_index, window=window,
+                             tp_group=tpg, sp=sp)
         if cfg.post_norms:
-            out = L.rms_norm(out, p["post_ln1"], cfg.norm_eps)
+            out = L.rms_norm(out, rep("post_ln1"), cfg.norm_eps)
         x = x + out
-        h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+        h = L.rms_norm(x, rep("ln2"), cfg.norm_eps)
         if cfg.n_experts:
-            out, aux = moe_ffn(cfg, p, h, ep=cfg.parallel.ep)
+            out, aux = moe_ffn(cfg, {**p, "moe_router": rep("moe_router")},
+                               h, ep=self.ep, ep_group=pg.ep_group)
         else:
-            out, aux = L.mlp(cfg, p, h), 0.0
+            out, aux = L.mlp(cfg, p, L.gather_seq(h, tpg, sp), tp_group=tpg,
+                             sp=sp), 0.0
         if cfg.post_norms:
-            out = L.rms_norm(out, p["post_ln2"], cfg.norm_eps)
+            out = L.rms_norm(out, rep("post_ln2"), cfg.norm_eps)
         return x + out, aux
 
     def _scan_groups(self) -> list[str]:
-        return ["layers"] + (["layers_experts"] if self.cfg.n_experts else [])
+        names = ["layers"]
+        if self.tp > 1:
+            names.append("layers_rep")
+        if self.cfg.n_experts:
+            names.append("layers_experts")
+        return names
 
-    def _backbone(self, pg, x, q_pos, caches=None, cache_index=0):
+    def _backbone(self, pg, x, q_pos, caches=None, cache_index=0, sp=False):
         """The layer stack; returns ``(x, aux)``, aux summed over layers in
         fp32.  ``caches``: the full cache (leading dims n_blocks,
         selfs_per_block), whose per-layer views each layer updates in
@@ -173,7 +222,8 @@ class DecoderLM:
         def body(p, carry, xs):
             x, aux = carry
             window, cache = xs
-            x, a = self._self_block(p, x, q_pos, window, cache, cache_index)
+            x, a = self._self_block(pg, p, x, q_pos, window, cache,
+                                    cache_index, sp)
             return (x, aux + a), None
 
         windows = self._layer_windows()
@@ -184,41 +234,70 @@ class DecoderLM:
         (x, aux), _ = pg.scan(self._scan_groups(), body, (x, aux0), xs)
         return x, aux
 
-    def _embed_in(self, pg, tokens):
-        g = pg.globals("globals")
-        x = L.embed(tokens, g["emb"].to(pg.compute_dtype))
-        return x, g
+    def _sp_active(self, T: int) -> bool:
+        """Sequence parallelism: the residual stream split over the
+        sequence on the TP ranks (Megatron-SP), for multi-token steps whose
+        length divides (the reference's rule and message)."""
+        sp = self.cfg.parallel.sequence_parallel and self.tp > 1
+        if sp and self.cfg.n_experts:
+            raise ValueError("sequence_parallel with MoE is not supported")
+        return sp and T > 1 and T % self.tp == 0
 
-    def _logits(self, g, x):
-        cfg = self.cfg
-        x = L.rms_norm(x, g["final_ln"], cfg.norm_eps)
-        head = g["emb"].T if cfg.tie_embeddings else g["head"]
-        return L.lm_logits(x, head, softcap=cfg.final_softcap)
+    def _embed_in(self, pg, tokens, sp=False):
+        """The embedding (vocab-parallel under tp: each rank looks up its
+        rows, ``reduce_out`` combines them), the gathered ``globals`` and
+        this rank's first vocab id."""
+        g = pg.globals("globals")
+        tpg = pg.tp_group
+        vstart = pg.tp_rank * g["emb"].shape[0] if tpg is not None else 0
+        x = L.embed(tokens, g["emb"].to(pg.compute_dtype), vstart)
+        return L.reduce_out(x, tpg, sp), g, vstart
+
+    def _head_in(self, pg, g, x, sp=False):
+        """The final norm's output and the head (this rank's vocab columns
+        under tp): the sequence gathered whole before the norm, the
+        normed activations entering the head through ``gather_seq``, so
+        the norm's weight -- a copy per TP rank in ``globals`` -- gets the
+        same whole gradient on every rank."""
+        tpg = pg.tp_group
+        x = L.gather_seq_whole(x, tpg, sp)
+        x = L.gather_seq(L.rms_norm(x, g["final_ln"], self.cfg.norm_eps),
+                         tpg, False)
+        head = g["emb"].T if self.cfg.tie_embeddings else g["head"]
+        return x, head
+
+    def _logits(self, pg, g, x, sp=False):
+        x, head = self._head_in(pg, g, x, sp)
+        return L.lm_logits(x, head, softcap=self.cfg.final_softcap)
 
     # ---------------- public API ----------------------------------------------
     def loss(self, pg, batch):
         """(sum of next-token NLL plus the MoE load-balance term weighted
         by tokens / n_layers, number of predicted tokens) of the local
-        batch; the runtime normalizes across ranks."""
+        batch; the runtime normalizes across ranks.  Under tensor
+        parallelism every rank of the model axis returns the same sums."""
         tokens = batch["tokens"]
         B, T = tokens.shape
+        sp = self._sp_active(T)
         q_pos = torch.arange(T, device=tokens.device)[None].expand(B, T)
-        x, g = self._embed_in(pg, tokens)
-        x, aux = self._backbone(pg, x, q_pos)
+        x, g, vstart = self._embed_in(pg, tokens, sp)
+        x, aux = self._backbone(pg, x, q_pos, sp=sp)
         cfg = self.cfg
+        tpg = pg.tp_group
         ones = torch.ones((B, T - 1), dtype=torch.float32,
                           device=tokens.device)
         if cfg.ce_chunk:
             # vocab-chunked online-logsumexp CE: the (B, T, V) fp32
             # logits never exist
-            x = L.rms_norm(x, g["final_ln"], cfg.norm_eps)
-            head = g["emb"].T if cfg.tie_embeddings else g["head"]
+            x, head = self._head_in(pg, g, x, sp)
             nll, w = L.chunked_ce(
                 x[:, :-1], head.to(pg.compute_dtype), tokens[:, 1:], ones,
-                vocab_chunk=cfg.ce_chunk, softcap=cfg.final_softcap)
+                vocab_chunk=cfg.ce_chunk, softcap=cfg.final_softcap,
+                tp_group=tpg, vocab_start=vstart)
         else:
-            logits = self._logits(g, x)
-            nll, w = L.vocab_parallel_ce(logits[:, :-1], tokens[:, 1:], ones)
+            logits = self._logits(pg, g, x, sp)
+            nll, w = L.vocab_parallel_ce(logits[:, :-1], tokens[:, 1:], ones,
+                                         tp_group=tpg, vocab_start=vstart)
         return nll + aux * w / max(cfg.n_layers, 1), w
 
     # ---------------- serving ------------------------------------------------
@@ -265,9 +344,9 @@ class DecoderLM:
         tokens = batch["tokens"]
         B, T = tokens.shape
         q_pos = torch.arange(T, device=tokens.device)[None].expand(B, T)
-        x, g = self._embed_in(pg, tokens)
+        x, g, _ = self._embed_in(pg, tokens)
         x, _ = self._backbone(pg, x, q_pos, caches=cache, cache_index=0)
-        return self._logits(g, x[:, -1:]), cache
+        return self._logits(pg, g, x[:, -1:]), cache
 
     def decode(self, pg, batch, cache, index):
         """One token per row (``batch["tokens"]`` (B, 1)) against a filled
@@ -281,6 +360,6 @@ class DecoderLM:
         else:
             q_pos = torch.full((B, 1), int(index), dtype=torch.int64,
                                device=tokens.device)
-        x, g = self._embed_in(pg, tokens)
+        x, g, _ = self._embed_in(pg, tokens)
         x, _ = self._backbone(pg, x, q_pos, caches=cache, cache_index=index)
-        return self._logits(g, x), cache
+        return self._logits(pg, g, x), cache

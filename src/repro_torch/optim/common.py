@@ -251,23 +251,40 @@ class OptimizerBase:
             for name, lo in runtime.layouts.items():
                 shape = lo.global_shape()
                 out[k][name] = (dtype, shape[:-1] + (shape[-1] // div,),
-                                -1 if lo.fsdp_axes else None)
+                                -1 if lo.fsdp_axes or lo.outer_size > 1
+                                else None)
         out.update(self.extra_leaves(runtime))
         return out
 
     def state_shapes(self, runtime) -> dict[str, dict[str, tuple]]:
         """``{key: {leaf: (dtype, shape)}}`` of the state at the
-        rank-local shapes."""
-        m = dist.get_world_size(runtime.group)
+        rank-local shapes: a group's leaf holds this rank's column block
+        (an outer row's FSDP shard), any other sharded leaf an equal share
+        per rank of the process group."""
+        world = dist.get_world_size(runtime.group)
         out = {}
         for k, leaves in self.state_layout(runtime).items():
             out[k] = {}
             for name, (dtype, shape, axis) in leaves.items():
                 shape = list(shape)
                 if axis is not None:
-                    shape[axis] //= m
+                    lo = runtime.layouts.get(name)
+                    shape[axis] //= world if lo is None else \
+                        lo.outer_size * (fsdp_world(lo) if lo.sharded
+                                         else 1)
                 out[k][name] = (dtype, tuple(shape))
         return out
+
+    def check_no_outer(self, runtime) -> None:
+        """Raise for a runtime whose groups are split over the model axis:
+        this optimizer's model-axis layout is not ported (its
+        preconditioners and state would see one outer row's part of each
+        matrix, as the reference's do)."""
+        if any(lo.outer_size > 1 for lo in runtime.layouts.values()):
+            raise NotImplementedError(
+                f"{type(self).__name__} on groups split over the model axis "
+                f"(tensor or expert parallelism) is not ported yet (ROADMAP "
+                f"Queue 1 item 19)")
 
     def zero_state(self, runtime) -> dict[str, dict[str, torch.Tensor]]:
         """Every leaf of the state, zero, on the runtime's device."""

@@ -72,6 +72,7 @@ class Muon(OptimizerBase):
 
     def init(self, runtime):
         """Zero ``mom``, ``m``, ``v`` and this rank's mask rows."""
+        self.check_no_outer(runtime)
         self._masks = mask_rows(runtime)
         return self.zero_state(runtime)
 

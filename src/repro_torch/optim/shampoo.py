@@ -58,6 +58,7 @@ class Shampoo(OptimizerBase):
     def init(self, runtime):
         """Zero ``mom``, ``m``, ``v`` and factors, and this rank's mask
         rows."""
+        self.check_no_outer(runtime)
         self._masks = mask_rows(runtime)
         return self.zero_state(runtime)
 

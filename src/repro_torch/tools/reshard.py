@@ -23,7 +23,7 @@ Optimizer state follows: buffer families follow their tensors' extents
 (8-bit codes and scales on the aligned path), Shampoo's unpadded factors
 and dense leaves are copied.  ``--drop-opt`` leaves it out (the resumed
 run starts its optimizer afresh).  A model axis (``--tp``, ``--model`` >
-1) is not ported yet (ROADMAP Queue 1 item 18).
+1) is not ported yet (ROADMAP Queue 1 item 18b).
 
 The tool runs on the card unless ``--device cpu`` is given.
 """
@@ -349,7 +349,7 @@ def build_new_plan(args):
         raise NotImplementedError(
             "resharding across a model axis (--tp or the config's tp/ep "
             "above 1, --model > 1) is not ported yet (ROADMAP Queue 1 item "
-            "18); --tp 1 plans the config without it")
+            "18b); --tp 1 plans the config without it")
     return plan(build_model(cfg), {"data": args.data, "model": args.model},
                 args.policies, planner=args.planner)
 

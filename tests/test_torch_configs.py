@@ -55,7 +55,7 @@ def _rel(a, b):
 
 
 def _ep1(cfg):
-    """A config at ep=1 (the port's gpt-oss-120b already is)."""
+    """A config at ep=1 (one rank's model axis)."""
     return dataclasses.replace(cfg, parallel=dataclasses.replace(
         cfg.parallel, ep=1))
 
@@ -67,16 +67,12 @@ def _placements(gplan):
 
 @pytest.mark.parametrize("arch", NEW)
 def test_config_matches_reference(arch):
-    """Every field of the port's config equals the reference's (gpt-oss-120b:
-    all but the expert-parallel degree, 16 there and 1 in the port until
-    expert parallelism is ported); the id is registered and its model
-    builds."""
+    """Every field of the port's config equals the reference's (gpt-oss-120b
+    too, its expert-parallel degree 16 since expert parallelism is
+    ported); the id is registered and its model builds."""
     t, j = get_config(arch), jax_get_config(arch)
     assert arch in ARCH_IDS
     tf, jf = dataclasses.asdict(t), dataclasses.asdict(j)
-    if arch == "gpt-oss-120b":
-        assert (jf["parallel"]["ep"], tf["parallel"]["ep"]) == (16, 1)
-        jf["parallel"]["ep"] = 1
     for k, v in tf.items():
         assert k in jf and v == jf[k], k
     assert t.source and t.source in (build_model(t).cfg.source,)
@@ -90,7 +86,7 @@ def test_full_width_plans_match_reference(arch, m):
     padding, on the fp32 store and on the q8_block store (quant-block
     aligned)."""
     jcfg = dataclasses.replace(_ep1(jax_get_config(arch)), n_layers=1)
-    tcfg = dataclasses.replace(get_config(arch), n_layers=1)
+    tcfg = dataclasses.replace(_ep1(get_config(arch)), n_layers=1)
     jm, tm = jax_build_model(jcfg), build_model(tcfg)
     assert list(jm.groups()) == list(tm.groups())
     for name, g in jm.groups().items():

@@ -1,0 +1,107 @@
+"""The bounds of ``chip_smoke.py``'s ``train_micro`` phase, set between the
+readings of a sound accumulation and of two planted faults.
+
+``train_micro`` runs ``train_q8`` (gemma2-2b, ``q8_both_wires``, bf16
+compute, a 2 x 2048 batch, 4 steps) in 2 microbatches and holds its loss
+stream, its grad norms and its final masters to ``train_q8``'s.  Here the
+same comparison runs at gemma2-2b.reduced() on one CPU rank, at the
+published config's learning rate, from each of SEEDS:
+
+  * sound: the 2-microbatch stream against the one-batch stream;
+  * half (only one microbatch trains): the one-batch stream on the first
+    row of every batch -- its grad norms and masters are what a loop that
+    dropped the second microbatch's gradient would give (its loss is that
+    row's, so it is not read);
+  * still (the state never changes): the stream at learning rate 0.
+
+Readings, seeds 0 / 1 (largest over the 4 steps):
+  * loss, relative:  sound 5.0e-5 / 1.3e-4, still 1.3e-3 / 1.4e-3;
+  * grad norm, relative:  sound 3.8e-4 / 6.7e-4, half 0.39 / 0.38;
+  * masters, ||W_micro - W_one|| / ||W_one - W_init||:  sound 0.017 /
+    0.018, half 0.72 / 0.70, still 1.0.
+Each limit of ``chip_smoke.py`` must lie above the sound reading and below
+every fault's.
+"""
+import dataclasses
+import importlib.util
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import _torch_mesh_worker as MW
+from repro_torch.configs import build_model, get_config
+from repro_torch.core.fsdp import FSDPRuntime
+from repro_torch.core.schedule import APPROX_VARIANTS
+from repro_torch.data.pipeline import DataConfig, SyntheticStream
+from repro_torch.launch.mesh import init_local_group
+from repro_torch.optim import make_optimizer
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SEEDS = (0, 1)
+BATCH, SEQ, STEPS = 2, 2048, 4
+
+
+def _smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _stream(seed, micro=1, rows=None, lr=None):
+    """(losses and grad norms (STEPS, 2), initial masters, final masters)
+    of ``STEPS`` bf16 q8_both_wires steps at ``micro`` microbatches, on the
+    first ``rows`` rows of each batch, at learning rate ``lr``."""
+    full = get_config("gemma2-2b")
+    cfg = full.reduced()
+    cfg = dataclasses.replace(
+        cfg, learning_rate=full.learning_rate if lr is None else lr,
+        parallel=dataclasses.replace(cfg.parallel, microbatches=micro))
+    rt = FSDPRuntime(build_model(cfg), init_local_group("gloo"),
+                     compute_dtype=torch.bfloat16, device="cpu",
+                     schedule=APPROX_VARIANTS["q8_both_wires"])
+    opt = make_optimizer(cfg)
+    state, params = opt.init(rt), rt.init_params(seed)
+
+    def masters():
+        return np.concatenate([v.ravel() for v in
+                               MW.full_tensors(rt, params).values()])
+
+    w0 = masters()
+    fn = rt.make_train_step(opt)
+    data = SyntheticStream(DataConfig(cfg.vocab, SEQ, BATCH, seed=seed), cfg)
+    out, step = [], 0
+    for i in range(STEPS):
+        batch = {k: v[:rows] for k, v in data.batch(i).items()}
+        params, state, step, m = fn(params, state, step,
+                                    data.shard(batch, rt))
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+    return np.asarray(out), w0, masters()
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_train_micro_bounds_separate_sound_from_faults(seed):
+    smoke = _smoke()
+    one, w0, w1 = _stream(seed)
+    two, _, w2 = _stream(seed, micro=smoke.TRAIN_MICRO)
+    half, _, wh = _stream(seed, rows=BATCH // smoke.TRAIN_MICRO)
+    still, _, ws = _stream(seed, lr=0.0)
+
+    def rel(got, col):
+        return float(np.abs(got[:, col] / one[:, col] - 1).max())
+
+    def drift(w):
+        return float(np.linalg.norm(w - w1) / np.linalg.norm(w1 - w0))
+
+    readings = {"loss": (rel(two, 0), [rel(still, 0)]),
+                "grad_norm": (rel(two, 1), [rel(half, 1)]),
+                "masters": (drift(w2), [drift(wh), drift(ws)])}
+    print(seed, readings)
+    limits = {"loss": smoke.TRAIN_MICRO_LOSS_RTOL,
+              "grad_norm": smoke.TRAIN_MICRO_GNORM_RTOL,
+              "masters": smoke.TRAIN_MICRO_MASTER_RTOL}
+    for what, (sound, faults) in readings.items():
+        assert sound <= limits[what] < min(faults), (what, sound, faults)

@@ -133,8 +133,10 @@ def test_moe_ffn_matches_reference(B, T, E, k, cf):
 
 
 def test_moe_ffn_expert_parallel_raises():
+    """Expert parallelism is ported (tests/test_torch_ep.py); ep > 1
+    without an EP process group of ep ranks raises."""
     cfg, _, p, x, _ = _moe_setup(1, 4, 4, 2, 1.0, seed=0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 18"):
+    with pytest.raises(ValueError, match="EP process group"):
         TM.moe_ffn(cfg, {n: torch.from_numpy(a) for n, a in p.items()},
                    torch.from_numpy(x), ep=2)
 

@@ -220,8 +220,16 @@ def test_unported_planners_and_configs_raise():
     with pytest.raises(NotImplementedError, match="Queue 1 item 14b"):
         get_config("xlstm-125m")
     moe = get_config("qwen3-moe-235b-a22b")  # the config's own ep=16
-    with pytest.raises(NotImplementedError, match="Queue 1 item 18"):
-        build_model(moe)
+    # expert parallelism is ported: the model builds with its experts split
+    # over the model axis, and a runtime without that axis refuses it
+    # rather than run at ep=1
+    model = build_model(moe)
+    assert set(model.groups()["layers_experts"].outer) == {
+        "moe_w1", "moe_w3", "moe_w2"}
+    from repro_torch.core.fsdp import FSDPRuntime
+    from repro_torch.launch.mesh import init_local_group
+    with pytest.raises(ValueError, match="ep=16 runs over the mesh's model"):
+        FSDPRuntime(model, init_local_group("gloo"), device="cpu")
     # policies="auto" is ported: the builtin roofline prices it
     auto = plan(build_model(get_config("gemma2-2b").reduced()),
                 {"data": 1, "model": 1}, policies="auto")

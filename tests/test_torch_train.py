@@ -203,17 +203,16 @@ def test_runtime_defaults_to_cuda(monkeypatch):
 
 
 def test_unported_runtime_options_raise():
-    import dataclasses
+    from repro_torch.launch.mesh import make_local_mesh
 
     cfg = W.quickstart_config()
     group = init_local_group("gloo")
-    micro = dataclasses.replace(cfg, parallel=dataclasses.replace(
-        cfg.parallel, microbatches=2))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 18"):
-        FSDPRuntime(build_model(micro), group, device="cpu")
+    # a pod axis (HSDP) is not ported; microbatches and the model axis are
+    with pytest.raises(NotImplementedError, match="Queue 1 item 18b"):
+        make_local_mesh(1, 1, pod=2)
     # policies="auto" is ported; a replan across a model axis is not
     rt = FSDPRuntime(build_model(cfg), group, device="cpu", policies="auto")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 18"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 18b"):
         rt.replan(rt.init_params(0), mesh={"data": 1, "model": 2})
 
 

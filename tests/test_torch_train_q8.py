@@ -34,6 +34,7 @@ from repro_torch.configs import build_model
 from repro_torch.core.fsdp import FSDPRuntime, load_reference_state
 from repro_torch.core.schedule import CommSchedule
 from repro_torch.launch.mesh import init_local_group
+from repro_torch.optim import make_optimizer
 
 torch.set_num_threads(2)
 
@@ -198,8 +199,9 @@ def test_load_reference_q8_state_round_trip(ref_both_fp32):
 
 def test_q8_runtime_state_and_unported_options():
     """init_params builds the q8 states on the runtime's device with the
-    reference's leaves; microbatches > 1 (deferred error feedback) still
-    raises, naming its ROADMAP item."""
+    reference's leaves; microbatches > 1 (deferred error feedback) is
+    ported: such a runtime builds the same states and its step writes the
+    residual (tests/test_torch_micro.py holds it against the reference)."""
     cfg = W.quickstart_config()
     group = init_local_group("gloo")
     rt = FSDPRuntime(build_model(cfg), group, device="cpu",
@@ -218,8 +220,15 @@ def test_q8_runtime_state_and_unported_options():
         assert s["master"].requires_grad
     micro = dataclasses.replace(cfg, parallel=dataclasses.replace(
         cfg.parallel, microbatches=2, reduce_wire="q8_block"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 18"):
-        FSDPRuntime(build_model(micro), group, device="cpu")
+    rt = FSDPRuntime(build_model(micro), group, device="cpu")
+    params = rt.init_params(0)
+    opt = make_optimizer(micro)
+    step = rt.make_train_step(opt)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, micro.vocab, (4, 16)))
+    params, _, _, m = step(params, opt.init(rt), 0, {"tokens": tokens})
+    assert np.isfinite(float(m["loss"]))
+    assert all(params[n]["reduce_ef"].any() for n in rt.layouts)
 
 
 def test_q8_two_ranks_track_one_rank(tmp_path):
