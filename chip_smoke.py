@@ -80,6 +80,12 @@ non-zero):
                   ``torch._int_mm`` on the same int8 operands; then the
                   crossover: both regimes forced at M = 8, 16 (decode's
                   limit), 17 and 32 on gemma2-2b's shapes, each bitwise.
+ 11b. kernel_q8mm_sliced -- ``q8_matmul`` on ``q8_slice_cols`` slices:
+                  each of the four KV heads (256 columns) of a gemma2-2b
+                  wk-shaped (2304, 1024) weight at block 1024 (case B: the
+                  slice's scales per row), at M = 4 and 2048, bf16, bitwise
+                  against the plain version; the slice copy's time, and
+                  the kernel on an unsliced (2304, 256) weight, beside it.
  12. serve     -- the serve path: gemma2-2b at published width, 4 layers, one
                   NCCL rank, bf16 compute, q8_block store with
                   ``serve_quant_matmul``: prefill of 4 x 512 prompt tokens
@@ -230,6 +236,17 @@ The plan's life cycle (23 and 24 run after 22, on ``train``'s host init):
                   contiguous buffer of the same bytes to the same disk.
                   The free disk is checked first; the directory is removed
                   when the phase ends.
+ 24b. ckpt_tp  -- the checkpoint across TP degrees: ``python -m
+                  repro_torch.tools.reshard`` rewrites phase 24's tp-1
+                  checkpoint for ``--model 8 --tp 8`` (wk and wv move into
+                  ``layers_rep``) and back to tp 1, whose master and moment
+                  files must be the original's byte for byte (by leaf
+                  path); the tp-8 checkpoint then loads straight onto the
+                  one-rank tp-1 runtime (the cross-TP streaming path) and
+                  two steps resume: the stream and the final master bitwise
+                  phase 24's uninterrupted run, ``adamw_store_update`` 4
+                  launches and no other kernel.  Printed: each tool run's,
+                  the comparison's and the load's seconds.
 
 Then the ``kernels`` line, the card's name and power limit as nvidia-smi
 reports them, and a last line ``{"ok": true, "device": {...}}``.  The
@@ -316,6 +333,10 @@ Q8MM_SHAPES = ((2304, 2048), (2304, 1024), (2304, 9216), (4096, 512),
                (4096, 128), (1001, 512))
 # eligible weights of one gemma2-2b layer: shape -> calls per layer
 GEMMA_LAYER_Q8MM = {(2304, 2048): 1, (2304, 1024): 2, (2304, 9216): 2}
+# the sliced case: gemma2-2b's wk-shaped (2304, 1024) weight at block 1024,
+# each of its four KV heads (256 columns) cut out by ``q8_slice_cols`` as a
+# rank of a model axis past the KV head count does in the int8 serve
+Q8MM_SLICED_SHAPE, Q8MM_SLICED_HD = (2304, 1024), 256
 SERVE_SCHEDULE = {"param_store": "q8_block", "serve_quant_matmul": True}
 SERVE_DENSE_SCHEDULE = {"param_store": "q8_block"}
 SERVE_BATCH, SERVE_PROMPT, SERVE_LEN, SERVE_STEPS = 4, 512, 1024, 32
@@ -409,6 +430,9 @@ CE_CHUNK = 8192
 AUTO_BENCH_SIZES = (1 << 20, 1 << 24)
 # phase 24: gemma2-2b cut to 2 layers, two steps before and after the save
 CKPT_LAYERS, CKPT_STEPS = 2, 2
+# phase 24b: the TP degree the offline tool writes the checkpoint for
+# (past gemma2-2b's 4 KV heads: wk and wv move into ``layers_rep``)
+CKPT_TP = 8
 CE_CHUNK_RTOL = {"loss": 2e-3, "grad_norm": 2e-2}
 
 
@@ -1287,6 +1311,110 @@ def phase_kernel_q8mm(ops, ref, q8mm) -> dict:
     return summary
 
 
+def phase_kernel_q8mm_sliced(ops, ref) -> dict:
+    """``q8_matmul`` on ``q8_slice_cols`` slices: each KV head of a
+    gemma2-2b wk-shaped ``QuantTensor`` (case B at block 1024: per-row
+    scales, block = the slice's width), at decode M = 4 and prefill M =
+    2048, bf16, bitwise against the plain version on the same slice.  The
+    slice's codes are a contiguous copy (``q8_slice_cols``; the decode
+    launch reads rows N codes apart): its time is printed beside the
+    kernel's, and the kernel on an unsliced (2304, 256) weight of the same
+    layout beside both.  Returns ``{"decode": ..., "prefill": ...}``
+    summaries of one head (bf16)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    (k, n), hd, block = Q8MM_SLICED_SHAPE, Q8MM_SLICED_HD, 1024
+    n_scales = -(-(k * n) // block)
+    codes = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                          dtype=torch.int8)
+    scales = torch.rand(n_scales, generator=gen, device="cuda") * 0.02 \
+        + 1e-3
+    qt = ops.QuantTensor(codes, scales, block)
+    # the unsliced weight of the slice's layout (per-row scales)
+    flat_codes = torch.randint(-127, 128, (k, hd), generator=gen,
+                               device="cuda", dtype=torch.int8)
+    flat_scales = torch.rand(k, generator=gen, device="cuda") * 0.02 + 1e-3
+    out = {}
+    for m in Q8MM_M:
+        regime = "decode" if m <= 16 else "prefill"
+        x = (torch.randn(m, k, generator=gen, device="cuda") * 2.0) \
+            .to(torch.bfloat16)
+        heads = []
+        for head in range(n // hd):
+            sl = ops.q8_slice_cols(qt, head * hd, hd)
+            if sl is None or sl.block != hd:
+                fail(f"q8_slice_cols gave {sl} for head {head}")
+            got = ops.q8_matmul(x, sl.codes, sl.scales, sl.block)
+            want = ref.q8_matmul_ref(x, sl.codes, sl.scales, sl.block)
+            torch.cuda.synchronize()
+            diff = int_view_diff(got, want)
+            if diff != 0:
+                fail(f"q8_matmul on the sliced head {head} differs from its "
+                     f"plain version at M={m}: {diff} integer-view steps")
+            heads.append(float((got.float() - want.float()).abs().max()))
+            del got, want
+        sl = ops.q8_slice_cols(qt, 0, hd)
+        ms = graph_ms(lambda: ops.q8_matmul(x, sl.codes, sl.scales,
+                                            sl.block))
+        slice_ms = median_ms(lambda: ops.q8_slice_cols(qt, 0, hd),
+                             Q8_ITERS)
+        plain_ms = graph_ms(lambda: ref.q8_matmul_ref(x, sl.codes,
+                                                      sl.scales, sl.block))
+        unsliced_ms = graph_ms(lambda: ops.q8_matmul(x, flat_codes,
+                                                     flat_scales, hd))
+        nbytes = m * k * 2 + k * hd + 4 * k + m * hd * 2
+        nops = 2 * m * k * hd
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, nops / INT8_OPS) * 1e3
+        row = {"phase": "kernel_q8mm_sliced", "name": "q8_matmul",
+               "regime": regime, "M": m, "K": k, "N": n, "block": block,
+               "slice": [hd, "case B -> per-row scales, block", hd],
+               "heads": n // hd, "max_int_view_diff": 0,
+               "max_abs_err": max(heads), "ms": ms,
+               "slice_copy_ms": slice_ms,
+               "slice_copy_bytes": 2 * k * hd + 8 * k,
+               "plain_ms": plain_ms, "unsliced_ms": unsliced_ms,
+               "bound_ms": bound_ms,
+               "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+               >= nops / INT8_OPS else "operations",
+               "share_of_bound": bound_ms / ms, "parity": "bitwise"}
+        emit(row)
+        out[regime] = {k2: row[k2] for k2 in (
+            "ms", "slice_copy_ms", "plain_ms", "unsliced_ms", "bound_ms",
+            "bound_by", "max_abs_err")}
+        del x
+    del codes, scales, qt, flat_codes, flat_scales
+    torch.cuda.empty_cache()
+    return out
+
+
+def same_bytes(a: Path, b: Path, chunk: int = 1 << 26) -> bool:
+    """Whether two files hold the same bytes (read in 64 MiB chunks)."""
+    if a.stat().st_size != b.stat().st_size:
+        return False
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        while True:
+            x = fa.read(chunk)
+            if x != fb.read(chunk):
+                return False
+            if not x:
+                return True
+
+
+def files_by_path(ckpt_dir: Path) -> dict:
+    """A checkpoint's shard files keyed by what they hold: a parameter
+    file by its name, an optimizer file by its leaf path and row (the
+    reshard tool numbers optimizer files in its plan's group order, a save
+    in the sorted key order)."""
+    meta = json.loads((ckpt_dir / "meta.json").read_text())
+    shards = ckpt_dir / "shards"
+    out = {f.name: f for f in shards.glob("p__*.npy")}
+    for e in meta["opt"]:
+        for f in shards.glob(e["file"] + "*.npy"):
+            out["/".join(e["path"]) + f.name[len(e["file"]):]] = f
+    return out
+
+
 def expected_serve_launches(rt, calls: int, keys) -> dict:
     """What a serve run of ``calls`` prefill/decode calls must launch, from
     the plan: in the int8 mode one ``q8_matmul`` per eligible weight of each
@@ -1406,10 +1534,13 @@ def main() -> None:
             keep.update(params=params, opt_state=opt_state)
         return out, times, rt
 
-    def run_ckpt_phase(ck_cfg, ck_dir: Path, ck_bytes: int) -> dict:
+    def run_ckpt_phase(ck_cfg, ck_dir: Path, ck_bytes: int,
+                       keep: dict) -> dict:
         """Phase 24: the save/resume, cross-format and offline-reshard
         checks of gemma2-2b at ``CKPT_LAYERS`` layers; returns the phase's
-        kernel launches (those made only to compare are not counted)."""
+        kernel launches (those made only to compare are not counted) and
+        keeps the uninterrupted run's last steps and final host masters in
+        ``keep`` for phase 24b."""
         path = ck_dir / "ckpt"
         n_groups = 2
 
@@ -1488,6 +1619,9 @@ def main() -> None:
         params, opt_state, second = run(rt, opt, params, opt_state,
                                         CKPT_STEPS, CKPT_STEPS)
         want_master = masters(params)
+        keep.update(second=second, master={n: t.cpu() for n, t in
+                                            want_master.items()},
+                    run=run, masters=masters)
         del params, opt_state, rt
         torch.cuda.empty_cache()
 
@@ -1571,6 +1705,7 @@ def main() -> None:
         tool_plan = ckpt.load_plan(dst).dumps() == rt.plan.dumps()
         tool_master = master_matches(params, rt, path)
         del params, rt
+        shutil.rmtree(dst)
         torch.cuda.empty_cache()
         total = launches_now(mods)
         res = {"phase": "ckpt", "steps": [CKPT_STEPS, CKPT_STEPS],
@@ -1613,6 +1748,95 @@ def main() -> None:
         if total["adamw_store_update"] != want_adamw:
             fail(f"ckpt: adamw_store_update launched "
                  f"{total['adamw_store_update']}, expected {want_adamw}")
+        return total
+
+    def run_ckpt_tp_phase(ck_cfg, ck_dir: Path, keep: dict) -> dict:
+        """Phase 24b: the checkpoint across TP degrees.  The offline tool
+        rewrites phase 24's tp-1 checkpoint for tp ``CKPT_TP`` on a model
+        axis of as many ranks (wk and wv move into ``layers_rep``) and back
+        to tp 1, whose master and moment files must be the original's byte
+        for byte; the tp-``CKPT_TP`` checkpoint then loads straight onto
+        the card's one-rank tp-1 runtime (the cross-TP streaming path) and
+        resumes: the stream and the final master must be bitwise phase
+        24's uninterrupted run.  Returns the resume's kernel launches."""
+        path = ck_dir / "ckpt"
+        tp_dir, back_dir = ck_dir / f"tp{CKPT_TP}", ck_dir / "tp1"
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+
+        def tool(src, dst, *extra):
+            cmd = [sys.executable, "-m", "repro_torch.tools.reshard",
+                   str(src), str(dst), "--arch", ck_cfg.name, "--full",
+                   "--layers", str(CKPT_LAYERS), "--data", "1", *extra]
+            t0 = time.perf_counter()
+            done = subprocess.run(cmd, env=env, capture_output=True,
+                                  text=True, timeout=900)
+            secs = time.perf_counter() - t0
+            if done.returncode:
+                fail(f"ckpt_tp: the reshard tool exited {done.returncode}: "
+                     f"{done.stderr[-2000:]}")
+            return {"cmd": " ".join(cmd[3:]), "seconds": secs,
+                    "stdout": done.stdout.splitlines()[-2:]}
+
+        to_tp = tool(path, tp_dir, "--model", str(CKPT_TP), "--tp",
+                     str(CKPT_TP))
+        meta = json.loads((tp_dir / "meta.json").read_text())["groups"]
+        layout = {g: {"outer_size": m["outer_size"],
+                      "tensors": sorted(m["index"])}
+                  for g, m in meta.items()}
+        moved = ("layers_rep" in meta
+                 and {"wk", "wv"} <= set(meta["layers_rep"]["index"])
+                 and meta["layers"]["outer_size"] == CKPT_TP)
+        back = tool(tp_dir, back_dir, "--tp", "1")
+        names, back_names = files_by_path(path), files_by_path(back_dir)
+        t0 = time.perf_counter()
+        same_files = sorted(names) == sorted(back_names) and all(
+            same_bytes(f, back_names[k]) for k, f in names.items())
+        compare_s = time.perf_counter() - t0
+        shutil.rmtree(back_dir)
+
+        reset_launches(mods)
+        rt = FSDPRuntime(build_model(ck_cfg), group,
+                         compute_dtype=torch.bfloat16, device="cuda")
+        opt = make_optimizer(ck_cfg)
+        like = opt.init(rt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, step, opt_state = ckpt.load(tp_dir, rt, like)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        del like
+        params, opt_state, resumed = keep["run"](rt, opt, params, opt_state,
+                                                 step, CKPT_STEPS)
+        got = keep["masters"](params)
+        resume_master = all(torch.equal(got[n].cpu(), keep["master"][n])
+                            for n in keep["master"])
+        total = launches_now(mods)
+        del params, opt_state, rt, got
+        torch.cuda.empty_cache()
+        want = {k: 0 for k in total}
+        want["adamw_store_update"] = 2 * CKPT_STEPS
+        res = {"phase": "ckpt_tp", "tp": CKPT_TP, "layout": layout,
+               "kv_moved_to_layers_rep": moved, "to_tp": to_tp,
+               "back_to_tp1": back, "files": len(names),
+               "round_trip_byte_identical": same_files,
+               "compare_s": compare_s, "load_s": load_s, "step": step,
+               "uninterrupted": keep["second"], "resumed": resumed,
+               "bitwise_stream": resumed == keep["second"],
+               "bitwise_master": resume_master,
+               "kernel_launches": total, "expected_launches": want}
+        emit(res)
+        if not moved:
+            fail(f"ckpt_tp: the tp-{CKPT_TP} checkpoint's layout {layout}")
+        if not same_files:
+            fail("ckpt_tp: the tp-1 -> tp-8 -> tp-1 round trip's files are "
+                 "not the original's byte for byte")
+        if step != CKPT_STEPS or resumed != keep["second"] \
+                or not resume_master:
+            fail("ckpt_tp: the resume from the tp-8 checkpoint is not "
+                 "bitwise the uninterrupted run")
+        if total != want:
+            fail(f"ckpt_tp: the resume launched {total}, expected {want}")
         return total
 
     smi = nvidia_smi()
@@ -2118,7 +2342,9 @@ def main() -> None:
     ck_elems = sum(math.prod(lo_shape) for lo_shape in (
         (CKPT_LAYERS, LAYERS_SHAPE[1]), GLOBALS_SHAPE))
     ck_bytes = 12 * ck_elems           # master, m, v in fp32
-    need = 2 * ck_bytes + 4 * ck_elems  # checkpoint + floor file + tool
+    # the checkpoint, its tp-8 rewrite and the round trip back (the floor
+    # file and the fsdp2 rewrite are gone by then)
+    need = 3 * ck_bytes
     ck_dir = Path(tempfile.mkdtemp(prefix="repro_torch_ckpt_"))
     free = shutil.disk_usage(ck_dir).free
     emit({"phase": "ckpt_setup", "model": ck_cfg.name,
@@ -2131,7 +2357,10 @@ def main() -> None:
         if free < need:
             fail(f"ckpt: {need} bytes of free disk needed under {ck_dir}, "
                  f"{free} free")
-        ckpt_launches = run_ckpt_phase(ck_cfg, ck_dir, ck_bytes)
+        ck_keep: dict = {}
+        ckpt_launches = run_ckpt_phase(ck_cfg, ck_dir, ck_bytes, ck_keep)
+        ckpt_tp_launches = run_ckpt_tp_phase(ck_cfg, ck_dir, ck_keep)
+        del ck_keep
     finally:
         shutil.rmtree(ck_dir, ignore_errors=True)
     del host_init
@@ -2540,6 +2769,7 @@ def main() -> None:
 
     # ---- 11. q8_matmul vs plain ----------------------------------------
     q8mm_stats = phase_kernel_q8mm(ops, ref, q8_matmul)
+    q8mm_sliced = phase_kernel_q8mm_sliced(ops, ref)
 
     # ---- 12. serve path: gemma2-2b at full width, int8 and dense q8 ----
     def serve_run(rt, model, params, prompts, requests):
@@ -2732,7 +2962,9 @@ def main() -> None:
                                   ce_launches["adamw_store_update"],
                               "auto_plan":
                                   auto_launches["adamw_store_update"],
-                              "ckpt": ckpt_launches["adamw_store_update"]}},
+                              "ckpt": ckpt_launches["adamw_store_update"],
+                              "ckpt_tp":
+                                  ckpt_tp_launches["adamw_store_update"]}},
         {**entry("adamw_store_update_q8", "adamw_store_update.cu",
                  "src/repro/kernels/fused_update.py:102",
                  q8_launches["adamw_q8"], q8stats["adamw_q8"]),
@@ -2784,12 +3016,14 @@ def main() -> None:
         entry("adam8bit_store_update_q8", "adam8bit_store_update.cu",
               "src/repro/kernels/fused_update.py:145",
               a8q_launches["adam8bit_q8"], a8stats["q8"]),
-        entry("q8_matmul_decode", "q8_matmul.cu",
-              "src/repro/kernels/q8_matmul.py:81", serve_launches["decode"],
-              q8mm_stats["decode"]),
-        entry("q8_matmul_prefill", "q8_matmul.cu",
-              "src/repro/kernels/q8_matmul.py:81", serve_launches["prefill"],
-              q8mm_stats["prefill"]),
+        {**entry("q8_matmul_decode", "q8_matmul.cu",
+                 "src/repro/kernels/q8_matmul.py:81",
+                 serve_launches["decode"], q8mm_stats["decode"]),
+         "sliced": q8mm_sliced["decode"]},
+        {**entry("q8_matmul_prefill", "q8_matmul.cu",
+                 "src/repro/kernels/q8_matmul.py:81",
+                 serve_launches["prefill"], q8mm_stats["prefill"]),
+         "sliced": q8mm_sliced["prefill"]},
         entry("adamw_store_update_fp8", "adamw_store_update.cu",
               "src/repro/kernels/fused_update.py:93",
               fp8_launches["train_fp8"]["adamw_fp8"], fp8stats["adamw_fp8"]),

@@ -27,13 +27,22 @@ Format v2 (written here, byte for byte the reference's; v1 loads too):
     manifest's ``dtype`` names the leaf's own dtype (``bfloat16``,
     ``float8_e4m3fn``, ...).
 
-Each rank writes its own shard row (``j = rank``; an unsharded group's
-single row and a dense leaf from rank 0); rank 0 writes ``meta.json`` and
+A group's buffer is ``outer_size * num_shards`` uniform rows; rank (d, r)
+of a group split over the model axis holds row ``j = r * m + k``: FSDP
+shard ``k`` of outer part ``r`` (the reference's order).  Each rank writes
+its own row when it is the first of the ranks that hold it (index 0 on
+every mesh axis the group is neither sharded nor split over: one copy of
+a ``layers_rep`` row, of an unsharded group, of an HSDP pod replica); a
+dense leaf is written by rank 0; rank 0 writes ``meta.json`` and
 ``plan.json``, and a barrier ends ``save``.  ``load`` reads this rank's
-extents through ``GroupIndex``, so W ranks' checkpoint restores on W'.
+row, or streams its extents through ``GroupIndex``, so a checkpoint of W
+ranks restores on W', across TP degrees (a tensor moving between
+``layers`` and ``layers_rep`` among them).
 
-PARITY: same plan -- BITWISE per leaf; another plan or planner -- BITWISE
-on the master; another store format or quant block -- the master exact,
+PARITY: same plan -- BITWISE per leaf; another plan, planner or TP degree
+-- BITWISE on the master and the AdamW moments (8-bit Adam's block-granular
+state raises on an outer-layout change, as the reference's does); another
+store format or quant block -- the master exact,
 its codes requantized from it (``ParamStore.create``: ``ops.quantize``,
 the kernel on a card) and the residual restarted at zero, the classes of
 the reference's ``load``.
@@ -125,10 +134,9 @@ def group_master_reader(shards_dir, group: str):
 
 
 def _own_row(runtime, lo) -> int:
-    """The shard row this rank saves and loads of group ``lo``: its rank
-    for a sharded group, row 0 (on rank 0 alone, when saving) for an
-    unsharded one."""
-    return runtime.rank if lo.sharded else 0
+    """The shard row this rank saves and loads of group ``lo``: its block
+    index, ``r * m + k`` (outer part, FSDP shard)."""
+    return runtime._block_index(lo)
 
 
 def _barrier(runtime) -> None:
@@ -234,21 +242,10 @@ def _save_factor(runtime, f: pathlib.Path, t: torch.Tensor, axis, L: int):
         del mm
 
 
-def _check_no_model_axis(runtime, what: str) -> None:
-    """A runtime with a model axis has outer rows this format's rank rows
-    do not lay out yet: raise rather than write or read a wrong file."""
-    if runtime.axis_sizes.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"checkpoint {what} on a mesh with a model axis (tensor or "
-            f"expert parallelism) is not ported yet (ROADMAP Queue 1 item "
-            f"18b)")
-
-
 def save(path, runtime, params, opt_state=None, step: int = 0) -> None:
     """Write ``params`` (and ``opt_state``) of ``runtime`` at ``step`` as a
     format v2 checkpoint under ``path``; every rank of the runtime's group
     calls it."""
-    _check_no_model_axis(runtime, "save")
     path = pathlib.Path(path)
     shards = path / "shards"
     shards.mkdir(parents=True, exist_ok=True)
@@ -259,7 +256,7 @@ def save(path, runtime, params, opt_state=None, step: int = 0) -> None:
                    for name, lo in runtime.layouts.items()},
     }
     for name, lo in runtime.layouts.items():
-        if not lo.sharded and runtime.rank != 0:
+        if not runtime._owns_block(lo):
             continue
         j = _own_row(runtime, lo)
         for leaf, t in _as_leaves(params[name]).items():
@@ -275,7 +272,7 @@ def save(path, runtime, params, opt_state=None, step: int = 0) -> None:
             if kind == "buffer":
                 lo = runtime.layouts[g]
                 ent.update(group=g, div=div)
-                if lo.sharded or runtime.rank == 0:
+                if runtime._owns_block(lo):
                     np.save(shards / opt_shard_file(
                         ent["file"], _own_row(runtime, lo)), _savable(t))
             elif kind == "factor":
@@ -336,7 +333,9 @@ def _same_layout_idx(a: GroupIndex, b: GroupIndex) -> bool:
 
 
 def _local_shape(runtime, lo, div: int = 1) -> tuple[int, ...]:
-    shape = lo.local_shape() if lo.sharded else lo.global_shape()
+    """A rank's block of group ``lo``: one of its ``outer_size *
+    num_shards`` rows (the whole buffer of an unsharded, unsplit group)."""
+    shape = lo.local_shape()
     return shape[:-1] + (shape[-1] // div,)
 
 
@@ -368,7 +367,6 @@ def load(path, runtime, opt_state_like=None):
     requantized, the residual zero).  Optimizer buffers follow their
     tensors' extents the same way (block-granular 8-bit state on the
     aligned path), Shampoo's factors are re-padded to the plan."""
-    _check_no_model_axis(runtime, "load")
     path = pathlib.Path(path)
     meta = json.loads((path / "meta.json").read_text())
     if int(meta.get("version", 1)) < 2:
@@ -422,6 +420,14 @@ def _load_opt(shards, meta, runtime, opt_state_like, src_idx, tensor_src):
                               runtime, src_idx, tensor_src)
         out[keys[0]][keys[1]] = _to_device(runtime, _narrow(a, dtype))
     return out
+
+
+def _block(runtime, lo, a: np.ndarray) -> np.ndarray:
+    """This rank's block of a group's global array ``a`` (its last axis in
+    ``outer_size * num_shards`` rows)."""
+    n = a.shape[-1] // (lo.outer_size * lo.plan.num_shards)
+    j = _own_row(runtime, lo)
+    return a[..., j * n:(j + 1) * n]
 
 
 def _share(runtime, a: np.ndarray, axis) -> np.ndarray:
@@ -553,14 +559,13 @@ def _load_legacy(path, meta, runtime, opt_state_like):
             and saved.get("outer_size", 1) == lo.outer_size
             and saved.get("mode", "ragged") == lo.plan.mode
         )
-        axis = -1 if lo.sharded else None
         keys = lo.store.state_keys()
         if same_plan and _same_store(saved, lo):
             arrays = ({leaf: data[f"param__{name}__{leaf}"] for leaf in keys}
                       if keys is not None
                       else {"master": data[f"param__{name}"]})
             leaves = {
-                leaf: _host_leaf(_share(runtime, a, axis),
+                leaf: _host_leaf(_block(runtime, lo, a),
                                  lo.store.leaf_dtype(leaf) if keys
                                  else lo.store.storage_dtype)
                 for leaf, a in arrays.items()}
@@ -573,7 +578,7 @@ def _load_legacy(path, meta, runtime, opt_state_like):
             master = _repack(master, saved, lo)
         params[name] = lo.store.create(_to_device(
             runtime, torch.from_numpy(np.ascontiguousarray(
-                _share(runtime, master, axis))), True))
+                _block(runtime, lo, master))), True))
     out = [params, int(meta["step"])]
     if opt_state_like is not None:
         if any_cross_plan is not None:
@@ -590,8 +595,11 @@ def _load_legacy(path, meta, runtime, opt_state_like):
                 raise ValueError(
                     f"optimizer state leaf {key!r} not in legacy "
                     f"checkpoint {path}")
-            opt[keys[0]][keys[1]] = _to_device(runtime, _host_leaf(
-                _share(runtime, data[key], axis), dtype))
+            lo = runtime.layouts.get(keys[1])
+            a = (_block(runtime, lo, data[key])
+                 if lo is not None and axis is not None
+                 else _share(runtime, data[key], axis))
+            opt[keys[0]][keys[1]] = _to_device(runtime, _host_leaf(a, dtype))
         out.append(opt)
     return tuple(out)
 

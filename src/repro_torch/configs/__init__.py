@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import importlib
 
-from .base import ModelConfig, ParallelConfig
+from .base import ModelConfig, ParallelConfig, with_tp
 
 # public arch id -> module name (the reference registers twelve; the port
 # adds an id once it runs that family -- ROADMAP Queue 1 item 14b)

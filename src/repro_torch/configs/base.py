@@ -144,3 +144,19 @@ class ModelConfig:
             ),
             quant_block=64,
         )
+
+
+def with_tp(cfg: ModelConfig, tp: int) -> ModelConfig:
+    """``cfg`` tensor parallel of degree ``tp`` > 1 over the model axis,
+    by the reference's rule (its ``tools/reshard.py``): FSDP and the batch
+    leave the model axis for the others (``data`` where none is left)."""
+    if tp < 2:
+        raise ValueError(f"with_tp needs a degree above 1, got {tp}")
+    par = cfg.parallel
+
+    def off_model(axes):
+        return tuple(a for a in axes if a != "model") or ("data",)
+
+    return dataclasses.replace(cfg, parallel=dataclasses.replace(
+        par, tp=tp, fsdp_axes=off_model(par.fsdp_axes),
+        batch_axes=off_model(par.batch_axes)))

@@ -1,12 +1,15 @@
 """veScale-FSDP runtime over ``torch.distributed`` (port of
 ``repro/core/fsdp.py``: the ZeRO-3 train step on the fp32, bf16, fp8 and
 q8_block stores, with cast (fp8 among them) or q8 gradient wires, tensor
-and expert parallelism over the mesh's model axis, gradient accumulation,
-and the ZeRO-3 serve steps).
+and expert parallelism over the mesh's model axis, HSDP over its pod
+axis, gradient accumulation, and the ZeRO-3 serve steps).
 
 ``FSDPRuntime`` wraps a model for a mesh (``launch.mesh.Mesh``: ``(data,
-model)`` over one process group; a bare process group is ``(world,
-1)``).  A group the model splits over the model axis (the reference's
+model)`` or ``(pod, data, model)`` over one process group; a bare process
+group is ``(world, 1)``).  A pod axis is a batch axis; a group is sharded
+over it only under ``pod_fsdp``, and otherwise replicated across pods
+(HSDP: its gradient all-reduced over the pod axis after the
+reduce-scatter).  A group the model splits over the model axis (the reference's
 outer TP/EP sharding) holds ``outer_size`` rows of its planned buffer, and
 rank (d, m) holds row m's FSDP shard over the group's FSDP axes; the
 gathers and reduce-scatters run over those axes only.  Construction takes a
@@ -43,7 +46,7 @@ residual ``reduce_ef`` (``(L, m * S)``).  The train step then:
     the gradients accumulating in ``.grad`` (a q8 reduce wire defers its
     error feedback to the accumulation boundary: ``make_train_step``);
     all-reduces ``layers_rep``'s gradient over the model axis under tensor
-    parallelism;
+    parallelism and, under HSDP, each group's gradient over the pod axis;
   * all-reduces the token-sum loss and the token count over the batch
     axes, scales the gradients by ``1/max(tokens, 1)`` (and by the model
     axis's size where it holds the same tokens on each rank and sums
@@ -66,12 +69,13 @@ layer is gathered just in time (parameters stay sharded at rest), with no
 activation checkpoint and no gradient route.  With ``serve_quant_matmul``
 a q8_block layer group's payload is gathered as int8 codes and scales and
 unpacked by ``DBuffer.unpack_quant`` (eligible weights multiply through
-``ops.q8_matmul``); ``globals`` always take the dense gather.
+``ops.q8_matmul``); ``globals`` always take the dense gather.  Under tensor
+parallelism each rank serves its KV head slot of the cache and the logits
+are all-gathered over the model axis: every rank returns ``(B, 1, V)``.
 
-``replan`` moves live parameters and optimizer state onto another plan of
-the same model on the same process group (``core.reshard``'s extent map;
-the classes of a checkpoint load).  Serving, ``replan`` and checkpoints on
-a mesh with a model axis raise (ROADMAP Queue 1 item 18b).
+``replan`` moves live parameters and optimizer state onto another plan,
+mesh factoring or TP degree on the same process group (``core.reshard``'s
+extent map across outer rows; the classes of a checkpoint load).
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 without a card and without that, construction raises.
@@ -264,8 +268,11 @@ class FSDPRuntime:
         self.tp_axis = "model" if par.tp > 1 else None
         self.ep_axis = "model" if par.ep > 1 else None
         self.model_group = self.mesh.group_for(("model",))
-        self.batch_axes = tuple(a for a in par.batch_axes
-                                if a in self.axis_sizes)
+        # HSDP: a pod axis is a batch axis, outermost (the reference's)
+        self.has_pod = "pod" in self.axis_sizes
+        self.batch_axes = tuple(
+            a for a in (("pod",) if self.has_pod else ()) + par.batch_axes
+            if a in self.axis_sizes)
         if par.tp > 1 and "model" in self.batch_axes:
             raise ValueError(
                 "tensor parallelism needs the same tokens on every rank of "
@@ -325,16 +332,22 @@ class FSDPRuntime:
     def _axis_index(self, axis: str) -> int:
         return self.mesh.coords[axis]
 
-    def batch_slice(self, batch: int) -> tuple[int, int]:
-        """This rank's rows ``[lo, hi)`` of a global batch: sharded over
-        the longest run of batch axes that divides it, replicated on the
-        rest (the reference's ``_usable_batch_axes``/``batch_pspec``)."""
+    def _usable_batch_axes(self, batch: int) -> tuple[str, ...]:
+        """The batch axes a global batch of ``batch`` rows is sharded over:
+        each in turn that divides what is left (the reference's)."""
         usable, rem = [], batch
         for a in self.batch_axes:
             size = self.axis_sizes[a]
             if rem % size == 0 and rem >= size:
                 usable.append(a)
                 rem //= size
+        return tuple(usable)
+
+    def batch_slice(self, batch: int) -> tuple[int, int]:
+        """This rank's rows ``[lo, hi)`` of a global batch: sharded over
+        the longest run of batch axes that divides it, replicated on the
+        rest (the reference's ``_usable_batch_axes``/``batch_pspec``)."""
+        usable = self._usable_batch_axes(batch)
         per = batch // self.mesh.size(usable)
         idx = self.mesh.index(usable)
         return idx * per, (idx + 1) * per
@@ -360,15 +373,50 @@ class FSDPRuntime:
             a = np.zeros(spec.shape)
         return a.astype(np.float32)
 
-    def _block_index(self, lo: GroupLayout) -> int:
-        """This rank's column block of a group's global buffer: the
-        blocks run over the outer axis, then the FSDP axes, row-major (the
-        reference's pspec ``(outer_axis, *fsdp_axes)``)."""
-        idx = self.mesh.coords[lo.outer_axis] if lo.outer_axis else 0
+    def _block_index(self, lo: GroupLayout, coords=None) -> int:
+        """This rank's (or the rank at ``coords``') column block of a
+        group's global buffer: the blocks run over the outer axis, then
+        the FSDP axes, row-major (the reference's pspec ``(outer_axis,
+        *fsdp_axes)``; the flat row ``j = r * m + k`` of a checkpoint)."""
+        coords = self.mesh.coords if coords is None else coords
+        idx = coords[lo.outer_axis] if lo.outer_axis else 0
         if lo.sharded:
-            idx = idx * math.prod(lo.fsdp_axis_sizes) \
-                + self.mesh.index(lo.fsdp_axes)
+            for a, n in zip(lo.fsdp_axes, lo.fsdp_axis_sizes):
+                idx = idx * n + coords[a]
         return idx
+
+    def _owns_block(self, lo: GroupLayout, coords=None) -> bool:
+        """Whether this rank (or the rank at ``coords``) is the first of
+        the ranks holding its block of group ``lo``: index 0 on every mesh
+        axis the group is neither sharded nor split over (the one rank
+        that saves the block)."""
+        coords = self.mesh.coords if coords is None else coords
+        owned = lo.fsdp_axes + ((lo.outer_axis,) if lo.outer_axis else ())
+        return not any(coords[a] for a in coords if a not in owned)
+
+    def _block_map(self, lo: GroupLayout) -> tuple[int, ...]:
+        """Every rank's block index of group ``lo``, in group-rank order."""
+        return tuple(self._block_index(lo, self.mesh.coords_of(q))
+                     for q in range(dist.get_world_size(self.group)))
+
+    def _host_group(self, lo: GroupLayout, t: torch.Tensor) -> np.ndarray:
+        """The global host buffer of group ``lo``'s rank-local leaf ``t``
+        (``(..., n)``, fp32 or int8): all-gathered over the process group,
+        each rank's block at its block index (the copies the ranks of a
+        block hold are the same bits)."""
+        t = t.detach().contiguous()
+        world = dist.get_world_size(self.group)
+        if world == 1:
+            return t.cpu().numpy()
+        parts = [torch.empty_like(t) for _ in range(world)]
+        dist.all_gather(parts, t, group=self.group)
+        n = t.shape[-1]
+        blocks = self._block_map(lo)
+        out = torch.empty(tuple(t.shape[:-1]) + ((max(blocks) + 1) * n,),
+                          dtype=t.dtype)
+        for i, part in zip(blocks, parts):
+            out[..., i * n:(i + 1) * n] = part.cpu()
+        return out.numpy()
 
     def _place(self, name: str, global_buf: np.ndarray,
                requires_grad: bool = True, dtype=torch.float32,
@@ -434,42 +482,46 @@ class FSDPRuntime:
                = None, policies=None, schedule: CommSchedule | None = None,
                group_schedules: Mapping[str, Any] | None = None,
                planner: str | None = None, cost_model=None, optimizer=None,
-               mesh: Mapping[str, int] | None = None):
-        """Move live state onto a new plan of the same model on the same
-        process group -- new policies (``"auto"`` among them), store
-        formats, planner or schedule -- without a save/load round trip.
-        Returns ``(new_runtime, new_params, new_opt_state)``
+               mesh: Mapping[str, int] | None = None, model=None):
+        """Move live state onto a new plan on the same process group -- new
+        policies (``"auto"`` among them), store formats, planner or
+        schedule, or another factoring of the ranks into mesh axes
+        (``mesh``, e.g. ``{"data": 2, "model": 2}``) with the model built
+        for it (``model``: another TP degree) -- without a save/load round
+        trip.  Returns ``(new_runtime, new_params, new_opt_state)``
         (``new_opt_state`` None unless ``opt_state`` and ``optimizer`` are
         given; ``optimizer`` is initialised for the new runtime).
 
         ``layout_changed_groups`` splits the groups: an unchanged layout
-        and store keeps its state tensors as they are (bitwise, the
-        residual included); a changed group streams its fp32 master tensor
-        by tensor through the extent map into this rank's row (gathering
-        the old group's shards over the process group) and rebuilds its
-        store (codes requantized, the residual zero).  Optimizer buffers
-        follow their tensors' extents, Shampoo's factors are re-padded --
-        the classes of a checkpoint load.  Another world size goes
-        through ``checkpoint.save`` and ``load``; a mesh with a model axis
-        raises (ROADMAP Queue 1 item 18b)."""
+        and store whose ranks keep their blocks keeps its state tensors as
+        they are (bitwise, the residual included); a changed group streams
+        its fp32 master tensor by tensor through the extent map into this
+        rank's block (gathering the old group's blocks over the process
+        group: across outer rows, so a tensor moves between TP degrees
+        and between ``layers`` and ``layers_rep``) and rebuilds its store
+        (codes requantized, the residual zero).  Optimizer buffers follow
+        their tensors' extents, Shampoo's factors are re-padded -- the
+        classes of a checkpoint load.  Another world size goes through
+        ``checkpoint.save`` and ``load``."""
+        from ..launch.mesh import Mesh
         from .policy import layout_changed_groups
         from .reshard import (GroupIndex, buffer_reader, row_writer,
                               stream_tensors)
 
-        if self.axis_sizes["model"] > 1 or (
-                mesh is not None and int(mesh.get("model", 1)) > 1):
-            raise NotImplementedError(
-                "replan on or onto a mesh with a model axis (tensor or "
-                "expert parallelism) is not ported yet (ROADMAP Queue 1 "
-                "item 18b)")
+        new_mesh = self.mesh
         if mesh is not None:
             mesh = {a: int(n) for a, n in mesh.items()}
-            if mesh.get("data", 1) != self.axis_sizes["data"]:
+            world = dist.get_world_size(self.group)
+            if math.prod(mesh.values()) != world:
                 raise ValueError(
-                    f"replan stays on the runtime's process group "
-                    f"({self.axis_sizes['data']} ranks); move to "
-                    f"{mesh.get('data', 1)} ranks through checkpoint.save "
+                    f"replan stays on the runtime's process group ({world} "
+                    f"ranks), the mesh {mesh} has {math.prod(mesh.values())}; "
+                    f"move to another world size through checkpoint.save "
                     f"and checkpoint.load")
+            if mesh != self.axis_sizes:
+                new_mesh = Mesh(mesh.get("data", 1), mesh.get("model", 1),
+                                self.group, pod=mesh.get("pod"))
+        model = self.model if model is None else model
         kwargs: dict[str, Any] = {}
         if plan is not None:
             kwargs["plan"] = plan
@@ -477,15 +529,21 @@ class FSDPRuntime:
             kwargs.update(policies=policies, cost_model=cost_model)
         elif schedule is not None or group_schedules is not None:
             kwargs.update(schedule=schedule, group_schedules=group_schedules)
-        else:
+        elif model is self.model:
             # keep this runtime's resolved per-group decisions
             kwargs["policies"] = self.plan.policy_set()
-        new_rt = FSDPRuntime(self.model, self.group,
+        # else: a new model (another TP degree) lowers its own knobs
+        new_rt = FSDPRuntime(model, new_mesh,
                              planner=planner or self.planner_mode,
                              compute_dtype=self.compute_dtype,
                              device=self.device, **kwargs)
 
-        changed = layout_changed_groups(self.plan, new_rt.plan)
+        changed = set(layout_changed_groups(self.plan, new_rt.plan))
+        # a group whose ranks hold other blocks on the new mesh streams too
+        changed |= {n for n, lo in new_rt.layouts.items()
+                    if n in self.layouts
+                    and new_rt._block_map(lo) != self._block_map(
+                        self.layouts[n])}
         old_idx = {n: GroupIndex.from_layout(lo)
                    for n, lo in self.layouts.items()}
         tensor_src = {t: n for n, lo in self.layouts.items()
@@ -495,9 +553,8 @@ class FSDPRuntime:
         def src_master(gname: str) -> np.ndarray:
             if gname not in masters:
                 lo = self.layouts[gname]
-                t = lo.store.trainable(params[gname]).detach().float()
-                masters[gname] = self._host_global(
-                    t, -1 if lo.sharded else None)
+                masters[gname] = self._host_group(
+                    lo, lo.store.trainable(params[gname]).detach().float())
             return masters[gname]
 
         new_params = {}
@@ -505,8 +562,7 @@ class FSDPRuntime:
             if name in self.layouts and name not in changed:
                 new_params[name] = params[name]
                 continue
-            master = np.zeros(lo.local_shape() if lo.sharded
-                              else lo.global_shape(), np.float32)
+            master = np.zeros(lo.local_shape(), np.float32)
 
             def lookup(tname, name=name):
                 g = tensor_src.get(tname)
@@ -519,8 +575,8 @@ class FSDPRuntime:
                                                  old_idx[g].num_rows)
 
             stream_tensors(GroupIndex.from_layout(lo),
-                           row_writer(master, new_rt.rank
-                                       if lo.sharded else 0), lookup)
+                           row_writer(master, new_rt._block_index(lo)),
+                           lookup)
             new_params[name] = lo.store.create(
                 torch.from_numpy(master).to(self.device).requires_grad_())
         if opt_state is None:
@@ -588,7 +644,7 @@ class FSDPRuntime:
             return old
         dst = GroupIndex.from_layout(lo)
         dest = np.zeros(tuple(like.shape), _NUMPY_DTYPES[like.dtype])
-        write = row_writer(dest, new_rt.rank if lo.sharded else 0)
+        write = row_writer(dest, new_rt._block_index(lo))
         aligned = div > 1 or dest.dtype.kind in "iu"
         for name in lo.plan.names:
             g_old = tensor_src.get(name)
@@ -600,8 +656,7 @@ class FSDPRuntime:
                     f"tensor {name!r} (old group {g_old!r})")
             s_lo = self.layouts[g_old]
             if (keys[0], g_old) not in gathered:
-                gathered[keys[0], g_old] = self._host_global(
-                    src, -1 if s_lo.sharded else None)
+                gathered[keys[0], g_old] = self._host_group(s_lo, src)
             src = gathered[keys[0], g_old]
             src_div = s_lo.global_shape()[-1] // src.shape[-1]
             if src_div != div:
@@ -643,13 +698,15 @@ class FSDPRuntime:
         ef_groups = tuple(n for n, lo in self.layouts.items()
                           if lo.store.has_ef)
         for n in ef_groups:
-            # a model-replicated group's gradient is all-reduced over the
-            # model axis after its reduce-scatter: each replica would keep
-            # its own residual (the reference's ValueError)
-            if self.layouts[n].gdef.replicated_over_model and self.tp > 1:
+            # a group whose gradient is all-reduced over a replica axis
+            # after its reduce-scatter (the model axis for a model-
+            # replicated group under tp, the pod axis under HSDP) would
+            # keep one residual per replica (the reference's ValueError)
+            replica = self._replica_axes(self.layouts[n])
+            if replica:
                 raise ValueError(
                     f"reduce_wire='q8_block' on group {n!r} is unsupported "
-                    f"with replica gradient axes ['model']: the error-"
+                    f"with replica gradient axes {replica}: the error-"
                     f"feedback residual would diverge across replicas "
                     f"(quantized replica reductions are future work; use a "
                     f"cast reduce wire for this group)")
@@ -757,23 +814,41 @@ class FSDPRuntime:
                     sched.gather_mode, sched.reduce_mode,
                     sched.ring_chunk_elems))
 
+    def _replica_axes(self, lo) -> list[str]:
+        """The replica axes a group's gradient is all-reduced over after
+        its reduce-scatter, in the reference's words: ``model`` for a
+        model-replicated group under tp, ``pod`` under HSDP unless the
+        group is sharded or synced over it."""
+        replica = []
+        if lo.gdef.replicated_over_model and self.tp > 1:
+            replica.append("model")
+        if (self.has_pod and "pod" not in lo.fsdp_axes
+                and "pod" not in lo.grad_sync_axes):
+            replica.append("pod")
+        return replica
+
     @torch.no_grad()
     def _reduce_grads(self, trainable) -> None:
         """The reductions beyond each gather's reduce-scatter, in place: a
         model-replicated group (``layers_rep``) all-reduces its gradient
-        over the model axis under tp (each rank holds its partial sum),
-        and an unsharded group over its ``grad_sync_axes``; in the
-        schedule's accumulate dtype when ``reduce_dtype`` or
+        over the model axis under tp (each rank holds its partial sum), an
+        unsharded group over its ``grad_sync_axes``, and under HSDP every
+        group over the pod axis (the cross-pod sum; an unsharded group on a
+        ``pod_fsdp`` mesh has it in its ``grad_sync_axes`` already); each
+        in the schedule's accumulate dtype when ``reduce_dtype`` or
         ``reduce_wire`` pins one (the casts run on one rank too, as the
         reference's psum over a size-1 axis keeps them), else in the
         gradient's own dtype (the reference's ``_reduce_grads``)."""
         for name, p in trainable.items():
             lo = self.layouts[name]
             axes = []
-            if lo.gdef.replicated_over_model and self.tp > 1:
+            replica = self._replica_axes(lo)
+            if "model" in replica:
                 axes.append(("model",))
             if lo.grad_sync_axes:
                 axes.append(lo.grad_sync_axes)
+            if "pod" in replica:
+                axes.append(("pod",))
             if not axes:
                 continue
             g, sched = p.grad, self.sched_for(name)
@@ -781,8 +856,10 @@ class FSDPRuntime:
                       or sched.reduce_wire is not None)
             ad = sched.accum_dtype(self.compute_dtype) if pinned else g.dtype
             for a in axes:
+                grp = self.mesh.group_for(a)
                 t = g if ad == g.dtype else g.to(ad)
-                dist.all_reduce(t, group=self.mesh.group_for(a))
+                if grp is not None:
+                    dist.all_reduce(t, group=grp)
                 if t is not g:
                     g.copy_(t)
 
@@ -792,26 +869,38 @@ class FSDPRuntime:
     def _serve_call(self, fn, params, batch, cache, *index):
         """Run ``fn(pg, batch, cache, *index)`` (the model's ``prefill`` or
         ``decode``) on this rank's rows ``batch_slice`` gives of the global
-        batch, the cache and a per-row index, then all-gather the logit rows
-        when the batch is split, so every rank returns the global logits.
-        The cache holds the global batch; a rank writes its own rows in
-        place."""
-        if self.axis_sizes["model"] > 1:
-            raise NotImplementedError(
-                "serving on a mesh with a model axis (the replicated-KV "
-                "cache layout of tensor parallelism) is not ported yet "
-                "(ROADMAP Queue 1 item 18b)")
+        batch, the cache and a per-row index -- under tensor parallelism
+        on this rank's KV head slot of the cache too (the dim the model
+        declares, ``cache_head_dims``: one replicated-KV head per rank of
+        the model axis) -- then all-gather the vocab-parallel logits over
+        the model axis and the logit rows over the batch axes when the
+        batch is split, so every rank returns the global ``(B, 1, V)``
+        logits (one-device semantics; the reference returns model rank
+        0's vocab block, ROADMAP Queue 3).  The cache holds the global
+        batch; a rank writes its own rows and head slot in place."""
         tokens = batch["tokens"]
         B = tokens.shape[0]
+        usable = self._usable_batch_axes(B)
         lo, hi = self.batch_slice(B)
         bdims = self.model.cache_batch_dims()
+        hdims = self.model.cache_head_dims() if self.tp > 1 else {}
         for k, t in cache.items():
             if t.shape[bdims[k]] != B:
                 raise ValueError(
                     f"cache[{k!r}] holds {t.shape[bdims[k]]} rows, the "
                     f"batch {B}")
-        local_cache = {k: t.narrow(bdims[k], lo, hi - lo)
-                       for k, t in cache.items()}
+            if k in hdims and t.shape[hdims[k]] != self.tp:
+                raise ValueError(
+                    f"cache[{k!r}] holds {t.shape[hdims[k]]} KV head slots, "
+                    f"tensor parallelism needs one per model rank "
+                    f"({self.tp}); make it with the model's init_cache")
+        slot = self.mesh.coords["model"]
+        local_cache = {}
+        for k, t in cache.items():
+            t = t.narrow(bdims[k], lo, hi - lo)
+            if k in hdims:
+                t = t.narrow(hdims[k], slot, 1)
+            local_cache[k] = t
         local_batch = {k: v[lo:hi] for k, v in batch.items()}
         index = tuple(i[lo:hi] if isinstance(i, torch.Tensor) and i.dim()
                       else i for i in index)
@@ -819,9 +908,18 @@ class FSDPRuntime:
             pg = _ParamGetter(self, params, serve=True,
                               quant_matmul=self.schedule.serve_quant_matmul)
             logits, _ = fn(pg, local_batch, local_cache, *index)
+            if self.tp > 1:
+                # the vocab-parallel head: rank r holds columns
+                # [r * V / tp, (r + 1) * V / tp)
+                lead = tuple(logits.shape[:-1])
+                parts = payload_all_gather(
+                    logits.contiguous().reshape(-1), self.model_group)
+                logits = parts.view((self.tp,) + tuple(logits.shape)) \
+                    .movedim(0, -2).reshape(lead + (-1,))
             if hi - lo != B:
-                logits = payload_all_gather(logits.reshape(-1),
-                                            self.group).view(
+                logits = payload_all_gather(
+                    logits.contiguous().reshape(-1),
+                    self.mesh.group_for(usable)).view(
                     (B,) + tuple(logits.shape[1:]))
         return logits, cache
 
@@ -881,11 +979,11 @@ def _global_norm(runtime: FSDPRuntime, grads, scale) -> torch.Tensor:
         if lo.dup_names and mesh.coords[lo.outer_axis]:
             g = g[..., _unique_cols(runtime, lo)]
         s = g.square().sum()
-        owned = lo.fsdp_axes + ((lo.outer_axis,) if lo.outer_axis else ())
-        if owned and any(mesh.coords[a] for a in AXES if a not in owned):
+        owned = bool(lo.fsdp_axes or lo.outer_axis)
+        if owned and not runtime._owns_block(lo):
             s = torch.zeros_like(s)
         sq.append(s)
-        reduce.append(bool(owned))
+        reduce.append(owned)
     if any(reduce):
         part = torch.stack([s if r else torch.zeros_like(s)
                             for s, r in zip(sq, reduce)])

@@ -28,6 +28,7 @@ reference's code.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Iterable, Mapping
 
 import numpy as np
@@ -168,6 +169,47 @@ class GroupIndex:
                              write, layer)
 
 
+def _part_offsets(idx: GroupIndex, name: str) -> list[int] | None:
+    """Where each outer part of ``name`` starts in the logical tensor's
+    flat order: 0 for every part where the tensor is not split (each part
+    holds all of it), ``r * part size`` where it is split on a dim with
+    only size-1 dims before it (each part is one contiguous range of the
+    tensor); None where the parts interleave."""
+    d = idx.outer_dims.get(name)
+    if d is None:
+        return [0] * idx.outer_size
+    shape = idx.local_shape(name)
+    if math.prod(shape[:d]) != 1:
+        return None
+    return [r * math.prod(shape) for r in range(idx.outer_size)]
+
+
+def _pieces(idx: GroupIndex, name: str, parts: Iterable[tuple[int, int]],
+            div: int) -> list[tuple[int, int, int, int]]:
+    """``(lo, hi, row, row_lo)``: each extent of ``name`` in each ``(part,
+    offset)`` of ``parts``, as the range it covers in an order the two
+    sides of a copy share."""
+    exts = idx.extents(name, div)
+    return [(off + e.tensor_lo, off + e.tensor_lo + e.size,
+             idx.row(r, e.shard), e.lo) for r, off in parts for e in exts]
+
+
+def _copy_pieces(src, dst, read: Reader, write: Writer,
+                 layer: int | None) -> None:
+    """Copy every overlap of a source piece with a destination piece, row
+    to row: one copy of each element, no tensor assembled."""
+    for lo, hi, j, at in dst:
+        out = None
+        for s_lo, s_hi, s_j, s_at in src:
+            a, b = max(lo, s_lo), min(hi, s_hi)
+            if a >= b:
+                continue
+            if out is None:
+                out = write(j, layer)
+            out[at + a - lo: at + b - lo] = \
+                read(s_j, layer)[s_at + a - s_lo: s_at + b - s_lo]
+
+
 def copy_tensor(src: GroupIndex, dst: GroupIndex, name: str,
                 read: Reader, write: Writer, *, layer: int | None = None,
                 div: int = 1, aligned: bool = False) -> None:
@@ -178,11 +220,19 @@ def copy_tensor(src: GroupIndex, dst: GroupIndex, name: str,
     for leaves whose values depend on position (int8 codes, scales): both
     layouts must then agree on the outer split of ``name``, else this raises
     rather than silently reinterpreting blocks.
+
+    Extents are copied row to row wherever each outer part maps onto a
+    range of the other side's: the same outer split (part to part), or
+    parts that are contiguous ranges of the logical tensor (a split on its
+    leading dim, or none: a replicated tensor is read from part 0).  Only
+    parts that interleave (a split on a later dim, across a change of the
+    split) assemble the tensor and split it anew.
     """
     if src.same_outer(dst, name):
         for r in range(src.outer_size):
-            flat = src._read_part(name, r, read, layer, div)
-            dst._write_part(name, r, flat, write, layer, div)
+            _copy_pieces(_pieces(src, name, [(r, 0)], div),
+                         _pieces(dst, name, [(r, 0)], div), read, write,
+                         layer)
         return
     if aligned or div != 1:
         raise ValueError(
@@ -191,13 +241,22 @@ def copy_tensor(src: GroupIndex, dst: GroupIndex, name: str,
             f"dim={dst.outer_dims.get(name)}); block-granular state cannot be "
             f"remapped across an outer (TP/EP) change -- rebuild it from the "
             f"master instead")
-    full = src.read_tensor(name, read, layer)
     want = dst.full_shape(name)
-    if tuple(full.shape) != want:
+    if src.full_shape(name) != want:
         raise ValueError(
             f"{name}: logical shape changed across plans "
-            f"({tuple(full.shape)} -> {want}); cannot reshard")
-    dst.write_tensor(name, full, write, layer)
+            f"({src.full_shape(name)} -> {want}); cannot reshard")
+    s_off, d_off = _part_offsets(src, name), _part_offsets(dst, name)
+    if s_off is not None and d_off is not None:
+        # a tensor no part splits is read from part 0 alone
+        s_parts = list(enumerate(s_off))
+        if name not in src.outer_dims:
+            s_parts = s_parts[:1]
+        _copy_pieces(_pieces(src, name, s_parts, 1),
+                     _pieces(dst, name, enumerate(d_off), 1), read, write,
+                     layer)
+        return
+    dst.write_tensor(name, src.read_tensor(name, read, layer), write, layer)
 
 
 def stream_tensors(dst: GroupIndex, write: Writer,

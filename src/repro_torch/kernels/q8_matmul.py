@@ -220,6 +220,12 @@ def q8_matmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
             f"q8_matmul: x last dim {x.shape[-1]} != codes rows {k}")
     lead = tuple(x.shape[:-1])
     xm = x.reshape(-1, k).contiguous()
+    if n and codes.stride() != (n, 1):
+        # the launcher reads rows N codes apart: a column view would be
+        # read as other columns (``q8_slice_cols`` copies its slice)
+        raise ValueError(
+            f"q8_matmul: codes must be row-major (K, N) with rows {n} codes "
+            f"apart, got strides {codes.stride()}")
     scales = scales.reshape(-1)
     _check_cuda("q8_matmul", x=xm, codes=codes, scales=scales)
     m = xm.shape[0]

@@ -1,8 +1,10 @@
 """Whether a device's train step is bitwise repeatable.
 
     PYTHONPATH=src python -m repro_torch.launch.repeatability \\
-        [--config gemma2-2b] [--device cpu|cuda] [--seeds 0,1,2,3] \\
+        [--config gemma2-2b] [--device cuda|cpu] [--seeds 0,1,2,3] \\
         [--reps 3] [--processes 3]
+
+    PYTHONPATH=src python -m repro_torch.launch.repeatability --device cpu
 
 Runs the set-up of ``chip_smoke.py``'s ``parity`` phases -- the config's
 ``reduced()`` model, fp32 compute, two train steps from
@@ -11,7 +13,8 @@ times per seed in each of ``processes`` fresh processes (one rank).
 Prints one JSON line per process and a last line with, per seed, the
 number of distinct (loss, grad norm) streams over all runs and the largest
 relative difference of a stream from the first.  A repeatable device
-prints 1 and 0.0 for every seed.  ``--device cuda`` needs a card.
+prints 1 and 0.0 for every seed.  It runs on the card unless given
+``--device cpu`` (the CPU check), and raises where no card is present.
 """
 from __future__ import annotations
 
@@ -70,7 +73,7 @@ def summary(runs: list) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default="gemma2-2b")
-    ap.add_argument("--device", default="cpu", choices=("cpu", "cuda"))
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--seeds", default="0,1,2,3")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--processes", type=int, default=3)
@@ -79,7 +82,9 @@ def main() -> None:
     args = ap.parse_args()
     seeds = [int(s) for s in args.seeds.split(",")]
     if args.device == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda needs a CUDA card")
+        raise RuntimeError(
+            "repeatability runs on the card by default and no CUDA device "
+            "is available; pass --device cpu")
     if args.worker:
         print(json.dumps(streams(args.config, args.device, seeds,
                                  args.reps)))

@@ -8,9 +8,14 @@ decode tokens greedily, with ZeRO-3 parameter gathering per layer
         --reduced --batch 4 --prompt-len 32 --gen 16 [--device cpu]
 
 The reference's arguments, plus ``--device`` (``cuda``, the default, or
-``cpu``).  ``--data N`` runs N ranks (one process each: gloo on the CPU,
-NCCL with one card per rank); the batch is split over them.  ``--model``
-above 1 (tensor parallelism) is not ported (ROADMAP Queue 1 item 18b).
+``cpu``).  ``--data N --model M`` runs N x M ranks on a ``(data, model)``
+mesh (one process each: gloo on the CPU, NCCL with one card per rank, so
+a mesh of more ranks than cards is refused); the batch is split over the
+data axis.  ``--model`` above 1 serves with tensor parallelism of that
+degree over the model axis (``configs.with_tp``: FSDP and the batch over
+the data axis), which needs more ranks than KV heads, as the reference's
+cache does: a reduced config (as many KV heads as query heads) raises its
+``ValueError``.  Every rank returns the whole vocabulary's logits.
 """
 from __future__ import annotations
 
@@ -34,31 +39,38 @@ def parse_args(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = ap.parse_args(argv)
-    if args.model > 1:
-        raise NotImplementedError(
-            f"--model {args.model} (tensor parallelism) is not ported yet "
-            f"(ROADMAP Queue 1 item 18b)")
-    if args.data < 1 or args.gen < 1:
-        raise ValueError("--data and --gen must be >= 1")
+    if args.data < 1 or args.model < 1 or args.gen < 1:
+        raise ValueError("--data, --model and --gen must be >= 1")
     return args
 
 
-def serve(args, group) -> list:
-    """One rank's run over ``group``; returns the generated tokens (B, gen)
-    as lists and prints the timings (rank 0)."""
-    import numpy as np
-    import torch
+def serve_config(args):
+    """The config ``args`` name: reduced or at published width, and with
+    ``--model`` above 1 tensor parallel of that degree."""
+    from ..configs import get_config, with_tp
 
-    from ..configs import build_model, get_config
-    from ..core.fsdp import FSDPRuntime
-
-    device = args.device
-    rank = torch.distributed.get_rank(group)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    return with_tp(cfg, args.model) if args.model > 1 else cfg
+
+
+def serve(cfg, args, group) -> list:
+    """One rank's run of ``cfg`` (``serve_config(args)`` from the command
+    line) over ``group``; returns the generated tokens (B, gen) as lists
+    and prints the timings (rank 0)."""
+    import numpy as np
+    import torch
+
+    from ..configs import build_model
+    from ..core.fsdp import FSDPRuntime
+    from .mesh import make_local_mesh
+
+    device = args.device
+    rank = torch.distributed.get_rank(group)
     model = build_model(cfg)
-    runtime = FSDPRuntime(model, group, device=device)
+    mesh = make_local_mesh(args.data, args.model, group=group)
+    runtime = FSDPRuntime(model, mesh, device=device)
     params = runtime.init_params(args.seed)
     prefill = runtime.make_prefill_step()
     decode = runtime.make_decode_step()
@@ -112,26 +124,35 @@ def _rank_main(args, rank: int = 0, init_file: str | None = None):
             raise RuntimeError(
                 "serve runs on the card by default and no CUDA device is "
                 "available; pass --device cpu")
-        torch.cuda.set_device(rank)
+        # a rank past the last card is refused by the mesh's check
+        torch.cuda.set_device(rank % torch.cuda.device_count())
     group = init_local_group("nccl" if args.device == "cuda" else "gloo",
-                             rank=rank, world_size=args.data,
+                             rank=rank, world_size=args.data * args.model,
                              init_file=init_file)
     try:
-        serve(args, group)
+        serve(serve_config(args), args, group)
     finally:
         torch.distributed.destroy_process_group()
 
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.data == 1:
+    world = args.data * args.model
+    if args.device == "cuda":
+        import torch
+
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "serve runs on the card by default and no CUDA device is "
+                "available; pass --device cpu")
+    if world == 1:
         _rank_main(args)
         return
     ctx = multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory() as tmp:
         init_file = os.path.join(tmp, "store")
         procs = [ctx.Process(target=_rank_main, args=(args, r, init_file))
-                 for r in range(args.data)]
+                 for r in range(world)]
         for p in procs:
             p.start()
         for p in procs:

@@ -347,7 +347,8 @@ def attention(cfg, p, x: torch.Tensor, *, q_pos: torch.Tensor,
     passed through ``gather_seq`` and the weights are this rank's: its
     ``n_heads / tp`` q heads, its KV heads (or, past ``n_kv_heads`` ranks,
     the replicated KV weights, of which it takes the columns of the one KV
-    head its q heads read); the output goes through ``reduce_out``.
+    head its q heads read: an int8 slice through ``ops.q8_slice_cols`` in
+    the serve quant mode); the output goes through ``reduce_out``.
 
     ``cache``: None (training) or ``{"k", "v": (B, Hkv, W, hd), "pos":
     (B, W) int32}`` with ``pos`` -1 where a slot is empty.  The new keys
@@ -373,7 +374,13 @@ def attention(cfg, p, x: torch.Tensor, *, q_pos: torch.Tensor,
         w = p[prefix + name]
         b = p.get(prefix + name + "_b") if cfg.qkv_bias else None
         if kv and kv_rep:
-            w = to_dense(w, x.dtype).narrow(1, col, hd)
+            # this rank's KV head: a column slice of the replicated weight,
+            # kept int8 where the scale layout allows it (the reference's),
+            # else densified
+            sl = (ops.q8_slice_cols(w, col, hd)
+                  if isinstance(w, ops.QuantTensor) else None)
+            w = sl if sl is not None else to_dense(w, x.dtype).narrow(
+                1, col, hd)
             b = None if b is None else b.narrow(0, col, hd)
         y = dense(x, w)
         if b is not None:

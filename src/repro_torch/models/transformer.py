@@ -312,17 +312,34 @@ class DecoderLM:
     def cache_shapes(self, batch: int, seq_len: int) -> dict:
         """Full KV cache shapes and dtypes, leading dims (n_blocks,
         selfs_per_block): K and V (B, Hkv, W, hd) in bf16 whatever the
-        compute dtype, ``pos`` (B, W) int32."""
+        compute dtype, ``pos`` (B, W) int32.  Under tensor parallelism
+        the KV weights are replicated (tp > n_kv_heads) and each rank of
+        the model axis caches the one KV head its q heads read: Hkv is
+        ``tp``, one slot per rank (the reference's layout and its
+        ``ValueError`` for tp <= n_kv_heads)."""
         cfg = self.cfg
         W = self.cache_window(seq_len)
+        if self.tp > 1 and self.tp <= cfg.n_kv_heads:
+            raise ValueError(
+                f"replicated-KV cache layout needs tp > n_kv_heads; got "
+                f"tp={self.tp}, n_kv_heads={cfg.n_kv_heads}")
+        hkv = self.tp if self.tp > 1 else cfg.n_kv_heads
         lead = (self.n_blocks, self.selfs_per_block, batch)
-        return {"k": (lead + (cfg.n_kv_heads, W, cfg.hd), torch.bfloat16),
-                "v": (lead + (cfg.n_kv_heads, W, cfg.hd), torch.bfloat16),
+        return {"k": (lead + (hkv, W, cfg.hd), torch.bfloat16),
+                "v": (lead + (hkv, W, cfg.hd), torch.bfloat16),
                 "pos": (lead + (W,), torch.int32)}
 
     def cache_batch_dims(self) -> dict[str, int]:
         """Batch-dim index of each cache leaf."""
         return {"k": 2, "v": 2, "pos": 2}
+
+    def cache_head_dims(self) -> dict[str, int]:
+        """KV-head-dim index of each cache leaf that has one: the dim a
+        rank of the model axis takes its slot of under tensor parallelism
+        (declared, never found by its size: the reference's
+        ``cache_pspec`` takes the first dim of size tp, which a leading
+        dim can match; ROADMAP Queue 3)."""
+        return {"k": 3, "v": 3}
 
     def init_cache(self, batch: int, seq_len: int, device="cuda") -> dict:
         """An empty cache: K and V zeros, ``pos`` -1 (no slot filled).  On
@@ -339,13 +356,20 @@ class DecoderLM:
 
     def prefill(self, pg, batch, cache):
         """Run the prompt ``batch["tokens"]`` (B, T) from position 0,
-        filling the cache in place.  Returns ``(logits (B, 1, V) of the last
-        position, cache)``."""
+        filling the cache in place (under sequence parallelism the
+        residual stream split over the TP ranks, as in training).  Returns
+        ``(logits (B, 1, V) of the last position, cache)``; under tensor
+        parallelism this rank's vocab columns of them."""
         tokens = batch["tokens"]
         B, T = tokens.shape
+        sp = self._sp_active(T)
         q_pos = torch.arange(T, device=tokens.device)[None].expand(B, T)
-        x, g, _ = self._embed_in(pg, tokens)
-        x, _ = self._backbone(pg, x, q_pos, caches=cache, cache_index=0)
+        x, g, _ = self._embed_in(pg, tokens, sp)
+        x, _ = self._backbone(pg, x, q_pos, caches=cache, cache_index=0,
+                              sp=sp)
+        # under sequence parallelism the last position lies on the last TP
+        # rank: gather the sequence whole first (the reference's)
+        x = L.gather_seq(x, pg.tp_group, sp)
         return self._logits(pg, g, x[:, -1:]), cache
 
     def decode(self, pg, batch, cache, index):

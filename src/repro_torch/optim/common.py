@@ -285,6 +285,15 @@ class OptimizerBase:
                 f"{type(self).__name__} on groups split over the model axis "
                 f"(tensor or expert parallelism) is not ported yet (ROADMAP "
                 f"Queue 1 item 19)")
+        if any(lo.sharded and "pod" not in lo.fsdp_axes
+               for lo in runtime.layouts.values()
+               if getattr(runtime, "has_pod", False)):
+            # the gathers of whole matrices run over the process group,
+            # which an HSDP group's shards span once per pod
+            raise NotImplementedError(
+                f"{type(self).__name__} on groups replicated over a pod axis "
+                f"(HSDP without pod_fsdp) is not ported yet (ROADMAP Queue 1 "
+                f"item 19)")
 
     def zero_state(self, runtime) -> dict[str, dict[str, torch.Tensor]]:
         """Every leaf of the state, zero, on the runtime's device."""

@@ -3,13 +3,14 @@ plan, file to file (port of ``tools/reshard.py``).
 
     PYTHONPATH=src python -m repro_torch.tools.reshard SRC DST \\
         --arch gemma2-2b [--reduced | --full] [--layers L] --data N \\
-        [--planner ragged] [--policies auto] [--optimizer NAME] \\
-        [--drop-opt] [--device cuda|cpu]
+        [--model M] [--tp N] [--planner ragged] [--policies auto] \\
+        [--optimizer NAME] [--drop-opt] [--device cuda|cpu]
 
 The destination layout is a ``ShardingPlan`` resolved on the host
 (``core.policy.plan`` needs no devices), so a checkpoint of 8 ranks can be
-rewritten for 2 -- or for another planner, store format or quant block --
-on any machine.  Both sides are per-shard ``.npy`` files addressed through
+rewritten for 2 -- or for another TP degree (``--tp``, on a model axis of
+``--model`` ranks), planner, store format or quant block -- on any
+machine.  Both sides are per-shard ``.npy`` files addressed through
 the per-tensor shard index (``core.reshard``) and memmapped, so peak host
 memory is one tensor and one shard row.  A group whose layout and store
 are unchanged is copied byte for byte; a changed group streams its master
@@ -17,13 +18,17 @@ tensor by tensor, then derives its store's leaves shard row by shard row:
 the bf16 rounding, the fp8 codes (``quant.fp8.fp8_encode``) or the q8
 codes and scales (``kernels.ops.quantize``: the plain version on the CPU,
 the kernel on the card), each what a save under the new plan would write;
-a residual restarts at zero.
+a residual restarts at zero.  Across TP degrees a tensor split on its
+leading dim (the vocab-parallel embedding) or not split at all moves
+extent to extent; one split on a later dim is read whole from its outer
+parts and split anew.  A tensor may change groups (``wk``/``wv`` between
+``layers`` and ``layers_rep`` where tp passes the KV head count).
 
 Optimizer state follows: buffer families follow their tensors' extents
 (8-bit codes and scales on the aligned path), Shampoo's unpadded factors
-and dense leaves are copied.  ``--drop-opt`` leaves it out (the resumed
-run starts its optimizer afresh).  A model axis (``--tp``, ``--model`` >
-1) is not ported yet (ROADMAP Queue 1 item 18b).
+and dense leaves are copied; 8-bit Adam's block-granular state raises on
+an outer-layout change.  ``--drop-opt`` leaves it out (the resumed run
+starts its optimizer afresh).
 
 The tool runs on the card unless ``--device cpu`` is given.
 """
@@ -331,7 +336,7 @@ def _remap_opt_family(prefix, entry, dst, div, group_ents, src_shards,
 
 def build_new_plan(args):
     """The destination ShardingPlan from the arguments, on the host."""
-    from ..configs import build_model, get_config
+    from ..configs import build_model, get_config, with_tp
     from ..core.policy import plan
 
     cfg = get_config(args.arch)
@@ -344,12 +349,8 @@ def build_new_plan(args):
     if args.tp == 1:
         cfg = dataclasses.replace(cfg, parallel=dataclasses.replace(
             cfg.parallel, tp=1, ep=1, sequence_parallel=False))
-    if args.tp > 1 or args.model > 1 or cfg.parallel.tp > 1 \
-            or cfg.parallel.ep > 1:
-        raise NotImplementedError(
-            "resharding across a model axis (--tp or the config's tp/ep "
-            "above 1, --model > 1) is not ported yet (ROADMAP Queue 1 item "
-            "18b); --tp 1 plans the config without it")
+    elif args.tp > 1:
+        cfg = with_tp(cfg, args.tp)
     return plan(build_model(cfg), {"data": args.data, "model": args.model},
                 args.policies, planner=args.planner)
 
@@ -365,10 +366,10 @@ def main(argv=None):
     ap.add_argument("--full", dest="reduced", action="store_false")
     ap.add_argument("--data", type=int, default=1, help="new data axis size")
     ap.add_argument("--model", type=int, default=1,
-                    help="new model axis size (1: not ported above)")
+                    help="new model axis size")
     ap.add_argument("--tp", type=int, default=0,
-                    help="override the config's TP degree (1: no model "
-                         "axis; above 1 not ported)")
+                    help="override the config's TP degree (1: no tensor "
+                         "parallelism; above 1: over the model axis)")
     ap.add_argument("--planner", default="ragged")
     ap.add_argument("--policies", default=None)
     ap.add_argument("--optimizer", default=None)

@@ -200,12 +200,35 @@ def test_tool_identity_is_a_bitwise_copy(tmp_path):
         ).read_bytes()
 
 
+def _files_by_path(ckpt_dir):
+    """A checkpoint's shard files keyed by what they hold: a parameter
+    file by its name, an optimizer file by its leaf path and row (the
+    tool numbers optimizer files in its plan's group order, a save in
+    the sorted key order)."""
+    meta = json.loads((ckpt_dir / "meta.json").read_text())
+    shards = ckpt_dir / "shards"
+    out = {f.name: f for f in shards.glob("p__*.npy")}
+    for e in meta["opt"]:
+        for f in shards.glob(e["file"] + "*.npy"):
+            out["/".join(e["path"]) + f.name[len(e["file"]):]] = f
+    return out
+
+
+def _with_tp(cfg, tp: int):
+    """``cfg`` tensor parallel of degree ``tp`` (as is for 1)."""
+    if tp == 1:
+        return cfg
+    return dataclasses.replace(cfg, parallel=dataclasses.replace(
+        cfg.parallel, tp=tp))
+
+
 def test_tool_matches_reference_tool(tmp_path, monkeypatch):
     """On the same checkpoint, the port's tool and the reference's write
     byte-identical files for ragged -> fsdp2, for 4 ranks under the
-    bf16 store, for the q8_block store with its residual and for
+    bf16 store, for the q8_block store with its residual, for
     ``policies="auto"`` at 8 ranks (the port's launch.mesh constants set
-    to the reference's); the command line runs it too."""
+    to the reference's) and for tp 2 on a (2, 2) mesh; the command line
+    runs it too, across the model axis and back byte for byte."""
     import repro.launch.mesh as jax_mesh
     import repro_torch.launch.mesh as mesh
 
@@ -221,13 +244,18 @@ def test_tool_matches_reference_tool(tmp_path, monkeypatch):
              "bf16x4": ({"data": 4, "model": 1}, {"param_store": "bf16"},
                         "ragged"),
              "q8": ({"data": 2, "model": 1}, Q8, "ragged"),
-             "auto8": ({"data": 8, "model": 1}, "auto", "ragged")}
+             "auto8": ({"data": 8, "model": 1}, "auto", "ragged"),
+             # tensor parallelism: emb, head and the layers' q/k/v/w1/w2/wo
+             # split over a model axis of 2
+             "tp2": ({"data": 2, "model": 2}, None, "ragged")}
     for name, (axes, pol, pl) in cases.items():
         tpol = CommSchedule(**pol) if isinstance(pol, dict) else pol
         jpol = JaxSchedule(**pol) if isinstance(pol, dict) else pol
-        p_t = make_plan(build_model(tc), axes, tpol, planner=pl)
-        p_j = jax_policy.make_plan(jax_build_model(jc), axes, jpol,
-                                   planner=pl)
+        tp = axes["model"]
+        p_t = make_plan(build_model(_with_tp(tc, tp)), axes, tpol,
+                        planner=pl)
+        p_j = jax_policy.make_plan(jax_build_model(_with_tp(jc, tp)), axes,
+                                   jpol, planner=pl)
         assert p_t.dumps() == p_j.dumps()
         s_t = tool.reshard(src, tmp_path / f"t_{name}", p_t, verbose=False,
                            device="cpu")
@@ -238,9 +266,19 @@ def test_tool_matches_reference_tool(tmp_path, monkeypatch):
                "--planner", "fsdp2", "--drop-opt", "--device", "cpu"])
     meta = json.loads((tmp_path / "cli" / "meta.json").read_text())
     assert meta["opt"] == [] and meta["groups"]["layers"]["mode"] == "fsdp2"
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tool.main([str(src), str(tmp_path / "tp"), "--tp", "2",
-                   "--device", "cpu"])
+    # across the model axis: tp 2 on a model axis of 2 and back to tp 1
+    # (the master and moment files byte for byte the source's)
+    tool.main([str(src), str(tmp_path / "tp"), "--data", "1", "--model",
+               "2", "--tp", "2", "--device", "cpu"])
+    meta = json.loads((tmp_path / "tp" / "meta.json").read_text())
+    assert meta["groups"]["layers"]["outer_size"] == 2
+    tool.main([str(tmp_path / "tp"), str(tmp_path / "tp1"), "--tp", "1",
+               "--device", "cpu"])
+    files = _files_by_path(src)
+    back = _files_by_path(tmp_path / "tp1")
+    assert sorted(files) == sorted(back)
+    for key, f in files.items():
+        assert f.read_bytes() == back[key].read_bytes(), key
 
 
 def test_adam8bit_state_reshards_through_the_tool(tmp_path):
@@ -378,7 +416,7 @@ def test_replan_in_job_matches_a_checkpoint_round_trip(tmp_path):
     wire and to the fsdp2 planner gives every parameter and optimizer leaf
     a save and a load into the new runtime give (masters bitwise, codes of
     ``ops.quantize``, the residual zero); a same-plan replan keeps the
-    very tensors; training goes on; a model axis or another world raise."""
+    very tensors; training goes on; another world size raises."""
     rt, opt, params, state, path = _trained(tmp_path)
     for kw in ({"schedule": CommSchedule(**Q8)}, {"planner": "fsdp2"},
                {"policies": "auto"}):
@@ -402,7 +440,8 @@ def test_replan_in_job_matches_a_checkpoint_round_trip(tmp_path):
     stream = SyntheticStream(DataConfig(rt.cfg.vocab, SEQ, BATCH), rt.cfg)
     _, _, _, m = fn(p_new, s_new, 2, stream.shard(stream.batch(2), new_rt))
     assert np.isfinite(float(m["loss"]))
-    with pytest.raises(NotImplementedError, match="item 18"):
-        rt.replan(params, mesh={"data": 1, "model": 2})
-    with pytest.raises(ValueError, match="checkpoint.save"):
-        rt.replan(params, mesh={"data": 2})
+    # another mesh on the same ranks is a replan (tests/test_torch_tp_ckpt
+    # .py); more ranks than the process group holds go through a save
+    for mesh in ({"data": 1, "model": 2}, {"data": 2}):
+        with pytest.raises(ValueError, match="checkpoint.save"):
+            rt.replan(params, mesh=mesh)

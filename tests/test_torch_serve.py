@@ -454,14 +454,16 @@ def test_cpu_only_with_device_cpu(gemma_fp32):
         FSDPRuntime(model, gemma_fp32[1].group)
     with pytest.raises(RuntimeError, match="--device cpu"):
         serve_cli.main(["--batch", "1", "--prompt-len", "2", "--gen", "1"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 18"):
-        serve_cli.main(["--model", "2", "--device", "cpu"])
+    # a model axis too: refused before any rank is spawned
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        serve_cli.main(["--model", "2"])
 
 
 def test_serve_cli_on_cpu(capsys, group):
-    gen = serve_cli.serve(serve_cli.parse_args(
+    args = serve_cli.parse_args(
         ["--device", "cpu", "--batch", "2", "--prompt-len", "4", "--gen",
-         "3"]), group)
+         "3"])
+    gen = serve_cli.serve(serve_cli.serve_config(args), args, group)
     assert np.asarray(gen).shape == (2, 3)
     out = capsys.readouterr().out
     assert "prefill 2x4" in out and "tok/s" in out

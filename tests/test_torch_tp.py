@@ -7,8 +7,10 @@ data 2 x model 2 -- against the port's one-rank run and against the
 reference on as many host devices (a JAX subprocess with 4).  Also SGD at
 tp 2, nemotron's own recipe (SP, 2 microbatches, 8-bit Adam) at tp 2, the
 vocab-parallel embedding and cross entropies against their tp = 1 forms,
-``init_params`` / ``load_reference_state`` on outer-split groups, and
-nemotron's config and published-width plans.
+``init_params`` / ``load_reference_state`` on outer-split groups, a
+checkpoint round trip and the serve steps on the model axis, the reshard
+tool onto it against the reference's, and nemotron's config and
+published-width plans.
 
 Parity classes (bounds with the measured readings beside them):
   * against the port's one-rank run: ALLCLOSE, fp32 rounding of sums split
@@ -76,6 +78,7 @@ def streams(tmp_path_factory):
     group = init_local_group("gloo")
     one = {opt: MW.run(group, MW.config(NEMO, _par(), optimizer=opt))
            for opt in ("adamw", "sgd", "adam8bit")}
+    one["serve"] = MW.serve_logits(group, MW.serve_config(1, 1))
     o2, o4 = MW.join(*p2), MW.join(*p4)
     assert ref.wait(timeout=300) == 0
     port = {**MW.runs_of(o2, RUNS2), **MW.runs_of(o4, RUNS4)}
@@ -215,27 +218,106 @@ def test_q8_reduce_wire_on_layers_rep_raises(streams):
 
 
 @pytest.mark.parametrize("what", ["save", "load", "prefill", "decode"])
-def test_checkpoint_and_serving_on_a_model_axis_raise(what, streams):
-    """On a data 1 x model 2 mesh, ``ckpt.save`` and ``ckpt.load`` raise
-    rather than write or read a file whose rank rows lack the outer rows,
-    and the prefill and decode steps raise rather than serve without the
-    replicated-KV cache layout: each names its ROADMAP item."""
-    for o in streams["ranks2"]:
-        msg = str(o[f"err/{what}"])
-        assert "Queue 1 item 18b" in msg, msg
+def test_checkpoint_and_serving_on_a_model_axis(what, streams):
+    """On a data 1 x model 2 mesh at tp 2: ``ckpt.save`` writes each block
+    once -- rows ``r * m + k`` of the split groups (0 and 1 here), one row
+    of ``layers_rep`` -- and ``ckpt.load`` reads the master and the
+    moments back bitwise; the prefill and decode steps (gemma2-2b.reduced()
+    with one KV head) return the whole (B, 1, V) logits, the same bits on
+    both ranks, within 1e-4 relative L2 of the one-rank serve (the bound
+    of tests/test_torch_tp_serve.py; measured 4.0e-6-1.4e-5)."""
+    ranks = streams["ranks2"]
+    if what == "save":
+        files = set(str(f) for f in ranks[0]["ck/files"])
+        for g, rows in (("layers", 2), ("globals", 2), ("layers_rep", 1)):
+            got = {f for f in files if f.startswith(f"p__{g}__master__")}
+            assert got == {f"p__{g}__master__{j}.npy" for j in range(rows)}
+        return
+    if what == "load":
+        for o in ranks:
+            assert int(o["ck/step"]) == 3
+            assert bool(o["ck/master_equal"]) and bool(o["ck/moments_equal"])
+        return
+    calls = [0] if what == "prefill" else [1, 2]
+    want = streams["one"]["serve"]
+    for o in ranks:
+        got = o["serve/fn"]
+        assert got.shape == want.shape
+        assert np.array_equal(got.view(np.int32),
+                              ranks[0]["serve/fn"].view(np.int32))
+        for c in calls:
+            assert MW.rel_l2(got[c], want[c]) < 1e-4, (c, MW.rel_l2(
+                got[c], want[c]))
 
 
-@pytest.mark.parametrize("argv", [["--model", "2"], ["--tp", "2"],
+@pytest.mark.parametrize("argv", [["--model", "2"],
+                                  ["--data", "2", "--model", "2", "--tp",
+                                   "2"],
                                   ["--arch", NEMO, "--full"]])
-def test_reshard_tool_across_a_model_axis_raises(argv, tmp_path):
-    """``python -m repro_torch.tools.reshard`` onto a model axis -- a
-    ``--model`` or ``--tp`` above 1, or a config whose tp is -- raises
-    before it reads the source."""
+def test_reshard_tool_across_a_model_axis(argv, tmp_path, monkeypatch):
+    """``python -m repro_torch.tools.reshard`` onto a model axis writes the
+    files the reference's ``tools/reshard.py`` writes, byte for byte (a
+    model axis the config does not use, and tp 2 on data 2 x model 2), and
+    back at ``--tp 1`` the source's; nemotron-4-340b at published width
+    (its own tp 16 on data 16 x model 16) plans as the reference's tool
+    plans (plan only: no checkpoint of that size is written)."""
+    import argparse
+    import dataclasses
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import build_model, get_config
+    from repro_torch.core.fsdp import FSDPRuntime
+    from repro_torch.data.pipeline import DataConfig, SyntheticStream
+    from repro_torch.optim import make_optimizer
     from repro_torch.tools import reshard as tool
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 18b"):
-        tool.main([str(tmp_path / "src"), str(tmp_path / "dst"), *argv,
-                   "--device", "cpu"])
+    monkeypatch.syspath_prepend(ROOT)
+    from tools import reshard as jax_tool
+
+    def args_of(pairs, reduced=True):
+        ns = argparse.Namespace(arch="gemma2-2b", reduced=reduced,
+                                optimizer=None, tp=0, data=1, model=1,
+                                planner="ragged", policies=None, layers=0)
+        for k, v in zip(pairs[::2], pairs[1::2]):
+            k = k.lstrip("-")
+            setattr(ns, k, int(v) if k in ("tp", "data", "model") else v)
+        return ns
+
+    if "--full" in argv:
+        pairs = ["--arch", NEMO, "--data", "16", "--model", "16"]
+        got = tool.build_new_plan(args_of(pairs, reduced=False))
+        want = jax_tool.build_new_plan(args_of(pairs, reduced=False))
+        assert got.dumps() == want.dumps()
+        assert got.groups["layers"].outer_size == 16
+        return
+    cfg = dataclasses.replace(get_config("gemma2-2b").reduced(),
+                              learning_rate=MW.LR)
+    rt = FSDPRuntime(build_model(cfg), init_local_group("gloo"),
+                     device="cpu", compute_dtype=torch.float32)
+    opt = make_optimizer(cfg)
+    stream = SyntheticStream(DataConfig(cfg.vocab, 32, 4), cfg)
+    params, state, _, _ = rt.make_train_step(opt)(
+        rt.init_params(0), opt.init(rt), 0,
+        stream.shard(stream.batch(0), rt))
+    src = tmp_path / "src"
+    ckpt.save(src, rt, params, state, step=1)
+    tool.main([str(src), str(tmp_path / "port"), *argv, "--device", "cpu"])
+    jax_tool.reshard(src, tmp_path / "ref", jax_tool.build_new_plan(
+        args_of(argv)), verbose=False)
+    for d in ("port", "ref"):
+        assert (tmp_path / d / "plan.json").exists()
+    for f in sorted((tmp_path / "ref").rglob("*")):
+        if f.is_file():
+            rel = f.relative_to(tmp_path / "ref")
+            assert (tmp_path / "port" / rel).read_bytes() == f.read_bytes(), \
+                rel
+    tool.main([str(tmp_path / "port"), str(tmp_path / "back"), "--tp", "1",
+               "--device", "cpu"])
+    for g, lo in rt.layouts.items():
+        for j in range(lo.outer_size * lo.plan.num_shards):
+            name = f"shards/p__{g}__master__{j}.npy"
+            assert (tmp_path / "back" / name).read_bytes() == \
+                (src / name).read_bytes()
 
 
 def test_nemotron_config_and_full_width_plans_match_reference():

@@ -203,16 +203,26 @@ def test_runtime_defaults_to_cuda(monkeypatch):
 
 
 def test_unported_runtime_options_raise():
+    import dataclasses
+
     from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim import make_optimizer
 
     cfg = W.quickstart_config()
     group = init_local_group("gloo")
-    # a pod axis (HSDP) is not ported; microbatches and the model axis are
-    with pytest.raises(NotImplementedError, match="Queue 1 item 18b"):
-        make_local_mesh(1, 1, pod=2)
-    # policies="auto" is ported; a replan across a model axis is not
+    # a pod axis is ported (HSDP); Muon and Shampoo on groups replicated
+    # over it are not (their whole-matrix gathers span the process group)
+    mesh = make_local_mesh(1, 1, pod=1)
+    assert mesh.axis_sizes == {"pod": 1, "data": 1, "model": 1}
+    rt = FSDPRuntime(build_model(cfg), mesh, device="cpu")
+    assert rt.has_pod and rt.batch_axes[0] == "pod"
+    for opt in ("muon", "shampoo"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 19"):
+            make_optimizer(dataclasses.replace(cfg, optimizer=opt)).init(rt)
+    # replan onto and across a model axis is ported; onto more ranks than
+    # the process group holds it is not
     rt = FSDPRuntime(build_model(cfg), group, device="cpu", policies="auto")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 18b"):
+    with pytest.raises(ValueError, match="stays on the runtime's process"):
         rt.replan(rt.init_params(0), mesh={"data": 1, "model": 2})
 
 
