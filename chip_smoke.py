@@ -41,6 +41,17 @@ non-zero):
                   batch 2 x 2048 tokens; one warm-up step and three timed
                   steps.  The flat kernel must launch once per group per
                   step (8 times).
+  6b. train_cli -- the training command: ``python -m
+                  repro_torch.launch.train --arch gemma2-2b --full --steps 4
+                  --batch 8 --seq 128 --log-every 1`` through
+                  ``launch.train.main`` in this process (on its NCCL rank):
+                  published width and all 26 layers, bf16 compute, AdamW
+                  on the fp32 store.  Finite losses and grad norms, the
+                  flat ``adamw_store_update`` once per group per step and
+                  no other kernel, no plain version called (each of
+                  ``kernels.ops``' plain versions counted); printed: step
+                  ms (median of steps 1-3), tokens/s, set-up seconds and
+                  ``max_memory_allocated`` on a line of their own.
   7. train_q8  -- the q8 path: the same model and batch with the q8_block
                   store and the q8 gradient wire with error feedback on both
                   groups (``q8_both_wires``).  Every q8 kernel must launch as
@@ -64,7 +75,11 @@ non-zero):
                   (PARITY_Q8_RTOL on a q8_block store).  The fp32-store
                   case runs each device twice: both must repeat bitwise
                   (a CPU reference whose sum order varies from run to run
-                  moves the readings past their limits).
+                  moves the readings past their limits).  The CPU runs are
+                  pinned before torch loads (``launch.repeatability.
+                  pin_cpu``: MKL's conditional numerical reproducibility
+                  ``MKL_CBWR=AUTO,STRICT``, no dynamic threading, 8 MKL and
+                  OpenMP threads); the ``device`` line prints the pins.
  11. kernel_q8mm -- the int8 x int8 ``q8_matmul`` against its plain version,
                   bf16 x and out and fp32 x and out, at decode M = 4 (the
                   one-launch regime) and prefill M = 2048 (row quantization
@@ -248,8 +263,9 @@ The plan's life cycle (23 and 24 run after 22, on ``train``'s host init):
                   launches and no other kernel.  Printed: each tool run's,
                   the comparison's and the load's seconds.
 
-Then the ``kernels`` line, the card's name and power limit as nvidia-smi
-reports them, and a last line ``{"ok": true, "device": {...}}``.  The
+Then the script's seconds so far, the ``kernels`` line, the card's name
+and power limit as nvidia-smi reports them, and a last line ``{"ok":
+true, "device": {...}}``.  The
 script imports only the port (never JAX or the JAX package).
 """
 from __future__ import annotations
@@ -295,6 +311,9 @@ TRAIN_MICRO_LOSS_RTOL = 4e-4
 TRAIN_MICRO_GNORM_RTOL = 3e-2
 TRAIN_MICRO_MASTER_RTOL = 0.2
 TIMED_STEPS = 3
+# train_cli: ``python -m repro_torch.launch.train`` at published width and
+# depth (26 layers), AdamW on the fp32 store
+CLI_STEPS, CLI_BATCH, CLI_SEQ = 4, 8, 128
 # card vs CPU, two fp32 steps of a reduced config from each of
 # PARITY_SEEDS: limits about four times the largest relative difference of
 # loss and grad norm measured over these seeds on the card (readings in
@@ -1163,6 +1182,29 @@ def counted(mods) -> dict:
             "encode_ef": mods["encode_ef"].encode_ef}
 
 
+def count_plain(ops) -> tuple[dict, object]:
+    """Count every call of the plain versions ``kernels.ops`` dispatches
+    to (its ``*_ref`` names): returns the counts and a function that puts
+    the plain versions back."""
+    counts, saved = {}, {}
+    for name in dir(ops):
+        fn = getattr(ops, name)
+        if name.endswith("_ref") and callable(fn):
+            saved[name], counts[name] = fn, 0
+
+            def wrapped(*args, _name=name, _fn=fn, **kwargs):
+                counts[_name] += 1
+                return _fn(*args, **kwargs)
+
+            setattr(ops, name, wrapped)
+
+    def restore():
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+    return counts, restore
+
+
 def launches_now(mods) -> dict:
     return {k: fn.launches for k, fn in counted(mods).items()}
 
@@ -1441,14 +1483,23 @@ def expected_serve_launches(rt, calls: int, keys) -> dict:
 
 
 def main() -> None:
+    t_script = time.perf_counter()
+    # the CPU reference's pins (MKL's reproducible mode, a fixed thread
+    # count), set before torch loads MKL: the parity phases repeat the CPU
+    # runs bitwise
+    pinned = None
+    if (SRC / "repro_torch").is_dir():
+        sys.path.insert(0, str(SRC))
+        from repro_torch.launch.repeatability import pin_cpu
+
+        pinned = pin_cpu()
     import torch
 
     # ---- 1. device -----------------------------------------------------
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test runs only on a card")
-    if not (SRC / "repro_torch").is_dir():
+    if pinned is None:
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
-    sys.path.insert(0, str(SRC))
     from repro_torch.checkpoint import ckpt
     from repro_torch.configs import build_model, get_config
     from repro_torch.core.fsdp import FSDPRuntime, GatheredMeter
@@ -1847,7 +1898,8 @@ def main() -> None:
           "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
-          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
+          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+          "cpu_pin": pinned, "cpu_threads": torch.get_num_threads()})
 
     # ---- 2. build ------------------------------------------------------
     t0 = time.perf_counter()
@@ -1944,6 +1996,47 @@ def main() -> None:
         fail(f"first loss {metrics[0]['loss']} far from ln(vocab) "
              f"{math.log(cfg.vocab)}")
     del rt
+    torch.cuda.empty_cache()
+
+    # ---- 6b. the training command at published depth ------------------
+    from repro_torch.launch import train as train_cli
+
+    cli_argv = ["--arch", "gemma2-2b", "--full", "--steps", str(CLI_STEPS),
+                "--batch", str(CLI_BATCH), "--seq", str(CLI_SEQ),
+                "--log-every", "1"]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(mods)
+    plain_calls, restore_plain = count_plain(ops)
+    t0 = time.perf_counter()
+    try:
+        cli = train_cli.main(cli_argv)
+    finally:
+        restore_plain()
+    cli_s = time.perf_counter() - t0
+    cli_launches = launches_now(mods)
+    cli_peak = torch.cuda.max_memory_allocated()
+    cli_step_ms = statistics.median(cli["step_ms"][1:])
+    cli_tokens = CLI_BATCH * CLI_SEQ
+    emit({"phase": "train_cli", "argv": cli_argv,
+          "layers": full.n_layers, "groups": cli["groups"],
+          "loss": cli["loss"], "grad_norm": cli["grad_norm"],
+          "step_ms": cli["step_ms"], "command_s": cli_s,
+          "kernel_launches": {k: v for k, v in cli_launches.items() if v},
+          "plain_calls": {k: v for k, v in plain_calls.items() if v}})
+    emit({"phase": "train_cli_summary", "step_ms_median": cli_step_ms,
+          "tokens_per_s": cli_tokens / (cli_step_ms / 1e3),
+          "setup_s": cli["setup_s"], "max_memory_allocated": cli_peak})
+    want = {k: 0 for k in cli_launches}
+    want["adamw_store_update"] = len(cli["groups"]) * CLI_STEPS
+    if cli_launches != want:
+        fail(f"train_cli launched {cli_launches}, expected {want}")
+    if any(plain_calls.values()):
+        fail(f"train_cli ran plain versions {plain_calls}")
+    if len(cli["loss"]) != CLI_STEPS or not all(
+            math.isfinite(x) for x in cli["loss"] + cli["grad_norm"]):
+        fail(f"train_cli metrics {cli['loss']} {cli['grad_norm']}")
+    if abs(cli["loss"][0] - math.log(cfg.vocab)) > 1.0:
+        fail(f"first train_cli loss {cli['loss'][0]} far from ln(vocab)")
     torch.cuda.empty_cache()
 
     # ---- 7. q8 path: the same model and batch, q8_both_wires -----------
@@ -2776,7 +2869,7 @@ def main() -> None:
         """A warm-up prefill and a timed one (the cache's slots are simply
         rewritten), SERVE_STEPS greedy decode steps at a scalar index, then
         the engine; returns (metrics, prefill logits, step calls)."""
-        cache = model.init_cache(SERVE_BATCH, SERVE_LEN, device=rt.device)
+        cache = rt.init_cache(SERVE_BATCH, SERVE_LEN)
         prefill, decode = rt.make_prefill_step(), rt.make_decode_step()
         prefill(params, {"tokens": prompts}, cache)        # warm-up
         torch.cuda.synchronize()
@@ -2917,7 +3010,7 @@ def main() -> None:
                                       device=dev,
                                       schedule=sched and CommSchedule(**sched))
                     params = srt.init_params(seed)
-                    cache = model.init_cache(4, 32, device=srt.device)
+                    cache = srt.init_cache(4, 32)
                     t = toks.to(srt.device)
                     lg, cache = srt.make_prefill_step()(
                         params, {"tokens": t[:, :16]}, cache)
@@ -2952,12 +3045,14 @@ def main() -> None:
                 "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
                 "bound_by": st.get("bound_by", "bytes"), "library_ms": None}
 
+    emit({"phase": "script", "seconds": time.perf_counter() - t_script})
     sched_adamw = sum(v["adamw_store_update"] for v in
                       sched_launches.values())
     emit({"kernels": [
         {**entry("adamw_store_update", "adamw_store_update.cu",
                  "src/repro/kernels/fused_update.py:85", launches, kstats),
          "launches_by_path": {"train": launches, "train_sched": sched_adamw,
+                              "train_cli": cli_launches["adamw_store_update"],
                               "train_ce_chunk":
                                   ce_launches["adamw_store_update"],
                               "auto_plan":

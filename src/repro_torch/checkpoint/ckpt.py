@@ -219,13 +219,16 @@ def _flat_opt(layout):
             for k in sorted(layout) for leaf in sorted(layout[k])]
 
 
-def _save_factor(runtime, f: pathlib.Path, t: torch.Tensor, axis, L: int):
-    """Shampoo factor ``t`` (this rank's rows of the padded ``(Lp, k, k)``
-    stack, or the whole of it) saved unpadded as ``(L, k, k)``: each rank
-    writes its own rows into one memmapped file."""
+def _save_factor(runtime, f: pathlib.Path, t: torch.Tensor, axis, L: int,
+                 key: str):
+    """Shampoo factor ``key``'s ``t`` (this rank's rows of the padded
+    ``(Lp, k, k)`` stack, or the whole of it) saved unpadded as ``(L, k,
+    k)``: each rank of its group's FSDP axes writes its own rows into one
+    memmapped file, the first of the ranks that hold them (index 0 on the
+    model and pod axes it is replicated over)."""
     a = _savable(t)
-    world = dist.get_world_size(runtime.group)
-    if axis is None or world == 1:
+    blocks, idx = runtime.leaf_share(key) if axis is not None else (1, 0)
+    if blocks == 1:
         if runtime.rank == 0:
             np.save(f, a[:L])
         return
@@ -233,9 +236,11 @@ def _save_factor(runtime, f: pathlib.Path, t: torch.Tensor, axis, L: int):
         np.lib.format.open_memmap(f, mode="w+", dtype=a.dtype,
                                   shape=(L,) + a.shape[1:]).flush()
     _barrier(runtime)
-    lo_row = runtime.rank * a.shape[0]
+    fsdp = runtime.layouts[key.split("/", 1)[0]].fsdp_axes
+    coords = runtime.mesh.coords
+    lo_row = idx * a.shape[0]
     n = min(a.shape[0], L - lo_row)
-    if n > 0:
+    if n > 0 and not any(coords[ax] for ax in coords if ax not in fsdp):
         mm = np.load(f, mmap_mode="r+")
         mm[lo_row:lo_row + n] = a[:n]
         mm.flush()
@@ -279,7 +284,7 @@ def save(path, runtime, params, opt_state=None, step: int = 0) -> None:
                 lo = runtime.layouts[g]
                 ent.update(group=g, n_layers=lo.n_layers)
                 _save_factor(runtime, shards / f"{ent['file']}.npy", t,
-                             axis, lo.n_layers)
+                             axis, lo.n_layers, keys[1])
             else:
                 if axis is not None:
                     raise NotImplementedError(
@@ -430,14 +435,14 @@ def _block(runtime, lo, a: np.ndarray) -> np.ndarray:
     return a[..., j * n:(j + 1) * n]
 
 
-def _share(runtime, a: np.ndarray, axis) -> np.ndarray:
-    """This rank's equal share of ``a`` along ``axis`` (all of it for
-    None)."""
+def _share(runtime, a: np.ndarray, axis, name: str) -> np.ndarray:
+    """This rank's share of leaf ``name``'s global ``a`` along ``axis``
+    (``FSDPRuntime.leaf_share``; all of it for None)."""
     if axis is None:
         return a
-    n = a.shape[axis] // dist.get_world_size(runtime.group)
-    return np.take(a, range(runtime.rank * n, (runtime.rank + 1) * n),
-                   axis=axis)
+    blocks, i = runtime.leaf_share(name)
+    n = a.shape[axis] // blocks
+    return np.take(a, range(i * n, (i + 1) * n), axis=axis)
 
 
 def _restore_opt_leaf(shards, man, keys, dtype, shape, axis, runtime,
@@ -464,7 +469,7 @@ def _restore_opt_leaf(shards, man, keys, dtype, shape, axis, runtime,
             raise ValueError(
                 f"optimizer state {pathname!r}: saved shape {a.shape} != "
                 f"expected {tuple(shape)}")
-        return _share(runtime, a, axis)
+        return _share(runtime, a, axis, keys[1])
 
     lo = runtime.layouts[g_new]
     own = _own_row(runtime, lo)
@@ -598,7 +603,7 @@ def _load_legacy(path, meta, runtime, opt_state_like):
             lo = runtime.layouts.get(keys[1])
             a = (_block(runtime, lo, data[key])
                  if lo is not None and axis is not None
-                 else _share(runtime, data[key], axis))
+                 else _share(runtime, data[key], axis, keys[1]))
             opt[keys[0]][keys[1]] = _to_device(runtime, _host_leaf(a, dtype))
         out.append(opt)
     return tuple(out)

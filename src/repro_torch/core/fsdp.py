@@ -399,6 +399,23 @@ class FSDPRuntime:
         return tuple(self._block_index(lo, self.mesh.coords_of(q))
                      for q in range(dist.get_world_size(self.group)))
 
+    def leaf_share(self, name: str) -> tuple[int, int]:
+        """(blocks, this rank's block) of a sharded leaf ``name``: a group's
+        buffer (or an optimizer leaf shaped like it) in ``outer_size``
+        times its FSDP shards (``_block_index``); a leaf keyed
+        ``<group>/...`` (Shampoo's factors) in its group's FSDP shards,
+        replicated over the group's other axes (the model axis, a pod
+        axis)."""
+        lo = self.layouts.get(name)
+        if lo is not None:
+            return (lo.outer_size * (math.prod(lo.fsdp_axis_sizes)
+                                     if lo.sharded else 1),
+                    self._block_index(lo))
+        lo = self.layouts[name.split("/", 1)[0]]
+        if not lo.sharded:
+            return 1, 0
+        return math.prod(lo.fsdp_axis_sizes), self.mesh.index(lo.fsdp_axes)
+
     def _host_group(self, lo: GroupLayout, t: torch.Tensor) -> np.ndarray:
         """The global host buffer of group ``lo``'s rank-local leaf ``t``
         (``(..., n)``, fp32 or int8): all-gathered over the process group,
@@ -425,20 +442,12 @@ class FSDPRuntime:
         column block of ``axis`` -- the last, for a group's buffer and its
         optimizer leaves: ``outer_size`` rows of the group's FSDP shards,
         or of the whole buffer for an unsharded group; None: the whole
-        array; a leaf that is not a group's buffer takes an equal share per
-        rank), as ``dtype``.  Masters are leaves that require grad: the
-        gather's backward fills their ``.grad``."""
+        array; a factor takes its ``leaf_share``), as ``dtype``.  Masters
+        are leaves that require grad: the gather's backward fills their
+        ``.grad``."""
         local = global_buf
         if axis is not None:
-            lo = self.layouts.get(name)
-            if lo is None:
-                # not a group's buffer (Shampoo's factors): an equal share
-                # per rank of the process group
-                blocks, i = dist.get_world_size(self.group), self.rank
-            else:
-                blocks = lo.outer_size * (math.prod(lo.fsdp_axis_sizes)
-                                          if lo.sharded else 1)
-                i = self._block_index(lo)
+            blocks, i = self.leaf_share(name)
             n = global_buf.shape[axis] // blocks
             index = [slice(None)] * global_buf.ndim
             index[axis] = slice(i * n, (i + 1) * n)
@@ -598,14 +607,17 @@ class FSDPRuntime:
                     gathered)
         return new_rt, new_params, new_opt
 
-    def _host_global(self, t: torch.Tensor, axis) -> np.ndarray:
-        """The global host array of a rank-local tensor sharded along
-        ``axis`` over the process group (``t`` itself for None)."""
-        world = dist.get_world_size(self.group)
-        if axis is None or world == 1:
+    def _host_global(self, t: torch.Tensor, axis, name: str) -> np.ndarray:
+        """The global host array of factor ``name``'s rank-local rows,
+        sharded along ``axis`` over its group's FSDP axes (``t`` itself
+        for None)."""
+        blocks = 1 if axis is None else self.leaf_share(name)[0]
+        if blocks == 1:
             return t.detach().cpu().numpy()
-        parts = [torch.empty_like(t) for _ in range(world)]
-        dist.all_gather(parts, t.contiguous(), group=self.group)
+        lo = self.layouts[name.split("/", 1)[0]]
+        parts = [torch.empty_like(t) for _ in range(blocks)]
+        dist.all_gather(parts, t.contiguous(),
+                        group=self.mesh.group_for(lo.fsdp_axes))
         return torch.cat(parts, dim=axis).cpu().numpy()
 
     def _replan_opt_leaf(self, new_rt, keys, shape, axis, like, opt_state,
@@ -622,7 +634,8 @@ class FSDPRuntime:
                 raise ValueError(
                     f"optimizer state leaf {pathname!r} has no counterpart "
                     f"in the current state")
-            a = self._host_global(old, old_layout[keys[0]][keys[1]][2])
+            a = self._host_global(old, old_layout[keys[0]][keys[1]][2],
+                                  keys[1])
             if kind == "factor":
                 L = self.layouts[g_new].n_layers
                 if a.shape[1:] != tuple(shape[1:]) or shape[0] < L:
@@ -637,7 +650,7 @@ class FSDPRuntime:
                     f"optimizer state {pathname!r}: shape {a.shape} != "
                     f"expected {tuple(shape)}")
             return like.copy_(torch.from_numpy(
-                np.ascontiguousarray(_share(new_rt, a, axis))))
+                np.ascontiguousarray(_share(new_rt, a, axis, keys[1]))))
         lo = new_rt.layouts[g_new]
         if g_new not in changed and old is not None \
                 and old.shape == like.shape:
@@ -866,18 +879,31 @@ class FSDPRuntime:
     # ------------------------------------------------------------------ #
     # serve steps (ZeRO-3 inference: per-layer gather, sharded at rest)
     # ------------------------------------------------------------------ #
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        """An empty serve cache of this rank's part for a global batch of
+        ``batch`` rows and ``max_len`` positions, on the runtime's device:
+        the model's global cache (``cache_shapes``) cut to this rank's rows
+        (``batch_slice``) and, under tensor parallelism, to its one KV head
+        slot -- the reference's ``cache_pspec`` sharding, as a local shape
+        (``local_cache_shapes``).  K and V zeros, ``pos`` -1 (no slot
+        filled); the serve steps write this rank's rows in place."""
+        lo, hi = self.batch_slice(batch)
+        return {k: torch.full(shape, -1 if k == "pos" else 0, dtype=dtype,
+                              device=self.device)
+                for k, (shape, dtype) in local_cache_shapes(
+                    self.model, batch, max_len, hi - lo, self.tp).items()}
+
     def _serve_call(self, fn, params, batch, cache, *index):
         """Run ``fn(pg, batch, cache, *index)`` (the model's ``prefill`` or
         ``decode``) on this rank's rows ``batch_slice`` gives of the global
-        batch, the cache and a per-row index -- under tensor parallelism
-        on this rank's KV head slot of the cache too (the dim the model
-        declares, ``cache_head_dims``: one replicated-KV head per rank of
-        the model axis) -- then all-gather the vocab-parallel logits over
+        batch and a per-row index, against ``cache``, this rank's part of
+        the cache (``init_cache``: its rows, and under tensor parallelism
+        its KV head slot), then all-gather the vocab-parallel logits over
         the model axis and the logit rows over the batch axes when the
         batch is split, so every rank returns the global ``(B, 1, V)``
         logits (one-device semantics; the reference returns model rank
-        0's vocab block, ROADMAP Queue 3).  The cache holds the global
-        batch; a rank writes its own rows and head slot in place."""
+        0's vocab block, ROADMAP Queue 3).  The cache is written in
+        place."""
         tokens = batch["tokens"]
         B = tokens.shape[0]
         usable = self._usable_batch_axes(B)
@@ -885,29 +911,23 @@ class FSDPRuntime:
         bdims = self.model.cache_batch_dims()
         hdims = self.model.cache_head_dims() if self.tp > 1 else {}
         for k, t in cache.items():
-            if t.shape[bdims[k]] != B:
+            if t.shape[bdims[k]] != hi - lo:
                 raise ValueError(
-                    f"cache[{k!r}] holds {t.shape[bdims[k]]} rows, the "
-                    f"batch {B}")
-            if k in hdims and t.shape[hdims[k]] != self.tp:
+                    f"cache[{k!r}] holds {t.shape[bdims[k]]} rows, this "
+                    f"rank's part of a batch of {B} is {hi - lo}; make it "
+                    f"with FSDPRuntime.init_cache")
+            if k in hdims and t.shape[hdims[k]] != 1:
                 raise ValueError(
                     f"cache[{k!r}] holds {t.shape[hdims[k]]} KV head slots, "
-                    f"tensor parallelism needs one per model rank "
-                    f"({self.tp}); make it with the model's init_cache")
-        slot = self.mesh.coords["model"]
-        local_cache = {}
-        for k, t in cache.items():
-            t = t.narrow(bdims[k], lo, hi - lo)
-            if k in hdims:
-                t = t.narrow(hdims[k], slot, 1)
-            local_cache[k] = t
+                    f"a rank of the model axis holds its one; make it with "
+                    f"FSDPRuntime.init_cache")
         local_batch = {k: v[lo:hi] for k, v in batch.items()}
         index = tuple(i[lo:hi] if isinstance(i, torch.Tensor) and i.dim()
                       else i for i in index)
         with torch.inference_mode():
             pg = _ParamGetter(self, params, serve=True,
                               quant_matmul=self.schedule.serve_quant_matmul)
-            logits, _ = fn(pg, local_batch, local_cache, *index)
+            logits, _ = fn(pg, local_batch, cache, *index)
             if self.tp > 1:
                 # the vocab-parallel head: rank r holds columns
                 # [r * V / tp, (r + 1) * V / tp)
@@ -933,9 +953,9 @@ class FSDPRuntime:
     def make_prefill_step(self):
         """``step(params, batch, cache) -> (logits, cache)``: the prompt
         ``batch["tokens"]`` (B, T) from position 0; ``logits`` (B, 1, V) of
-        the last position in the compute dtype; ``cache`` (the model's
-        ``init_cache(B, max_len, device=...)``) is filled in place and
-        returned (the reference donates it)."""
+        the last position in the compute dtype; ``cache`` (this rank's
+        part, ``init_cache(B, max_len)``) is filled in place and returned
+        (the reference donates it)."""
 
         def step_fn(params, batch, cache):
             self._check_tokens(batch, "prefill")
@@ -957,6 +977,23 @@ class FSDPRuntime:
                                     index)
 
         return step_fn
+
+
+def local_cache_shapes(model, batch: int, max_len: int, rows: int,
+                       tp: int) -> dict:
+    """The model's global cache shapes (``cache_shapes(batch,
+    max_len)``) cut to ``rows`` rows of the batch dim and, at ``tp`` > 1,
+    to one KV head slot of the tp the global cache holds."""
+    bdims = model.cache_batch_dims()
+    hdims = model.cache_head_dims() if tp > 1 else {}
+    out = {}
+    for k, (shape, dtype) in model.cache_shapes(batch, max_len).items():
+        shape = list(shape)
+        shape[bdims[k]] = rows
+        if k in hdims:
+            shape[hdims[k]] = 1
+        out[k] = (tuple(shape), dtype)
+    return out
 
 
 def _global_norm(runtime: FSDPRuntime, grads, scale) -> torch.Tensor:

@@ -187,7 +187,7 @@ def bench_serve_prefill(label: str) -> None:
     params = rt.init_params(0)
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab, (4, 512))).cuda()
-    cache = model.init_cache(4, 1024, device=rt.device)
+    cache = rt.init_cache(4, 1024)
     prefill = rt.make_prefill_step()
     times = []
     for i in range(6):

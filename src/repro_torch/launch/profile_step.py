@@ -125,7 +125,7 @@ def decode_step(cfg, args):
     rng = np.random.default_rng(0)
     tokens = torch.from_numpy(rng.integers(
         0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT))).to(rt.device)
-    cache = model.init_cache(SERVE_BATCH, SERVE_LEN, device=rt.device)
+    cache = rt.init_cache(SERVE_BATCH, SERVE_LEN)
     logits, cache = rt.make_prefill_step()(params, {"tokens": tokens}, cache)
     decode = rt.make_decode_step()
     state = {"tok": torch.argmax(logits, -1), "pos": SERVE_PROMPT}

@@ -15,7 +15,9 @@ data axis.  ``--model`` above 1 serves with tensor parallelism of that
 degree over the model axis (``configs.with_tp``: FSDP and the batch over
 the data axis), which needs more ranks than KV heads, as the reference's
 cache does: a reduced config (as many KV heads as query heads) raises its
-``ValueError``.  Every rank returns the whole vocabulary's logits.
+``ValueError``.  Every rank returns the whole vocabulary's logits, and
+holds its own part of the cache (``FSDPRuntime.init_cache``);
+``--cache-bytes`` prints that part's bytes beside the global cache's.
 """
 from __future__ import annotations
 
@@ -38,6 +40,11 @@ def parse_args(argv=None):
     ap.add_argument("--model", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--cache-bytes", action="store_true",
+                    help="print the serve cache bytes a rank holds (its "
+                         "own part, and the global cache) for a batch of "
+                         "--batch and --prompt-len + --gen positions, from "
+                         "shapes on the meta device, and serve nothing")
     args = ap.parse_args(argv)
     if args.data < 1 or args.model < 1 or args.gen < 1:
         raise ValueError("--data, --model and --gen must be >= 1")
@@ -80,7 +87,7 @@ def serve(cfg, args, group) -> list:
     dev = runtime.device
     batch = {"tokens": torch.from_numpy(
         rng.integers(0, cfg.vocab, (B, P))).to(dev)}
-    cache = model.init_cache(B, P + args.gen, device=dev)
+    cache = runtime.init_cache(B, P + args.gen)
     say = print if rank == 0 else (lambda *a, **k: None)
 
     def sync():
@@ -112,6 +119,32 @@ def serve(cfg, args, group) -> list:
     return gen
 
 
+def cache_bytes(cfg, args) -> dict:
+    """The serve cache of ``cfg`` for a global batch of ``args.batch`` rows
+    and ``args.prompt_len + args.gen`` positions, in bytes per rank, from
+    tensors on the meta device: ``global`` the whole cache, ``rank`` one
+    rank's part (``core.fsdp.local_cache_shapes``: its rows of the batch
+    split over the data axis, where it divides, and under tp one KV head
+    slot), per leaf and in total."""
+    import torch
+
+    from ..configs import build_model
+    from ..core.fsdp import local_cache_shapes
+
+    model = build_model(cfg)
+    B, W = args.batch, args.prompt_len + args.gen
+    rows = B // args.data if B % args.data == 0 else B
+    out = {}
+    for what, shapes in (
+            ("global", model.cache_shapes(B, W)),
+            ("rank", local_cache_shapes(model, B, W, rows,
+                                        cfg.parallel.tp))):
+        leaves = {k: torch.empty(shape, dtype=dtype, device="meta").nbytes
+                  for k, (shape, dtype) in shapes.items()}
+        out[what] = {**leaves, "total": sum(leaves.values())}
+    return out
+
+
 def _rank_main(args, rank: int = 0, init_file: str | None = None):
     """Create this rank's process group (NCCL with card ``rank``, or gloo
     on the CPU), serve, and tear the group down."""
@@ -137,6 +170,11 @@ def _rank_main(args, rank: int = 0, init_file: str | None = None):
 
 def main(argv=None):
     args = parse_args(argv)
+    if args.cache_bytes:
+        import json
+
+        print(json.dumps(cache_bytes(serve_config(args), args)))
+        return
     world = args.data * args.model
     if args.device == "cuda":
         import torch

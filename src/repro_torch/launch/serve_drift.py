@@ -53,7 +53,7 @@ def main() -> None:
                                  schedule=CommSchedule(**sched))
                 if params is None:
                     params = rt.init_params(0)
-                cache = model.init_cache(BATCH, CACHE, device=rt.device)
+                cache = rt.init_cache(BATCH, CACHE)
                 logits, _ = rt.make_prefill_step()(
                     params, {"tokens": prompts}, cache)
                 out[(mode, str(dtype)[6:])] = logits.float()

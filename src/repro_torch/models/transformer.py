@@ -29,8 +29,10 @@ vocab-parallel, and with ``sequence_parallel`` the activations between the
 blocks are split over the sequence.  Under expert parallelism (``ep`` >
 1) the experts are split over the model axis on their expert dim and the
 tokens travel to them and back by two all-to-alls (``models.moe``).
-Serving with a model axis, and VLM cross-attention, raise
-``NotImplementedError`` naming their ROADMAP item.
+Under tensor parallelism the serve cache replicates the KV heads, one
+slot per rank of the model axis (``cache_shapes``, the global cache; a
+rank holds its own part, ``FSDPRuntime.init_cache``).  VLM cross-attention
+raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 

@@ -129,29 +129,30 @@ def write_decayed(store, w_c, upd, mk, lr: float, wd: float) -> None:
         w_c.copy_(w)
 
 
-def gather_cols(t: torch.Tensor, runtime, m: int) -> torch.Tensor:
-    """All-gather a rank-local ``(L, S)`` shard along its last axis into
-    the group's ``(L, m * S)`` buffer (the reference's ``all_gather(...,
-    axis=1, tiled=True)``).  The collective stacks the ranks' shards along
-    the first axis, ``(m, L, S)``; the permute puts each rank's columns
-    back beside the others' (a reshape alone would not)."""
+def gather_cols(t: torch.Tensor, group, m: int) -> torch.Tensor:
+    """All-gather a rank-local ``(L, S)`` shard along its last axis over
+    ``group`` (the group's FSDP axes) into the group's ``(L, m * S)``
+    buffer (the reference's ``all_gather(..., axis=1, tiled=True)``).  The
+    collective stacks the ranks' shards along the first axis, ``(m, L,
+    S)``; the permute puts each rank's columns back beside the others' (a
+    reshape alone would not)."""
     if m == 1:
         return t
     L, S = t.shape
     out = torch.empty((m * L, S), dtype=t.dtype, device=t.device)
-    dist.all_gather_into_tensor(out, t.contiguous(), group=runtime.group)
+    dist.all_gather_into_tensor(out, t.contiguous(), group=group)
     return out.view(m, L, S).permute(1, 0, 2).reshape(L, m * S)
 
 
-def gather_rows(t: torch.Tensor, runtime, m: int) -> torch.Tensor:
-    """All-gather along the leading axis: ``(l, ...)`` per rank ->
-    ``(m * l, ...)`` in rank order (``all_gather(..., axis=0,
-    tiled=True)``)."""
+def gather_rows(t: torch.Tensor, group, m: int) -> torch.Tensor:
+    """All-gather along the leading axis over ``group``: ``(l, ...)`` per
+    rank -> ``(m * l, ...)`` in group-rank order (``all_gather(...,
+    axis=0, tiled=True)``)."""
     if m == 1:
         return t
     out = torch.empty((m * t.shape[0],) + tuple(t.shape[1:]), dtype=t.dtype,
                       device=t.device)
-    dist.all_gather_into_tensor(out, t.contiguous(), group=runtime.group)
+    dist.all_gather_into_tensor(out, t.contiguous(), group=group)
     return out
 
 
@@ -168,21 +169,62 @@ def my_layers(mats: torch.Tensor, dev: int, l_loc: int) -> torch.Tensor:
     return out
 
 
+def split_dim(layout, name: str) -> int | None:
+    """The dim of tensor ``name`` that ``layout``'s group splits over its
+    outer (model) axis, or None: a tensor of a tensor-parallel group with
+    a TP dim (``gdef.outer``), each model rank holding one contiguous
+    part."""
+    if layout.outer_size == 1:
+        return None
+    sd = layout.gdef.outer.get(name)
+    return None if sd is None else sd.dim
+
+
+def whole_shape(layout, pl) -> tuple[int, ...]:
+    """Placement ``pl``'s tensor shape whole: its part's shape (the plan's
+    spec) with the split dim times the outer size."""
+    shape = list(pl.spec.shape)
+    d = split_dim(layout, pl.spec.name)
+    if d is not None:
+        shape[d] *= layout.outer_size
+    return tuple(shape)
+
+
+def assemble(part: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    """The whole ``(l, a, b)`` matrices of the ``n`` ranks' ``(l, a / n,
+    b)`` or ``(l, a, b / n)`` parts (split on matrix dim ``dim``, 0 or 1),
+    all-gathered over ``group`` (the model axis) and joined in its rank
+    order."""
+    out = gather_rows(part, group, n).view((n,) + tuple(part.shape))
+    whole = list(part.shape)
+    whole[dim + 1] *= n
+    return out.movedim(0, dim + 1).reshape(whole)
+
+
 def redistribute(runtime, layout, x: torch.Tensor, per_matrix
                  ) -> torch.Tensor:
     """The layer-axis redistribution of one stacked group (paper section
-    6.3): ``x``, this rank's ``(L, S)`` shard, is all-gathered along the
-    shard axis into the group's ``(L, m * S)`` buffer; for every 2-D
-    placement this rank takes its ``ceil(L / m)`` whole matrices (L padded
-    to a multiple of m) and ``per_matrix(placement, mine)`` maps them,
-    ``(l_loc, a, b)`` fp32, to their update of the same shape; the updates
-    are all-gathered along the layer axis and scattered into the flat
-    buffer.  Returns this rank's ``(L, S)`` shard of it (zeros at the
-    positions no 2-D placement covers)."""
+    6.3): ``x``, this rank's ``(L, S)`` shard, is all-gathered over the
+    group's FSDP axes (never a pod or model axis it is replicated or split
+    over) into the group's ``(L, m * S)`` buffer; for every 2-D placement
+    this rank takes its ``ceil(L / m)`` whole matrices (L padded to a
+    multiple of m) and ``per_matrix(name, mine)`` maps them, ``(l_loc, a,
+    b)`` fp32, to their update of the same shape; the updates are
+    all-gathered along the layer axis and scattered into the flat buffer.
+    Returns this rank's ``(L, S)`` shard of it (zeros at the positions no
+    2-D placement covers).
+
+    A tensor split over the model axis (tensor parallelism) is preconditioned
+    whole, as on one device: the model ranks' parts of this rank's
+    matrices are all-gathered over the model axis first, and each rank
+    keeps its part of the update.  Every rank of the model axis holds the
+    same layers, so each repeats the others' work; a group replicated over
+    a pod axis does too, once per pod."""
     L, S = x.shape
     m = fsdp_world(layout)
     dev = device_linear_index(runtime, layout)
-    full = gather_cols(x, runtime, m)                 # (L, m * S)
+    group = runtime.group_of(layout.name)
+    full = gather_cols(x, group, m)                   # (L, m * S)
     upd_full = torch.zeros_like(full)
     l_loc = -(-L // m)
     for pl in layout.plan.placements:
@@ -191,9 +233,21 @@ def redistribute(runtime, layout, x: torch.Tensor, per_matrix
         a, b = pl.spec.shape
         mine = my_layers(full[:, pl.offset:pl.end].reshape(L, a, b), dev,
                          l_loc)
-        o = gather_rows(per_matrix(pl, mine), runtime, m)   # (Lp, a, b)
+        d = split_dim(layout, pl.spec.name)
+        if d is None:
+            o = per_matrix(pl.spec.name, mine)
+        else:
+            n = layout.outer_size
+            r = runtime.mesh.coords[layout.outer_axis]
+            whole = assemble(mine, d, runtime.mesh.group_for(
+                (layout.outer_axis,)), n)
+            del mine
+            o = per_matrix(pl.spec.name, whole)
+            o = o.narrow(d + 1, r * (a, b)[d], (a, b)[d])
+            del whole
+        o = gather_rows(o, group, m)                  # (Lp, a, b)
         upd_full[:, pl.offset:pl.end] = o[:L].reshape(L, a * b)
-        del mine, o
+        del o
     return upd_full[:, dev * S:(dev + 1) * S]
 
 
@@ -259,41 +313,17 @@ class OptimizerBase:
     def state_shapes(self, runtime) -> dict[str, dict[str, tuple]]:
         """``{key: {leaf: (dtype, shape)}}`` of the state at the
         rank-local shapes: a group's leaf holds this rank's column block
-        (an outer row's FSDP shard), any other sharded leaf an equal share
-        per rank of the process group."""
-        world = dist.get_world_size(runtime.group)
+        (an outer row's FSDP shard), a factor its share over its group's
+        FSDP axes (``FSDPRuntime.leaf_share``)."""
         out = {}
         for k, leaves in self.state_layout(runtime).items():
             out[k] = {}
             for name, (dtype, shape, axis) in leaves.items():
                 shape = list(shape)
                 if axis is not None:
-                    lo = runtime.layouts.get(name)
-                    shape[axis] //= world if lo is None else \
-                        lo.outer_size * (fsdp_world(lo) if lo.sharded
-                                         else 1)
+                    shape[axis] //= runtime.leaf_share(name)[0]
                 out[k][name] = (dtype, tuple(shape))
         return out
-
-    def check_no_outer(self, runtime) -> None:
-        """Raise for a runtime whose groups are split over the model axis:
-        this optimizer's model-axis layout is not ported (its
-        preconditioners and state would see one outer row's part of each
-        matrix, as the reference's do)."""
-        if any(lo.outer_size > 1 for lo in runtime.layouts.values()):
-            raise NotImplementedError(
-                f"{type(self).__name__} on groups split over the model axis "
-                f"(tensor or expert parallelism) is not ported yet (ROADMAP "
-                f"Queue 1 item 19)")
-        if any(lo.sharded and "pod" not in lo.fsdp_axes
-               for lo in runtime.layouts.values()
-               if getattr(runtime, "has_pod", False)):
-            # the gathers of whole matrices run over the process group,
-            # which an HSDP group's shards span once per pod
-            raise NotImplementedError(
-                f"{type(self).__name__} on groups replicated over a pod axis "
-                f"(HSDP without pod_fsdp) is not ported yet (ROADMAP Queue 1 "
-                f"item 19)")
 
     def zero_state(self, runtime) -> dict[str, dict[str, torch.Tensor]]:
         """Every leaf of the state, zero, on the runtime's device."""

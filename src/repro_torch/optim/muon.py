@@ -10,8 +10,13 @@ group's ``(L, m * S)`` buffer, L is padded to ``Lp = ceil(L / m) * m``, each
 rank orthogonalizes its ``Lp / m`` whole matrices of every 2-D placement,
 and the results are all-gathered along the layer axis and scattered back
 into the flat update, of which each rank keeps its shard.  The collectives
-are ``all_gather_into_tensor`` on the runtime's group (gloo on the CPU,
-NCCL on the card).
+are ``all_gather_into_tensor`` over the group's FSDP axes (gloo on the
+CPU, NCCL on the card): an HSDP group replicated over the pod axis
+preconditions the same matrices in every pod.  Under tensor parallelism
+a matrix split over the model axis is assembled whole across it before
+Newton-Schulz and each model rank keeps its part of the result, so the
+update is the one-device update (the reference orthogonalizes each
+rank's part alone: ROADMAP Queue 3).
 
 Non-2-D parameters and unstacked groups (embeddings, head, norms) take the
 AdamW fallback; a stacked group with 2-D placements takes the masked blend
@@ -72,7 +77,6 @@ class Muon(OptimizerBase):
 
     def init(self, runtime):
         """Zero ``mom``, ``m``, ``v`` and this rank's mask rows."""
-        self.check_no_outer(runtime)
         self._masks = mask_rows(runtime)
         return self.zero_state(runtime)
 
@@ -81,11 +85,11 @@ class Muon(OptimizerBase):
 
     # ------------------------------------------------------------------ #
     @staticmethod
-    def _orthogonalize(pl, mine: torch.Tensor) -> torch.Tensor:
+    def _orthogonalize(name: str, mine: torch.Tensor) -> torch.Tensor:
         """``redistribute``'s per-matrix step: Newton-Schulz on this rank's
-        whole matrices of one placement, scaled by ``sqrt(max(1, a/b))``."""
-        a, b = pl.spec.shape
-        return newton_schulz(mine).mul_(muon_scale(a, b))
+        whole ``(l, a, b)`` matrices of one tensor, scaled by
+        ``sqrt(max(1, a/b))``."""
+        return newton_schulz(mine).mul_(muon_scale(*mine.shape[-2:]))
 
     # ------------------------------------------------------------------ #
     @torch.no_grad()

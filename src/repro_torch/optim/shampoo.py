@@ -9,9 +9,14 @@ ceil(L / m) * m`` and each rank takes its ``Lp / m`` whole matrices.  The
 factors ``{group}/{tensor}/L|R`` are stored sharded the same way -- each
 rank keeps only its ``Lp / m`` rows of the ``(Lp, k, k)`` factor -- so the
 factor update is local, and only the preconditioned update is gathered
-back.  The preconditioned update is grafted to the gradient's per-matrix
-RMS.  The inverse 4th roots take an eigendecomposition every step, as the
-reference does (production systems amortize it over ~100 steps).
+back.  The gathers run over the group's FSDP axes, and a matrix split
+over the model axis is assembled whole first (``common.redistribute``):
+its factors are the whole matrix's, replicated over the model axis as
+over a pod axis, so a tensor-parallel run keeps the one-device factors and
+checkpoints the files of tp 1.  The preconditioned update is grafted to
+the gradient's per-matrix RMS.  The inverse 4th roots take an
+eigendecomposition every step, as the reference does (production systems
+amortize it over ~100 steps).
 
 Non-2-D parameters and unstacked groups take the Adam fallback, whose
 literals (0.9, 0.1, 0.95, 0.05, 1e-8) are the reference's as written.  The
@@ -29,7 +34,7 @@ import torch
 
 from .common import (OptimizerBase, adam_direction, fsdp_world, grad_f32,
                      has_matrices, mask_rows, pieces, redistribute,
-                     write_decayed)
+                     whole_shape, write_decayed)
 
 
 def _inv_4th_root(M: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -58,7 +63,6 @@ class Shampoo(OptimizerBase):
     def init(self, runtime):
         """Zero ``mom``, ``m``, ``v`` and factors, and this rank's mask
         rows."""
-        self.check_no_outer(runtime)
         self._masks = mask_rows(runtime)
         return self.zero_state(runtime)
 
@@ -67,8 +71,10 @@ class Shampoo(OptimizerBase):
 
     def extra_leaves(self, runtime):
         """The Kronecker factors, ``(Lp, a, a)`` and ``(Lp, b, b)`` per 2-D
-        tensor of a stacked group, sharded over the padded layer axis (whole
-        on every rank for an unsharded group)."""
+        tensor of a stacked group at its whole shape (a tensor split over
+        the model axis included), sharded over the padded layer axis across
+        the group's FSDP axes and replicated over the others (whole on
+        every rank for an unsharded group)."""
         facs = {}
         for gname, lo in runtime.layouts.items():
             if lo.n_layers is None:
@@ -78,7 +84,7 @@ class Shampoo(OptimizerBase):
             for pl in lo.plan.placements:
                 if len(pl.spec.shape) != 2:
                     continue
-                a, b = pl.spec.shape
+                a, b = whole_shape(lo, pl)
                 kl, kr = factor_keys(gname, pl.spec.name)
                 axis = 0 if lo.fsdp_axes else None
                 facs[kl] = (torch.float32, (lp, a, a), axis)
@@ -91,8 +97,8 @@ class Shampoo(OptimizerBase):
         """``g``: this rank's ``(L, S)`` fp32 gradient.  Updates this rank's
         factor rows in place; returns the ``(L, S)`` preconditioned update
         of the 2-D positions (zeros elsewhere)."""
-        def precondition(pl, mine):
-            kl, kr = factor_keys(gname, pl.spec.name)
+        def precondition(name, mine):
+            kl, kr = factor_keys(gname, name)
             Lf = factors[kl].add_(mine @ mine.mT)
             Rf = factors[kr].add_(mine.mT @ mine)
             o = (_inv_4th_root(Lf) @ mine) @ _inv_4th_root(Rf)

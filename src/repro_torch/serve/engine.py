@@ -48,7 +48,9 @@ class ServeEngine:
         self.max_len = max_len
         self.extras = extras or {}
         self.sample = sample or (lambda logits: torch.argmax(logits, -1))
-        self.cache = model.init_cache(pool, max_len, device=runtime.device)
+        # this rank's part of the pool's cache: its rows (and KV head slot)
+        self.cache = runtime.init_cache(pool, max_len)
+        self._rows = runtime.batch_slice(pool)
         self.slots = [_Slot() for _ in range(pool)]
         self.queue: deque[Request] = deque()
         self.finished: list[Request] = []
@@ -60,11 +62,15 @@ class ServeEngine:
 
     def _reset_row(self, row: int):
         """Invalidate a slot's cache row (``pos`` -> -1) so stale entries
-        of a previous occupant can never attend."""
+        of a previous occupant can never attend: on the rank that holds
+        the slot's row (its rows ``[lo, hi)`` of the pool)."""
+        lo, hi = self._rows
+        if not lo <= row < hi:
+            return
         bdims = self.model.cache_batch_dims()
         for key, leaf in self.cache.items():
             if key == "pos":
-                leaf.select(bdims[key], row).fill_(-1)
+                leaf.select(bdims[key], row - lo).fill_(-1)
 
     def _admit(self):
         for i, slot in enumerate(self.slots):

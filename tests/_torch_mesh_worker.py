@@ -89,11 +89,13 @@ def full_tensors(rt, params, raw=False) -> dict[str, np.ndarray]:
 
 
 def run(mesh_or_group, cfg, steps=STEPS, schedule=None, seq=32, batch=4,
-        keep_ef=False):
+        keep_ef=False, save=None):
     """``steps`` fp32 steps of ``cfg`` on ``mesh_or_group``; returns
     ``{"metrics": (steps, 2) loss and grad norm, tensor: master, ...}``
     (with ``keep_ef``, each q8 group's residual rows of this rank after
-    the last step as ``ef/<group>``, after the first as ``ef1/<group>``)."""
+    the last step as ``ef/<group>``, after the first as ``ef1/<group>``).
+    ``save``: a directory the run's state is checkpointed to at the end
+    (``ckpt.save``, step ``steps``)."""
     rt = FSDPRuntime(build_model(cfg), mesh_or_group,
                      compute_dtype=torch.float32, device="cpu",
                      **schedule_kwargs(schedule))
@@ -116,6 +118,10 @@ def run(mesh_or_group, cfg, steps=STEPS, schedule=None, seq=32, batch=4,
                     out[f"{key}/{name}"] = s["reduce_ef"].numpy().copy()
     out["metrics"] = np.asarray(metrics)
     out.update(full_tensors(rt, params))
+    if save:
+        from repro_torch.checkpoint import ckpt
+
+        ckpt.save(save, rt, params, state, step=steps)
     return out
 
 
@@ -141,7 +147,7 @@ def make_mesh(data, model):
 
 def rank_main(rank, world, init_file, out_prefix, runs, seq=32, batch=4,
               init=(), ref_init=None, functions=False, serve=None,
-              engine=None, cli=None, ckpt_dir=None):
+              engine=None, cli=None, ckpt_dir=None, saves=None):
     """One spawned rank: ``runs`` is ``{name: (data, model, arch, par,
     fields, schedule)}``; saves ``<prefix><rank>.npz`` with keys
     ``name/metrics``, ``name/<tensor>`` (rank 0) and ``name/ef/<group>``,
@@ -152,11 +158,14 @@ def rank_main(rank, world, init_file, out_prefix, runs, seq=32, batch=4,
     function checks (``vocab_functions``) on a model-axis mesh of all the
     ranks, with a checkpoint round trip and the serve steps there.
     ``serve``: ``{name: (data, model, config, schedule)}`` runs of
-    ``serve_logits`` (``serve/<name>``, every rank); ``engine``: ``(data,
+    ``serve_logits`` (``serve/<name>``, every rank; ``serve_narrowed/``
+    the same on ``narrowed_cache``; ``cache/<name>/...`` its cache bytes
+    and the global cache's error); ``engine``: ``(data,
     model, tp, kv)`` of one ``engine_tokens`` run (``engine``, as JSON);
     ``cli``: ``(data, model, tp, kv)`` of one run of the serve command's
     ``launch.serve.serve`` (``cli``: its tokens).
-    ``ckpt_dir``: the checkpoint and replan checks of ``ckpt_checks``."""
+    ``ckpt_dir``: the checkpoint and replan checks of ``ckpt_checks``.
+    ``saves``: ``{run: directory}`` runs whose final state is saved."""
     torch.set_num_threads(1)
     init_local_group("gloo", rank=rank, world_size=world,
                      init_file=init_file)
@@ -172,12 +181,19 @@ def rank_main(rank, world, init_file, out_prefix, runs, seq=32, batch=4,
 
     for name, (data, model, arch, par, fields, sched) in runs.items():
         res = run(mesh(data, model), config(arch, par, **fields),
-                  schedule=sched, seq=seq, batch=batch, keep_ef=True)
+                  schedule=sched, seq=seq, batch=batch, keep_ef=True,
+                  save=(saves or {}).get(name))
         for k, v in res.items():
             if rank == 0 or k == "metrics" or k.startswith("ef"):
                 out[f"{name}/{k}"] = v
     for name, (data, model, cfg, sched) in (serve or {}).items():
-        out[f"serve/{name}"] = serve_logits(mesh(data, model), cfg, sched)
+        info = {}
+        out[f"serve/{name}"] = serve_logits(mesh(data, model), cfg, sched,
+                                            info=info)
+        out[f"serve_narrowed/{name}"] = serve_logits(
+            mesh(data, model), cfg, sched, narrowed=True)
+        for k, v in info.items():
+            out[f"cache/{name}/{k}"] = np.asarray(v)
     if engine:
         import json
 
@@ -208,7 +224,7 @@ def rank_main(rank, world, init_file, out_prefix, runs, seq=32, batch=4,
             out["err/q8_layers_rep"] = np.asarray("")
         except ValueError as e:
             out["err/q8_layers_rep"] = np.asarray(str(e))
-        # Muon and Shampoo on outer-split groups are not ported
+        # Muon and Shampoo initialise on outer-split groups
         for opt in ("muon", "shampoo"):
             try:
                 make_optimizer(dataclasses.replace(cfg, optimizer=opt)) \
@@ -299,16 +315,49 @@ def serve_tokens(vocab: int, seed: int = 11):
             rng.integers(0, vocab, (SERVE_B, SERVE_DECODES)))
 
 
-def serve_logits(mesh_or_group, cfg, sched=None):
+def narrowed_cache(rt, model, batch, max_len):
+    """The model's global cache narrowed to this rank's rows and, under
+    tp, its KV head slot: strided views of a cache every rank holds whole
+    (the layout the rank-local cache must serve bitwise)."""
+    full = model.init_cache(batch, max_len, device="cpu")
+    lo, hi = rt.batch_slice(batch)
+    bdims = model.cache_batch_dims()
+    hdims = model.cache_head_dims() if rt.tp > 1 else {}
+    out = {}
+    for k, t in full.items():
+        t = t.narrow(bdims[k], lo, hi - lo)
+        if k in hdims:
+            t = t.narrow(hdims[k], rt.mesh.coords["model"], 1)
+        out[k] = t
+    return out
+
+
+def serve_logits(mesh_or_group, cfg, sched=None, narrowed=False,
+                 info=None):
     """Prefill and ``SERVE_DECODES`` decode calls of ``cfg``, fp32
-    compute; returns the logits (calls, B, 1, V) this rank got."""
+    compute, on the runtime's rank-local cache (``init_cache``; with
+    ``narrowed``, on ``narrowed_cache``); returns the logits (calls, B, 1,
+    V) this rank got.  ``info`` (a dict) receives the bytes of each cache
+    leaf this rank holds and of the global cache, and the error a step
+    raises when it is given the global cache."""
     model = build_model(cfg)
     rt = FSDPRuntime(model, mesh_or_group, compute_dtype=torch.float32,
                      device="cpu", **schedule_kwargs(sched))
     params = rt.init_params(0)
     prompt, feed = serve_tokens(cfg.vocab)
-    cache = model.init_cache(SERVE_B, SERVE_P + SERVE_DECODES + 1,
-                             device="cpu")
+    W = SERVE_P + SERVE_DECODES + 1
+    cache = (narrowed_cache(rt, model, SERVE_B, W) if narrowed
+             else rt.init_cache(SERVE_B, W))
+    if info is not None:
+        full = model.init_cache(SERVE_B, W, device="cpu")
+        info.update({f"bytes/{k}": t.nbytes for k, t in cache.items()})
+        info.update({f"global_bytes/{k}": t.nbytes for k, t in full.items()})
+        try:
+            rt.make_prefill_step()(
+                params, {"tokens": torch.from_numpy(prompt)}, full)
+            info["err"] = ""
+        except ValueError as e:
+            info["err"] = str(e)
     logits, cache = rt.make_prefill_step()(
         params, {"tokens": torch.from_numpy(prompt)}, cache)
     out = [logits]

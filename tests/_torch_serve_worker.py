@@ -24,7 +24,7 @@ def serve_logits(group):
     rt = FSDPRuntime(model, group, compute_dtype=torch.float32, device="cpu")
     params = rt.init_params(0)
     toks = torch.from_numpy(tokens())
-    cache = model.init_cache(B, S, device="cpu")
+    cache = rt.init_cache(B, S)
     lg, cache = rt.make_prefill_step()(params, {"tokens": toks[:, :P]},
                                        cache)
     out = [lg]

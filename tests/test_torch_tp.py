@@ -207,14 +207,15 @@ def test_init_and_load_reference_state_bitwise(streams):
 def test_q8_reduce_wire_on_layers_rep_raises(streams):
     """The reference's ValueError: a q8 reduce wire on a group whose
     gradient is all-reduced over the model axis after its reduce-scatter
-    (``layers_rep`` under tp) would keep one residual per replica.  And
-    Muon and Shampoo on outer-split groups raise, naming their ROADMAP
-    item."""
+    (``layers_rep`` under tp) would keep one residual per replica.  Muon
+    and Shampoo initialise on the same outer-split groups without an
+    error (their runs across the model axis are held in
+    tests/test_torch_tp_optim.py)."""
     for o in streams["ranks2"]:
         msg = str(o["err/q8_layers_rep"])
         assert "replica gradient axes ['model']" in msg, msg
         for opt in ("muon", "shampoo"):
-            assert "Queue 1 item 19" in str(o[f"err/{opt}"]), opt
+            assert str(o[f"err/{opt}"]) == "", opt
 
 
 @pytest.mark.parametrize("what", ["save", "load", "prefill", "decode"])

@@ -9,7 +9,10 @@ head) -- against the port's tp-1 serve and the reference's, which runs in
 a JAX subprocess with 4 host devices.  Expert parallelism serves too:
 qwen3-moe-235b-a22b.reduced() at ep 2 on data 2 x model 2, the batch over
 both axes or over data alone, at a capacity no expert overflows, against
-the port's one-rank serve.
+the port's one-rank serve; and data 4 at tp 1.  Each rank serves on its
+own part of the cache (``FSDPRuntime.init_cache``: its rows, and under tp
+its KV head slot), held bitwise to the same steps on the global cache
+narrowed to that part.
 
 Parity classes (bounds with the measured readings beside them):
   * dense against the port's tp 1: ALLCLOSE, relative L2 per call within
@@ -48,7 +51,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 Q8 = MW.Q8_SERVE
 # name: (data, model, tp, kv, schedule)
 SERVE = {"tp4": (1, 4, 4, 2, None), "tp4_q8": (1, 4, 4, 2, Q8),
-         "tp2_kv1": (2, 2, 2, 1, None), "tp2_kv1_q8": (2, 2, 2, 1, Q8)}
+         "tp2_kv1": (2, 2, 2, 1, None), "tp2_kv1_q8": (2, 2, 2, 1, Q8),
+         "data4": (4, 1, 1, 2, None)}
 # the reference's: tp 1 and tp 4, and the case it dies in (reading 3 of
 # ROADMAP Queue 3: one KV head, tp 2, 2 layers)
 REF = {"tp1": (1, 1, 1, 2, None), "tp1_q8": (1, 1, 1, 2, Q8),
@@ -73,6 +77,11 @@ ONE_OF = {"tp4": ("tp1", MW.serve_config(1, 2), None),
           "ep2": ("moe1", MW.config(MOE, dict(fsdp_axes=D, batch_axes=D),
                                     **DROPLESS), None)}
 ONE_OF["ep2_batch_data"] = ONE_OF["ep2"]
+ONE_OF["data4"] = ONE_OF["tp4"][:1] + (MW.serve_config(1, 2), None)
+# the ranks each run splits the cache's rows over, and its tp
+SPLIT = {"tp4": (1, 4), "tp4_q8": (1, 4), "tp2_kv1": (2, 2),
+         "tp2_kv1_q8": (2, 2), "data4": (4, 1), "ep2": (4, 1),
+         "ep2_batch_data": (2, 1)}
 BOUND = {"dense": 1e-4, "q8": 0.1, "ref": 1e-4, "ref_q8": 2e-2}
 
 
@@ -112,6 +121,33 @@ def test_tp_serve_matches_tp1(name, served):
     for call in range(got[0].shape[0]):
         err = MW.rel_l2(got[0][call], want[call])
         assert err < bound, (name, call, err)
+
+
+@pytest.mark.parametrize("name", list(SERVE) + list(EP))
+def test_rank_local_cache_serves_the_narrowed_global_cache(name, served):
+    """The serve steps on each rank's own part of the cache
+    (``FSDPRuntime.init_cache``) return bitwise the logits of the same
+    steps on the global cache narrowed to the rank's rows and KV head slot
+    (every rank holding the whole cache), dense and int8, at tp 4, tp 2 x
+    data 2, data 4 and ep 2."""
+    for o in served["ranks"]:
+        got, want = o[f"serve/{name}"], o[f"serve_narrowed/{name}"]
+        assert got.shape == want.shape
+        assert np.array_equal(got.view(np.int32), want.view(np.int32)), name
+
+
+@pytest.mark.parametrize("name", list(SERVE) + list(EP))
+def test_rank_cache_holds_its_share(name, served):
+    """A rank's K and V hold the global cache's bytes / (rows split x tp),
+    its ``pos`` / (rows split); the global cache given to a step raises,
+    naming ``init_cache``."""
+    split, tp = SPLIT[name]
+    for o in served["ranks"]:
+        for k in ("k", "v", "pos"):
+            got = int(o[f"cache/{name}/bytes/{k}"])
+            full = int(o[f"cache/{name}/global_bytes/{k}"])
+            assert got * split * (tp if k != "pos" else 1) == full, (k, got)
+        assert "FSDPRuntime.init_cache" in str(o[f"cache/{name}/err"])
 
 
 @pytest.mark.parametrize("name", ["tp4", "tp4_q8"])
@@ -192,3 +228,20 @@ def test_tp_cache_declares_its_head_dim():
         assert shapes[k][0][dim] == 4
     with pytest.raises(ValueError, match="tp > n_kv_heads"):
         build_model(MW.serve_config(2, 2)).cache_shapes(3, 16)
+
+
+def test_cache_bytes_at_published_width():
+    """``launch.serve --cache-bytes``: gemma2-2b at published width, tp 8,
+    batch 4, 4,096 positions -- a rank held the global cache, 26 layers x
+    K and V x 4 x 8 slots x 4,096 x 256 x 2 B (3.49 GB), and holds one
+    slot of it (0.437 GB with ``pos``)."""
+    args = serve_cli.parse_args(
+        ["--full", "--model", "8", "--batch", "4", "--prompt-len", "4095",
+         "--gen", "1", "--cache-bytes"])
+    got = serve_cli.cache_bytes(serve_cli.serve_config(args), args)
+    kv = 26 * 4 * 8 * 4096 * 256 * 2
+    assert got["global"]["k"] == got["global"]["v"] == kv
+    assert got["rank"]["k"] == got["rank"]["v"] == kv // 8
+    assert got["rank"]["pos"] == got["global"]["pos"] == 26 * 4 * 4096 * 4
+    assert got["global"]["total"] == 3_491_364_864
+    assert got["rank"]["total"] == 437_911_552

@@ -210,15 +210,17 @@ def test_unported_runtime_options_raise():
 
     cfg = W.quickstart_config()
     group = init_local_group("gloo")
-    # a pod axis is ported (HSDP); Muon and Shampoo on groups replicated
-    # over it are not (their whole-matrix gathers span the process group)
+    # a pod axis is ported (HSDP), and Muon and Shampoo on groups
+    # replicated over it (their whole-matrix gathers run over the groups'
+    # FSDP axes; tests/test_torch_tp_optim.py)
     mesh = make_local_mesh(1, 1, pod=1)
     assert mesh.axis_sizes == {"pod": 1, "data": 1, "model": 1}
     rt = FSDPRuntime(build_model(cfg), mesh, device="cpu")
     assert rt.has_pod and rt.batch_axes[0] == "pod"
     for opt in ("muon", "shampoo"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 19"):
-            make_optimizer(dataclasses.replace(cfg, optimizer=opt)).init(rt)
+        state = make_optimizer(dataclasses.replace(cfg, optimizer=opt)) \
+            .init(rt)
+        assert {"mom", "m", "v"} <= set(state), opt
     # replan onto and across a model axis is ported; onto more ranks than
     # the process group holds it is not
     rt = FSDPRuntime(build_model(cfg), group, device="cpu", policies="auto")
