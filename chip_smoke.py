@@ -263,6 +263,50 @@ The plan's life cycle (23 and 24 run after 22, on ``train``'s host init):
                   launches and no other kernel.  Printed: each tool run's,
                   the comparison's and the load's seconds.
 
+The dry run, the roofline and the examples (slice 13; 6c, 6d and 25 after
+8, 26 after 13):
+
+ 6c. dryrun_vs_card -- ``python -m repro_torch.launch.dryrun`` of
+                  ``train``'s configuration (``--mesh 1x1 --layers 4
+                  --batch 2 --seq 2048``) and of ``train_cli``'s
+                  (``--mesh 1x1 --batch 8 --seq 128``): one step of rank 0
+                  on meta tensors over a fake process group, each in a
+                  child process (started with four more beside phase 8's
+                  host init; none touches the card).  Printed: the
+                  predicted peak (argument bytes + the step's own), the
+                  matmul FLOPs, the bytes, the collectives and the kernel
+                  calls; the predicted peak must lie within
+                  DRYRUN_PEAK_RTOL of the ``max_memory_allocated`` that
+                  ``train`` and ``train_cli`` measured, and each step call
+                  ``adamw_store_update`` once a group.
+ 6d. mfu       -- model FLOPs (``launch.roofline.model_flops``: 6 N_active
+                  tokens) over the step's median seconds times the card's
+                  dense bf16 peak (``launch.mesh.PEAK_FLOPS_BF16``), for
+                  ``train`` and ``train_cli``, beside the card's name and
+                  power limit.
+ 25. dryrun_production -- the dry-run rows of gemma2-2b ``train_4k`` at 16
+                  x 16 = 256 ranks and qwen3-moe-235b-a22b ``train_4k`` at
+                  2 x 16 x 16 = 512 (``--multi-pod``): ``ok``, and their
+                  ``model_gflops``, ``gather_wire_mb`` and
+                  ``reduce_wire_mb`` equal to the roofline's model FLOPs
+                  and the plan's wire bytes; ``--plan-only --all``: the
+                  lowering parity line for each ported assigned arch, an
+                  error naming item 14b for each of the four others.
+ 26. examples  -- ``python -m repro_torch.examples.<name>`` for the five
+                  examples (quickstart, train_8bit_adam, muon_demo,
+                  serve_moe, continuous_batching) through ``main([])`` on
+                  the card at their defaults (bf16 compute, the reference's
+                  steps): their own checks, ``adamw_store_update`` and
+                  ``adam8bit_store_update`` once a group and step of the
+                  AdamW and 8-bit Adam runs and no other kernel, no plain
+                  version called.  Then ``examples_parity``: each again
+                  at fp32 compute over EXAMPLE_PARITY_STEPS on the card and
+                  on the CPU: loss (and quickstart's grad-norm) streams
+                  within PARITY_RTOL (the fp32 parity phases' limit; Muon
+                  at the example's lr 3e-3 read 7.0e-7, above
+                  ``parity_optim``'s own 6e-7 at lr 1e-2), the served
+                  tokens equal.
+
 Then the script's seconds so far, the ``kernels`` line, the card's name
 and power limit as nvidia-smi reports them, and a last line ``{"ok":
 true, "device": {...}}``.  The
@@ -270,6 +314,7 @@ script imports only the port (never JAX or the JAX package).
 """
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import json
 import math
@@ -453,6 +498,17 @@ CKPT_LAYERS, CKPT_STEPS = 2, 2
 # (past gemma2-2b's 4 KV heads: wk and wv move into ``layers_rep``)
 CKPT_TP = 8
 CE_CHUNK_RTOL = {"loss": 2e-3, "grad_norm": 2e-2}
+# phases 6c and 25: the dry run's predicted peak against ``train``'s and
+# ``train_cli``'s measured ``max_memory_allocated``; the production rows
+DRYRUN_PEAK_RTOL = 0.10
+DRYRUN_PRODUCTION = (("gemma2-2b", "train_4k", False),
+                     (MOE, "train_4k", True))
+DRYRUN_TIMEOUT_S = 600
+# phase 26: the examples at their defaults on the card, then card against
+# CPU at fp32 compute over a few steps (the parity phases' limits)
+EXAMPLE_STEPS = {"quickstart": 20, "train_8bit_adam": 120, "muon_demo": 120}
+EXAMPLE_PARITY_STEPS = {"quickstart": 2, "train_8bit_adam": 2,
+                        "muon_demo": PARITY_OPTIM_STEPS}
 
 
 def emit(obj) -> None:
@@ -1482,6 +1538,66 @@ def expected_serve_launches(rt, calls: int, keys) -> dict:
     return want
 
 
+def start_dryruns(out_dir: Path) -> dict:
+    """The dry runs of phases 6c and 25, each in a child process of its
+    own (a dry run makes its own fake process group; this process holds
+    the NCCL one), all started at once: host only, on meta tensors."""
+    runs = {
+        "train": ["--arch", "gemma2-2b", "--mesh", "1x1", "--layers",
+                  str(TRAIN_LAYERS), "--batch", str(TRAIN_BATCH), "--seq",
+                  str(TRAIN_SEQ)],
+        "train_cli": ["--arch", "gemma2-2b", "--mesh", "1x1", "--batch",
+                      str(CLI_BATCH), "--seq", str(CLI_SEQ)],
+        **{f"{arch}/{shape}" + ("/multi_pod" if mp else ""):
+           ["--arch", arch, "--shape", shape] + (["--multi-pod"] if mp
+                                                  else [])
+           for arch, shape, mp in DRYRUN_PRODUCTION},
+        "plan_only": ["--plan-only", "--all"],
+    }
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    procs = {}
+    for i, (name, argv) in enumerate(runs.items()):
+        log = open(out_dir / f"{i}.log", "w")
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
+               "--out", str(out_dir / f"{i}.jsonl")]
+        procs[name] = (subprocess.Popen(cmd, stdout=log,
+                                        stderr=subprocess.STDOUT, env=env,
+                                        cwd=str(ROOT)),
+                       log, out_dir / f"{i}.log", time.time())
+    # a phase that fails before ``finish_dryruns`` still stops them
+    atexit.register(stop_dryruns, procs)
+    return procs
+
+
+def stop_dryruns(procs: dict) -> None:
+    for proc, log, _, _ in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def finish_dryruns(procs: dict) -> dict:
+    """Wait for every dry run child (killing all of them on a failure):
+    ``{name: {"row": the last JSON row or None, "text": its output,
+    "seconds": its wall time, start to its last output}}``."""
+    out = {}
+    try:
+        for name, (proc, log, path, t0) in procs.items():
+            rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
+            log.close()
+            text = path.read_text()
+            if rc != 0:
+                fail(f"dry run {name} exited {rc}: {text[-3000:]}")
+            rows = [json.loads(l) for l in text.splitlines()
+                    if l.startswith('{"arch"')]
+            out[name] = {"row": rows[-1] if rows else None, "text": text,
+                         "seconds": path.stat().st_mtime - t0}
+    finally:
+        stop_dryruns(procs)
+    return out
+
+
 def main() -> None:
     t_script = time.perf_counter()
     # the CPU reference's pins (MKL's reproducible mode, a fixed thread
@@ -1983,6 +2099,7 @@ def main() -> None:
                "max_memory_allocated": peak, "kernel_launches": launches,
                "expected_launches": len(rt.layouts) * len(metrics)}
     emit(summary)
+    train_peak = peak
     if shards != {"layers": 77_865_984, "globals": 589_826_304}:
         fail(f"unexpected shard sizes {shards}")
     if launches != len(rt.layouts) * len(metrics):
@@ -2459,6 +2576,11 @@ def main() -> None:
     del host_init
     torch.cuda.empty_cache()
 
+    # ---- 6c, 25. the dry runs: children on the host, beside phase 8's
+    # host init (they use a core each and no card)
+    dry_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    dry_procs = start_dryruns(dry_dir)
+
     # ---- 8. 8-bit Adam path: qwen3-moe at full width, depth cut to 1 ---
     moe_full = get_config(MOE)
     moe_cfg = dataclasses.replace(
@@ -2520,6 +2642,91 @@ def main() -> None:
              f"{moe_loss0}")
     del rt
     torch.cuda.empty_cache()
+
+    # ---- 6c. dryrun_vs_card: the dry run's peak against train's --------
+    from repro_torch.configs import SHAPES, ShapeConfig
+    from repro_torch.launch import roofline
+
+    dry = finish_dryruns(dry_procs)
+    shutil.rmtree(dry_dir, ignore_errors=True)
+    for name, measured in (("train", train_peak),
+                           ("train_cli", cli_peak)):
+        row = dry[name]["row"]
+        if row is None or not row["ok"]:
+            fail(f"dryrun_vs_card {name}: no dry run row: "
+                 f"{dry[name]['text'][-2000:]}")
+        pred = row["peak_bytes_dev"]
+        emit({"phase": "dryrun_vs_card", "run": name, "mesh": row["mesh"],
+              "predicted_peak": pred, "argument_bytes": row["arg_bytes_dev"],
+              "temp_bytes": pred - row["arg_bytes_dev"],
+              "max_memory_allocated": measured,
+              "rel_diff": pred / measured - 1.0,
+              "matmul_gflops": row["hlo_gflops_dev"],
+              "hbm_gb": row["hbm_gb_dev"], "colls": row["colls"],
+              "kernel_calls": row["kernel_calls"],
+              "dry_run_s": dry[name]["seconds"]})
+        if abs(pred / measured - 1.0) > DRYRUN_PEAK_RTOL:
+            fail(f"dryrun_vs_card {name}: predicted peak {pred} is "
+                 f"{pred / measured - 1.0:+.3f} of the measured {measured}")
+        if row["kernel_calls"] != {"adamw_store_update[fp32]": 2}:
+            fail(f"dryrun_vs_card {name}: kernel calls {row['kernel_calls']}")
+
+    # ---- 6d. mfu: model FLOPs over the card's peak for train, train_cli -
+    mfu_rows = {}
+    gemma_full = get_config("gemma2-2b")
+    for name, run_cfg, shape, step_ms in (
+            ("train", dataclasses.replace(gemma_full, n_layers=TRAIN_LAYERS),
+             ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH,
+                                       "train"), train_step_ms),
+            ("train_cli", gemma_full, ShapeConfig(
+                "train_cli", CLI_SEQ, CLI_BATCH, "train"), cli_step_ms)):
+        mfu_rows[name] = {
+            "active_params": roofline.active_params(run_cfg),
+            "model_flops": roofline.model_flops(run_cfg, shape),
+            "step_ms": step_ms,
+            "mfu": roofline.mfu(run_cfg, shape, step_ms / 1e3)}
+    emit({"phase": "mfu", "card": smi,
+          "peak_flops_bf16": mesh.PEAK_FLOPS_BF16, **mfu_rows})
+    for name, r in mfu_rows.items():
+        if not 0.0 < r["mfu"] < 1.0:
+            fail(f"mfu {name}: {r['mfu']} outside (0, 1)")
+
+    # ---- 25. dryrun_production: rows at 16 x 16 and 2 x 16 x 16 --------
+    prod_axes = {False: mesh.production_axis_sizes(multi_pod=False),
+                 True: mesh.production_axis_sizes(multi_pod=True)}
+    for arch, shape, mp in DRYRUN_PRODUCTION:
+        name = f"{arch}/{shape}" + ("/multi_pod" if mp else "")
+        row = dry[name]["row"]
+        if row is None or not row["ok"]:
+            fail(f"dryrun_production {name}: {dry[name]['text'][-2000:]}")
+        arch_cfg = get_config(arch)
+        arch_plan = plan(build_model(arch_cfg), prod_axes[mp])
+        want = {"model_gflops": round(roofline.model_flops(
+                    arch_cfg, SHAPES[shape]) / 1e9, 1),
+                "gather_wire_mb": round(arch_plan.gather_wire_bytes() / 1e6,
+                                        3),
+                "reduce_wire_mb": round(arch_plan.reduce_wire_bytes() / 1e6,
+                                        3)}
+        emit({"phase": "dryrun_production", "run": name, "row": row,
+              "dry_run_s": dry[name]["seconds"]})
+        if {k: row[k] for k in want} != want:
+            fail(f"dryrun_production {name}: {row} against the plan {want}")
+        if not row["colls"].get("all-gather") or \
+                not row["colls"].get("reduce-scatter"):
+            fail(f"dryrun_production {name}: collectives {row['colls']}")
+    text = dry["plan_only"]["text"]
+    from repro_torch.configs import ARCH_IDS, ASSIGNED_ARCH_IDS
+
+    ported = [a for a in ASSIGNED_ARCH_IDS if a in ARCH_IDS]
+    parity_ok = text.count("plan lowering parity OK")
+    errors = [l for l in text.splitlines() if l.startswith("ERROR ")]
+    emit({"phase": "dryrun_production", "run": "plan_only --all",
+          "parity_ok": parity_ok, "errors": errors,
+          "dry_run_s": dry["plan_only"]["seconds"]})
+    if parity_ok != len(ported) or len(errors) != len(ASSIGNED_ARCH_IDS) \
+            - len(ported) or not all("14b" in l for l in errors):
+        fail(f"dryrun_production plan_only --all: {parity_ok} parity lines, "
+             f"errors {errors}")
 
     # ---- 9. 8-bit Adam on the q8_block store: gemma2-2b as in 6 --------
     torch.cuda.reset_peak_memory_stats()
@@ -3035,6 +3242,98 @@ def main() -> None:
                 fail(f"parity_serve {model_cfg.name} {store}: CPU and card "
                      f"logits differ by {max(readings)} > {rtol}")
 
+    # ---- 26. the five examples on the card, then card vs CPU -----------
+    from repro_torch.examples import (continuous_batching, muon_demo,
+                                      quickstart, serve_moe, train_8bit_adam)
+
+    def groups_of(arch: str) -> int:
+        return len(build_model(get_config(arch).reduced()).groups())
+
+    examples = {"quickstart": quickstart, "train_8bit_adam": train_8bit_adam,
+                "muon_demo": muon_demo, "serve_moe": serve_moe,
+                "continuous_batching": continuous_batching}
+    ex_want = {
+        "quickstart": {"adamw_store_update": groups_of("gemma2-2b")
+                       * EXAMPLE_STEPS["quickstart"]},
+        "train_8bit_adam": {
+            k: groups_of("gpt-oss-120b") * EXAMPLE_STEPS["train_8bit_adam"]
+            for k in ("adamw_store_update", "adam8bit_store_update")},
+        "muon_demo": {"adamw_store_update": groups_of("qwen2.5-14b")
+                      * EXAMPLE_STEPS["muon_demo"]},
+        "serve_moe": {}, "continuous_batching": {}}
+    ex_launches = {}
+    for name, mod in examples.items():
+        reset_launches(mods)
+        plain_calls, restore_plain = count_plain(ops)
+        t0 = time.perf_counter()
+        try:
+            mod.main([])
+        finally:
+            restore_plain()
+        ex_s = time.perf_counter() - t0
+        got = {k: v for k, v in launches_now(mods).items() if v}
+        ex_launches[name] = got
+        emit({"phase": "examples", "example": name, "device": "cuda",
+              "argv": [], "seconds": ex_s, "kernel_launches": got,
+              "expected_launches": ex_want[name],
+              "plain_calls": {k: v for k, v in plain_calls.items() if v}})
+        if got != ex_want[name]:
+            fail(f"example {name} launched {got}, expected {ex_want[name]}")
+        if any(plain_calls.values()):
+            fail(f"example {name} ran plain versions {plain_calls}")
+
+    def rel_stream(a, b) -> float:
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    fp32 = ["--compute-dtype", "float32"]
+    ex_par = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        qs = quickstart.main(["--device", dev, "--steps", str(
+            EXAMPLE_PARITY_STEPS["quickstart"]), *fp32])
+        a8 = {opt: train_8bit_adam.run(
+            opt, EXAMPLE_PARITY_STEPS["train_8bit_adam"], dev, "float32")
+            for opt in ("adamw", "adam8bit")}
+        mu = {opt: muon_demo.run(opt, lr, EXAMPLE_PARITY_STEPS["muon_demo"],
+                                 dev, "float32")
+              for opt, lr in (("adamw", 1e-3), ("muon", 3e-3))}
+        ex_par[dev] = {
+            "quickstart": qs, "train_8bit_adam": a8, "muon_demo": mu,
+            "serve_moe": serve_moe.main(["--device", dev, *fp32]),
+            "continuous_batching": continuous_batching.main(
+                ["--device", dev, *fp32]),
+            "seconds": time.perf_counter() - t0}
+    card, cpu = ex_par["cuda"], ex_par["cpu"]
+    ex_read = {
+        "quickstart": (max(rel_stream(card["quickstart"][k],
+                                      cpu["quickstart"][k])
+                           for k in ("loss", "grad_norm")), PARITY_RTOL),
+        "train_8bit_adam/adamw": (rel_stream(
+            card["train_8bit_adam"]["adamw"],
+            cpu["train_8bit_adam"]["adamw"]), PARITY_RTOL),
+        "train_8bit_adam/adam8bit": (rel_stream(
+            card["train_8bit_adam"]["adam8bit"],
+            cpu["train_8bit_adam"]["adam8bit"]), PARITY_RTOL),
+        "muon_demo/adamw": (rel_stream(card["muon_demo"]["adamw"],
+                                       cpu["muon_demo"]["adamw"]),
+                            PARITY_RTOL),
+        "muon_demo/muon": (rel_stream(card["muon_demo"]["muon"],
+                                      cpu["muon_demo"]["muon"]),
+                           PARITY_RTOL)}
+    tokens_equal = {k: card[k] == cpu[k]
+                    for k in ("serve_moe", "continuous_batching")}
+    emit({"phase": "examples_parity", "compute": "float32",
+          "steps": EXAMPLE_PARITY_STEPS,
+          "readings": {k: {"max_rel": v, "rtol": t}
+                       for k, (v, t) in ex_read.items()},
+          "tokens_equal": tokens_equal,
+          "seconds": {d: ex_par[d]["seconds"] for d in ex_par}})
+    for k, (v, t) in ex_read.items():
+        if not v <= t:
+            fail(f"examples_parity {k}: card and CPU differ by {v} > {t}")
+    if not all(tokens_equal.values()):
+        fail(f"examples_parity: served tokens differ {tokens_equal}")
+
     # ---- the kernels line, the card, the last line ---------------------
     csrc = "src/repro_torch/kernels/csrc/"
 
@@ -3059,7 +3358,10 @@ def main() -> None:
                                   auto_launches["adamw_store_update"],
                               "ckpt": ckpt_launches["adamw_store_update"],
                               "ckpt_tp":
-                                  ckpt_tp_launches["adamw_store_update"]}},
+                                  ckpt_tp_launches["adamw_store_update"],
+                              "examples": sum(
+                                  v.get("adamw_store_update", 0)
+                                  for v in ex_launches.values())}},
         {**entry("adamw_store_update_q8", "adamw_store_update.cu",
                  "src/repro/kernels/fused_update.py:102",
                  q8_launches["adamw_q8"], q8stats["adamw_q8"]),
@@ -3105,9 +3407,13 @@ def main() -> None:
                               "train_micro": micro_launches["encode_ef"],
                               "auto_plan": auto_launches["encode_ef"],
                               "ckpt": ckpt_launches["encode_ef"]}},
-        entry("adam8bit_store_update", "adam8bit_store_update.cu",
-              "src/repro/kernels/fused_update.py:116",
-              moe_launches["adam8bit_store_update"], a8stats["flat"]),
+        {**entry("adam8bit_store_update", "adam8bit_store_update.cu",
+                 "src/repro/kernels/fused_update.py:116",
+                 moe_launches["adam8bit_store_update"], a8stats["flat"]),
+         "launches_by_path": {
+             "train_moe": moe_launches["adam8bit_store_update"],
+             "examples": ex_launches["train_8bit_adam"][
+                 "adam8bit_store_update"]}},
         entry("adam8bit_store_update_q8", "adam8bit_store_update.cu",
               "src/repro/kernels/fused_update.py:145",
               a8q_launches["adam8bit_q8"], a8stats["q8"]),

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import importlib
 
-from .base import ModelConfig, ParallelConfig, with_tp
+from .base import SHAPES, ModelConfig, ParallelConfig, ShapeConfig, with_tp
 
 # public arch id -> module name (the reference registers twelve; the port
 # adds an id once it runs that family -- ROADMAP Queue 1 item 14b)
@@ -20,6 +20,13 @@ _MODULES = {
 }
 
 ARCH_IDS = list(_MODULES)
+# the reference's ten assigned ids, in its order (the dry run's ``--all``);
+# the four families the port lacks raise in ``get_config``
+ASSIGNED_ARCH_IDS = [
+    "qwen2.5-14b", "llama-3.2-vision-90b", "qwen1.5-32b", "xlstm-125m",
+    "hymba-1.5b", "seamless-m4t-medium", "granite-moe-1b-a400m",
+    "gemma2-2b", "qwen3-moe-235b-a22b", "nemotron-4-340b",
+]
 
 
 def get_config(arch_id: str) -> ModelConfig:
@@ -41,5 +48,18 @@ def build_model(cfg: ModelConfig):
         f"item 14b)")
 
 
-__all__ = ["ModelConfig", "ParallelConfig", "ARCH_IDS", "get_config",
-           "build_model"]
+def supports_shape(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Which (arch x shape) pairs run: the reference's skips, line for
+    line."""
+    if shape.name == "long_500k":
+        if cfg.arch_type in ("ssm", "hybrid"):
+            return True, ""
+        if cfg.sliding_window:
+            return True, "sliding-window cache variant"
+        return False, "pure full-attention arch: 500k dense KV out of scope"
+    return True, ""
+
+
+__all__ = ["ModelConfig", "ParallelConfig", "ShapeConfig", "SHAPES",
+           "ARCH_IDS", "ASSIGNED_ARCH_IDS", "get_config", "build_model",
+           "supports_shape"]

@@ -160,3 +160,23 @@ def with_tp(cfg: ModelConfig, tp: int) -> ModelConfig:
     return dataclasses.replace(cfg, parallel=dataclasses.replace(
         par, tp=tp, fsdp_axes=off_model(par.fsdp_axes),
         batch_axes=off_model(par.batch_axes)))
+
+
+# ---------------------------------------------------------------------------
+# Input shapes assigned to this paper (the reference's, field for field)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}

@@ -78,7 +78,9 @@ mesh factoring or TP degree on the same process group (``core.reshard``'s
 extent map across outer rows; the classes of a checkpoint load).
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
-without a card and without that, construction raises.
+without a card and without that, construction raises.  ``device="meta"``
+runs the same steps on shapes alone (``param_shapes``; ``kernels.ops``'
+meta branch): the dry run (``launch.dryrun``).
 
 PARITY: ``init_params`` and the planned layouts are BITWISE the reference's;
 the train step is ALLCLOSE (tests/test_torch_train.py states the bounds),
@@ -157,6 +159,9 @@ class GroupLayout:
 
 
 def _resolve_device(device) -> torch.device:
+    """The card unless the caller names another device: ``"cpu"`` (the
+    plain kernels' path) or ``"meta"`` (shapes only, no values: the dry
+    run, ``launch.dryrun``)."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -165,7 +170,7 @@ def _resolve_device(device) -> torch.device:
                 "is available; pass device='cpu' to run on the CPU")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 
@@ -455,13 +460,39 @@ class FSDPRuntime:
         return _host_tensor(local, dtype).to(self.device).requires_grad_(
             requires_grad)
 
+    def _local_cols(self, lo: GroupLayout) -> int:
+        """Columns of a group's buffer this rank holds: its FSDP shard, or
+        the whole outer row of an unsharded group."""
+        return lo.plan.shard_size if lo.sharded else lo.plan.total
+
+    def param_shapes(self) -> dict[str, Any]:
+        """Each group's store state as meta tensors of this rank's local
+        shapes (the master a leaf that requires grad; codes, scales and the
+        residual as ``ParamStore.create`` makes them, a q8 store's through
+        ``ops.quantize``'s meta branch): the dry run's parameters, with no
+        host work (the reference's ``param_shapes``)."""
+        if self.device.type != "meta":
+            raise ValueError(
+                f"param_shapes makes meta tensors; this runtime is on "
+                f"{self.device} (use init_params)")
+        params = {}
+        for name, lo in self.layouts.items():
+            shape = ((lo.n_layers,) if lo.n_layers else ()) + (
+                self._local_cols(lo),)
+            params[name] = lo.store.create(torch.empty(
+                shape, dtype=torch.float32, device="meta").requires_grad_())
+        return params
+
     def init_params(self, seed: int = 0) -> dict[str, Any]:
         """Host-side init; every rank builds its outer row of the global
         fp32 buffer (the tensors split over the outer axis cut to this
         rank's part), keeps its shard on the device and builds its store
         state there (a bf16 store rounds it, an fp8 store encodes it, a q8
-        store quantizes it through ``ops.quantize``).  PARITY: BITWISE vs
+        store quantizes it through ``ops.quantize``).  On the meta device
+        there are no values to make: ``param_shapes``.  PARITY: BITWISE vs
         the reference's ``init_params`` (this rank's columns of it)."""
+        if self.device.type == "meta":
+            return self.param_shapes()
         params = {}
         for name, lo in self.layouts.items():
             r = self.mesh.coords[lo.outer_axis] if lo.outer_axis else 0
@@ -477,7 +508,7 @@ class FSDPRuntime:
                     arrays[s.name] = a
                 flats.append(lo.buffer.pack(arrays))
             arr = np.stack(flats) if lo.n_layers else flats[0]
-            n = lo.plan.shard_size if lo.sharded else lo.plan.total
+            n = self._local_cols(lo)
             f = self.mesh.index(lo.fsdp_axes) if lo.sharded else 0
             params[name] = lo.store.create(
                 _host_tensor(arr[..., f * n:(f + 1) * n], torch.float32)

@@ -2,15 +2,22 @@
 ``repro/kernels/ops.py`` for the ops the port runs).
 
 Rule: CUDA tensors launch the hand-written kernel; CPU tensors take the
-plain PyTorch version (``kernels.ref``), the CPU tests' path; anything
-else -- tensors split across devices, another device type -- raises.
-There is no fallback from a failed build or launch to the plain version.
-Every hot path of the port (the wire codecs, the store, the optimizer)
-goes through these functions.
+plain PyTorch version (``kernels.ref``), the CPU tests' path; meta tensors
+(the dry run, ``launch.dryrun``) get empty outputs of the kernel's shapes
+and dtypes, and the call goes into the ledger ``recording`` opens, as the
+bytes the kernel reads and writes (each input once, each output once: the
+kernel table's bound) -- one op, as on the card, never the plain
+version's steps; anything else -- tensors split across devices, another
+device type -- raises.  There is no fallback from a failed build or launch
+to the plain version.  Every hot path of the port (the wire codecs, the
+store, the optimizer) goes through these functions.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
+from torch.utils._pytree import tree_leaves
 
 from . import blockwise_quant, encode_ef as _encode_ef, fused_update
 from . import q8_matmul as _q8mm
@@ -18,6 +25,7 @@ from .q8_matmul import QuantTensor, fold_scales, q8_slice_cols, \
     quant_eligible
 from ..quant.blockwise import dequantize_blockwise_log, \
     quantize_blockwise_log
+from ..quant.fp8 import FP8_DTYPES
 from .ref import (adam8bit_store_update_ref, adam8bit_update_ref,
                   adamw_store_update_ref, adamw_update_ref,
                   dequantize_into_ref, encode_ef_ref, q8_matmul_ref,
@@ -33,6 +41,66 @@ __all__ = [
 _CORE_KEYS = ("codes", "master", "scales")
 
 
+# the dry run's ledger of kernel calls on meta tensors (``recording``)
+_LEDGER: list | None = None
+
+
+@contextlib.contextmanager
+def recording(ledger: list):
+    """Append each kernel call on meta tensors to ``ledger`` inside the
+    ``with``: ``{"kernel", "bytes", "flops"}`` -- the bytes it reads and
+    writes, and for ``q8_matmul`` its 2 M K N int8 operations."""
+    global _LEDGER
+    prev, _LEDGER = _LEDGER, ledger
+    try:
+        yield ledger
+    finally:
+        _LEDGER = prev
+
+
+def _meta_call(kernel: str, inputs, outputs, flops: int = 0):
+    """The meta branch's record of one kernel call: each distinct input
+    read once, each output written once; returns ``outputs``."""
+    if _LEDGER is not None:
+        nbytes = sum(t.numel() * t.element_size()
+                     for side in (inputs, outputs)
+                     for t in {id(t): t for t in tree_leaves(side)
+                               if t is not None}.values())
+        _LEDGER.append({"kernel": kernel, "bytes": nbytes, "flops": flops})
+    return outputs
+
+
+def _empty(like: torch.Tensor, dtype=None, shape=None) -> torch.Tensor:
+    return torch.empty(like.shape if shape is None else shape,
+                       dtype=like.dtype if dtype is None else dtype,
+                       device="meta")
+
+
+def _meta_store(fmt: str, block: int, w, moments, out):
+    """A fused store update's meta result in the plain version's structure:
+    ``(w', *moments)`` for a flat format, ``({codes, master[, scales]},
+    *moments)`` for fp8 and q8_block; ``out``'s own tensors when given."""
+    keys = (() if fmt in ("fp32", "bf16") else
+            _CORE_KEYS if fmt == "q8_block" else _CORE_KEYS[:2])
+    if out is not None:
+        if not keys:
+            return tuple(out)
+        return (dict(zip(keys, out[:len(keys)])), *out[len(keys):])
+    rest = tuple(_empty(t) for t in moments)
+    if not keys:
+        return (_empty(w), *rest)
+    core = {"codes": _empty(w, FP8_DTYPES.get(fmt, torch.int8)),
+            "master": _empty(w, torch.float32)}
+    if fmt == "q8_block":
+        core["scales"] = _block_scales(w, block)
+    return (core, *rest)
+
+
+def _block_scales(x: torch.Tensor, block: int) -> torch.Tensor:
+    """Meta fp32 scales of ``x``'s blocks along its last axis."""
+    return _empty(x, torch.float32, x.shape[:-1] + (x.shape[-1] // block,))
+
+
 def _device_kind(*tensors: torch.Tensor) -> str:
     kinds = {t.device.type for t in tensors}
     devices = {t.device for t in tensors}
@@ -40,9 +108,11 @@ def _device_kind(*tensors: torch.Tensor) -> str:
         return "cpu"
     if kinds == {"cuda"} and len(devices) == 1:
         return "cuda"
+    if kinds == {"meta"}:
+        return "meta"
     raise ValueError(
-        f"kernel inputs must all lie on the CPU or all on one CUDA device, "
-        f"got {sorted(str(d) for d in devices)}")
+        f"kernel inputs must all lie on the CPU, all on one CUDA device or "
+        f"all on the meta device, got {sorted(str(d) for d in devices)}")
 
 
 def _copy_out(out, results):
@@ -73,8 +143,12 @@ def quantize(x: torch.Tensor, block: int = 1024):
     PARITY: the kernel is BITWISE against the plain version on the card;
     the plain version is bitwise the reference's but for subnormal scales
     (``quant.blockwise``)."""
-    if _device_kind(x) == "cuda":
+    kind = _device_kind(x)
+    if kind == "cuda":
         return blockwise_quant.quantize(x, block)
+    if kind == "meta":
+        return _meta_call("quantize", (x,), (_empty(x, torch.int8),
+                                             _block_scales(x, block)))
     return quantize_ref(x, block)
 
 
@@ -86,9 +160,13 @@ def dequantize_into(codes: torch.Tensor, scales: torch.Tensor,
 
     PARITY: BITWISE (kernel vs plain version on the card; plain version vs
     the reference)."""
-    if _device_kind(codes, scales) == "cuda":
+    kind = _device_kind(codes, scales)
+    if kind == "cuda":
         return blockwise_quant.dequantize_into(codes, scales, block,
                                                out_dtype)
+    if kind == "meta":
+        return _meta_call("dequantize_into", (codes, scales),
+                          _empty(codes, out_dtype))
     return dequantize_into_ref(codes, scales, block, out_dtype)
 
 
@@ -96,8 +174,12 @@ def dequantize(codes: torch.Tensor, scales: torch.Tensor,
                block: int = 1024) -> torch.Tensor:
     """Blockwise decode to fp32 (the q8 reduce route): ``dequantize_into``
     with fp32 output, its launches counted apart.  PARITY: BITWISE."""
-    if _device_kind(codes, scales) == "cuda":
+    kind = _device_kind(codes, scales)
+    if kind == "cuda":
         return blockwise_quant.dequantize(codes, scales, block)
+    if kind == "meta":
+        return _meta_call("dequantize", (codes, scales),
+                          _empty(codes, torch.float32))
     return dequantize_into_ref(codes, scales, block, torch.float32)
 
 
@@ -111,8 +193,13 @@ def encode_ef(ct: torch.Tensor, ef: torch.Tensor, block: int = 1024, *,
     the plain version vs the reference: codes and scales bitwise (but for
     subnormal scales), new_ef within XLA's FMA contraction of ``comp -
     codes*scale`` (``kernels.ref.encode_ef_ref``)."""
-    if _device_kind(ct, ef) == "cuda":
+    kind = _device_kind(ct, ef)
+    if kind == "cuda":
         return _encode_ef.encode_ef(ct, ef, block, out=out)
+    if kind == "meta":
+        res = tuple(out) if out is not None else (
+            _empty(ct, torch.int8), _block_scales(ct, block), _empty(ef))
+        return _meta_call("encode_ef", (ct, ef), res)
     return _copy_out(out, encode_ef_ref(ct, ef, block))
 
 
@@ -133,8 +220,13 @@ def q8_matmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
     k, n = codes.shape
     _q8mm.check_args(k, n, block, scales.numel())
     out_dtype = x.dtype if out_dtype is None else out_dtype
-    if _device_kind(x, codes, scales) == "cuda":
+    kind = _device_kind(x, codes, scales)
+    if kind == "cuda":
         return _q8mm.q8_matmul(x, codes, scales, block, out_dtype)
+    if kind == "meta":
+        return _meta_call("q8_matmul", (x, codes, scales),
+                          _empty(x, out_dtype, x.shape[:-1] + (n,)),
+                          flops=2 * x.numel() * n)
     return q8_matmul_ref(x, codes, scales, block, out_dtype)
 
 
@@ -148,8 +240,13 @@ def adamw_update(w, g, m, v, mask, *, lr, b1, b2, eps, wd, c1, c2,
     card; the plain version holds ``adamw_store_update``'s fp32 class
     against the reference's interpreted ``_adamw_kernel``."""
     scalars = scalar_stack(lr, b1, b2, eps, wd, c1, c2)
-    if _device_kind(w, g, m, v, mask) == "cuda":
+    kind = _device_kind(w, g, m, v, mask)
+    if kind == "cuda":
         return fused_update.adamw_update(w, g, m, v, mask, scalars, out=out)
+    if kind == "meta":
+        return _meta_call("adamw_update", (w, g, m, v, mask), tuple(
+            out) if out is not None else tuple(
+            _empty(t, torch.float32) for t in (w, m, v)))
     return tuple(_copy_out(out, adamw_update_ref(w, g, m, v, mask,
                                                  scalars)))
 
@@ -165,9 +262,15 @@ def adam8bit_update(w, g, m8, v8, ms, vs, mask, *, lr, b1, b2, eps, wd, c1,
     card; the plain version holds ``adam8bit_store_update``'s class against
     the reference's interpreted ``_adam8_kernel``."""
     scalars = scalar_stack(lr, b1, b2, eps, wd, c1, c2)
-    if _device_kind(w, g, m8, v8, ms, vs, mask) == "cuda":
+    kind = _device_kind(w, g, m8, v8, ms, vs, mask)
+    if kind == "cuda":
         return fused_update.adam8bit_update(w, g, m8, v8, ms, vs, mask,
                                             scalars, block=block, out=out)
+    if kind == "meta":
+        return _meta_call(
+            "adam8bit_update", (w, g, m8, v8, ms, vs, mask), tuple(out)
+            if out is not None else (_empty(w, torch.float32),
+                                     *(_empty(t) for t in (m8, v8, ms, vs))))
     n = w.numel()
     if block < 1 or n % block:
         raise ValueError(f"adam8bit_update needs n % block == 0, got {n} % "
@@ -200,10 +303,15 @@ def adamw_store_update(w, g, m, v, mask, *, lr, b1, b2, eps, wd, c1, c2,
     interpreted kernel (see ``kernels.ref``), its fp8 codes bitwise the
     encode of its w'."""
     scalars = scalar_stack(lr, b1, b2, eps, wd, c1, c2)
-    if _device_kind(w, g, m, v, mask) == "cuda":
+    kind = _device_kind(w, g, m, v, mask)
+    if kind == "cuda":
         return fused_update.adamw_store_update(
             w, g, m, v, mask, scalars, fmt=fmt, block=block, out=out,
             g_scale=g_scale)
+    if kind == "meta":
+        return _meta_call(f"adamw_store_update[{fmt}]",
+                          (w, g, m, v, mask, g_scale),
+                          _meta_store(fmt, block, w, (m, v), out))
     return _store_out(out, *adamw_store_update_ref(
         w, g, m, v, mask, scalars, fmt, block, g_scale))
 
@@ -228,10 +336,15 @@ def adam8bit_store_update(w, g, m8, v8, ms, vs, mask, *, lr, b1, b2, eps, wd,
     within the log codec's and the AdamW chain's classes (see
     ``kernels.ref.adam8bit_update_ref``)."""
     scalars = scalar_stack(lr, b1, b2, eps, wd, c1, c2)
-    if _device_kind(w, g, m8, v8, ms, vs, mask) == "cuda":
+    kind = _device_kind(w, g, m8, v8, ms, vs, mask)
+    if kind == "cuda":
         return fused_update.adam8bit_store_update(
             w, g, m8, v8, ms, vs, mask, scalars, fmt=fmt, block=block,
             out=out, g_scale=g_scale)
+    if kind == "meta":
+        return _meta_call(f"adam8bit_store_update[{fmt}]",
+                          (w, g, m8, v8, ms, vs, mask, g_scale),
+                          _meta_store(fmt, block, w, (m8, v8, ms, vs), out))
     return _store_out(out, *adam8bit_store_update_ref(
         w, g, m8, v8, ms, vs, mask, scalars, fmt, block, g_scale))
 

@@ -4,9 +4,11 @@
     PYTHONPATH=src python -m repro_torch.launch.auto_decisions \\
         [--data 8 64] [--ici-bw B/s --hbm-bw B/s --peak-flops FLOP/s]
 
-Prints, per config (at tp = ep = 1: the port has no model axis yet) and
-data-axis size, each group's store, gather mode, reduce wire and whether
-it is sharded, as a markdown table, under the builtin roofline over
+Prints, per config (at tp = ep = 1 over a data axis alone: the decisions
+of a pure FSDP job of that many ranks; a mesh with a model axis is
+``core.policy.plan`` over ``{"data": d, "model": m}``) and data-axis
+size, each group's store, gather mode, reduce wire and whether it is
+sharded, as a markdown table, under the builtin roofline over
 ``launch.mesh``'s constants (the H100's datasheet figures) or over the
 rates given on the command line.
 """

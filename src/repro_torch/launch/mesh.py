@@ -14,6 +14,7 @@ rank, the world size and the rendezvous file.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import math
 import os
@@ -170,6 +171,63 @@ def make_local_mesh(data: int = 1, model: int = 1, pod: int | None = None,
     ``(pod, data, model)`` with ``pod``; every rank calls it, as every rank
     builds the reference's mesh."""
     return Mesh(data, model, group, pod=pod)
+
+
+def production_axis_sizes(*, multi_pod: bool = False) -> dict[str, int]:
+    """Axis name -> size of the production mesh, as plain metadata: enough
+    for ``core.policy.plan`` to resolve a ``ShardingPlan`` without a
+    process group (``launch.dryrun --plan-only``).  The reference's."""
+    if multi_pod:
+        return {"pod": 2, "data": 16, "model": 16}
+    return {"data": 16, "model": 16}
+
+
+@contextlib.contextmanager
+def fake_world(world_size: int):
+    """This process as rank 0 of a ``world_size``-rank default group of the
+    ``"fake"`` backend, for the body of the ``with``: its collectives check
+    their arguments and move nothing, so one process stands in for rank 0
+    of a world of any size (on meta tensors: ``launch.dryrun``).  The group
+    is destroyed on exit.  Raises when the process already has a default
+    group."""
+    # the import registers the "fake" backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError(
+            f"a process group of world size {dist.get_world_size()} already "
+            f"exists; the dry run makes its own fake group of {world_size}")
+    # meta named beside cpu and cuda: batch_isend_irecv (the ring routes)
+    # looks the backend up by the tensors' device
+    dist.init_process_group("cpu:fake,cuda:fake,meta:fake",
+                            store=FakeStore(), rank=0, world_size=world_size)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+def make_fake_mesh(axis_sizes) -> Mesh:
+    """The mesh of ``axis_sizes`` (``{"data": d, "model": m}``, with a
+    ``"pod"`` axis first for HSDP) over the default group, which must be a
+    ``"fake"`` group of their product (``fake_world``): rank 0 of it, with
+    every row group the card's mesh would make."""
+    sizes = {a: int(axis_sizes.get(a, 1)) for a in AXES
+             if a in axis_sizes or a != "pod"}
+    world = math.prod(sizes.values())
+    if (not dist.is_initialized() or "fake" not in str(dist.get_backend())
+            or dist.get_world_size() != world):
+        raise RuntimeError(
+            f"a {tuple(sizes.values())} fake mesh needs a fake default group "
+            f"of {world} ranks (launch.mesh.fake_world({world}))")
+    return Mesh(sizes["data"], sizes["model"], pod=sizes.get("pod"))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The production mesh, 16 x 16 = 256 ranks or (``multi_pod``) 2 x 16 x
+    16 = 512, as rank 0 of a fake group (``fake_world``): the dry run's
+    mesh.  No card runs it."""
+    return make_fake_mesh(production_axis_sizes(multi_pod=multi_pod))
 
 
 def as_mesh(group_or_mesh) -> Mesh:

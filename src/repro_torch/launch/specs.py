@@ -1,0 +1,70 @@
+"""Meta-tensor stand-ins for every input of a step (port of
+``repro/launch/specs.py``): shapes and dtypes, no values, no device
+memory.  This is what the dry run (``launch.dryrun``) runs a step on.
+
+The reference's stand-ins carry the global shape and a sharding; the
+port's carry rank 0's local shape: the train batch cut by
+``FSDPRuntime.batch_slice``, the serve cache by ``local_cache_shapes``
+(rows and, under tp, the KV head slot), parameters and optimizer state at
+their shard shapes.  The serve steps take the global token batch and cut
+it themselves (``FSDPRuntime._serve_call``), so a prefill or decode batch
+is the global one.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..configs.base import ModelConfig, ShapeConfig
+from ..core.fsdp import local_cache_shapes
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeConfig, runtime):
+    """The step's token batch for one (arch, shape) pair: int64 tokens (the
+    data stream's ``shard`` dtype), rank 0's rows of a train batch, the
+    global rows of a serve batch; one position a row for decode."""
+    if cfg.arch_type in ("vlm", "audio"):
+        raise NotImplementedError(
+            f"{cfg.arch_type} inputs (patches, frames) are not ported yet "
+            f"(ROADMAP Queue 1 item 14b)")
+    B = shape.global_batch
+    T = shape.seq_len if shape.kind != "decode" else 1
+    if shape.kind == "train":
+        lo, hi = runtime.batch_slice(B)
+        B = hi - lo
+    return {"tokens": _meta((B, T), torch.long)}
+
+
+def cache_specs(cfg: ModelConfig, shape: ShapeConfig, runtime, model):
+    """Rank 0's part of the serve cache of ``shape.global_batch`` rows and
+    ``shape.seq_len`` positions (``FSDPRuntime.init_cache``'s shapes)."""
+    lo, hi = runtime.batch_slice(shape.global_batch)
+    return {k: _meta(s, dt) for k, (s, dt) in local_cache_shapes(
+        model, shape.global_batch, shape.seq_len, hi - lo,
+        runtime.tp).items()}
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, runtime, model,
+                optimizer=None):
+    """All inputs of the step implied by ``shape.kind``, on a runtime on
+    the meta device:
+
+    train   -> (params, opt_state, step, batch)
+    prefill -> (params, batch, cache)
+    decode  -> (params, batch, cache, index)
+
+    ``step`` is the Python int 0 and ``index`` the last position; the
+    optimizer's state comes from ``optimizer.init`` (meta zeros of
+    ``state_shapes``, and its masks)."""
+    params = runtime.param_shapes()
+    if shape.kind == "train":
+        return (params, optimizer.init(runtime), 0,
+                batch_specs(cfg, shape, runtime))
+    cache = cache_specs(cfg, shape, runtime, model)
+    if shape.kind == "prefill":
+        return (params, batch_specs(cfg, shape, runtime), cache)
+    return (params, batch_specs(cfg, shape, runtime), cache,
+            shape.seq_len - 1)

@@ -52,6 +52,16 @@ def _positions_within_expert(flat_e: torch.Tensor) -> torch.Tensor:
     return rank
 
 
+def _expert_counts(flat_e: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """Assignments per expert, ``(E,)`` int64: ``bincount`` (its length is
+    E, as every id is below E).  A meta tensor has no ids to count, and
+    ``bincount``'s length depends on them: its ``(E,)`` shape alone (the
+    dry run)."""
+    if flat_e.device.type == "meta":
+        return flat_e.new_empty(n_experts)
+    return torch.bincount(flat_e, minlength=n_experts)
+
+
 class _Exchange(torch.autograd.Function):
     """``all_to_all_single`` over the EP group: row block j of the
     ``(ep * n, ...)`` input goes to rank j, and row block i of the output
@@ -100,7 +110,7 @@ def moe_ffn(cfg, p, x: torch.Tensor, *, ep: int = 1, ep_group=None,
 
     # load-balance aux loss (Switch-style): E * sum_e f_e * P_e
     me = probs.mean(dim=0)
-    ce = torch.bincount(top_e.reshape(-1), minlength=E).float() / (N * k)
+    ce = _expert_counts(top_e.reshape(-1), E).float() / (N * k)
     aux = E * torch.sum(me * ce) * cfg.moe_aux_coef
 
     cap = max(1, int(cfg.capacity_factor * N * k / E))

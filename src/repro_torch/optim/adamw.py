@@ -15,8 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import ops
-from .common import (OptimizerBase, device_linear_index, matrix_mask_local,
-                     store_outputs)
+from .common import OptimizerBase, mask_row, store_outputs
 
 
 class AdamW(OptimizerBase):
@@ -30,9 +29,8 @@ class AdamW(OptimizerBase):
         """Zero moments, and the weight-decay masks of this rank (one fp32
         buffer per group, shaped like the group's local shard)."""
         self._masks = {
-            name: torch.from_numpy(matrix_mask_local(
-                lo, device_linear_index(runtime, lo)))
-            .to(runtime.device).expand(lo.local_shape()).contiguous()
+            name: mask_row(runtime, lo, torch.float32)
+            .expand(lo.local_shape()).contiguous()
             for name, lo in runtime.layouts.items()}
         return self.zero_state(runtime)
 

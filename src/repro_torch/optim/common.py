@@ -64,10 +64,22 @@ def mask_rows(runtime) -> dict[str, torch.Tensor]:
     """Each group's ``matrix_mask_local`` row for this rank as uint8 on the
     runtime's device: one byte an element of the shard, broadcast over the
     layer axis (its fp32 values are 0 and 1 exactly, so a chunk's
-    ``.float()`` is the reference's mask)."""
-    return {name: torch.from_numpy(matrix_mask_local(
-        lo, device_linear_index(runtime, lo)).astype(np.uint8))
-        .to(runtime.device) for name, lo in runtime.layouts.items()}
+    ``.float()`` is the reference's mask).  On the meta device, its shape
+    alone."""
+    return {name: mask_row(runtime, lo, torch.uint8)
+            for name, lo in runtime.layouts.items()}
+
+
+def mask_row(runtime, layout, dtype: torch.dtype) -> torch.Tensor:
+    """One group's ``matrix_mask_local`` row for this rank as ``dtype`` on
+    the runtime's device (its shape alone on the meta device: no host
+    work)."""
+    if runtime.device.type == "meta":
+        return torch.empty(layout.plan.shard_size, dtype=dtype,
+                           device="meta")
+    return torch.from_numpy(matrix_mask_local(
+        layout, device_linear_index(runtime, layout))).to(
+        device=runtime.device, dtype=dtype)
 
 
 def store_outputs(store, pstate, buf) -> tuple:
@@ -334,3 +346,9 @@ class OptimizerBase:
 
     def init(self, runtime):
         raise NotImplementedError
+
+    def held_tensors(self) -> dict[str, torch.Tensor]:
+        """The device tensors the optimizer keeps between steps beside its
+        state (the weight-decay masks), by group: the dry run counts them
+        with the state's bytes."""
+        return dict(getattr(self, "_masks", {}))
