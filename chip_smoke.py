@@ -164,7 +164,9 @@ The non-element-wise optimizers (18 and 19 run after 15, 20 after 17):
                   nothing else.
  19. train_shampoo -- the same width at 1 layer, fp32 store, Shampoo, two
                   steps (the per-step eigendecompositions are the
-                  reference's design), then ``torch.linalg.eigh`` of the
+                  reference's design; the masters are 18's host copies,
+                  the first layer's row repacked for the fp32 store's
+                  plan, not drawn again), then ``torch.linalg.eigh`` of the
                   largest factor (13824^2) and of a 5120^2 one timed with
                   CUDA events; no kernel of the port may launch.
  20. parity_optim -- qwen2.5-14b.reduced(), fp32 compute, learning rate
@@ -271,8 +273,8 @@ The dry run, the roofline and the examples (slice 13; 6c, 6d and 25 after
                   --batch 2 --seq 2048``) and of ``train_cli``'s
                   (``--mesh 1x1 --batch 8 --seq 128``): one step of rank 0
                   on meta tensors over a fake process group, each in a
-                  child process (started with four more beside phase 8's
-                  host init; none touches the card).  Printed: the
+                  child process (started with the others after phase 2,
+                  beside the card's phases; none touches the card).  Printed: the
                   predicted peak (argument bytes + the step's own), the
                   matmul FLOPs, the bytes, the collectives and the kernel
                   calls; the predicted peak must lie within
@@ -284,14 +286,16 @@ The dry run, the roofline and the examples (slice 13; 6c, 6d and 25 after
                   dense bf16 peak (``launch.mesh.PEAK_FLOPS_BF16``), for
                   ``train`` and ``train_cli``, beside the card's name and
                   power limit.
- 25. dryrun_production -- the dry-run rows of gemma2-2b ``train_4k`` at 16
-                  x 16 = 256 ranks and qwen3-moe-235b-a22b ``train_4k`` at
-                  2 x 16 x 16 = 512 (``--multi-pod``): ``ok``, and their
+ 25. dryrun_production -- the dry-run rows of gemma2-2b, xlstm-125m and
+                  hymba-1.5b ``train_4k`` at 16 x 16 = 256 ranks and
+                  qwen3-moe-235b-a22b ``train_4k`` at 2 x 16 x 16 = 512
+                  (``--multi-pod``; all the dry runs are children started
+                  after phase 2, beside the card's phases): ``ok``, and their
                   ``model_gflops``, ``gather_wire_mb`` and
                   ``reduce_wire_mb`` equal to the roofline's model FLOPs
                   and the plan's wire bytes; ``--plan-only --all``: the
                   lowering parity line for each ported assigned arch, an
-                  error naming item 14b for each of the four others.
+                  error naming item 14b for each of the two others.
  26. examples  -- ``python -m repro_torch.examples.<name>`` for the five
                   examples (quickstart, train_8bit_adam, muon_demo,
                   serve_moe, continuous_batching) through ``main([])`` on
@@ -306,6 +310,51 @@ The dry run, the roofline and the examples (slice 13; 6c, 6d and 25 after
                   at the example's lr 3e-3 read 7.0e-7, above
                   ``parity_optim``'s own 6e-7 at lr 1e-2), the served
                   tokens equal.
+
+The recurrent families (slice 14; 27-30 after 13):
+
+ 27. train_xlstm -- xlstm-125m at published width and depth (12 layers:
+                  2 super-blocks of 5 mLSTM cells and an sLSTM cell,
+                  d_model 768, 4 heads, vocab 50304), one NCCL rank, bf16
+                  compute, fp32 store, AdamW, batch 2 x 2048: one warm-up,
+                  three timed steps and one more whose CUDA ops are
+                  counted (``count_cuda_ops``: the sLSTM's loop over the
+                  2,048 positions launches most of them).  Step ms,
+                  tokens/s, MFU, peak; ``adamw_store_update`` once a group
+                  a step and no other kernel, no plain version; then row
+                  8a against its plain version at this path's two shards
+                  (``kernel_recurrent``).
+ 28. train_hymba -- hymba-1.5b at published width (d_model 1600, 25/5
+                  heads, d_ff 5504, ssm_state 16, vocab 32001) cut to 4
+                  layers (layers 0, 2, 3 global, layer 1 windowed at
+                  1,024, which the 2,048-token rows reach past), the same
+                  run and readings.
+ 29. serve_recurrent -- each of 27's and 28's trained models on its
+                  runtime: a prefill of 2 x 2048 into a fresh cache
+                  (after a warm-up prefill: a prefill continues from the
+                  cache's recurrent state), 32 greedy decode steps (ms
+                  each, tokens/s), then the ``ServeEngine`` on the serve
+                  phase's 8 request lengths in a pool of 4 (16 new tokens
+                  each; tokens/s), every admission audited: the row of a
+                  reused slot differs from the empty cache before its
+                  reset (4 of 8) and equals it after (8 of 8).  No
+                  kernel of the port, no plain version (the fp32 store).
+ 30. parity_recurrent -- xlstm-125m.reduced() and hymba-1.5b.reduced() at
+                  4 layers, fp32 compute: two train steps of 8 x 64 of
+                  each seed of PARITY_REC_SEEDS on the CPU and on the
+                  card (losses and grad norms within PARITY_REC_RTOL),
+                  and a prefill of 4 x 16 with 8 teacher-forced decode
+                  steps (each call's logits within PARITY_REC_SERVE_RTOL
+                  relative L2).
+
+The phases that hold the card against the CPU reference (10, 17, 20, 13,
+30 and 26's ``examples_parity``, in that order) run where phase 10 stands,
+in a child process of their own: this script with ``--reference``, the
+same pins and card and nothing else of the run before it.  Its lines join
+the output as they come, its failure fails the script, and a ``reference``
+line gives its seconds.  A CPU reference must not depend on what its
+process did before; in this process, after the full-width phases, its
+first run has been seen, rarely, to give a stream no fresh process gives.
 
 Then the script's seconds so far, the ``kernels`` line, the card's name
 and power limit as nvidia-smi reports them, and a last line ``{"ok":
@@ -502,8 +551,30 @@ CE_CHUNK_RTOL = {"loss": 2e-3, "grad_norm": 2e-2}
 # ``train_cli``'s measured ``max_memory_allocated``; the production rows
 DRYRUN_PEAK_RTOL = 0.10
 DRYRUN_PRODUCTION = (("gemma2-2b", "train_4k", False),
-                     (MOE, "train_4k", True))
+                     (MOE, "train_4k", True),
+                     ("xlstm-125m", "train_4k", False),
+                     ("hymba-1.5b", "train_4k", False))
 DRYRUN_TIMEOUT_S = 600
+# the argument that makes this script the child of ``run_reference``, which
+# runs only the phases that hold the card against the CPU reference
+REFERENCE_ARG = "--reference"
+# phases 27-30: the recurrent families.  xlstm-125m at published width and
+# depth; hymba-1.5b at published width cut to 4 layers (layers 0, 2 and 3
+# global, layer 1 windowed at 1,024: the 2,048-token rows reach past it);
+# both AdamW on the fp32 store, batch 2 x 2048.  Served: a prefill of 2 x
+# 2048, REC_SERVE_STEPS greedy decode steps, the engine on the gemma2
+# serve phase's requests.  Parity: the reduced configs (hymba at 4
+# layers), fp32, card against CPU: two train steps of 8 x 64 a seed
+# (losses and grad norms) and a prefill of 4 x 16 with 8 teacher-forced
+# decode steps (each call's logits), within the limits below: the CPU
+# tests' classes against the reference (tests/test_torch_recurrent.py:
+# Hymba's grad norm 3.9e-6 over five steps at lr 3e-4; its serve logits
+# 4.0e-4, the bf16 KV cache's class), with room for a second device
+XLSTM, HYMBA, HYMBA_LAYERS = "xlstm-125m", "hymba-1.5b", 4
+REC_BATCH, REC_SEQ, REC_SERVE_STEPS = 2, 2048, 32
+PARITY_REC_SEEDS = (0, 1)
+PARITY_REC_RTOL = 2e-5
+PARITY_REC_SERVE_RTOL = {XLSTM: 1e-4, HYMBA: 3e-3}
 # phase 26: the examples at their defaults on the card, then card against
 # CPU at fp32 compute over a few steps (the parity phases' limits)
 EXAMPLE_STEPS = {"quickstart": 20, "train_8bit_adam": 120, "muon_demo": 120}
@@ -1261,6 +1332,34 @@ def count_plain(ops) -> tuple[dict, object]:
     return counts, restore
 
 
+def count_cuda_ops(fn):
+    """Run ``fn()`` counting the aten ops it dispatches that write a CUDA
+    tensor (views and metadata-only ops excluded), forward and backward
+    (the autograd engine carries the mode to its threads), allocations
+    without a fill excluded: an eager step's kernel launches, one an op
+    (a GEMM or a reduction may launch more).  Returns (fn's result, the
+    count, the count by op name)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    by_op: dict = {}
+
+    class Counter(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not func.is_view and "empty" not in func.__name__ and any(
+                    isinstance(t, torch.Tensor) and t.is_cuda
+                    for t in (out if isinstance(out, (tuple, list))
+                              else (out,))):
+                name = func.__name__.split(".")[0]
+                by_op[name] = by_op.get(name, 0) + 1
+            return out
+
+    with Counter():
+        out = fn()
+    return out, sum(by_op.values()), by_op
+
+
 def launches_now(mods) -> dict:
     return {k: fn.launches for k, fn in counted(mods).items()}
 
@@ -1569,6 +1668,31 @@ def start_dryruns(out_dir: Path) -> dict:
     return procs
 
 
+def run_reference() -> float:
+    """Phases 10 (17 with it), 20, 13, 30 and 26b in a child process (this
+    script with ``REFERENCE_ARG``, the same pins, the same card): its
+    lines join this script's output as they come, its failure is this
+    script's.  Returns its seconds."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryFile("w+") as err:
+        proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), REFERENCE_ARG],
+            stdout=subprocess.PIPE, stderr=err, text=True, cwd=str(ROOT))
+        try:
+            for line in proc.stdout:
+                print(line, end="", flush=True)
+            rc = proc.wait()
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        err.seek(0)
+        text = err.read()
+    if rc != 0:
+        fail(f"the reference phases exited {rc}: {text[-3000:]}")
+    return time.perf_counter() - t0
+
+
 def stop_dryruns(procs: dict) -> None:
     for proc, log, _, _ in procs.values():
         if proc.poll() is None:
@@ -1660,7 +1784,7 @@ def main() -> None:
         seconds (runtime, init, optimizer state) and, with
         ``time_update``, each step's ``update_ms``; ``check(rt, params)``
         sees the final state, and ``keep`` (a dict) receives it with the
-        optimizer state.  ``init(rt)`` makes the parameters in place of
+        optimizer and its state.  ``init(rt)`` makes the parameters in place of
         ``rt.init_params(seed)``; ``keep_init`` (a dict) receives host
         copies of the initial masters with their layouts; ``meter``
         attaches a ``GatheredMeter`` (``rt.gathered_meter``).  Batches are
@@ -1698,7 +1822,7 @@ def main() -> None:
         if check is not None:
             check(rt, params)
         if keep is not None:
-            keep.update(params=params, opt_state=opt_state)
+            keep.update(params=params, opt_state=opt_state, optimizer=opt)
         return out, times, rt
 
     def run_ckpt_phase(ck_cfg, ck_dir: Path, ck_bytes: int,
@@ -2006,10 +2130,294 @@ def main() -> None:
             fail(f"ckpt_tp: the resume launched {total}, expected {want}")
         return total
 
+    def reference_phases() -> None:
+        """Phases 10 (17 with it), 20, 13, 30 and 26b: the card held against
+        the CPU reference (the plain versions), run by ``--reference`` in
+        a process of its own (``run_reference``).  A reference must not
+        depend on what its process did before: the first CPU run in
+        this long-lived process has been seen, rarely, to give a
+        stream that no fresh process gives (ROADMAP Queue 3)."""
+        # ---- 10. CPU (plain versions) vs card (kernels) --------------------
+        small = get_config("gemma2-2b").reduced()
+        moe_small = get_config(MOE).reduced()
+        from repro_torch.quant.fp8 import fp8_encode
+
+        def codes_of_master(rt, params):
+            """On either device: every fp8 state's codes are bitwise the
+            encode of its master."""
+            for name, st in params.items():
+                fmt = rt.layouts[name].store.fmt
+                if fmt in FP8_FMTS and int_view_diff(
+                        st["codes"], fp8_encode(st["master"], fmt)):
+                    fail(f"{name}: fp8 codes differ from the encode of the "
+                         f"master on {rt.device}")
+
+        parity_cases = [
+            ("parity", small, None, PARITY_RTOL),
+            ("parity_q8", small, Q8_SCHEDULE, PARITY_Q8_RTOL),
+            ("parity_moe", moe_small, None, PARITY_RTOL),
+            ("parity_moe", moe_small, ADAM8_Q8_SCHEDULE, PARITY_Q8_RTOL),
+            ("parity_micro", dataclasses.replace(small, parallel=dataclasses
+                                                 .replace(small.parallel,
+                                                          microbatches=2)),
+             Q8_SCHEDULE, PARITY_Q8_RTOL)]
+        parity_cases += [
+            ("parity_fp8", dataclasses.replace(small, optimizer=opt_name),
+             sched, PARITY_FP8_RTOL)
+            for sched, opt_name in FP8_SCHEDULES.values()]
+        for phase, model, sched, rtol in parity_cases:
+            readings, streams = [], {}
+            for seed in PARITY_SEEDS:
+                data = SyntheticStream(
+                    DataConfig(model.vocab, 64, 8, seed=seed), model)
+                runs = {dev: train(model, dev, torch.float32, data, 2,
+                                   sched and CommSchedule(**sched),
+                                   seed=seed, check=codes_of_master)[0]
+                        for dev in ("cpu", "cuda")}
+                if phase == "parity":
+                    for dev, first in runs.items():
+                        again = train(model, dev, torch.float32, data, 2,
+                                      seed=seed)[0]
+                        if again != first:
+                            fail(f"parity: seed {seed} is not bitwise "
+                                 f"repeatable on {dev}: {first} then "
+                                 f"{again}")
+                    streams[seed] = {
+                        dev: [[m["loss"], m["grad_norm"]] for m in run]
+                        for dev, run in runs.items()}
+                readings.append(max(
+                    abs(a[k] - b[k]) / abs(b[k])
+                    for a, b in zip(runs["cuda"], runs["cpu"])
+                    for k in ("loss", "grad_norm")))
+            emit({"phase": phase, "config": f"{model.name}.reduced()",
+                  "optimizer": model.optimizer,
+                  "schedule": sched or "default", "compute": "float32",
+                  "seeds": list(PARITY_SEEDS), "max_rel_diff": readings,
+                  "rtol": rtol, "repeated_bitwise": phase == "parity",
+                  **({"streams": streams} if streams else {})})
+            if not max(readings) <= rtol:
+                fail(f"{phase}: CPU and card runs differ by "
+                     f"{max(readings)} > {rtol}")
+
+        # ---- 20. the optimizers: CPU vs card, each repeating bitwise -------
+        qwen_small = get_config(QWEN).reduced()
+
+        def codes_of_q8_master(rt, params):
+            """On either device: every q8_block state's codes and scales are
+            bitwise the plain quantization of its master."""
+            for name, st in params.items():
+                store = rt.layouts[name].store
+                if store.quantized and any(
+                        int_view_diff(a, b) for a, b in zip(
+                            (st["codes"], st["scales"]),
+                            ref.quantize_ref(st["master"], store.block))):
+                    fail(f"{name}: q8 codes differ from the quantization of "
+                         f"the master on {rt.device}")
+
+        for case, opt_name, sched in PARITY_OPTIM_CASES:
+            pcfg = dataclasses.replace(qwen_small, optimizer=opt_name,
+                                       learning_rate=PARITY_OPTIM_LR)
+            data = SyntheticStream(DataConfig(pcfg.vocab, 64, 8), pcfg)
+            runs = {}
+            for dev in ("cpu", "cuda"):
+                for rep in range(2):
+                    kept = {}
+                    metrics = train(pcfg, dev, torch.float32, data,
+                                    PARITY_OPTIM_STEPS,
+                                    sched and CommSchedule(**sched), keep=kept,
+                                    check=codes_of_q8_master)[0]
+                    masters = {
+                        n: (p["master"] if isinstance(p, dict) else p)
+                        .detach().cpu() for n, p in kept["params"].items()}
+                    if rep == 0:
+                        runs[dev] = (metrics, masters)
+                    elif metrics != runs[dev][0] or any(
+                            int_view_diff(masters[n], runs[dev][1][n])
+                            for n in masters):
+                        fail(f"parity_optim {case}: not bitwise repeatable "
+                             f"on {dev}")
+            (cm, cmaster), (gm, gmaster) = runs["cpu"], runs["cuda"]
+            stream_diff = max(abs(a[k] - b[k]) / abs(b[k])
+                              for a, b in zip(gm, cm)
+                              for k in ("loss", "grad_norm"))
+            master_diff = max(rel_l2(gmaster[n], cmaster[n]) for n in cmaster)
+            emit({"phase": "parity_optim", "config": f"{QWEN}.reduced()",
+                  "case": case, "optimizer": opt_name,
+                  "schedule": sched or "default", "compute": "float32",
+                  "steps": PARITY_OPTIM_STEPS, "lr": PARITY_OPTIM_LR,
+                  "max_rel_diff": stream_diff, "rtol": PARITY_OPTIM_RTOL[case],
+                  "master_rel_l2": master_diff,
+                  "master_limit": PARITY_OPTIM_MASTER[case],
+                  "losses": {"cpu": [m["loss"] for m in cm],
+                             "cuda": [m["loss"] for m in gm]},
+                  "repeated_bitwise": True})
+            if not (stream_diff <= PARITY_OPTIM_RTOL[case]
+                    and master_diff <= PARITY_OPTIM_MASTER[case]):
+                fail(f"parity_optim {case}: CPU and card differ by "
+                     f"{stream_diff} (streams) / {master_diff} (masters)")
+            if cm[-1]["loss"] == cm[0]["loss"]:
+                fail(f"parity_optim {case}: the loss did not move")
+
+        # ---- 13. serve: CPU (plain versions) vs card (kernels) -------------
+        moe_dropless = dataclasses.replace(
+            moe_small, capacity_factor=float(moe_small.n_experts))
+        for model_cfg in (small, moe_dropless):
+            for store, sched in (("fp32", None),
+                                 ("q8_matmul", SERVE_SCHEDULE)):
+                readings, greedy = [], []
+                for seed in PARITY_SEEDS:
+                    toks = torch.from_numpy(
+                        np.random.default_rng(seed).integers(
+                            0, model_cfg.vocab,
+                            (4, 16 + PARITY_SERVE_STEPS)))
+                    outs = {}
+                    for dev in ("cpu", "cuda"):
+                        model = build_model(model_cfg)
+                        srt = FSDPRuntime(
+                            model, group, compute_dtype=torch.float32,
+                            device=dev,
+                            schedule=sched and CommSchedule(**sched))
+                        params = srt.init_params(seed)
+                        cache = srt.init_cache(4, 32)
+                        t = toks.to(srt.device)
+                        lg, cache = srt.make_prefill_step()(
+                            params, {"tokens": t[:, :16]}, cache)
+                        out = [lg]
+                        decode = srt.make_decode_step()
+                        for i in range(16, 16 + PARITY_SERVE_STEPS):
+                            lg, cache = decode(
+                                params, {"tokens": t[:, i:i + 1]}, cache, i)
+                            out.append(lg)
+                        outs[dev] = torch.cat(out, 1).float().cpu()
+                    readings.append(max(
+                        rel_l2(outs["cuda"][:, i], outs["cpu"][:, i])
+                        for i in range(outs["cpu"].shape[1])))
+                    greedy.append({d: o.argmax(-1)[0].tolist()
+                                   for d, o in outs.items()})
+                rtol = PARITY_SERVE_RTOL[store]
+                emit({"phase": "parity_serve", "config": f"{model_cfg.name}"
+                      ".reduced()", "store": store, "compute": "float32",
+                      "seeds": list(PARITY_SEEDS), "max_rel_l2": readings,
+                      "rtol": rtol, "greedy_row0": greedy})
+                if not max(readings) <= rtol:
+                    fail(f"parity_serve {model_cfg.name} {store}: CPU and "
+                         f"card logits differ by {max(readings)} > {rtol}")
+
+        # ---- 30. parity_recurrent: CPU (plain) vs card, fp32 ----------------
+        for arch, layers in ((XLSTM, None), (HYMBA, HYMBA_LAYERS)):
+            pc = get_config(arch).reduced()
+            if layers is not None:
+                pc = dataclasses.replace(pc, n_layers=layers)
+            train_read, serve_read = [], []
+            for seed in PARITY_REC_SEEDS:
+                data = SyntheticStream(DataConfig(pc.vocab, 64, 8, seed=seed),
+                                       pc)
+                runs = {dev: train(pc, dev, torch.float32, data, 2,
+                                   seed=seed)[0] for dev in ("cpu", "cuda")}
+                train_read.append(max(
+                    abs(a[k] - b[k]) / abs(b[k])
+                    for a, b in zip(runs["cuda"], runs["cpu"])
+                    for k in ("loss", "grad_norm")))
+                toks = torch.from_numpy(np.random.default_rng(seed).integers(
+                    0, pc.vocab, (4, 16 + PARITY_SERVE_STEPS)))
+                outs = {}
+                for dev in ("cpu", "cuda"):
+                    srt = FSDPRuntime(build_model(pc), group,
+                                      compute_dtype=torch.float32, device=dev)
+                    sp = srt.init_params(seed)
+                    cache = srt.init_cache(4, 32)
+                    t = toks.to(srt.device)
+                    lg, cache = srt.make_prefill_step()(
+                        sp, {"tokens": t[:, :16]}, cache)
+                    out = [lg]
+                    dec = srt.make_decode_step()
+                    for i in range(16, 16 + PARITY_SERVE_STEPS):
+                        lg, cache = dec(sp, {"tokens": t[:, i:i + 1]},
+                                        cache, i)
+                        out.append(lg)
+                    outs[dev] = torch.cat(out, 1).float().cpu()
+                serve_read.append(max(
+                    rel_l2(outs["cuda"][:, i], outs["cpu"][:, i])
+                    for i in range(outs["cpu"].shape[1])))
+            emit({"phase": "parity_recurrent", "config": f"{arch}.reduced()",
+                  "n_layers": pc.n_layers, "compute": "float32",
+                  "seeds": list(PARITY_REC_SEEDS),
+                  "train_max_rel_diff": train_read,
+                  "train_rtol": PARITY_REC_RTOL,
+                  "serve_max_rel_l2": serve_read,
+                  "serve_rtol": PARITY_REC_SERVE_RTOL[arch]})
+            if not (max(train_read) <= PARITY_REC_RTOL
+                    and max(serve_read) <= PARITY_REC_SERVE_RTOL[arch]):
+                fail(f"parity_recurrent {arch}: CPU and card differ by "
+                     f"{max(train_read)} (train) / {max(serve_read)} (serve)")
+
+        # ---- 26b. examples_parity: the examples, card against CPU ----
+        from repro_torch.examples import (continuous_batching, muon_demo,
+                                          quickstart, serve_moe,
+                                          train_8bit_adam)
+
+        def rel_stream(a, b) -> float:
+            return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+        fp32 = ["--compute-dtype", "float32"]
+        ex_par = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            qs = quickstart.main(["--device", dev, "--steps", str(
+                EXAMPLE_PARITY_STEPS["quickstart"]), *fp32])
+            a8 = {opt: train_8bit_adam.run(
+                opt, EXAMPLE_PARITY_STEPS["train_8bit_adam"], dev, "float32")
+                for opt in ("adamw", "adam8bit")}
+            mu = {opt: muon_demo.run(
+                opt, lr, EXAMPLE_PARITY_STEPS["muon_demo"], dev, "float32")
+                for opt, lr in (("adamw", 1e-3), ("muon", 3e-3))}
+            ex_par[dev] = {
+                "quickstart": qs, "train_8bit_adam": a8, "muon_demo": mu,
+                "serve_moe": serve_moe.main(["--device", dev, *fp32]),
+                "continuous_batching": continuous_batching.main(
+                    ["--device", dev, *fp32]),
+                "seconds": time.perf_counter() - t0}
+        card, cpu = ex_par["cuda"], ex_par["cpu"]
+        ex_read = {
+            "quickstart": (max(rel_stream(card["quickstart"][k],
+                                          cpu["quickstart"][k])
+                               for k in ("loss", "grad_norm")), PARITY_RTOL),
+            "train_8bit_adam/adamw": (rel_stream(
+                card["train_8bit_adam"]["adamw"],
+                cpu["train_8bit_adam"]["adamw"]), PARITY_RTOL),
+            "train_8bit_adam/adam8bit": (rel_stream(
+                card["train_8bit_adam"]["adam8bit"],
+                cpu["train_8bit_adam"]["adam8bit"]), PARITY_RTOL),
+            "muon_demo/adamw": (rel_stream(card["muon_demo"]["adamw"],
+                                           cpu["muon_demo"]["adamw"]),
+                                PARITY_RTOL),
+            "muon_demo/muon": (rel_stream(card["muon_demo"]["muon"],
+                                          cpu["muon_demo"]["muon"]),
+                               PARITY_RTOL)}
+        tokens_equal = {k: card[k] == cpu[k]
+                        for k in ("serve_moe", "continuous_batching")}
+        emit({"phase": "examples_parity", "compute": "float32",
+              "steps": EXAMPLE_PARITY_STEPS,
+              "readings": {k: {"max_rel": v, "rtol": t}
+                           for k, (v, t) in ex_read.items()},
+              "tokens_equal": tokens_equal,
+              "seconds": {d: ex_par[d]["seconds"] for d in ex_par}})
+        for k, (v, t) in ex_read.items():
+            if not v <= t:
+                fail(f"examples_parity {k}: card and CPU differ by {v} > {t}")
+        if not all(tokens_equal.values()):
+            fail(f"examples_parity: served tokens differ {tokens_equal}")
+
     smi = nvidia_smi()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
+    if REFERENCE_ARG in sys.argv[1:]:
+        # the child of ``run_reference``: the kernels are built already
+        group = init_local_group("cpu:gloo,cuda:nccl")
+        reference_phases()
+        torch.distributed.destroy_process_group()
+        return
     emit({"phase": "device", "name": kind, "nvidia_smi": smi,
           "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -2027,6 +2435,13 @@ def main() -> None:
                           "ptxas": [l for l in v["log"].splitlines()
                                     if "registers" in l or "spill" in l]}
                       for k, v in built.items()}})
+
+    # ---- 6c, 25. the dry runs: children on the host from here on, beside
+    # the card's phases (they use a core each and no card; xlstm-125m's
+    # train_4k row takes minutes: its sLSTM loops op by op on meta
+    # tensors)
+    dry_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    dry_procs = start_dryruns(dry_dir)
 
     # ---- 3. kernel vs plain --------------------------------------------
     kstats = phase_kernel(fused_update, ref)
@@ -2201,13 +2616,15 @@ def main() -> None:
     # ---- 21. the schedule variants: gemma2-2b as in 6 -------------------
     def init_from(host):
         """``init(rt)`` from host masters ``{group: (tensor, layout)}``,
-        repacked tensor by tensor where rt's layout differs (the fsdp2
-        and q8 plans): the values ``rt.init_params(0)`` gives, without
-        drawing 901 M numbers again."""
+        cut to rt's layers (a layer's init does not depend on the depth)
+        and repacked tensor by tensor where rt's layout differs (the
+        fsdp2 and q8 plans): the values ``rt.init_params(0)`` gives,
+        without drawing them again."""
         def init(rt):
             out = {}
             for n, lo in rt.layouts.items():
                 t, src = host[n]
+                t = t[:lo.n_layers] if lo.n_layers else t
                 if src.plan != lo.plan:
                     rows = t.numpy().reshape(-1, src.plan.total)
                     t = torch.from_numpy(np.stack([
@@ -2576,11 +2993,6 @@ def main() -> None:
     del host_init
     torch.cuda.empty_cache()
 
-    # ---- 6c, 25. the dry runs: children on the host, beside phase 8's
-    # host init (they use a core each and no card)
-    dry_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
-    dry_procs = start_dryruns(dry_dir)
-
     # ---- 8. 8-bit Adam path: qwen3-moe at full width, depth cut to 1 ---
     moe_full = get_config(MOE)
     moe_cfg = dataclasses.replace(
@@ -2846,11 +3258,11 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     reset_launches(mods)
     t0 = time.perf_counter()
-    muon_timing = {}
+    muon_timing, qwen_init = {}, {}
     muon_metrics, muon_times, rt = train(
         muon_cfg, "cuda", torch.bfloat16, qwen_stream, 1 + TIMED_STEPS,
         CommSchedule(**MUON_SCHEDULE), timings=muon_timing,
-        time_update=True)
+        time_update=True, keep_init=qwen_init)
     muon_launches = launches_now(mods)
     muon_peak = torch.cuda.max_memory_allocated()
     gathers = sum(2 * lo.n_layers if lo.n_layers else 1
@@ -2906,9 +3318,14 @@ def main() -> None:
     reset_launches(mods)
     t0 = time.perf_counter()
     sh_timing, sh_keep = {}, {}
+    # train_muon_q8's host masters, the first layer's row repacked for the
+    # fp32 store's plan: the init_params(0) values without drawing the
+    # 1.56 G numbers of globals again
     sh_metrics, sh_times, rt = train(
         sh_cfg, "cuda", torch.bfloat16, qwen_stream, SHAMPOO_STEPS,
-        timings=sh_timing, keep=sh_keep, time_update=True)
+        timings=sh_timing, keep=sh_keep, time_update=True,
+        init=init_from(qwen_init))
+    del qwen_init
     sh_launches = launches_now(mods)
     sh_peak = torch.cuda.max_memory_allocated()
     factors = sh_keep["opt_state"]["factors"]
@@ -2953,119 +3370,10 @@ def main() -> None:
     del rt, sh_keep, factors, M
     torch.cuda.empty_cache()
 
-    # ---- 10. CPU (plain versions) vs card (kernels) --------------------
-    small = get_config("gemma2-2b").reduced()
-    moe_small = get_config(MOE).reduced()
-    from repro_torch.quant.fp8 import fp8_encode
-
-    def codes_of_master(rt, params):
-        """On either device: every fp8 state's codes are bitwise the
-        encode of its master."""
-        for name, st in params.items():
-            fmt = rt.layouts[name].store.fmt
-            if fmt in FP8_FMTS and int_view_diff(
-                    st["codes"], fp8_encode(st["master"], fmt)):
-                fail(f"{name}: fp8 codes differ from the encode of the "
-                     f"master on {rt.device}")
-
-    parity_cases = [
-        ("parity", small, None, PARITY_RTOL),
-        ("parity_q8", small, Q8_SCHEDULE, PARITY_Q8_RTOL),
-        ("parity_moe", moe_small, None, PARITY_RTOL),
-        ("parity_moe", moe_small, ADAM8_Q8_SCHEDULE, PARITY_Q8_RTOL),
-        ("parity_micro", dataclasses.replace(small, parallel=dataclasses
-                                             .replace(small.parallel,
-                                                      microbatches=2)),
-         Q8_SCHEDULE, PARITY_Q8_RTOL)]
-    parity_cases += [("parity_fp8", dataclasses.replace(small,
-                                                        optimizer=opt_name),
-                      sched, PARITY_FP8_RTOL)
-                     for sched, opt_name in FP8_SCHEDULES.values()]
-    for phase, model, sched, rtol in parity_cases:
-        readings = []
-        for seed in PARITY_SEEDS:
-            data = SyntheticStream(DataConfig(model.vocab, 64, 8, seed=seed),
-                                   model)
-            runs = {dev: train(model, dev, torch.float32, data, 2,
-                               sched and CommSchedule(**sched),
-                               seed=seed, check=codes_of_master)[0]
-                    for dev in ("cpu", "cuda")}
-            if phase == "parity":
-                for dev, first in runs.items():
-                    again = train(model, dev, torch.float32, data, 2,
-                                  seed=seed)[0]
-                    if again != first:
-                        fail(f"parity: seed {seed} is not bitwise "
-                             f"repeatable on {dev}: {first} then {again}")
-            readings.append(max(abs(a[k] - b[k]) / abs(b[k])
-                                for a, b in zip(runs["cuda"], runs["cpu"])
-                                for k in ("loss", "grad_norm")))
-        emit({"phase": phase, "config": f"{model.name}.reduced()",
-              "optimizer": model.optimizer,
-              "schedule": sched or "default", "compute": "float32",
-              "seeds": list(PARITY_SEEDS), "max_rel_diff": readings,
-              "rtol": rtol, "repeated_bitwise": phase == "parity"})
-        if not max(readings) <= rtol:
-            fail(f"{phase}: CPU and card runs differ by {max(readings)} > "
-                 f"{rtol}")
-
-    # ---- 20. the optimizers: CPU vs card, each repeating bitwise -------
-    qwen_small = get_config(QWEN).reduced()
-
-    def codes_of_q8_master(rt, params):
-        """On either device: every q8_block state's codes and scales are
-        bitwise the plain quantization of its master."""
-        for name, st in params.items():
-            store = rt.layouts[name].store
-            if store.quantized and any(
-                    int_view_diff(a, b) for a, b in zip(
-                        (st["codes"], st["scales"]),
-                        ref.quantize_ref(st["master"], store.block))):
-                fail(f"{name}: q8 codes differ from the quantization of "
-                     f"the master on {rt.device}")
-
-    for case, opt_name, sched in PARITY_OPTIM_CASES:
-        pcfg = dataclasses.replace(qwen_small, optimizer=opt_name,
-                                   learning_rate=PARITY_OPTIM_LR)
-        data = SyntheticStream(DataConfig(pcfg.vocab, 64, 8), pcfg)
-        runs = {}
-        for dev in ("cpu", "cuda"):
-            for rep in range(2):
-                kept = {}
-                metrics = train(pcfg, dev, torch.float32, data,
-                                PARITY_OPTIM_STEPS,
-                                sched and CommSchedule(**sched), keep=kept,
-                                check=codes_of_q8_master)[0]
-                masters = {n: (p["master"] if isinstance(p, dict) else p)
-                           .detach().cpu() for n, p in kept["params"].items()}
-                if rep == 0:
-                    runs[dev] = (metrics, masters)
-                elif metrics != runs[dev][0] or any(
-                        int_view_diff(masters[n], runs[dev][1][n])
-                        for n in masters):
-                    fail(f"parity_optim {case}: not bitwise repeatable "
-                         f"on {dev}")
-        (cm, cmaster), (gm, gmaster) = runs["cpu"], runs["cuda"]
-        stream_diff = max(abs(a[k] - b[k]) / abs(b[k])
-                          for a, b in zip(gm, cm)
-                          for k in ("loss", "grad_norm"))
-        master_diff = max(rel_l2(gmaster[n], cmaster[n]) for n in cmaster)
-        emit({"phase": "parity_optim", "config": f"{QWEN}.reduced()",
-              "case": case, "optimizer": opt_name,
-              "schedule": sched or "default", "compute": "float32",
-              "steps": PARITY_OPTIM_STEPS, "lr": PARITY_OPTIM_LR,
-              "max_rel_diff": stream_diff, "rtol": PARITY_OPTIM_RTOL[case],
-              "master_rel_l2": master_diff,
-              "master_limit": PARITY_OPTIM_MASTER[case],
-              "losses": {"cpu": [m["loss"] for m in cm],
-                         "cuda": [m["loss"] for m in gm]},
-              "repeated_bitwise": True})
-        if not (stream_diff <= PARITY_OPTIM_RTOL[case]
-                and master_diff <= PARITY_OPTIM_MASTER[case]):
-            fail(f"parity_optim {case}: CPU and card differ by "
-                 f"{stream_diff} (streams) / {master_diff} (masters)")
-        if cm[-1]["loss"] == cm[0]["loss"]:
-            fail(f"parity_optim {case}: the loss did not move")
+    # ---- 10, 20, 13, 30, 26b. the card against the CPU reference, in a
+    # process of its own ---------------------------------------------
+    emit({"phase": "reference", "process": "child",
+          "seconds": run_reference()})
 
     # ---- 11. q8_matmul vs plain ----------------------------------------
     q8mm_stats = phase_kernel_q8mm(ops, ref, q8_matmul)
@@ -3200,47 +3508,229 @@ def main() -> None:
     del rt, serve_params, serve_logits
     torch.cuda.empty_cache()
 
-    # ---- 13. serve: CPU (plain versions) vs card (kernels) -------------
-    moe_dropless = dataclasses.replace(
-        moe_small, capacity_factor=float(moe_small.n_experts))
-    for model_cfg in (small, moe_dropless):
-        for store, sched in (("fp32", None), ("q8_matmul", SERVE_SCHEDULE)):
-            readings, greedy = [], []
-            for seed in PARITY_SEEDS:
-                toks = torch.from_numpy(np.random.default_rng(seed).integers(
-                    0, model_cfg.vocab, (4, 16 + PARITY_SERVE_STEPS)))
-                outs = {}
-                for dev in ("cpu", "cuda"):
-                    model = build_model(model_cfg)
-                    srt = FSDPRuntime(model, group,
-                                      compute_dtype=torch.float32,
-                                      device=dev,
-                                      schedule=sched and CommSchedule(**sched))
-                    params = srt.init_params(seed)
-                    cache = srt.init_cache(4, 32)
-                    t = toks.to(srt.device)
-                    lg, cache = srt.make_prefill_step()(
-                        params, {"tokens": t[:, :16]}, cache)
-                    out = [lg]
-                    decode = srt.make_decode_step()
-                    for i in range(16, 16 + PARITY_SERVE_STEPS):
-                        lg, cache = decode(params, {"tokens": t[:, i:i + 1]},
-                                           cache, i)
-                        out.append(lg)
-                    outs[dev] = torch.cat(out, 1).float().cpu()
-                readings.append(max(
-                    rel_l2(outs["cuda"][:, i], outs["cpu"][:, i])
-                    for i in range(outs["cpu"].shape[1])))
-                greedy.append({d: o.argmax(-1)[0].tolist()
-                               for d, o in outs.items()})
-            rtol = PARITY_SERVE_RTOL[store]
-            emit({"phase": "parity_serve", "config": f"{model_cfg.name}"
-                  ".reduced()", "store": store, "compute": "float32",
-                  "seeds": list(PARITY_SEEDS), "max_rel_l2": readings,
-                  "rtol": rtol, "greedy_row0": greedy})
-            if not max(readings) <= rtol:
-                fail(f"parity_serve {model_cfg.name} {store}: CPU and card "
-                     f"logits differ by {max(readings)} > {rtol}")
+    # ---- 27-29. the recurrent families: train and serve at published width
+    from repro_torch.models.cache import leaves as cache_leaves
+    from repro_torch.models.cache import tree_map as cache_map
+
+    def hold_update_at(path, rt):
+        """Row 8a against its plain version at each group's shard of
+        ``path``'s runtime (the fp32 store's flat epilogue), on random
+        state: these launches compare, they are not the path's."""
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        scalars = ref.scalar_stack(3e-4, 0.9, 0.95, 1e-8, 0.1,
+                                   1 - 0.9 ** 3, 1 - 0.95 ** 3)
+        rows = {}
+        for n, lo in rt.layouts.items():
+            shape = lo.local_shape()
+
+            def rnd(scale, shape=shape):
+                return torch.randn(shape, generator=gen,
+                                   device="cuda") * scale
+
+            w, g, m, v = rnd(0.05), rnd(1e-3), rnd(1e-4), rnd(1e-4).square_()
+            mask = (torch.rand(shape, generator=gen, device="cuda")
+                    < 0.8).float()
+            numel = w.numel()
+            rows[n] = hold(
+                "adamw_store_update",
+                {"path": path, "group": n, "shape": list(shape),
+                 "fmt": "fp32"},
+                lambda: fused_update.adamw_store_update(
+                    w, g, m, v, mask, scalars, fmt="fp32"),
+                lambda: ref.adamw_store_update_ref(w, g, m, v, mask,
+                                                   scalars, "fp32"),
+                BYTES_PER_ELEM["fp32"] * numel, FLOPS_PER_ELEM * numel,
+                iters=20, phase="kernel_recurrent")
+            del w, g, m, v, mask
+        return rows
+
+    def at_fill(cache, row, model) -> bool:
+        """Every leaf of ``cache``'s batch row ``row`` at the model's
+        empty value."""
+        same = cache_map(lambda leaf, bdim, fill: bool(
+            (leaf.select(bdim, row) == fill).all()), cache,
+            model.cache_batch_dims(), model.cache_fill())
+        return all(v for _, v in cache_leaves(same))
+
+    rec = {}
+    for key, arch, layers in (("train_xlstm", XLSTM, None),
+                              ("train_hymba", HYMBA, HYMBA_LAYERS)):
+        # ---- 27, 28. train: AdamW on the fp32 store, 2 x 2048 ------------
+        full_r = get_config(arch)
+        rcfg = full_r if layers is None else dataclasses.replace(
+            full_r, n_layers=layers)
+        rstream = SyntheticStream(DataConfig(rcfg.vocab, REC_SEQ,
+                                             REC_BATCH), rcfg)
+        rtokens = REC_BATCH * REC_SEQ
+        rloss0 = math.log(rcfg.vocab) + 2.0   # untied head, as qwen2.5
+        emit({"phase": key + "_setup", "model": arch,
+              "cut": {"n_layers": [full_r.n_layers, rcfg.n_layers]},
+              "d_model": rcfg.d_model,
+              "heads": [rcfg.n_heads, rcfg.n_kv_heads],
+              "head_dim": rcfg.hd, "d_ff": rcfg.d_ff, "vocab": rcfg.vocab,
+              "slstm_every": rcfg.slstm_every, "ssm_state": rcfg.ssm_state,
+              "sliding_window": rcfg.sliding_window,
+              "batch": [REC_BATCH, REC_SEQ], "optimizer": "adamw",
+              "store": "fp32", "compute": "bfloat16"})
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()   # what earlier phases hold
+        reset_launches(mods)
+        plain_calls, restore_plain = count_plain(ops)
+        timing, keep = {}, {}
+        t0 = time.perf_counter()
+        try:
+            metrics, times, rt = train(rcfg, "cuda", torch.bfloat16,
+                                       rstream, 1 + TIMED_STEPS,
+                                       timings=timing, keep=keep)
+            # one more step, untimed, its CUDA ops counted
+            step_fn = rt.make_train_step(keep["optimizer"])
+            batch = rstream.shard(rstream.batch(1 + TIMED_STEPS), rt)
+            torch.cuda.synchronize()
+            (params, _, _, m_last), n_ops, by_op = count_cuda_ops(
+                lambda: step_fn(keep["params"], keep["opt_state"],
+                                1 + TIMED_STEPS, batch))
+            torch.cuda.synchronize()
+        finally:
+            restore_plain()
+        r_launches = launches_now(mods)
+        r_peak = torch.cuda.max_memory_allocated()
+        steps_run = len(metrics) + 1
+        metrics.append({k: float(v) for k, v in m_last.items()})
+        for i, (m, ms) in enumerate(zip(metrics, times)):
+            emit({"phase": key, "step": i, "warmup": i == 0,
+                  "loss": m["loss"], "grad_norm": m["grad_norm"],
+                  "tokens": m["tokens"], "step_ms": ms,
+                  "tokens_per_s": rtokens / (ms / 1e3)})
+        r_ms = statistics.median(times[1:])
+        r_want = {k: 0 for k in r_launches}
+        r_want["adamw_store_update"] = len(rt.layouts) * steps_run
+        shape_r = ShapeConfig(key, REC_SEQ, REC_BATCH, "train")
+        summary = {
+            "phase": key + "_summary",
+            "shard_sizes": {n: lo.plan.shard_size
+                            for n, lo in rt.layouts.items()},
+            "params": sum(math.prod(lo.local_shape())
+                          for lo in rt.layouts.values()),
+            "setup_s": timing["setup_s"],
+            "setup_and_steps_s": time.perf_counter() - t0,
+            "step_ms_median": r_ms,
+            "tokens_per_s": rtokens / (r_ms / 1e3),
+            "mfu": roofline.mfu(rcfg, shape_r, r_ms / 1e3),
+            "max_memory_allocated": r_peak,
+            "allocated_before": base, "own_peak": r_peak - base,
+            "cuda_ops_per_step": n_ops,
+            "cuda_ops_top": dict(sorted(by_op.items(),
+                                        key=lambda kv: -kv[1])[:8]),
+            "counted_step_loss": metrics[-1]["loss"],
+            "kernel_launches": r_launches, "expected_launches": r_want,
+            "plain_calls": {k: v for k, v in plain_calls.items() if v},
+            "expected_first_loss": rloss0}
+        emit(summary)
+        if r_launches != r_want:
+            fail(f"{key} launched {r_launches}, expected {r_want}")
+        if any(plain_calls.values()):
+            fail(f"{key} ran plain versions {plain_calls}")
+        for m in metrics:
+            if not all(math.isfinite(m[k]) for k in ("loss", "grad_norm")):
+                fail(f"non-finite {key} metrics {m}")
+        if abs(metrics[0]["loss"] - rloss0) > 1.0:
+            fail(f"first {key} loss {metrics[0]['loss']} far from {rloss0}")
+        held = hold_update_at(key, rt)
+
+        # ---- 29. serve_recurrent: the trained weights, bf16 compute ------
+        serve_key = "serve_" + key.split("_", 1)[1]
+        reset_launches(mods)
+        plain_calls, restore_plain = count_plain(ops)
+        prefill, decode = rt.make_prefill_step(), rt.make_decode_step()
+        prompts = torch.from_numpy(np.random.default_rng(0).integers(
+            0, rcfg.vocab, (REC_BATCH, REC_SEQ))).to("cuda")
+        max_len = REC_SEQ + REC_SERVE_STEPS
+        try:
+            prefill(params, {"tokens": prompts},
+                    rt.init_cache(REC_BATCH, max_len))        # warm-up
+            # a fresh cache: a prefill continues from the cache's state
+            cache = rt.init_cache(REC_BATCH, max_len)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = prefill(params, {"tokens": prompts}, cache)
+            torch.cuda.synchronize()
+            pre_ms = (time.perf_counter() - t0) * 1e3
+            if tuple(logits.shape) != (REC_BATCH, 1, rcfg.vocab):
+                fail(f"{serve_key}: prefill logits {tuple(logits.shape)}")
+            tok = torch.argmax(logits, -1)
+            dec_ms = []
+            for i in range(REC_SERVE_STEPS):
+                t0 = time.perf_counter()
+                lg, cache = decode(params, {"tokens": tok}, cache,
+                                   REC_SEQ + i)
+                tok = torch.argmax(lg, -1)
+                torch.cuda.synchronize()
+                dec_ms.append((time.perf_counter() - t0) * 1e3)
+            if not bool(torch.isfinite(lg.float()).all()):
+                fail(f"{serve_key}: non-finite decode logits")
+            del cache
+            # the engine on the serve phase's request lengths; every
+            # admission resets the slot's row, audited: the row of a slot
+            # an earlier request used differs from the empty cache before
+            # the reset and equals it after
+            eng = ServeEngine(rt, rt.model, params, pool=ENGINE_POOL,
+                              max_len=SERVE_LEN)
+            audit = {"resets": 0, "used_rows": 0, "not_reset": 0}
+            plain_reset = eng._reset_row
+
+            def audited(row, eng=eng, audit=audit, plain_reset=plain_reset):
+                audit["used_rows"] += not at_fill(eng.cache, row, rt.model)
+                plain_reset(row)
+                audit["resets"] += 1
+                audit["not_reset"] += not at_fill(eng.cache, row, rt.model)
+
+            eng._reset_row = audited
+            reqs = [Request(uid=i, prompt=r % rcfg.vocab, max_new=ENGINE_NEW)
+                    for i, r in enumerate(requests)]
+            for r in reqs:
+                eng.submit(r)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            calls = 0
+            while eng.queue or any(sl.req for sl in eng.slots):
+                eng.step()
+                calls += 1
+            engine_s = time.perf_counter() - t0
+            del eng._reset_row    # the audit's closure: eng -> it -> eng
+        finally:
+            restore_plain()
+        s_launches = launches_now(mods)
+        new_tokens = sum(len(r.out) for r in reqs)
+        dec_med = statistics.median(dec_ms[1:])
+        emit({"phase": "serve_recurrent", "model": arch, "run": serve_key,
+              "prefill": [REC_BATCH, REC_SEQ], "cache_len": max_len,
+              "prefill_ms": pre_ms, "decode_step_ms": dec_ms,
+              "decode_step_ms_median": dec_med,
+              "decode_tokens_per_s": REC_BATCH / (dec_med / 1e3),
+              "engine": {"pool": ENGINE_POOL, "requests": len(reqs),
+                         "max_new": ENGINE_NEW, "calls": calls,
+                         "seconds": engine_s, "new_tokens": new_tokens,
+                         "tokens_per_s": new_tokens / engine_s, **audit},
+              "max_memory_allocated": torch.cuda.max_memory_allocated(),
+              "allocated_before": base,
+              "kernel_launches": {k: v for k, v in s_launches.items() if v},
+              "plain_calls": {k: v for k, v in plain_calls.items() if v}})
+        if any(s_launches.values()) or any(plain_calls.values()):
+            fail(f"{serve_key} launched {s_launches}, plain {plain_calls}: "
+                 f"the fp32 store serves without the port's kernels")
+        if not all(r.done and len(r.out) == ENGINE_NEW for r in reqs):
+            fail(f"{serve_key}: the engine left requests unfinished")
+        if audit["not_reset"] or audit["resets"] != len(reqs) \
+                or audit["used_rows"] != len(reqs) - ENGINE_POOL:
+            fail(f"{serve_key}: slot resets {audit}")
+        rec[key] = {"launches": r_launches["adamw_store_update"],
+                    "held": {n: {k: h[k] for k in ("ms", "plain_ms",
+                                                   "bound_ms",
+                                                   "max_abs_err")}
+                             for n, h in held.items()}}
+        del rt, keep, params, batch, step_fn, eng, audited, plain_reset
+        del prompts, logits, lg
+        torch.cuda.empty_cache()
 
     # ---- 26. the five examples on the card, then card vs CPU -----------
     from repro_torch.examples import (continuous_batching, muon_demo,
@@ -3282,58 +3772,6 @@ def main() -> None:
         if any(plain_calls.values()):
             fail(f"example {name} ran plain versions {plain_calls}")
 
-    def rel_stream(a, b) -> float:
-        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
-
-    fp32 = ["--compute-dtype", "float32"]
-    ex_par = {}
-    for dev in ("cuda", "cpu"):
-        t0 = time.perf_counter()
-        qs = quickstart.main(["--device", dev, "--steps", str(
-            EXAMPLE_PARITY_STEPS["quickstart"]), *fp32])
-        a8 = {opt: train_8bit_adam.run(
-            opt, EXAMPLE_PARITY_STEPS["train_8bit_adam"], dev, "float32")
-            for opt in ("adamw", "adam8bit")}
-        mu = {opt: muon_demo.run(opt, lr, EXAMPLE_PARITY_STEPS["muon_demo"],
-                                 dev, "float32")
-              for opt, lr in (("adamw", 1e-3), ("muon", 3e-3))}
-        ex_par[dev] = {
-            "quickstart": qs, "train_8bit_adam": a8, "muon_demo": mu,
-            "serve_moe": serve_moe.main(["--device", dev, *fp32]),
-            "continuous_batching": continuous_batching.main(
-                ["--device", dev, *fp32]),
-            "seconds": time.perf_counter() - t0}
-    card, cpu = ex_par["cuda"], ex_par["cpu"]
-    ex_read = {
-        "quickstart": (max(rel_stream(card["quickstart"][k],
-                                      cpu["quickstart"][k])
-                           for k in ("loss", "grad_norm")), PARITY_RTOL),
-        "train_8bit_adam/adamw": (rel_stream(
-            card["train_8bit_adam"]["adamw"],
-            cpu["train_8bit_adam"]["adamw"]), PARITY_RTOL),
-        "train_8bit_adam/adam8bit": (rel_stream(
-            card["train_8bit_adam"]["adam8bit"],
-            cpu["train_8bit_adam"]["adam8bit"]), PARITY_RTOL),
-        "muon_demo/adamw": (rel_stream(card["muon_demo"]["adamw"],
-                                       cpu["muon_demo"]["adamw"]),
-                            PARITY_RTOL),
-        "muon_demo/muon": (rel_stream(card["muon_demo"]["muon"],
-                                      cpu["muon_demo"]["muon"]),
-                           PARITY_RTOL)}
-    tokens_equal = {k: card[k] == cpu[k]
-                    for k in ("serve_moe", "continuous_batching")}
-    emit({"phase": "examples_parity", "compute": "float32",
-          "steps": EXAMPLE_PARITY_STEPS,
-          "readings": {k: {"max_rel": v, "rtol": t}
-                       for k, (v, t) in ex_read.items()},
-          "tokens_equal": tokens_equal,
-          "seconds": {d: ex_par[d]["seconds"] for d in ex_par}})
-    for k, (v, t) in ex_read.items():
-        if not v <= t:
-            fail(f"examples_parity {k}: card and CPU differ by {v} > {t}")
-    if not all(tokens_equal.values()):
-        fail(f"examples_parity: served tokens differ {tokens_equal}")
-
     # ---- the kernels line, the card, the last line ---------------------
     csrc = "src/repro_torch/kernels/csrc/"
 
@@ -3361,7 +3799,10 @@ def main() -> None:
                                   ckpt_tp_launches["adamw_store_update"],
                               "examples": sum(
                                   v.get("adamw_store_update", 0)
-                                  for v in ex_launches.values())}},
+                                  for v in ex_launches.values()),
+                              "train_xlstm": rec["train_xlstm"]["launches"],
+                              "train_hymba": rec["train_hymba"]["launches"]},
+         "held_at": {k: v["held"] for k, v in rec.items()}},
         {**entry("adamw_store_update_q8", "adamw_store_update.cu",
                  "src/repro/kernels/fused_update.py:102",
                  q8_launches["adamw_q8"], q8stats["adamw_q8"]),

@@ -6,7 +6,8 @@ import importlib
 from .base import SHAPES, ModelConfig, ParallelConfig, ShapeConfig, with_tp
 
 # public arch id -> module name (the reference registers twelve; the port
-# adds an id once it runs that family -- ROADMAP Queue 1 item 14b)
+# adds an id once it runs that family -- ROADMAP Queue 1 item 14b: the two
+# cross-attention families are left)
 _MODULES = {
     "qwen2.5-14b": "qwen2_5_14b",
     "qwen1.5-32b": "qwen1_5_32b",
@@ -17,11 +18,14 @@ _MODULES = {
     "llama3-70b": "llama3_70b",
     "gpt-oss-120b": "gpt_oss_120b",
     "nemotron-4-340b": "nemotron_4_340b",
+    # the recurrent families
+    "xlstm-125m": "xlstm_125m",
+    "hymba-1.5b": "hymba_1_5b",
 }
 
 ARCH_IDS = list(_MODULES)
 # the reference's ten assigned ids, in its order (the dry run's ``--all``);
-# the four families the port lacks raise in ``get_config``
+# the two cross-attention families the port lacks raise in ``get_config``
 ASSIGNED_ARCH_IDS = [
     "qwen2.5-14b", "llama-3.2-vision-90b", "qwen1.5-32b", "xlstm-125m",
     "hymba-1.5b", "seamless-m4t-medium", "granite-moe-1b-a400m",
@@ -39,10 +43,15 @@ def get_config(arch_id: str) -> ModelConfig:
 
 
 def build_model(cfg: ModelConfig):
+    from ..models.recurrent import HymbaModel, XLSTMModel
     from ..models.transformer import DecoderLM
 
     if cfg.arch_type in ("dense", "moe"):
         return DecoderLM(cfg)
+    if cfg.arch_type == "ssm":
+        return XLSTMModel(cfg)
+    if cfg.arch_type == "hybrid":
+        return HymbaModel(cfg)
     raise NotImplementedError(
         f"arch_type {cfg.arch_type!r} is not ported yet (ROADMAP Queue 1 "
         f"item 14b)")

@@ -72,6 +72,9 @@ unpacked by ``DBuffer.unpack_quant`` (eligible weights multiply through
 ``ops.q8_matmul``); ``globals`` always take the dense gather.  Under tensor
 parallelism each rank serves its KV head slot of the cache and the logits
 are all-gathered over the model axis: every rank returns ``(B, 1, V)``.
+The cache may nest (the recurrent families' states, ``models.cache``);
+the model writes it in place, and the cache a step returns is the one it
+was given.
 
 ``replan`` moves live parameters and optimizer state onto another plan,
 mesh factoring or TP degree on the same process group (``core.reshard``'s
@@ -93,8 +96,10 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import weakref
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Mapping
 
 import numpy as np
@@ -103,6 +108,8 @@ import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from ..launch.mesh import AXES, as_mesh
+from ..models.cache import empty_cache, get as tree_get, tree_map
+from ..models.cache import leaves as cache_leaves
 from ..models.transformer import GroupDef
 from ..optim import make_optimizer
 from ..quant.fp8 import FP8_DTYPES
@@ -156,6 +163,10 @@ class GroupLayout:
             return ()
         return tuple(s.name for s in self.gdef.specs
                      if s.name not in self.gdef.outer)
+
+
+# threads that draw a layer's initial tensors (``init_params``)
+INIT_THREADS = min(8, os.cpu_count() or 1)
 
 
 def _resolve_device(device) -> torch.device:
@@ -494,25 +505,30 @@ class FSDPRuntime:
         if self.device.type == "meta":
             return self.param_shapes()
         params = {}
-        for name, lo in self.layouts.items():
-            r = self.mesh.coords[lo.outer_axis] if lo.outer_axis else 0
-            layers = list(range(lo.n_layers)) if lo.n_layers else [None]
-            flats = []
-            for li in layers:
-                arrays = {}
-                for s in lo.gdef.specs:
-                    a = self._init_tensor(s, seed, li)
-                    sd = lo.gdef.outer.get(s.name)
-                    if sd is not None and lo.outer_size > 1:
-                        a = np.split(a, lo.outer_size, axis=sd.dim)[r]
-                    arrays[s.name] = a
-                flats.append(lo.buffer.pack(arrays))
-            arr = np.stack(flats) if lo.n_layers else flats[0]
-            n = self._local_cols(lo)
-            f = self.mesh.index(lo.fsdp_axes) if lo.sharded else 0
-            params[name] = lo.store.create(
-                _host_tensor(arr[..., f * n:(f + 1) * n], torch.float32)
-                .to(self.device).requires_grad_(True))
+        # a layer's tensors are drawn on threads (numpy releases the GIL
+        # while it fills an array); each has its own generator, so the
+        # values do not depend on the order
+        with ThreadPoolExecutor(max_workers=INIT_THREADS) as pool:
+            for name, lo in self.layouts.items():
+                r = self.mesh.coords[lo.outer_axis] if lo.outer_axis else 0
+                layers = list(range(lo.n_layers)) if lo.n_layers else [None]
+                flats = []
+                for li in layers:
+                    arrays = {}
+                    drawn = pool.map(lambda s, li=li: self._init_tensor(
+                        s, seed, li), lo.gdef.specs)
+                    for s, a in zip(lo.gdef.specs, drawn):
+                        sd = lo.gdef.outer.get(s.name)
+                        if sd is not None and lo.outer_size > 1:
+                            a = np.split(a, lo.outer_size, axis=sd.dim)[r]
+                        arrays[s.name] = a
+                    flats.append(lo.buffer.pack(arrays))
+                arr = np.stack(flats) if lo.n_layers else flats[0]
+                n = self._local_cols(lo)
+                f = self.mesh.index(lo.fsdp_axes) if lo.sharded else 0
+                params[name] = lo.store.create(
+                    _host_tensor(arr[..., f * n:(f + 1) * n], torch.float32)
+                    .to(self.device).requires_grad_(True))
         return params
 
     # ------------------------------------------------------------------ #
@@ -916,13 +932,14 @@ class FSDPRuntime:
         the model's global cache (``cache_shapes``) cut to this rank's rows
         (``batch_slice``) and, under tensor parallelism, to its one KV head
         slot -- the reference's ``cache_pspec`` sharding, as a local shape
-        (``local_cache_shapes``).  K and V zeros, ``pos`` -1 (no slot
-        filled); the serve steps write this rank's rows in place."""
+        (``local_cache_shapes``).  Every leaf at the model's ``cache_fill``
+        (the dense decoder's K and V zeros, ``pos`` -1: no slot filled; a
+        recurrent state at its start); the serve steps write this rank's
+        rows in place."""
         lo, hi = self.batch_slice(batch)
-        return {k: torch.full(shape, -1 if k == "pos" else 0, dtype=dtype,
-                              device=self.device)
-                for k, (shape, dtype) in local_cache_shapes(
-                    self.model, batch, max_len, hi - lo, self.tp).items()}
+        return empty_cache(local_cache_shapes(self.model, batch, max_len,
+                                              hi - lo, self.tp),
+                           self.model.cache_fill(), self.device)
 
     def _serve_call(self, fn, params, batch, cache, *index):
         """Run ``fn(pg, batch, cache, *index)`` (the model's ``prefill`` or
@@ -941,10 +958,12 @@ class FSDPRuntime:
         lo, hi = self.batch_slice(B)
         bdims = self.model.cache_batch_dims()
         hdims = self.model.cache_head_dims() if self.tp > 1 else {}
-        for k, t in cache.items():
-            if t.shape[bdims[k]] != hi - lo:
+        for path, t in cache_leaves(cache):
+            k = "/".join(path)
+            bdim = tree_get(bdims, path)
+            if t.shape[bdim] != hi - lo:
                 raise ValueError(
-                    f"cache[{k!r}] holds {t.shape[bdims[k]]} rows, this "
+                    f"cache[{k!r}] holds {t.shape[bdim]} rows, this "
                     f"rank's part of a batch of {B} is {hi - lo}; make it "
                     f"with FSDPRuntime.init_cache")
             if k in hdims and t.shape[hdims[k]] != 1:
@@ -1013,18 +1032,23 @@ class FSDPRuntime:
 def local_cache_shapes(model, batch: int, max_len: int, rows: int,
                        tp: int) -> dict:
     """The model's global cache shapes (``cache_shapes(batch,
-    max_len)``) cut to ``rows`` rows of the batch dim and, at ``tp`` > 1,
-    to one KV head slot of the tp the global cache holds."""
-    bdims = model.cache_batch_dims()
+    max_len)``, a nested dict of (shape, dtype) leaves) cut to ``rows``
+    rows of each leaf's batch dim and, at ``tp`` > 1, to one KV head slot
+    of the tp the global cache holds (the dense decoder's flat cache)."""
     hdims = model.cache_head_dims() if tp > 1 else {}
-    out = {}
-    for k, (shape, dtype) in model.cache_shapes(batch, max_len).items():
-        shape = list(shape)
-        shape[bdims[k]] = rows
-        if k in hdims:
-            shape[hdims[k]] = 1
-        out[k] = (tuple(shape), dtype)
-    return out
+
+    def cut(sd, bdim, key=None):
+        shape = list(sd[0])
+        shape[bdim] = rows
+        if key in hdims:
+            shape[hdims[key]] = 1
+        return tuple(shape), sd[1]
+
+    shapes = model.cache_shapes(batch, max_len)
+    bdims = model.cache_batch_dims()
+    if hdims:
+        return {k: cut(sd, bdims[k], k) for k, sd in shapes.items()}
+    return tree_map(cut, shapes, bdims)
 
 
 def _global_norm(runtime: FSDPRuntime, grads, scale) -> torch.Tensor:

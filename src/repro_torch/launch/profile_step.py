@@ -1,7 +1,7 @@
 """Where the device time of one ZeRO-3 step (train or decode) goes.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_step \
-        [--config gemma2|qwen3-moe|qwen2.5-muon] \
+        [--config gemma2|qwen3-moe|qwen2.5-muon|xlstm|hymba] \
         [--store fp32|bf16|fp8_e4m3|fp8_e5m2|q8_block | --q8 | --serve
          | --schedule NAME] [--planner ragged|fsdp2|megatron|naive]
         [--ce-chunk N] [--microbatches N]
@@ -11,7 +11,10 @@ gemma2-2b at published width, depth cut to 4 layers, batch 2 x 2048, AdamW;
 ``qwen3-moe``: qwen3-moe-235b-a22b at published width, depth cut to 1
 layer, ep=1, batch 1 x 2048, Adam8bit; ``qwen2.5-muon``: qwen2.5-14b at
 published width, depth cut to 2 layers, batch 1 x 2048, Muon
-(``train_muon_q8`` runs it with ``--store q8_block``) -- with bf16 compute
+(``train_muon_q8`` runs it with ``--store q8_block``); ``xlstm``:
+xlstm-125m at published width and depth (12 layers), batch 2 x 2048,
+AdamW; ``hymba``: hymba-1.5b at published width cut to 4 layers, batch 2
+x 2048, AdamW (``train_xlstm``, ``train_hymba``) -- with bf16 compute
 and the
 ``--store`` parameter store (fp32 by default; or, with ``--q8``, the
 q8_block store and the q8 gradient wire with error feedback on every
@@ -69,7 +72,9 @@ def category(name: str) -> str:
 # for the config's own)
 CONFIGS = {"gemma2": ("gemma2-2b", 4, 2, 2048, None),
            "qwen3-moe": ("qwen3-moe-235b-a22b", 1, 1, 2048, None),
-           "qwen2.5-muon": ("qwen2.5-14b", 2, 1, 2048, "muon")}
+           "qwen2.5-muon": ("qwen2.5-14b", 2, 1, 2048, "muon"),
+           "xlstm": ("xlstm-125m", 12, 2, 2048, None),
+           "hymba": ("hymba-1.5b", 4, 2, 2048, None)}
 WARMUP, TOP = 2, 15
 NAMED = {**VARIANTS, **APPROX_VARIANTS}
 # the serve mode's batch, prompt length and cache length

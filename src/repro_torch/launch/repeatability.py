@@ -3,7 +3,7 @@
     PYTHONPATH=src python -m repro_torch.launch.repeatability \\
         [--config gemma2-2b] [--device cuda|cpu] [--seeds 0,1,2,3] \\
         [--reps 3] [--processes 3] [--trace] [--busy N] [--alternate] \\
-        [--unpinned]
+        [--card-first] [--unpinned]
 
     PYTHONPATH=src python -m repro_torch.launch.repeatability --device cpu
 
@@ -25,7 +25,10 @@ records a digest of every operator's output, forward and backward (a
 each trace other than the most common, the first operator whose output
 differs from it: the op that starts a divergence.  ``--busy N`` keeps N
 processes spinning on the host while the workers run (a loaded host);
-``--alternate`` follows each CPU run with a card run in the same process.
+``--alternate`` follows each CPU run with a card run in the same process;
+``--card-first`` makes a card run before each process's first CPU run (the
+order of ``chip_smoke.py``, whose CPU runs follow its card phases).  The
+last line gives each seed's first stream too.
 """
 from __future__ import annotations
 
@@ -95,13 +98,15 @@ def op_tracer():
 
 
 def streams(config: str, device: str, seeds, reps: int,
-            trace: bool = False, alternate: bool = False) -> dict:
+            trace: bool = False, alternate: bool = False,
+            card_first: bool = False) -> dict:
     """{seed: [run per rep]}, a run being ``{"stream": ((loss, grad_norm)
     per step)}`` and, with ``trace``, ``"trace"``: the op trace's digest
     and ``"ops"``: the trace itself for the first rep and for a rep whose
     trace differs from the first's.  ``alternate`` (with ``device`` cpu):
     each CPU run is followed by the same run on the card, untraced and
-    unrecorded, as ``chip_smoke.py``'s ``parity`` phases alternate."""
+    unrecorded, as ``chip_smoke.py``'s ``parity`` phases alternate;
+    ``card_first``: one such card run before the first CPU run."""
     import torch
 
     from ..configs import build_model, get_config
@@ -111,8 +116,8 @@ def streams(config: str, device: str, seeds, reps: int,
     from .mesh import init_local_group
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    group = init_local_group("gloo" if device == "cpu" and not alternate
-                             else "cpu:gloo,cuda:nccl")
+    on_card = device == "cuda" or alternate or card_first
+    group = init_local_group("cpu:gloo,cuda:nccl" if on_card else "gloo")
     model = get_config(config).reduced()
     out = {s: [] for s in seeds}
     first = {}
@@ -138,6 +143,8 @@ def streams(config: str, device: str, seeds, reps: int,
             run.append((float(m["loss"]), float(m["grad_norm"])))
         return run
 
+    if card_first:
+        run_on("cuda", seeds[0])
     for _ in range(reps):
         for seed in seeds:
             tracer = op_tracer() if trace else None
@@ -226,6 +233,8 @@ def main(argv=None) -> None:
     ap.add_argument("--alternate", action="store_true",
                     help="with --device cpu: a card run after each CPU "
                          "run, as chip_smoke.py's parity phases")
+    ap.add_argument("--card-first", action="store_true",
+                    help="a card run before each process's first CPU run")
     ap.add_argument("--mkl-verbose", action="store_true",
                     help="run the workers with MKL_VERBOSE=1 and compare "
                          "each run's MKL calls (thread counts, code path) "
@@ -240,12 +249,13 @@ def main(argv=None) -> None:
     pinned = None if args.unpinned else pin_cpu(env)
     if args.worker:
         print(json.dumps(streams(args.config, args.device, seeds,
-                                 args.reps, args.trace, args.alternate)))
+                                 args.reps, args.trace, args.alternate,
+                                 args.card_first)))
         return
     import torch
 
-    if (args.device == "cuda" or args.alternate) and \
-            not torch.cuda.is_available():
+    if (args.device == "cuda" or args.alternate or args.card_first) \
+            and not torch.cuda.is_available():
         raise RuntimeError(
             "repeatability runs on the card by default and no CUDA device "
             "is available; pass --device cpu")
@@ -267,7 +277,8 @@ def main(argv=None) -> None:
                    args.device, "--seeds", args.seeds, "--reps",
                    str(args.reps)]
             cmd += (["--trace"] * args.trace + ["--unpinned"] * args.unpinned
-                    + ["--alternate"] * args.alternate)
+                    + ["--alternate"] * args.alternate
+                    + ["--card-first"] * args.card_first)
             done = subprocess.run(cmd, capture_output=True, text=True,
                                   env=env)
             if done.returncode:
@@ -307,6 +318,9 @@ def main(argv=None) -> None:
     print(json.dumps({"config": args.config, "device": args.device,
                       "pinned": pinned, "busy": args.busy,
                       "alternate": args.alternate,
+                      "card_first": args.card_first,
+                      "first_streams": {str(s): r[0]["stream"]
+                                        for s, r in every.items()},
                       "host_cpus": len(os.sched_getaffinity(0)),
                       "runs_per_seed": args.processes * args.reps,
                       **({"mkl": {**mkl, "headers": sorted(mkl["headers"])}}

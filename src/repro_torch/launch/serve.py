@@ -125,11 +125,13 @@ def cache_bytes(cfg, args) -> dict:
     tensors on the meta device: ``global`` the whole cache, ``rank`` one
     rank's part (``core.fsdp.local_cache_shapes``: its rows of the batch
     split over the data axis, where it divides, and under tp one KV head
-    slot), per leaf and in total."""
+    slot), per leaf (a nested cache's by its path, ``ssm/conv``) and in
+    total."""
     import torch
 
     from ..configs import build_model
     from ..core.fsdp import local_cache_shapes
+    from ..models.cache import leaves as cache_leaves
 
     model = build_model(cfg)
     B, W = args.batch, args.prompt_len + args.gen
@@ -139,8 +141,9 @@ def cache_bytes(cfg, args) -> dict:
             ("global", model.cache_shapes(B, W)),
             ("rank", local_cache_shapes(model, B, W, rows,
                                         cfg.parallel.tp))):
-        leaves = {k: torch.empty(shape, dtype=dtype, device="meta").nbytes
-                  for k, (shape, dtype) in shapes.items()}
+        leaves = {"/".join(path): torch.empty(shape, dtype=dtype,
+                                              device="meta").nbytes
+                  for path, (shape, dtype) in cache_leaves(shapes)}
         out[what] = {**leaves, "total": sum(leaves.values())}
     return out
 

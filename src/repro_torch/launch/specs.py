@@ -16,6 +16,7 @@ import torch
 
 from ..configs.base import ModelConfig, ShapeConfig
 from ..core.fsdp import local_cache_shapes
+from ..models.cache import tree_map
 
 
 def _meta(shape, dtype) -> torch.Tensor:
@@ -40,11 +41,11 @@ def batch_specs(cfg: ModelConfig, shape: ShapeConfig, runtime):
 
 def cache_specs(cfg: ModelConfig, shape: ShapeConfig, runtime, model):
     """Rank 0's part of the serve cache of ``shape.global_batch`` rows and
-    ``shape.seq_len`` positions (``FSDPRuntime.init_cache``'s shapes)."""
+    ``shape.seq_len`` positions (``FSDPRuntime.init_cache``'s shapes; the
+    recurrent families' nested caches in their nesting)."""
     lo, hi = runtime.batch_slice(shape.global_batch)
-    return {k: _meta(s, dt) for k, (s, dt) in local_cache_shapes(
-        model, shape.global_batch, shape.seq_len, hi - lo,
-        runtime.tp).items()}
+    return tree_map(lambda sd: _meta(*sd), local_cache_shapes(
+        model, shape.global_batch, shape.seq_len, hi - lo, runtime.tp))
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig, runtime, model,

@@ -358,8 +358,8 @@ def attention(cfg, p, x: torch.Tensor, *, q_pos: torch.Tensor,
     ``lax.dynamic_update_slice`` does) or a (B,) integer tensor of per-row
     positions (continuous-batching decode: each row writes its own slot).
     Validity and causality then come from the stored positions.  The cache
-    tensors are updated IN PLACE (the reference donates them to the decode
-    step, ``core/fsdp.py:814``) and returned."""
+    tensors are updated IN PLACE (``cache_write``; the reference donates
+    them to the decode step, ``core/fsdp.py:814``) and returned."""
     B, T, _ = x.shape
     hd = cfg.hd
     tp = 1 if tp_group is None else dist.get_world_size(tp_group)
@@ -397,29 +397,41 @@ def attention(cfg, p, x: torch.Tensor, *, q_pos: torch.Tensor,
                                 window=window, softcap=cfg.attn_softcap,
                                 chunk=cfg.attn_chunk)
     else:
-        ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
-        W = ck.shape[2]
-        if T > W:
-            raise ValueError(f"{T} new positions do not fit a cache of {W}")
-        new_pos = q_pos[:, :T].to(cpos.dtype)
-        if isinstance(cache_index, torch.Tensor) and cache_index.dim() == 1:
-            start = torch.clamp(cache_index.to(torch.int64) % W, max=W - T)
-            cols = start[:, None] + torch.arange(T, device=start.device)
-            rows = torch.arange(B, device=start.device)[:, None]
-            ck[rows, :, cols] = k.transpose(1, 2).to(ck.dtype)
-            cv[rows, :, cols] = v.transpose(1, 2).to(cv.dtype)
-            cpos[rows, cols] = new_pos
-        else:
-            start = min(int(cache_index) % W, W - T)
-            ck[:, :, start:start + T] = k.to(ck.dtype)
-            cv[:, :, start:start + T] = v.to(cv.dtype)
-            cpos[:, start:start + T] = new_pos
-        out = chunked_attention(q, ck, cv, q_pos=q_pos, kv_pos=cpos,
-                                kv_valid=cpos >= 0, window=window,
+        cache_write(cache, k, v, q_pos, cache_index)
+        out = chunked_attention(q, cache["k"], cache["v"], q_pos=q_pos,
+                                kv_pos=cache["pos"],
+                                kv_valid=cache["pos"] >= 0, window=window,
                                 softcap=cfg.attn_softcap,
                                 chunk=cfg.attn_chunk)
     out = out.transpose(1, 2).reshape(B, T, hq * hd)
     return reduce_out(dense(out, p[prefix + "wo"]), tp_group, sp), cache
+
+
+def cache_write(cache, k: torch.Tensor, v: torch.Tensor,
+                q_pos: torch.Tensor, cache_index) -> None:
+    """Write the new keys and values (B, Hkv, T, hd) and their positions
+    into a ring-buffer KV cache ``{"k", "v": (B, Hkv, W, hd), "pos": (B,
+    W)}`` in place, at slot ``cache_index % W``: an int (the write start
+    clamps so the T entries fit, as ``lax.dynamic_update_slice`` does) or
+    a (B,) integer tensor of per-row positions."""
+    ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
+    B, T = k.shape[0], k.shape[2]
+    W = ck.shape[2]
+    if T > W:
+        raise ValueError(f"{T} new positions do not fit a cache of {W}")
+    new_pos = q_pos[:, :T].to(cpos.dtype)
+    if isinstance(cache_index, torch.Tensor) and cache_index.dim() == 1:
+        start = torch.clamp(cache_index.to(torch.int64) % W, max=W - T)
+        cols = start[:, None] + torch.arange(T, device=start.device)
+        rows = torch.arange(B, device=start.device)[:, None]
+        ck[rows, :, cols] = k.transpose(1, 2).to(ck.dtype)
+        cv[rows, :, cols] = v.transpose(1, 2).to(cv.dtype)
+        cpos[rows, cols] = new_pos
+    else:
+        start = min(int(cache_index) % W, W - T)
+        ck[:, :, start:start + T] = k.to(ck.dtype)
+        cv[:, :, start:start + T] = v.to(cv.dtype)
+        cpos[:, start:start + T] = new_pos
 
 
 def mlp(cfg, p, x: torch.Tensor, *, prefix: str = "", tp_group=None,

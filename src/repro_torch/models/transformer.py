@@ -32,7 +32,9 @@ tokens travel to them and back by two all-to-alls (``models.moe``).
 Under tensor parallelism the serve cache replicates the KV heads, one
 slot per rank of the model axis (``cache_shapes``, the global cache; a
 rank holds its own part, ``FSDPRuntime.init_cache``).  VLM cross-attention
-raises ``NotImplementedError`` naming its ROADMAP item.
+raises ``NotImplementedError`` naming its ROADMAP item.  The recurrent
+families (``models.recurrent``) build on this module's ``GroupDef`` and
+``spec``.
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ import torch
 
 from ..core.ragged import ShardDim, TensorSpec
 from . import layers as L
+from .cache import empty_cache
 from .moe import moe_ffn
 
 # window of a global-attention layer (the reference's 2**30 sentinel)
@@ -343,18 +346,16 @@ class DecoderLM:
         dim can match; ROADMAP Queue 3)."""
         return {"k": 3, "v": 3}
 
+    def cache_fill(self) -> dict:
+        """The value of each leaf in an empty cache: K and V zeros, ``pos``
+        -1 (no slot filled)."""
+        return {"k": 0, "v": 0, "pos": -1}
+
     def init_cache(self, batch: int, seq_len: int, device="cuda") -> dict:
-        """An empty cache: K and V zeros, ``pos`` -1 (no slot filled).  On
-        the card unless ``device`` says otherwise."""
-        dev = torch.device(device)
-        if dev.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "init_cache places the cache on the card by default and no "
-                "CUDA device is available; pass device='cpu'")
-        return {k: torch.full(shape, -1 if k == "pos" else 0, dtype=dtype,
-                              device=dev)
-                for k, (shape, dtype) in self.cache_shapes(
-                    batch, seq_len).items()}
+        """An empty cache (``cache_fill``), on the card unless ``device``
+        says otherwise."""
+        return empty_cache(self.cache_shapes(batch, seq_len),
+                           self.cache_fill(), device)
 
     def prefill(self, pg, batch, cache):
         """Run the prompt ``batch["tokens"]`` (B, T) from position 0,

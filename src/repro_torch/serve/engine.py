@@ -6,7 +6,8 @@ position.  Every engine iteration runs ONE decode call for the whole pool
 with a per-row position vector: admitted requests stream their prompt
 tokens through the same call (the degenerate case of chunked prefill),
 active requests consume their last sampled token, and empty slots are
-harmless (a slot's cache row is invalidated when a request is admitted).
+harmless (a slot's cache row returns to the empty cache when a request
+is admitted).
 Parameters stay sharded at rest and are gathered per layer inside the
 step.  Sampling (argmax by default) runs on the device; one host transfer
 of the pool's sampled tokens per iteration drives the bookkeeping.
@@ -19,6 +20,8 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from ..models.cache import tree_map
 
 
 @dataclasses.dataclass
@@ -61,16 +64,20 @@ class ServeEngine:
         self.queue.append(req)
 
     def _reset_row(self, row: int):
-        """Invalidate a slot's cache row (``pos`` -> -1) so stale entries
-        of a previous occupant can never attend: on the rank that holds
-        the slot's row (its rows ``[lo, hi)`` of the pool)."""
+        """Return a slot's cache row to the empty cache, every leaf at the
+        model's ``cache_fill`` (``pos`` -1, so stale entries of a previous
+        occupant can never attend; a recurrent state at its start, so a
+        new request does not continue the previous one's), on the rank
+        that holds the slot's row (its rows ``[lo, hi)`` of the pool).  The
+        reference resets ``pos`` alone, and a recurrent model's request
+        admitted into a used slot starts from its predecessor's state
+        (ROADMAP Queue 3)."""
         lo, hi = self._rows
         if not lo <= row < hi:
             return
-        bdims = self.model.cache_batch_dims()
-        for key, leaf in self.cache.items():
-            if key == "pos":
-                leaf.select(bdims[key], row - lo).fill_(-1)
+        tree_map(lambda leaf, bdim, fill: leaf.select(bdim, row - lo)
+                 .fill_(fill), self.cache, self.model.cache_batch_dims(),
+                 self.model.cache_fill())
 
     def _admit(self):
         for i, slot in enumerate(self.slots):

@@ -45,11 +45,26 @@ def main(out_dir: str) -> None:
     res["moe_pod"] = record_of(*dryrun.dry_step(
         moe_reduced, ShapeConfig("train", 16, 8, "train"),
         {"pod": 2, "data": 2, "model": 2}))
+    # the recurrent families at published width on the production mesh:
+    # xLSTM's train step at 130 tokens a row (two mLSTM chunks, the second
+    # padded; its sLSTM loops over the sequence op by op on meta tensors,
+    # so train_4k takes minutes) and its decode of one token a row
+    # against the nested cache
+    prod = {"data": 16, "model": 16}
+    xlstm = get_config("xlstm-125m")
+    res["xlstm_train"] = record_of(*dryrun.dry_step(
+        xlstm, ShapeConfig("train_130", 130, 256, "train"), prod))
+    res["xlstm_decode"] = record_of(*dryrun.dry_step(
+        xlstm, ShapeConfig("decode_32k", 32768, 128, "decode"), prod))
     argv = ["--out", str(out)]
     res["full"] = dryrun.main(["--arch", "gemma2-2b", "--shape", "train_4k",
                                *argv])[0]
-    res["unported"] = dryrun.main(["--arch", "xlstm-125m", "--shape",
-                                   "train_4k", *argv])[0]
+    res["hymba"] = dryrun.main(["--arch", "hymba-1.5b", "--shape",
+                                "train_4k", *argv])[0]
+    res["hymba_long"] = dryrun.main(["--arch", "hymba-1.5b", "--shape",
+                                     "long_500k", *argv])[0]
+    res["unported"] = dryrun.main(["--arch", "seamless-m4t-medium",
+                                   "--shape", "train_4k", *argv])[0]
     res["skip"] = dryrun.main(["--arch", "qwen2.5-14b", "--shape",
                                "long_500k", "--multi-pod", *argv])[0]
     res["verify"] = dryrun.main(["--arch", "gemma2-2b", "--shape",

@@ -66,3 +66,19 @@ def rank_main(rank, world, init_file, out_prefix, steps, arch="gemma2-2b",
              norms=np.asarray(norms),
              **{k: p.detach().numpy() for k, p in params.items()})
     torch.distributed.destroy_process_group()
+
+
+def rank_main_runs(rank, world, init_file, out_prefix, steps, runs):
+    """``rank_main`` for several configs in one spawn: ``runs`` is a list
+    of ``(tag, arch, overrides)``, trained in turn on this rank's one
+    group, each saved to ``{out_prefix}{tag}_{rank}.npz``."""
+    torch.set_num_threads(1)
+    group = init_local_group("gloo", rank=rank, world_size=world,
+                             init_file=init_file)
+    for tag, arch, overrides in runs:
+        losses, norms, _, params, _ = train(group, torch.float32, steps,
+                                            arch=arch, overrides=overrides)
+        np.savez(f"{out_prefix}{tag}_{rank}.npz", losses=np.asarray(losses),
+                 norms=np.asarray(norms),
+                 **{k: p.detach().numpy() for k, p in params.items()})
+    torch.distributed.destroy_process_group()

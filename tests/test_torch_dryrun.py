@@ -11,8 +11,14 @@ anything here initialises a JAX backend).
 Parity classes:
   * ``plan_only`` text: string-equal to the reference's, every ported arch
     on both production meshes;
-  * the full-width gemma2-2b ``train_4k`` row at 16 x 16: ``model_gflops``,
-    ``gather_wire_mb`` and ``reduce_wire_mb`` equal the reference's;
+  * the full-width gemma2-2b and hymba-1.5b ``train_4k`` rows at 16 x 16:
+    ``model_gflops``, ``gather_wire_mb`` and ``reduce_wire_mb`` equal the
+    reference's;
+  * xlstm-125m at published width on 16 x 16 (a train step of 130 tokens
+    a row, a decode): FLOPs, collectives and argument bytes equal their
+    closed forms.  Its ``train_4k`` row takes minutes on meta tensors (the
+    sLSTM's op-by-op loop over 4,096 positions) and runs on the card's
+    host instead (``chip_smoke.py`` ``dryrun_production``);
   * the reduced 4 x 2 meta step: FLOPs, collective counts and volumes and
     argument bytes equal their closed forms (stated in each test).
 """
@@ -26,6 +32,7 @@ import sys
 import pytest
 
 from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.models.cache import leaves
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -203,7 +210,8 @@ def test_full_width_row_is_the_reference_plan(runs):
 
 
 def test_error_and_skip_rows(runs):
-    """An unported family is the reference's error row naming item 14b; a
+    """An unported family (seamless-m4t-medium: the cross-attention
+    families stay unported) is the reference's error row naming item 14b; a
     pure full-attention arch at long_500k the reference's skip; --verify
     waits for item 17; every row is appended to --out."""
     bad = runs["unported"]
@@ -215,7 +223,112 @@ def test_error_and_skip_rows(runs):
                             "out of scope")
     assert runs["verify"]["ok"] is False and "17" in runs["verify"]["note"]
     assert [r["arch"] for r in runs["written"]] == [
-        "gemma2-2b", "xlstm-125m", "qwen2.5-14b", "gemma2-2b"]
+        "gemma2-2b", "hymba-1.5b", "hymba-1.5b", "seamless-m4t-medium",
+        "qwen2.5-14b", "gemma2-2b"]
+
+
+def _prod_plan(arch):
+    from repro_torch.configs import build_model
+    from repro_torch.core.policy import plan
+    from repro_torch.launch.mesh import production_axis_sizes
+
+    return plan(build_model(get_config(arch)), production_axis_sizes())
+
+
+def _param_bytes(plan) -> int:
+    """fp32 master bytes a rank holds: every group's shard, a stacked
+    group's once a layer."""
+    return 4 * sum(e.plan.shard_size * (e.n_layers or 1)
+                   for e in plan.groups.values())
+
+
+def test_hymba_rows_are_the_reference_plan(runs):
+    """hymba-1.5b at published width and depth on 16 x 16: the ``train_4k``
+    row's model FLOPs and wire bytes are the reference's, each of the 32
+    layers gathers twice (forward, recompute) and reduce-scatters once,
+    AdamW runs once a group; the ``long_500k`` decode (one row, a cache
+    capped at the 1,024 window past 65,536 positions) gathers each layer
+    once and holds the fp32 shards, its one row of the cache and the
+    token as arguments."""
+    import torch
+
+    from repro.configs import build_model, get_config as ref_config
+    from repro.configs.base import SHAPES
+    from repro.core.policy import make_plan
+    from repro.launch.mesh import production_axis_sizes
+    from repro.launch.roofline import model_flops
+    from repro_torch.configs import build_model as port_build
+
+    row = runs["hymba"]
+    cfg = ref_config("hymba-1.5b")
+    plan = make_plan(build_model(cfg), production_axis_sizes(), None)
+    assert row["ok"] and row["mesh"] == "pod16x16"
+    assert row["model_gflops"] == round(
+        model_flops(cfg, SHAPES["train_4k"]) / 1e9, 1)
+    assert row["gather_wire_mb"] == round(plan.gather_wire_bytes() / 1e6, 3)
+    assert row["reduce_wire_mb"] == round(plan.reduce_wire_bytes() / 1e6, 3)
+    assert row["colls"] == {"all-gather": 1 + 2 * 32,
+                            "reduce-scatter": 1 + 32, "all-reduce": 2}
+    assert row["kernel_calls"] == {"adamw_store_update[fp32]": 2}
+    assert row["temp_gb_dev"] > 0
+    long = runs["hymba_long"]
+    assert long["ok"] and long["colls"] == {"all-gather": 1 + 32}
+    model = port_build(get_config("hymba-1.5b"))
+    assert model.cache_window(524_288) == 1024
+    cache = sum(torch.empty(sd[0], dtype=sd[1], device="meta").nbytes
+                for _, sd in leaves(model.cache_shapes(1, 524_288)))
+    assert long["arg_bytes_dev"] == \
+        _param_bytes(_prod_plan("hymba-1.5b")) + cache + 8
+
+
+def test_xlstm_meta_steps_closed_form(runs):
+    """xlstm-125m at published width and depth (2 blocks of 5 mLSTM cells
+    and an sLSTM cell) on 16 x 16, rank 0's one row of N = 130 tokens.
+    Matmul FLOPs of a cell's forward (H = 4 heads of hd = 192; two chunks
+    of c = 128, the second padded from 2 positions): the mLSTM's five D x
+    D projections and its gate projection (2 N D 2H), and per chunk q k^T
+    and scores v (2 H c^2 hd each), q C and k^T v (2 H c hd^2 each) and q
+    n (2 H c hd), padding included; the sLSTM's 2 N D 4D and 2 N D^2.  A block runs forward, its
+    recompute and a backward of twice its forward, less the products one
+    of whose operands needs no gradient: the first chunk's q C and q n
+    read the zero initial state (no state half), and the last chunk's k^T
+    v makes the final state, which nothing reads in training (neither
+    half); and the recompute stops once it has rebuilt every tensor
+    backward saved (non-reentrant checkpointing), before the block's last
+    product, the sLSTM's output projection, whose result nothing saves.
+    The untied head: 2 N D V forward, twice that backward.  The
+    collectives: two all-gathers a block and one of ``globals``, a
+    reduce-scatter each, two all-reduces; AdamW once a group.  The decode
+    of one token on 128 rows (8 a rank: the batch splits over the data
+    axis alone) holds the fp32 shards, its 8 rows of the nested cache
+    and the tokens as arguments."""
+    import torch
+
+    from repro_torch.configs import build_model
+
+    cfg = get_config("xlstm-125m")
+    D, V, H = cfg.d_model, cfg.vocab, cfg.n_heads
+    hd, T, c, blocks = D // H, 130, 128, 2
+    N, padded = T, 2 * c
+    mlstm = (5 * 2 * N * D * D + 2 * N * D * 2 * H
+             + H * padded * (4 * hd * hd + 2 * hd + 4 * c * hd))
+    mlstm_no_grad = 2 * H * c * hd * hd + 2 * H * c * hd + 4 * H * c * hd * hd
+    slstm = 2 * N * D * 4 * D + 2 * N * D * D
+    block = 5 * (4 * mlstm - mlstm_no_grad) + 4 * slstm - 2 * N * D * D
+    r = runs["xlstm_train"]
+    assert r["flops"] == blocks * block + 3 * 2 * N * D * V
+    kinds = [k for k, _, _ in r["collectives"]]
+    assert kinds.count("all-gather") == 1 + 2 * blocks
+    assert kinds.count("reduce-scatter") == 1 + blocks
+    assert kinds.count("all-reduce") == 2
+    assert r["kernels"] == {"adamw_store_update[fp32]": 2}
+    params = _param_bytes(_prod_plan("xlstm-125m"))
+    assert r["arg_bytes"] == 4 * params + 8 * T      # master, m, v, masks
+    d = runs["xlstm_decode"]
+    row = sum(torch.empty(sd[0], dtype=sd[1], device="meta").nbytes
+              for _, sd in leaves(build_model(cfg).cache_shapes(1, 32768)))
+    assert d["arg_bytes"] == params + 8 * row + 8 * 128
+    assert d["kernels"] == {}
 
 
 def test_meta_device_only_when_named():

@@ -218,7 +218,7 @@ def test_unported_planners_and_configs_raise():
     for mode in ("fsdp2", "megatron", "naive"):
         assert get_planner(mode).__name__ == jax_get_planner(mode).__name__
     with pytest.raises(NotImplementedError, match="Queue 1 item 14b"):
-        get_config("xlstm-125m")
+        get_config("seamless-m4t-medium")
     moe = get_config("qwen3-moe-235b-a22b")  # the config's own ep=16
     # expert parallelism is ported: the model builds with its experts split
     # over the model axis, and a runtime without that axis refuses it
