@@ -286,16 +286,17 @@ The dry run, the roofline and the examples (slice 13; 6c, 6d and 25 after
                   dense bf16 peak (``launch.mesh.PEAK_FLOPS_BF16``), for
                   ``train`` and ``train_cli``, beside the card's name and
                   power limit.
- 25. dryrun_production -- the dry-run rows of gemma2-2b, xlstm-125m and
-                  hymba-1.5b ``train_4k`` at 16 x 16 = 256 ranks and
+ 25. dryrun_production -- the dry-run rows of gemma2-2b, xlstm-125m,
+                  hymba-1.5b, seamless-m4t-medium and llama-3.2-vision-90b
+                  ``train_4k`` at 16 x 16 = 256 ranks and
                   qwen3-moe-235b-a22b ``train_4k`` at 2 x 16 x 16 = 512
                   (``--multi-pod``; all the dry runs are children started
                   after phase 2, beside the card's phases): ``ok``, and their
                   ``model_gflops``, ``gather_wire_mb`` and
                   ``reduce_wire_mb`` equal to the roofline's model FLOPs
                   and the plan's wire bytes; ``--plan-only --all``: the
-                  lowering parity line for each ported assigned arch, an
-                  error naming item 14b for each of the two others.
+                  lowering parity line for each of the ten assigned
+                  archs, no error line.
  26. examples  -- ``python -m repro_torch.examples.<name>`` for the five
                   examples (quickstart, train_8bit_adam, muon_demo,
                   serve_moe, continuous_batching) through ``main([])`` on
@@ -347,8 +348,53 @@ The recurrent families (slice 14; 27-30 after 13):
                   steps (each call's logits within PARITY_REC_SERVE_RTOL
                   relative L2).
 
+The cross-attention families (slice 15; 31-33 after 29, 35 with 30):
+
+ 31. train_encdec -- seamless-m4t-medium at published width and depth (12
+                  encoder and 12 decoder layers, d_model 1024, 16 heads x
+                  64, d_ff 4096, vocab 256206; 978.8 M parameters), one
+                  NCCL rank, bf16 compute, fp32 store, AdamW, 2 x 2048
+                  tokens with 2,048 frames: a warm-up, three timed steps
+                  and one whose CUDA ops are counted.  Step ms, tokens/s,
+                  MFU, peak; ``adamw_store_update`` once a group a step
+                  (three groups: the two stacks and ``globals``) and no
+                  other kernel, no plain version; row 8a against its plain
+                  version at its three shards (``kernel_crossattn``).
+ 32. serve_encdec -- the trained model: a prefill of 4 x 512 tokens over
+                  the config's 4,096 frames (the encoder's output written
+                  into the cache's bf16 memory), after a warm-up prefill,
+                  then 32 greedy decode steps (each layer's cross K/V
+                  recomputed from the memory).  No kernel of the port.
+ 33. serve_vision -- llama-3.2-vision-90b at published width (d_model
+                  8192, 64/8 heads x 128, d_ff 28672, vocab 128256) cut
+                  to one block (four self layers and a cross layer, 6.38
+                  G parameters), its gates at VISION_GATE, on the q8_block
+                  store (``quantize`` once a group at init): a prefill of
+                  4 x 512 tokens with 1,024 patches and 32 decode steps,
+                  each given the patches, in the int8 mode and the dense
+                  q8 mode on the same parameters; launch counts against
+                  the plan, ``q8_matmul`` by regime (a decode call's
+                  x_wk and x_wv over the 4,096 patch rows in the prefill
+                  regime), the int8-vs-dense prefill logits within
+                  SERVE_INT8_VS_DENSE.  First rows 5a and 5b at the
+                  vision shapes (``kernel_q8mm_vision``: decode M = 4 and
+                  prefill M = 2048 on (8192, 8192), (8192, 1024), (8192,
+                  28672), (28672, 8192), and M = 4096 on (8192, 1024)),
+                  rows 1 and 2 at its two shards (``kernel_q8_vision``;
+                  the plain version in chunks), each bitwise.
+     (Training the same cut, Adam8bit on the bf16 store at 1 x 1024
+     tokens, peaked at 79.0 GB of the card's 85.0: no phase trains it;
+     PERF.md PR 25.)
+ 35. parity_crossattn -- seamless-m4t-medium.reduced() and
+                  llama-3.2-vision-90b.reduced() (gates at VISION_GATE),
+                  fp32: five train steps of 8 x 64 per seed of
+                  PARITY_CROSS_SEEDS on the CPU and on the card (losses and
+                  grad norms within PARITY_CROSS_RTOL) and a prefill of 4 x
+                  16 with 8 teacher-forced decode steps (each call's logits
+                  within PARITY_CROSS_SERVE_RTOL relative L2).
+
 The phases that hold the card against the CPU reference (10, 17, 20, 13,
-30 and 26's ``examples_parity``, in that order) run where phase 10 stands,
+30, 26's ``examples_parity`` and 35, in that order) run where phase 10 stands,
 in a child process of their own: this script with ``--reference``, the
 same pins and card and nothing else of the run before it.  Its lines join
 the output as they come, its failure fails the script, and a ``reference``
@@ -364,6 +410,7 @@ script imports only the port (never JAX or the JAX package).
 from __future__ import annotations
 
 import atexit
+import contextlib
 import dataclasses
 import json
 import math
@@ -551,6 +598,8 @@ CE_CHUNK_RTOL = {"loss": 2e-3, "grad_norm": 2e-2}
 # ``train_cli``'s measured ``max_memory_allocated``; the production rows
 DRYRUN_PEAK_RTOL = 0.10
 DRYRUN_PRODUCTION = (("gemma2-2b", "train_4k", False),
+                     ("seamless-m4t-medium", "train_4k", False),
+                     ("llama-3.2-vision-90b", "train_4k", False),
                      (MOE, "train_4k", True),
                      ("xlstm-125m", "train_4k", False),
                      ("hymba-1.5b", "train_4k", False))
@@ -580,6 +629,46 @@ PARITY_REC_SERVE_RTOL = {XLSTM: 1e-4, HYMBA: 3e-3}
 EXAMPLE_STEPS = {"quickstart": 20, "train_8bit_adam": 120, "muon_demo": 120}
 EXAMPLE_PARITY_STEPS = {"quickstart": 2, "train_8bit_adam": 2,
                         "muon_demo": PARITY_OPTIM_STEPS}
+
+
+# phases 31-35: the cross-attention families (slice 15).
+# seamless-m4t-medium at published width and depth (12 + 12 layers), AdamW
+# on the fp32 store, ENC_BATCH x ENC_SEQ tokens with as many frames (the
+# stream's min(n_frames, T)), 1 + TIMED_STEPS steps and one counted; then
+# served on its trained weights: a prefill of SERVE_BATCH x SERVE_PROMPT
+# tokens over the config's 4,096 frames and CROSS_SERVE_STEPS decode steps.
+# llama-3.2-vision-90b at published width cut to VISION_BLOCKS block (four
+# self layers and a cross layer, 6.38 G parameters) served from the
+# q8_block store, int8 and dense, a prefill of SERVE_BATCH x SERVE_PROMPT
+# tokens with its 1,024 patches, then CROSS_SERVE_STEPS decode steps, each
+# given the patches again (the cross K/V recomputed, as the reference
+# does).  Both packages' init starts the VLM's gates at 0; here they start
+# at VISION_GATE, so the patches reach the logits.  Parity (in the
+# reference child): both .reduced() at fp32, card against CPU, a
+# PARITY_CROSS_STEPS-step train stream per seed and a prefill of 4 x 16
+# with PARITY_SERVE_STEPS decode steps, within the limits below (the CPU
+# tests' classes against the reference: tests/test_torch_encdec.py,
+# tests/test_torch_vision.py; the serve logits the bf16 KV cache's)
+SEAMLESS, VISION = "seamless-m4t-medium", "llama-3.2-vision-90b"
+ENC_BATCH, ENC_SEQ = 2, 2048
+VISION_BLOCKS, VISION_GATE = 1, 0.5
+CROSS_SERVE_STEPS = 32
+PARITY_CROSS_SEEDS = (0, 1)
+PARITY_CROSS_STEPS = 5
+PARITY_CROSS_RTOL = 2e-5
+PARITY_CROSS_SERVE_RTOL = 3e-3
+# q8_matmul calls of one vision block (four self layers and the cross
+# layer) per serve call, (K, N) -> (at decode M = SERVE_BATCH, at prefill
+# M = SERVE_BATCH x SERVE_PROMPT): wq, wo, x_wq, x_wo; wk, wv; w1, w3,
+# c_w1, c_w3; w2, c_w2.  The cross layer's x_wk and x_wv multiply the
+# SERVE_BATCH x 1,024 patch rows at every call, decode included: the
+# prefill regime at M = VISION_MEMORY_ROWS
+VISION_BLOCK_Q8MM = {(8192, 8192): (10, 10), (8192, 1024): (8, 8),
+                     (8192, 28672): (10, 10), (28672, 8192): (5, 5)}
+VISION_MEMORY_Q8MM, VISION_MEMORY_ROWS, VISION_MEMORY_CALLS = \
+    (8192, 1024), 4096, 2
+# the plain quantize / dequantize_into at vision's shards, chunk by chunk
+VISION_PLAIN_CHUNK = 1 << 28
 
 
 def emit(obj) -> None:
@@ -639,6 +728,18 @@ def graph_ms(fn, reps: int = 20, iters: int = 10) -> float:
     return ms
 
 
+# elements a comparison reads at a time (its int64 / fp32 temporaries)
+COMPARE_CHUNK = 1 << 28
+
+
+def _chunks(a, b):
+    """The flat views of two tensors of one shape, COMPARE_CHUNK elements
+    at a time."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    for lo in range(0, a.numel(), COMPARE_CHUNK):
+        yield a[lo:lo + COMPARE_CHUNK], b[lo:lo + COMPARE_CHUNK]
+
+
 def int_view_diff(a, b) -> int:
     import torch
 
@@ -649,7 +750,8 @@ def int_view_diff(a, b) -> int:
     view = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
             torch.int8: torch.int8, torch.float8_e4m3fn: torch.uint8,
             torch.float8_e5m2: torch.uint8}[a.dtype]
-    return int((a.view(view).long() - b.view(view).long()).abs().max())
+    return max(int((x.view(view).long() - y.view(view).long()).abs().max())
+               for x, y in _chunks(a, b))
 
 
 def abs_err(a, b) -> float:
@@ -658,10 +760,15 @@ def abs_err(a, b) -> float:
 
     if a.numel() == 0:
         return 0.0
-    a, b = a.float(), b.float()
-    both = torch.isnan(a) & torch.isnan(b)
-    d = torch.where(both, torch.zeros_like(a), (a - b).abs())
-    return float(d.max())
+    out = 0.0
+    for x, y in _chunks(a, b):
+        x, y = x.float(), y.float()
+        both = torch.isnan(x) & torch.isnan(y)
+        d = torch.where(both, torch.zeros_like(x), (x - y).abs())
+        v = float(d.max())
+        if v != v or v > out:      # a NaN, once read, stays the answer
+            out = v
+    return out
 
 
 def flat_outputs(out) -> list:
@@ -1585,6 +1692,190 @@ def phase_kernel_q8mm_sliced(ops, ref) -> dict:
     return out
 
 
+def hold_update_at(path, rt, fused_update, ref,
+                   phase: str = "kernel_recurrent"):
+    """Row 8a against its plain version at each group's shard of
+    ``path``'s runtime (the fp32 store's flat epilogue), on random
+    state: these launches compare, they are not the path's."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    scalars = ref.scalar_stack(3e-4, 0.9, 0.95, 1e-8, 0.1,
+                               1 - 0.9 ** 3, 1 - 0.95 ** 3)
+    rows = {}
+    for n, lo in rt.layouts.items():
+        shape = lo.local_shape()
+
+        def rnd(scale, shape=shape):
+            return torch.randn(shape, generator=gen,
+                               device="cuda") * scale
+
+        w, g, m, v = rnd(0.05), rnd(1e-3), rnd(1e-4), rnd(1e-4).square_()
+        mask = (torch.rand(shape, generator=gen, device="cuda")
+                < 0.8).float()
+        numel = w.numel()
+        rows[n] = hold(
+            "adamw_store_update",
+            {"path": path, "group": n, "shape": list(shape),
+             "fmt": "fp32"},
+            lambda: fused_update.adamw_store_update(
+                w, g, m, v, mask, scalars, fmt="fp32"),
+            lambda: ref.adamw_store_update_ref(w, g, m, v, mask,
+                                               scalars, "fp32"),
+            BYTES_PER_ELEM["fp32"] * numel, FLOPS_PER_ELEM * numel,
+            iters=20, phase=phase)
+        del w, g, m, v, mask
+    return rows
+
+
+@contextlib.contextmanager
+def vision_gates(runtime_cls):
+    """``runtime_cls.init_params`` with the VLM's gates (``x_gate``,
+    ``c_gate``) at VISION_GATE, every other tensor as drawn."""
+    plain = runtime_cls.__dict__["_init_tensor"]
+
+    def init(spec, seed, layer):
+        if spec.name in ("x_gate", "c_gate"):
+            return np.full(spec.shape, VISION_GATE, np.float32)
+        return plain.__func__(spec, seed, layer)
+
+    runtime_cls._init_tensor = staticmethod(init)
+    try:
+        yield
+    finally:
+        runtime_cls._init_tensor = plain
+
+
+def phase_kernel_q8mm_vision(ops, ref, q8mm) -> dict:
+    """``q8_matmul`` against its plain version at the shapes
+    ``serve_vision`` gives it: llama-3.2-vision-90b's weights (K, N) at
+    decode M = 4 and prefill M = 2048, and the cross layer's K and V
+    products over 4 x 1,024 patch rows (M = 4096, K = 8192, N = 1024), bf16,
+    each bitwise.  The kernel's device time is the replays of a CUDA graph
+    of its calls; the plain version's (a whole fp32 dequantized weight a
+    call) an eager call's, timed with CUDA events.  Returns the summaries
+    the kernels line carries: one decode call's decode-regime launches
+    and one prefill call's launches of a vision block, summed."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    block = 1024
+    summary = {r: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                   "max_abs_err": 0.0, "bound_by": b}
+               for r, b in (("decode", "bytes"), ("prefill", "operations"))}
+    for (k, n), calls in VISION_BLOCK_Q8MM.items():
+        n_scales = -(-(k * n) // block)
+        codes = torch.randint(-127, 128, (k, n), generator=gen,
+                              device="cuda", dtype=torch.int8)
+        scales = torch.rand(n_scales, generator=gen, device="cuda") * 0.02 \
+            + 1e-3
+        ms_by_m = [(m, c) for m, c in zip(Q8MM_M, calls)]
+        if (k, n) == VISION_MEMORY_Q8MM:
+            ms_by_m.append((VISION_MEMORY_ROWS, VISION_MEMORY_CALLS))
+        for m, n_calls in ms_by_m:
+            x = (torch.randn(m, k, generator=gen, device="cuda") * 2.0) \
+                .to(torch.bfloat16)
+            got = ops.q8_matmul(x, codes, scales, block)
+            want = ref.q8_matmul_ref(x, codes, scales, block)
+            torch.cuda.synchronize()
+            diff = int_view_diff(got, want)
+            err = abs_err(got, want)
+            del got, want
+            if diff != 0:
+                fail(f"q8_matmul differs from its plain version at M={m} "
+                     f"({k}, {n}): {diff} integer-view steps")
+            ms = graph_ms(lambda: ops.q8_matmul(x, codes, scales, block))
+            plain_ms = median_ms(lambda: ref.q8_matmul_ref(
+                x, codes, scales, block), iters=5, warmup=1)
+            nbytes = m * k * 2 + k * n + 4 * n_scales + m * n * 2
+            nops = 2 * m * k * n
+            bound_ms = max(nbytes / HBM_BYTES_PER_S, nops / INT8_OPS) * 1e3
+            regime = q8mm.regime_for(m)
+            emit({"phase": "kernel_q8mm_vision", "name": "q8_matmul",
+                  "regime": regime, "M": m, "K": k, "N": n, "block": block,
+                  "dtype": "bfloat16", "calls_a_block": n_calls,
+                  "max_int_view_diff": diff, "max_abs_err": err, "ms": ms,
+                  "plain_ms": plain_ms, "bound_ms": bound_ms,
+                  "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+                  >= nops / INT8_OPS else "operations",
+                  "achieved_TOPs": nops / ms / 1e9,
+                  "share_of_bound": bound_ms / ms, "parity": "bitwise"})
+            st = summary[regime]
+            st["max_abs_err"] = max(st["max_abs_err"], err)
+            for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                             ("bound_ms", bound_ms)):
+                st[key] += n_calls * val
+            del x
+            torch.cuda.empty_cache()
+        del codes, scales
+        torch.cuda.empty_cache()
+    return summary
+
+
+def phase_kernel_q8_vision(ops, ref, shards: dict) -> dict:
+    """``quantize`` (fp32 masters, the q8_block store's init) and
+    ``dequantize_into`` (bf16 out: the ``globals`` gather of every serve
+    call, the whole block's gather of the dense serve) at
+    llama-3.2-vision-90b's q8_block shards (``shards``: the layers
+    group's one block and ``globals``), each bitwise against its plain
+    version.  The plain version (block by block, so the same function on
+    any cut at block boundaries) runs in chunks of VISION_PLAIN_CHUNK
+    elements: at 4.28 G elements its whole-tensor temporaries would not
+    fit beside the input; its time is the chunks' total.  Returns the
+    summaries the kernels line carries: init (both groups' quantize), and
+    the gathers of one int8 and one dense serve call."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    block = 1024
+
+    def chunked(fn, *xs):
+        outs = [fn(*(x[lo:lo + VISION_PLAIN_CHUNK] for x in xs))
+                for lo in range(0, xs[0].numel(), VISION_PLAIN_CHUNK)]
+        return [torch.cat(parts) for parts in zip(*outs)] \
+            if isinstance(outs[0], tuple) else torch.cat(outs)
+
+    out = {}
+    for name, n in shards.items():
+        x = torch.randn(n, generator=gen, device="cuda") * 0.05
+        x[:block] = 0.0                       # an all-zero quant block
+        out[("quantize", name)] = hold(
+            "quantize", {"path": "serve_vision", "group": name,
+                         "shape": [n], "in": "float32", "block": block},
+            lambda: ops.quantize(x, block),
+            lambda: chunked(lambda c: ref.quantize_ref(c, block), x),
+            n * 5 + 4 * n / block, Q8_FLOPS["quantize"] * n, iters=3,
+            phase="kernel_q8_vision")
+        codes, scales = ops.quantize(x, block)
+        del x
+        torch.cuda.empty_cache()
+        out[("dequantize_into", name)] = hold(
+            "dequantize_into", {"path": "serve_vision", "group": name,
+                                "shape": [n], "out": "bfloat16",
+                                "block": block},
+            lambda: ops.dequantize_into(codes, scales, block,
+                                        out_dtype=torch.bfloat16),
+            lambda: torch.cat([ref.dequantize_into_ref(
+                codes[lo:lo + VISION_PLAIN_CHUNK],
+                scales[lo // block:(lo + VISION_PLAIN_CHUNK) // block],
+                block, torch.bfloat16)
+                for lo in range(0, n, VISION_PLAIN_CHUNK)]),
+            n * 3 + 4 * n / block, Q8_FLOPS["dequantize_into"] * n, iters=3,
+            phase="kernel_q8_vision")
+        del codes, scales
+        torch.cuda.empty_cache()
+
+    def total(rows):
+        return {"ms": sum(r["ms"] for r in rows),
+                "plain_ms": sum(r["plain_ms"] for r in rows),
+                "bound_ms": sum(r["bound_ms"] for r in rows),
+                "max_abs_err": max(r["max_abs_err"] for r in rows)}
+
+    return {"init": total([out["quantize", n] for n in shards]),
+            "int8_call": total([out["dequantize_into", "globals"]]),
+            "dense_call": total([out["dequantize_into", n] for n in shards])}
+
+
 def same_bytes(a: Path, b: Path, chunk: int = 1 << 26) -> bool:
     """Whether two files hold the same bytes (read in 64 MiB chunks)."""
     if a.stat().st_size != b.stat().st_size:
@@ -1669,9 +1960,9 @@ def start_dryruns(out_dir: Path) -> dict:
 
 
 def run_reference() -> float:
-    """Phases 10 (17 with it), 20, 13, 30 and 26b in a child process (this
-    script with ``REFERENCE_ARG``, the same pins, the same card): its
-    lines join this script's output as they come, its failure is this
+    """Phases 10 (17 with it), 20, 13, 30, 26b and 35 in a child process
+    (this script with ``REFERENCE_ARG``, the same pins, the same card):
+    its lines join this script's output as they come, its failure is this
     script's.  Returns its seconds."""
     t0 = time.perf_counter()
     with tempfile.TemporaryFile("w+") as err:
@@ -2130,13 +2421,113 @@ def main() -> None:
             fail(f"ckpt_tp: the resume launched {total}, expected {want}")
         return total
 
+    def serve_cross(rt, params, batch, extra, max_len):
+        """A warm-up prefill and a timed one of ``batch`` (each into a fresh
+        cache), then CROSS_SERVE_STEPS greedy decode steps at a scalar
+        index, each given ``extra`` (the VLM's patches) beside its token.
+        Returns the readings and the timed prefill's logits."""
+        prefill, decode = rt.make_prefill_step(), rt.make_decode_step()
+        B, P = batch["tokens"].shape
+        prefill(params, batch, rt.init_cache(B, max_len))      # warm-up
+        cache = rt.init_cache(B, max_len)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, batch, cache)
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        if tuple(logits.shape) != (B, 1, rt.cfg.vocab):
+            fail(f"{rt.cfg.name}: prefill logits {tuple(logits.shape)}")
+        tok, gen, dec_ms = torch.argmax(logits, -1), [], []
+        for i in range(CROSS_SERVE_STEPS):
+            t0 = time.perf_counter()
+            lg, cache = decode(params, {"tokens": tok, **extra}, cache,
+                               P + i)
+            tok = torch.argmax(lg, -1)
+            torch.cuda.synchronize()
+            dec_ms.append((time.perf_counter() - t0) * 1e3)
+            gen.append(tok)
+        if not bool(torch.isfinite(lg.float()).all()):
+            fail(f"{rt.cfg.name}: non-finite decode logits")
+        gen = torch.cat(gen, 1).cpu()
+        if not (0 <= int(gen.min()) and int(gen.max()) < rt.cfg.vocab):
+            fail(f"{rt.cfg.name}: decoded tokens out of the vocabulary")
+        med = statistics.median(dec_ms[1:])
+        return ({"prefill": [B, P], "cache_len": max_len,
+                 "prefill_ms": pre_ms, "decode_step_ms": dec_ms,
+                 "decode_step_ms_median": med,
+                 "decode_tokens_per_s": B / (med / 1e3),
+                 "greedy_row0": gen[0].tolist()}, logits)
+
+    def parity_crossattn() -> None:
+        """Phase 35: seamless-m4t-medium.reduced() and
+        llama-3.2-vision-90b.reduced() (its gates at VISION_GATE), fp32,
+        card against CPU: a PARITY_CROSS_STEPS-step train stream per seed
+        (losses and grad norms) and a prefill of 4 x 16 with
+        PARITY_SERVE_STEPS teacher-forced decode steps (each call's
+        logits)."""
+        for arch in (SEAMLESS, VISION):
+            pc = get_config(arch).reduced()
+            key = "frames" if pc.arch_type == "audio" else "patches"
+            rows = pc.n_frames if key == "frames" else pc.n_patches
+            train_read, serve_read = [], []
+            with vision_gates(FSDPRuntime):
+                for seed in PARITY_CROSS_SEEDS:
+                    data = SyntheticStream(DataConfig(pc.vocab, 64, 8,
+                                                      seed=seed), pc)
+                    runs = {dev: train(pc, dev, torch.float32, data,
+                                       PARITY_CROSS_STEPS, seed=seed)[0]
+                            for dev in ("cpu", "cuda")}
+                    train_read.append(max(
+                        abs(a[k] - b[k]) / abs(b[k])
+                        for a, b in zip(runs["cuda"], runs["cpu"])
+                        for k in ("loss", "grad_norm")))
+                    rng = np.random.default_rng(seed)
+                    toks = torch.from_numpy(rng.integers(
+                        0, pc.vocab, (4, 16 + PARITY_SERVE_STEPS)))
+                    mem = torch.from_numpy(rng.normal(
+                        size=(4, rows, pc.d_model))).to(torch.bfloat16)
+                    outs = {}
+                    for dev in ("cpu", "cuda"):
+                        srt = FSDPRuntime(build_model(pc), group,
+                                          compute_dtype=torch.float32,
+                                          device=dev)
+                        sp = srt.init_params(seed)
+                        cache = srt.init_cache(4, 32)
+                        t, m = toks.to(srt.device), mem.to(srt.device)
+                        extra = {key: m} if key == "patches" else {}
+                        lg, cache = srt.make_prefill_step()(
+                            sp, {"tokens": t[:, :16], key: m}, cache)
+                        out = [lg]
+                        dec = srt.make_decode_step()
+                        for i in range(16, 16 + PARITY_SERVE_STEPS):
+                            lg, cache = dec(sp, {"tokens": t[:, i:i + 1],
+                                                 **extra}, cache, i)
+                            out.append(lg)
+                        outs[dev] = torch.cat(out, 1).float().cpu()
+                    serve_read.append(max(
+                        rel_l2(outs["cuda"][:, i], outs["cpu"][:, i])
+                        for i in range(outs["cpu"].shape[1])))
+            emit({"phase": "parity_crossattn", "config": f"{arch}.reduced()",
+                  "compute": "float32", "seeds": list(PARITY_CROSS_SEEDS),
+                  "train_steps": PARITY_CROSS_STEPS,
+                  "train_max_rel_diff": train_read,
+                  "train_rtol": PARITY_CROSS_RTOL,
+                  "serve_max_rel_l2": serve_read,
+                  "serve_rtol": PARITY_CROSS_SERVE_RTOL})
+            if not (max(train_read) <= PARITY_CROSS_RTOL
+                    and max(serve_read) <= PARITY_CROSS_SERVE_RTOL):
+                fail(f"parity_crossattn {arch}: CPU and card differ by "
+                     f"{max(train_read)} (train) / {max(serve_read)} "
+                     f"(serve)")
+
     def reference_phases() -> None:
-        """Phases 10 (17 with it), 20, 13, 30 and 26b: the card held against
-        the CPU reference (the plain versions), run by ``--reference`` in
-        a process of its own (``run_reference``).  A reference must not
-        depend on what its process did before: the first CPU run in
-        this long-lived process has been seen, rarely, to give a
-        stream that no fresh process gives (ROADMAP Queue 3)."""
+        """Phases 10 (17 with it), 20, 13, 30, 26b and 35: the card held
+        against the CPU reference (the plain versions), run by
+        ``--reference`` in a process of its own (``run_reference``).  A
+        reference must not depend on what its process did before: the
+        first CPU run in this long-lived process has been seen, rarely,
+        to give a stream that no fresh process gives (ROADMAP Queue
+        3)."""
         # ---- 10. CPU (plain versions) vs card (kernels) --------------------
         small = get_config("gemma2-2b").reduced()
         moe_small = get_config(MOE).reduced()
@@ -2407,6 +2798,240 @@ def main() -> None:
                 fail(f"examples_parity {k}: card and CPU differ by {v} > {t}")
         if not all(tokens_equal.values()):
             fail(f"examples_parity: served tokens differ {tokens_equal}")
+
+        # ---- 35. parity_crossattn: CPU (plain) vs card, fp32 -------------
+        parity_crossattn()
+
+    def crossattn_phases() -> dict:
+        """Phases 31-33, the cross-attention families at published width
+        on the card; returns what the kernels line carries."""
+        from repro_torch.configs import ShapeConfig
+        from repro_torch.launch import roofline
+
+        out = {}
+        # ---- 31. train_encdec: seamless-m4t-medium, 12 + 12 layers ------
+        ecfg = get_config(SEAMLESS)
+        estream = SyntheticStream(DataConfig(ecfg.vocab, ENC_SEQ, ENC_BATCH),
+                                  ecfg)
+        etokens = ENC_BATCH * ENC_SEQ
+        eloss0 = math.log(ecfg.vocab) + 2.0   # untied head, as qwen2.5
+        emit({"phase": "train_encdec_setup", "model": SEAMLESS,
+              "layers": [ecfg.encoder_layers, ecfg.n_layers],
+              "d_model": ecfg.d_model, "heads": [ecfg.n_heads,
+                                                 ecfg.n_kv_heads],
+              "head_dim": ecfg.hd, "d_ff": ecfg.d_ff, "vocab": ecfg.vocab,
+              "batch": [ENC_BATCH, ENC_SEQ],
+              "frames": min(ecfg.n_frames, ENC_SEQ), "optimizer": "adamw",
+              "store": "fp32", "compute": "bfloat16"})
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_launches(mods)
+        plain_calls, restore_plain = count_plain(ops)
+        timing, keep = {}, {}
+        t0 = time.perf_counter()
+        try:
+            metrics, times, rt = train(ecfg, "cuda", torch.bfloat16,
+                                       estream, 1 + TIMED_STEPS,
+                                       timings=timing, keep=keep)
+            step_fn = rt.make_train_step(keep["optimizer"])
+            batch = estream.shard(estream.batch(1 + TIMED_STEPS), rt)
+            torch.cuda.synchronize()
+            (params, _, _, m_last), n_ops, by_op = count_cuda_ops(
+                lambda: step_fn(keep["params"], keep["opt_state"],
+                                1 + TIMED_STEPS, batch))
+            torch.cuda.synchronize()
+        finally:
+            restore_plain()
+        del keep, batch, step_fn
+        e_launches = launches_now(mods)
+        e_peak = torch.cuda.max_memory_allocated()
+        metrics.append({k: float(v) for k, v in m_last.items()})
+        for i, (m, ms) in enumerate(zip(metrics, times)):
+            emit({"phase": "train_encdec", "step": i, "warmup": i == 0,
+                  "loss": m["loss"], "grad_norm": m["grad_norm"],
+                  "tokens": m["tokens"], "step_ms": ms,
+                  "tokens_per_s": etokens / (ms / 1e3)})
+        e_ms = statistics.median(times[1:])
+        e_want = {k: 0 for k in e_launches}
+        e_want["adamw_store_update"] = len(rt.layouts) * len(metrics)
+        emit({"phase": "train_encdec_summary",
+              "shard_sizes": {n: lo.plan.shard_size
+                              for n, lo in rt.layouts.items()},
+              "params": sum(math.prod(lo.local_shape())
+                            for lo in rt.layouts.values()),
+              "setup_s": timing["setup_s"],
+              "setup_and_steps_s": time.perf_counter() - t0,
+              "step_ms_median": e_ms,
+              "tokens_per_s": etokens / (e_ms / 1e3),
+              "mfu": roofline.mfu(ecfg, ShapeConfig(
+                  "train_encdec", ENC_SEQ, ENC_BATCH, "train"), e_ms / 1e3),
+              "max_memory_allocated": e_peak, "allocated_before": base,
+              "own_peak": e_peak - base, "cuda_ops_per_step": n_ops,
+              "cuda_ops_top": dict(sorted(by_op.items(),
+                                          key=lambda kv: -kv[1])[:8]),
+              "kernel_launches": e_launches, "expected_launches": e_want,
+              "plain_calls": {k: v for k, v in plain_calls.items() if v},
+              "expected_first_loss": eloss0})
+        if e_launches != e_want:
+            fail(f"train_encdec launched {e_launches}, expected {e_want}")
+        if any(plain_calls.values()):
+            fail(f"train_encdec ran plain versions {plain_calls}")
+        for m in metrics:
+            if not all(math.isfinite(m[k]) for k in ("loss", "grad_norm")):
+                fail(f"non-finite train_encdec metrics {m}")
+        if abs(metrics[0]["loss"] - eloss0) > 1.0:
+            fail(f"first train_encdec loss {metrics[0]['loss']} far from "
+                 f"{eloss0}")
+        held = hold_update_at("train_encdec", rt, fused_update, ref,
+                              phase="kernel_crossattn")
+        out["train_encdec"] = {
+            "launches": e_launches["adamw_store_update"],
+            "held": {n: {k: h[k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "max_abs_err")}
+                     for n, h in held.items()}}
+
+        # ---- 32. serve_encdec: the trained weights, 4,096 frames --------
+        rng = np.random.default_rng(0)
+        prompts = torch.from_numpy(rng.integers(
+            0, ecfg.vocab, (SERVE_BATCH, SERVE_PROMPT))).to("cuda")
+        frames = torch.from_numpy(rng.normal(
+            size=(SERVE_BATCH, ecfg.n_frames, ecfg.d_model))).to(
+            torch.bfloat16).to("cuda")
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(mods)
+        plain_calls, restore_plain = count_plain(ops)
+        try:
+            readings, _ = serve_cross(
+                rt, params, {"tokens": prompts, "frames": frames}, {},
+                SERVE_PROMPT + CROSS_SERVE_STEPS)
+        finally:
+            restore_plain()
+        s_launches = {k: v for k, v in launches_now(mods).items() if v}
+        emit({"phase": "serve_encdec", "model": SEAMLESS,
+              "frames": ecfg.n_frames, **readings,
+              "max_memory_allocated": torch.cuda.max_memory_allocated(),
+              "allocated_before": base, "kernel_launches": s_launches,
+              "plain_calls": {k: v for k, v in plain_calls.items() if v}})
+        if s_launches or any(plain_calls.values()):
+            fail(f"serve_encdec launched {s_launches}, plain {plain_calls}: "
+                 f"the fp32 store serves without the port's kernels")
+        del rt, params, prompts, frames
+        torch.cuda.empty_cache()
+
+        # ---- 33. serve_vision: one block at published width, q8_block ---
+        vfull = get_config(VISION)
+        vcfg = dataclasses.replace(
+            vfull, n_layers=VISION_BLOCKS * vfull.cross_attn_interval)
+        shards = {n: e.plan.shard_size for n, e in plan(
+            build_model(vcfg), {"data": 1, "model": 1},
+            CommSchedule(**SERVE_SCHEDULE)).groups.items()}
+        emit({"phase": "serve_vision_setup", "model": VISION,
+              "cut": {"n_layers": [vfull.n_layers, vcfg.n_layers]},
+              "d_model": vcfg.d_model, "heads": [vcfg.n_heads,
+                                                 vcfg.n_kv_heads],
+              "head_dim": vcfg.hd, "d_ff": vcfg.d_ff, "vocab": vcfg.vocab,
+              "patches": vcfg.n_patches, "gates": VISION_GATE,
+              "shard_sizes": shards,
+              "prefill": [SERVE_BATCH, SERVE_PROMPT],
+              "decode_steps": CROSS_SERVE_STEPS})
+        t0 = time.perf_counter()
+        out["q8mm"] = phase_kernel_q8mm_vision(ops, ref, q8_matmul)
+        t1 = time.perf_counter()
+        out["q8"] = phase_kernel_q8_vision(ops, ref, shards)
+        emit({"phase": "kernel_vision_seconds", "q8mm": t1 - t0,
+              "quantize_dequantize": time.perf_counter() - t1})
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_launches(mods)
+        t0 = time.perf_counter()
+        with vision_gates(FSDPRuntime):
+            rt = FSDPRuntime(build_model(vcfg), group,
+                             compute_dtype=torch.bfloat16,
+                             schedule=CommSchedule(**SERVE_SCHEDULE))
+            params = rt.init_params(0)
+        torch.cuda.synchronize()
+        v_setup = time.perf_counter() - t0
+        v_init = launches_now(mods)
+        v_init_want = {k: 0 for k in v_init}
+        v_init_want["quantize"] = len(rt.layouts)
+        emit({"phase": "serve_vision_init", "setup_s": v_setup,
+              "state_bytes": torch.cuda.memory_allocated() - base,
+              "kernel_launches": v_init, "expected_launches": v_init_want})
+        if v_init != v_init_want:
+            fail(f"serve_vision init launched {v_init}, expected "
+                 f"{v_init_want}")
+        rng = np.random.default_rng(0)
+        prompts = torch.from_numpy(rng.integers(
+            0, vcfg.vocab, (SERVE_BATCH, SERVE_PROMPT))).to("cuda")
+        patches = torch.from_numpy(rng.normal(
+            size=(SERVE_BATCH, vcfg.n_patches, vcfg.d_model))).to(
+            torch.bfloat16).to("cuda")
+        calls = 2 + CROSS_SERVE_STEPS
+        vision_logits, v_launches = {}, {"quantize": v_init["quantize"]}
+        for mode, sched in (("q8_serve_matmul", SERVE_SCHEDULE),
+                            ("q8_dense", SERVE_DENSE_SCHEDULE)):
+            if mode != "q8_serve_matmul":
+                rt2 = FSDPRuntime(rt.model, group,
+                                  compute_dtype=torch.bfloat16,
+                                  schedule=CommSchedule(**sched))
+                if any(rt2.layouts[n].plan != lo.plan
+                       for n, lo in rt.layouts.items()):
+                    fail("the dense vision serve plans differently")
+                rt = rt2
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches(mods)
+            plain_calls, restore_plain = count_plain(ops)
+            try:
+                readings, vision_logits[mode] = serve_cross(
+                    rt, params, {"tokens": prompts, "patches": patches},
+                    {"patches": patches}, SERVE_PROMPT + CROSS_SERVE_STEPS)
+            finally:
+                restore_plain()
+            got = launches_now(mods)
+            want = expected_serve_launches(rt, calls, got)
+            row = {"phase": "serve_vision", "mode": mode, "schedule": sched,
+                   "setup_s": v_setup, **readings,
+                   "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                   "allocated_before": base, "calls": calls,
+                   "kernel_launches": {k: v for k, v in got.items() if v},
+                   "expected_launches": {k: v for k, v in want.items() if v},
+                   "plain_calls": {k: v for k, v in plain_calls.items()
+                                   if v}}
+            if mode == "q8_serve_matmul":
+                # the two prefills in the prefill regime; a decode call's
+                # launches in the decode regime but the cross layers'
+                # x_wk and x_wv over the patch rows
+                per_call = want["q8_matmul"] // calls
+                mem = VISION_MEMORY_CALLS * VISION_BLOCKS
+                row["q8_matmul_launches_by_regime"] = regimes = {
+                    "decode": q8_matmul.q8_matmul.decode_launches,
+                    "prefill": q8_matmul.q8_matmul.prefill_launches}
+                row["expected_by_regime"] = regimes_want = {
+                    "decode": (per_call - mem) * CROSS_SERVE_STEPS,
+                    "prefill": per_call * 2 + mem * CROSS_SERVE_STEPS}
+                if regimes != regimes_want:
+                    fail(f"serve_vision {mode}: q8_matmul regimes "
+                         f"{regimes}, expected {regimes_want}")
+                v_launches["regimes"] = regimes
+            emit(row)
+            if got != want:
+                fail(f"serve_vision {mode} launched {got}, expected {want}")
+            if any(plain_calls.values()):
+                fail(f"serve_vision {mode} ran plain versions {plain_calls}")
+            v_launches[mode] = got["dequantize_into"]
+        gap = rel_l2(vision_logits["q8_serve_matmul"].float(),
+                     vision_logits["q8_dense"].float())
+        emit({"phase": "serve_vision_summary",
+              "prefill_rel_l2_int8_vs_dense": gap,
+              "limit": SERVE_INT8_VS_DENSE,
+              "setup_and_serve_s": time.perf_counter() - t0})
+        if not gap < SERVE_INT8_VS_DENSE:
+            fail(f"serve_vision int8 prefill logits {gap} from the dense "
+                 f"q8 serve's (limit {SERVE_INT8_VS_DENSE})")
+        out["serve_vision"] = v_launches
+        del rt, params, prompts, patches, vision_logits
+        torch.cuda.empty_cache()
+        return out
 
     smi = nvidia_smi()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3370,7 +3995,7 @@ def main() -> None:
     del rt, sh_keep, factors, M
     torch.cuda.empty_cache()
 
-    # ---- 10, 20, 13, 30, 26b. the card against the CPU reference, in a
+    # ---- 10, 20, 13, 30, 26b, 35. the card against the CPU reference, in a
     # process of its own ---------------------------------------------
     emit({"phase": "reference", "process": "child",
           "seconds": run_reference()})
@@ -3512,38 +4137,6 @@ def main() -> None:
     from repro_torch.models.cache import leaves as cache_leaves
     from repro_torch.models.cache import tree_map as cache_map
 
-    def hold_update_at(path, rt):
-        """Row 8a against its plain version at each group's shard of
-        ``path``'s runtime (the fp32 store's flat epilogue), on random
-        state: these launches compare, they are not the path's."""
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        scalars = ref.scalar_stack(3e-4, 0.9, 0.95, 1e-8, 0.1,
-                                   1 - 0.9 ** 3, 1 - 0.95 ** 3)
-        rows = {}
-        for n, lo in rt.layouts.items():
-            shape = lo.local_shape()
-
-            def rnd(scale, shape=shape):
-                return torch.randn(shape, generator=gen,
-                                   device="cuda") * scale
-
-            w, g, m, v = rnd(0.05), rnd(1e-3), rnd(1e-4), rnd(1e-4).square_()
-            mask = (torch.rand(shape, generator=gen, device="cuda")
-                    < 0.8).float()
-            numel = w.numel()
-            rows[n] = hold(
-                "adamw_store_update",
-                {"path": path, "group": n, "shape": list(shape),
-                 "fmt": "fp32"},
-                lambda: fused_update.adamw_store_update(
-                    w, g, m, v, mask, scalars, fmt="fp32"),
-                lambda: ref.adamw_store_update_ref(w, g, m, v, mask,
-                                                   scalars, "fp32"),
-                BYTES_PER_ELEM["fp32"] * numel, FLOPS_PER_ELEM * numel,
-                iters=20, phase="kernel_recurrent")
-            del w, g, m, v, mask
-        return rows
-
     def at_fill(cache, row, model) -> bool:
         """Every leaf of ``cache``'s batch row ``row`` at the model's
         empty value."""
@@ -3635,7 +4228,7 @@ def main() -> None:
                 fail(f"non-finite {key} metrics {m}")
         if abs(metrics[0]["loss"] - rloss0) > 1.0:
             fail(f"first {key} loss {metrics[0]['loss']} far from {rloss0}")
-        held = hold_update_at(key, rt)
+        held = hold_update_at(key, rt, fused_update, ref)
 
         # ---- 29. serve_recurrent: the trained weights, bf16 compute ------
         serve_key = "serve_" + key.split("_", 1)[1]
@@ -3732,6 +4325,9 @@ def main() -> None:
         del prompts, logits, lg
         torch.cuda.empty_cache()
 
+    # ---- 31-33. the cross-attention families at published width -------
+    cross = crossattn_phases()
+
     # ---- 26. the five examples on the card, then card vs CPU -----------
     from repro_torch.examples import (continuous_batching, muon_demo,
                                       quickstart, serve_moe, train_8bit_adam)
@@ -3801,8 +4397,11 @@ def main() -> None:
                                   v.get("adamw_store_update", 0)
                                   for v in ex_launches.values()),
                               "train_xlstm": rec["train_xlstm"]["launches"],
-                              "train_hymba": rec["train_hymba"]["launches"]},
-         "held_at": {k: v["held"] for k, v in rec.items()}},
+                              "train_hymba": rec["train_hymba"]["launches"],
+                              "train_encdec":
+                                  cross["train_encdec"]["launches"]},
+         "held_at": {**{k: v["held"] for k, v in rec.items()},
+                     "train_encdec": cross["train_encdec"]["held"]}},
         {**entry("adamw_store_update_q8", "adamw_store_update.cu",
                  "src/repro/kernels/fused_update.py:102",
                  q8_launches["adamw_q8"], q8stats["adamw_q8"]),
@@ -3821,8 +4420,11 @@ def main() -> None:
                               "train_sched": sum(
                                   v["quantize"]
                                   for v in sched_launches.values()),
-                              "ckpt": ckpt_launches["quantize"]},
-         "by_path": q8stats["quantize"]["by_path"]},
+                              "ckpt": ckpt_launches["quantize"],
+                              "serve_vision":
+                                  cross["serve_vision"]["quantize"]},
+         "by_path": {**q8stats["quantize"]["by_path"],
+                     "serve_vision": cross["q8"]["init"]}},
         {**entry("dequantize_into", "blockwise_quant.cu",
                  "src/repro/kernels/blockwise_quant.py:66",
                  q8_launches["dequantize_into"], q8stats["dequantize_into"]),
@@ -3832,8 +4434,12 @@ def main() -> None:
              "train_muon_q8": muon_launches["dequantize_into"],
              "train_sched": sum(v["dequantize_into"]
                                 for v in sched_launches.values()),
-             "ckpt": ckpt_launches["dequantize_into"]},
-         "by_path": q8stats["dequantize_into"]["by_path"]},
+             "ckpt": ckpt_launches["dequantize_into"],
+             "serve_vision": cross["serve_vision"]["q8_serve_matmul"]
+             + cross["serve_vision"]["q8_dense"]},
+         "by_path": {**q8stats["dequantize_into"]["by_path"],
+                     "serve_vision_int8_call": cross["q8"]["int8_call"],
+                     "serve_vision_dense_call": cross["q8"]["dense_call"]}},
         {**entry("dequantize", "blockwise_quant.cu",
                  "src/repro/kernels/blockwise_quant.py:144",
                  q8_launches["dequantize"], q8stats["dequantize"]),
@@ -3861,11 +4467,19 @@ def main() -> None:
         {**entry("q8_matmul_decode", "q8_matmul.cu",
                  "src/repro/kernels/q8_matmul.py:81",
                  serve_launches["decode"], q8mm_stats["decode"]),
-         "sliced": q8mm_sliced["decode"]},
+         "launches_by_path": {
+             "serve": serve_launches["decode"],
+             "serve_vision": cross["serve_vision"]["regimes"]["decode"]},
+         "sliced": q8mm_sliced["decode"],
+         "vision": cross["q8mm"]["decode"]},
         {**entry("q8_matmul_prefill", "q8_matmul.cu",
                  "src/repro/kernels/q8_matmul.py:81",
                  serve_launches["prefill"], q8mm_stats["prefill"]),
-         "sliced": q8mm_sliced["prefill"]},
+         "launches_by_path": {
+             "serve": serve_launches["prefill"],
+             "serve_vision": cross["serve_vision"]["regimes"]["prefill"]},
+         "sliced": q8mm_sliced["prefill"],
+         "vision": cross["q8mm"]["prefill"]},
         entry("adamw_store_update_fp8", "adamw_store_update.cu",
               "src/repro/kernels/fused_update.py:93",
               fp8_launches["train_fp8"]["adamw_fp8"], fp8stats["adamw_fp8"]),

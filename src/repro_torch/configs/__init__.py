@@ -5,9 +5,7 @@ import importlib
 
 from .base import SHAPES, ModelConfig, ParallelConfig, ShapeConfig, with_tp
 
-# public arch id -> module name (the reference registers twelve; the port
-# adds an id once it runs that family -- ROADMAP Queue 1 item 14b: the two
-# cross-attention families are left)
+# public arch id -> module name (the reference's twelve)
 _MODULES = {
     "qwen2.5-14b": "qwen2_5_14b",
     "qwen1.5-32b": "qwen1_5_32b",
@@ -21,11 +19,13 @@ _MODULES = {
     # the recurrent families
     "xlstm-125m": "xlstm_125m",
     "hymba-1.5b": "hymba_1_5b",
+    # the cross-attention families
+    "seamless-m4t-medium": "seamless_m4t_medium",
+    "llama-3.2-vision-90b": "llama_3_2_vision_90b",
 }
 
 ARCH_IDS = list(_MODULES)
-# the reference's ten assigned ids, in its order (the dry run's ``--all``);
-# the two cross-attention families the port lacks raise in ``get_config``
+# the reference's ten assigned ids, in its order (the dry run's ``--all``)
 ASSIGNED_ARCH_IDS = [
     "qwen2.5-14b", "llama-3.2-vision-90b", "qwen1.5-32b", "xlstm-125m",
     "hymba-1.5b", "seamless-m4t-medium", "granite-moe-1b-a400m",
@@ -34,27 +34,24 @@ ASSIGNED_ARCH_IDS = [
 
 
 def get_config(arch_id: str) -> ModelConfig:
-    if arch_id not in _MODULES:
-        raise NotImplementedError(
-            f"{arch_id!r} is not ported yet (ported: {ARCH_IDS}); other "
-            f"families come with ROADMAP Queue 1 item 14b")
     mod = importlib.import_module(f".{_MODULES[arch_id]}", __package__)
     return mod.CONFIG
 
 
 def build_model(cfg: ModelConfig):
+    from ..models.encdec import EncDecModel
     from ..models.recurrent import HymbaModel, XLSTMModel
     from ..models.transformer import DecoderLM
 
-    if cfg.arch_type in ("dense", "moe"):
+    if cfg.arch_type in ("dense", "moe", "vlm"):
         return DecoderLM(cfg)
     if cfg.arch_type == "ssm":
         return XLSTMModel(cfg)
     if cfg.arch_type == "hybrid":
         return HymbaModel(cfg)
-    raise NotImplementedError(
-        f"arch_type {cfg.arch_type!r} is not ported yet (ROADMAP Queue 1 "
-        f"item 14b)")
+    if cfg.arch_type == "audio":
+        return EncDecModel(cfg)
+    raise ValueError(cfg.arch_type)
 
 
 def supports_shape(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:

@@ -4,9 +4,6 @@
 The dataclasses keep the reference's field names and defaults so a config
 built on either side describes the same model; ``ModelConfig.reduced()``
 derives the same CPU smoke variant (2 layers, d_model<=256, vocab<=512).
-Fields the port cannot run yet (VLM, audio) stay so that the shapes line
-up field for field; ``models.transformer.DecoderLM`` raises
-``NotImplementedError`` on them.
 """
 from __future__ import annotations
 
@@ -84,7 +81,8 @@ class ModelConfig:
     moe_aux_coef: float = 0.01
     capacity_factor: float = 1.25
 
-    # --- vlm / audio (not ported; kept for field parity), ssm / hybrid ------
+    # --- vlm (patch embeddings in the batch), audio (frame embeddings),
+    # ssm / hybrid ---------------------------------------------------------
     cross_attn_interval: int = 0
     n_patches: int = 1024
     encoder_layers: int = 0

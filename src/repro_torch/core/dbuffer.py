@@ -47,20 +47,26 @@ class DBuffer:
         """Dense pack of full tensors into the (total,) fp32 global buffer
         (padding stays zero)."""
         out = np.zeros(self.plan.total, dtype=np.float32)
-        m, S = self.plan.num_shards, self.plan.shard_size
         for p in self.plan.placements:
-            a = np.asarray(arrays[p.spec.name], dtype=np.float32).reshape(-1)
-            if a.size != p.spec.size:
-                raise ValueError(f"{p.spec.name}: size mismatch")
-            if self.interleaved:
-                chunk, col = self._chunk_col(p)
-                padded = np.zeros(chunk * m, dtype=np.float32)
-                padded[:a.size] = a
-                out.reshape(m, S)[:, col:col + chunk] = \
-                    padded.reshape(m, chunk)
-            else:
-                out[p.offset:p.offset + a.size] = a
+            self.pack_one(out, p.spec.name, arrays[p.spec.name])
         return out
+
+    def pack_one(self, out: np.ndarray, name: str, a: np.ndarray) -> None:
+        """Write one full tensor into its place in ``out``, a zeroed (total,)
+        fp32 buffer; tensors write disjoint places, so several threads may
+        pack one buffer at once."""
+        p = next(q for q in self.plan.placements if q.spec.name == name)
+        a = np.asarray(a).reshape(-1)
+        if a.size != p.spec.size:
+            raise ValueError(f"{p.spec.name}: size mismatch")
+        if self.interleaved:
+            m, S = self.plan.num_shards, self.plan.shard_size
+            chunk, col = self._chunk_col(p)
+            padded = np.zeros(chunk * m, dtype=np.float32)
+            padded[:a.size] = a
+            out.reshape(m, S)[:, col:col + chunk] = padded.reshape(m, chunk)
+        else:
+            out[p.offset:p.offset + a.size] = a
 
     def unpack_np(self, flat: np.ndarray) -> dict[str, np.ndarray]:
         """Host-side inverse of pack (checkpoint restore, tests)."""

@@ -505,30 +505,36 @@ class FSDPRuntime:
         if self.device.type == "meta":
             return self.param_shapes()
         params = {}
-        # a layer's tensors are drawn on threads (numpy releases the GIL
-        # while it fills an array); each has its own generator, so the
-        # values do not depend on the order
+        # a layer's tensors are drawn and packed on threads (numpy releases
+        # the GIL while it fills or copies an array) straight into the
+        # group's buffer, each into its own place; each has its own
+        # generator, so the values do not depend on the order
         with ThreadPoolExecutor(max_workers=INIT_THREADS) as pool:
             for name, lo in self.layouts.items():
                 r = self.mesh.coords[lo.outer_axis] if lo.outer_axis else 0
-                layers = list(range(lo.n_layers)) if lo.n_layers else [None]
-                flats = []
-                for li in layers:
-                    arrays = {}
-                    drawn = pool.map(lambda s, li=li: self._init_tensor(
-                        s, seed, li), lo.gdef.specs)
-                    for s, a in zip(lo.gdef.specs, drawn):
-                        sd = lo.gdef.outer.get(s.name)
-                        if sd is not None and lo.outer_size > 1:
-                            a = np.split(a, lo.outer_size, axis=sd.dim)[r]
-                        arrays[s.name] = a
-                    flats.append(lo.buffer.pack(arrays))
-                arr = np.stack(flats) if lo.n_layers else flats[0]
+                total = lo.plan.total
+                arr = np.zeros((lo.n_layers, total) if lo.n_layers
+                               else (total,), dtype=np.float32)
+
+                def draw(s, li, lo=lo, r=r, arr=arr):
+                    a = self._init_tensor(s, seed, li)
+                    sd = lo.gdef.outer.get(s.name)
+                    if sd is not None and lo.outer_size > 1:
+                        a = np.split(a, lo.outer_size, axis=sd.dim)[r]
+                    lo.buffer.pack_one(arr if li is None else arr[li],
+                                       s.name, a)
+
+                list(pool.map(lambda job: draw(*job),
+                              [(s, li) for li in (range(lo.n_layers)
+                                                  if lo.n_layers else [None])
+                               for s in lo.gdef.specs]))
                 n = self._local_cols(lo)
                 f = self.mesh.index(lo.fsdp_axes) if lo.sharded else 0
+                mine = arr if n == total else np.ascontiguousarray(
+                    arr[..., f * n:(f + 1) * n])
                 params[name] = lo.store.create(
-                    _host_tensor(arr[..., f * n:(f + 1) * n], torch.float32)
-                    .to(self.device).requires_grad_(True))
+                    torch.from_numpy(mine).to(self.device)
+                    .requires_grad_(True))
         return params
 
     # ------------------------------------------------------------------ #

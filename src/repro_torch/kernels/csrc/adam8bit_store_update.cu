@@ -490,6 +490,7 @@ extern "C" int adam8bit_store_update_launch(
     float* ms_out, float* vs_out, long long n_blocks, int block, float lr,
     float b1, float b2, float eps, float wd, float c1, float c2, int fmt,
     int g_bf16, const float* g_scale, void* stream) {
+  (void)cudaGetLastError();  // an earlier call's error is not this launch's
   if (block < 1 || mask_len < block || mask_len % block) {
     return (int)cudaErrorInvalidValue;
   }
@@ -514,6 +515,7 @@ extern "C" int adam8bit_update_launch(
     void* m8_out, void* v8_out, float* ms_out, float* vs_out,
     long long n_blocks, int block, float lr, float b1, float b2, float eps,
     float wd, float c1, float c2, void* stream) {
+  (void)cudaGetLastError();  // an earlier call's error is not this launch's
   if (block < 1) return (int)cudaErrorInvalidValue;
   if (n_blocks <= 0) return (int)cudaSuccess;
   const Scalars s = adam::make_scalars(lr, b1, b2, eps, wd, c1, c2);

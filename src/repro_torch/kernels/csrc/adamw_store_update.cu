@@ -236,6 +236,7 @@ extern "C" int adamw_store_update_launch(const void* w, const void* g,
                                          float c1, float c2, int w_bf16,
                                          int g_bf16, int out,
                                          const float* g_scale, void* stream) {
+  (void)cudaGetLastError();  // an earlier call's error is not this launch's
   if (n <= 0) return (int)cudaSuccess;
   const Scalars s = make_scalars(lr, b1, b2, eps, wd, c1, c2);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
@@ -264,6 +265,7 @@ extern "C" int adamw_update_launch(const float* w, const float* g, const float* 
                                    float* m_out, float* v_out, long long n,
                                    float lr, float b1, float b2, float eps,
                                    float wd, float c1, float c2, void* stream) {
+  (void)cudaGetLastError();  // an earlier call's error is not this launch's
   if (n <= 0) return (int)cudaSuccess;
   const Scalars s = make_scalars(lr, b1, b2, eps, wd, c1, c2);
   return (int)launch<float, float, kOutF32>(
@@ -281,6 +283,7 @@ extern "C" int adamw_q8_launch(const float* w, const float* g, const float* m,
                                float* v_out, long long n_blocks, int block,
                                float lr, float b1, float b2, float eps, float wd,
                                float c1, float c2, void* stream) {
+  (void)cudaGetLastError();  // an earlier call's error is not this launch's
   if (block < 1) return (int)cudaErrorInvalidValue;
   if (n_blocks <= 0) return (int)cudaSuccess;
   const Scalars s = make_scalars(lr, b1, b2, eps, wd, c1, c2);

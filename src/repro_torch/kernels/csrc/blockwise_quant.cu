@@ -97,6 +97,7 @@ cudaError_t launch_dequantize(const int8_t* codes, const float* scales, T* out,
 // x: fp32, or bf16 when x_bf16 != 0; codes int8; scales fp32.
 extern "C" int quantize_launch(const void* x, int x_bf16, void* codes, float* scales,
                                long long n_blocks, int block, void* stream) {
+  (void)cudaGetLastError();  // an earlier call's error is not this launch's
   if (block < 1) return (int)cudaErrorInvalidValue;
   if (n_blocks <= 0) return (int)cudaSuccess;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
@@ -117,6 +118,7 @@ extern "C" int quantize_launch(const void* x, int x_bf16, void* codes, float* sc
 extern "C" int dequantize_into_launch(const void* codes, const float* scales, void* out,
                                       int out_bf16, long long n_blocks, int block,
                                       void* stream) {
+  (void)cudaGetLastError();  // an earlier call's error is not this launch's
   if (block < 1) return (int)cudaErrorInvalidValue;
   if (n_blocks <= 0) return (int)cudaSuccess;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);

@@ -81,6 +81,7 @@ cudaError_t launch(const T* ct, const float* ef, int8_t* codes, float* scales,
 extern "C" int encode_ef_launch(const void* ct, int ct_bf16, const float* ef,
                                 void* codes, float* scales, float* new_ef,
                                 long long n_blocks, int block, void* stream) {
+  (void)cudaGetLastError();  // an earlier call's error is not this launch's
   if (block < 1) return (int)cudaErrorInvalidValue;
   if (n_blocks <= 0) return (int)cudaSuccess;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);

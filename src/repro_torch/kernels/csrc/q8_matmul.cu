@@ -23,18 +23,22 @@
 //   where that still runs >= 2 waves of 132 SMs, else 64: wq and wk/wv 64,
 //   w1/w3 128).  Each CTA
 //     1. starts its KS x BC codes slab into shared memory with 16-byte
-//        cp.async copies, all in flight at once;
+//        cp.async copies, all in flight at once (where the slab is larger
+//        than 48 KB, as at llama-3.2-vision's K = 8192 and 28672, the
+//        first two chunks of KC rows of it, in two buffers);
 //     2. meanwhile computes x * s[j] on its own K slice (kept in shared
-//        memory) and its absmax per row;
+//        memory with the whole slab) and its absmax per row;
 //     3. reads the other CTAs' partial maxima from their shared memory
 //        (distributed shared memory, after a cluster barrier): the row
 //        absmax over the whole K without any CTA reading all of x, and no
 //        a8 / rs scratch or prologue launch;
-//     4. codes its slice, packed four k to a word;
-//     5. forms the products with dp4a: a thread takes a column quad and
-//        every kParts-th k-quad, reads four 4-byte rows, turns the 4 x 4 byte
-//        block into four k-quads with prmt and does M x 4 dp4a; the parts
-//        add up in shared memory;
+//     4. codes its slice (x * s[j] read back, or formed again with the same
+//        rounding where the slab is chunked), packed four k to a word;
+//     5. forms the products with dp4a, chunk by chunk of the slab (the
+//        chunk after next copied into the buffer just read): a thread
+//        takes a column quad and every kParts-th k-quad, reads four 4-byte
+//        rows, turns the 4 x 4 byte block into four k-quads with prmt and
+//        does M x 4 dp4a; the parts add up in shared memory;
 //     6. after a second cluster barrier adds the cluster's int32 sums of its
 //        share of the columns from the other CTAs' shared memory, scales by
 //        rs and writes y; a third barrier keeps every CTA's shared memory
@@ -152,16 +156,20 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
 }
 
 // the decode kernel's dynamic shared memory, 16-byte aligned pieces: the
-// codes slab (KS x BC bytes; afterwards the parts' int32 sums), the slice's
-// products x * s (fp32), their codes four k to a word, the CTA's sums
+// codes slab (the whole KS x BC slice where it fits kDecSlabMax, else two
+// buffers of KC x BC rows that the slice streams through; afterwards the
+// parts' int32 sums), the slice's products x * s (fp32; only with the
+// whole slab, else formed again), their codes four k to a word, the CTA's
+// sums
+constexpr size_t kDecSlabMax = 48 * 1024;
 struct DecSmem {
   size_t slab, prod, codes, sums, total;
-  __host__ __device__ DecSmem(int mmax, int ks, int bc) {
-    const size_t a = (size_t)ks * bc;
+  __host__ __device__ DecSmem(int mmax, int ks, int bc, int kc) {
+    const size_t a = (size_t)(kc < ks ? 2 : 1) * kc * bc;
     const size_t b = (size_t)(kDecThreads / (bc / 4)) * mmax * bc * 4;
     slab = ((a > b ? a : b) + 15) / 16 * 16;
     prod = slab;
-    codes = prod + (size_t)mmax * ks * 4;
+    codes = prod + (kc < ks ? 0 : (size_t)mmax * ks * 4);
     sums = codes + ((size_t)mmax * ks + 15) / 16 * 16;
     total = sums + (size_t)mmax * bc * 4;
   }
@@ -169,13 +177,16 @@ struct DecSmem {
 
 // grid (CS, tiles) in clusters of (CS, 1): tile blockIdx.y = (group j,
 // column tile of BC columns), cluster rank = the K slice [rank * KS, ...).
-// VEC: 16-byte copies of the codes (codes 16-byte aligned, N and the group
-// width multiples of 16), else bytes.
-template <int MMAX, int BC, bool VEC, typename T, typename OutT>
+// CHUNKED: the codes slab in chunks of KC rows through two buffers, the
+// products formed again in step 4; else the whole slab (KC = KS) and the
+// products kept, a separate instantiation.  VEC: 16-byte copies of the
+// codes (codes 16-byte aligned, N and the group width multiples of 16),
+// else bytes.
+template <int MMAX, int BC, bool VEC, bool CHUNKED, typename T, typename OutT>
 __global__ void __launch_bounds__(kDecThreads, MMAX <= 4 ? 5 : 2)
     q8mm_decode_kernel(const T* __restrict__ x, const float* __restrict__ scales,
                        const int8_t* __restrict__ codes, OutT* __restrict__ out, int M, int K,
-                       int N, int nj, int r, int tiles_c, int KS) {
+                       int N, int nj, int r, int tiles_c, int KS, int KC) {
   constexpr int kQuads = BC / 4;                 // a thread's column quad
   constexpr int kParts = kDecThreads / kQuads;   // parts of the slice's k-quads
   cg::cluster_group cluster = cg::this_cluster();
@@ -193,37 +204,49 @@ __global__ void __launch_bounds__(kDecThreads, MMAX <= 4 ? 5 : 2)
   const int k0 = rank * KS;
   const int tid = threadIdx.x;
   const int KQ = KS / 4;
-  const DecSmem lay(MMAX, KS, BC);
+  const int nch = CHUNKED ? (KS + KC - 1) / KC : 1;
+  const DecSmem lay(MMAX, KS, BC, KC);
+  constexpr bool keep = !CHUNKED;                // the products kept
   uint8_t* slab = dsm;
   float* prod = reinterpret_cast<float*>(dsm + lay.prod);        // [m][KS]
   uint32_t* a8w = reinterpret_cast<uint32_t*>(dsm + lay.codes);  // [m][KQ]
   int* sums = reinterpret_cast<int*>(dsm + lay.sums);            // [m][BC]
 
-  // 1. the codes slab, rows k0.. of columns c0.. of group j (zero past the
-  //    edges), in flight while x is quantized
-  for (int v = tid; v < KS * (BC / 16); v += kDecThreads) {
-    const int kk = v / (BC / 16), cc = (v % (BC / 16)) * 16;
-    const int k = k0 + kk;
-    uint8_t* dst = slab + kk * BC + cc;
-    const int8_t* src = codes + (long long)k * N + gcol0 + cc;
-    if (VEC) {
-      const bool in = k < K && c0 + cc < ncols;
-      cp_async16(dst, in ? src : codes, in ? 16 : 0);
-    } else {
-      uint32_t w[4] = {0u, 0u, 0u, 0u};
-      if (k < K) {
+  // chunk c of the codes slab (rows k0 + c * KC.. of columns c0.. of group
+  // j, zero past the edges) into buffer buf, one cp.async group
+  auto stage = [&](int c, int buf) {
+    const int r0 = c * KC, rows = min(KC, KS - r0);
+    uint8_t* base = slab + (size_t)buf * KC * BC;
+    for (int v = tid; v < rows * (BC / 16); v += kDecThreads) {
+      const int kk = v / (BC / 16), cc = (v % (BC / 16)) * 16;
+      const int k = k0 + r0 + kk;
+      uint8_t* dst = base + kk * BC + cc;
+      const int8_t* src = codes + (long long)k * N + gcol0 + cc;
+      if (VEC) {
+        const bool in = k < K && c0 + cc < ncols;
+        cp_async16(dst, in ? src : codes, in ? 16 : 0);
+      } else {
+        uint32_t w[4] = {0u, 0u, 0u, 0u};
+        if (k < K) {
 #pragma unroll
-        for (int e = 0; e < 16; ++e) {
-          if (c0 + cc + e < ncols) w[e >> 2] |= (uint32_t)(uint8_t)src[e] << (8 * (e & 3));
+          for (int e = 0; e < 16; ++e) {
+            if (c0 + cc + e < ncols) w[e >> 2] |= (uint32_t)(uint8_t)src[e] << (8 * (e & 3));
+          }
         }
+        *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
       }
-      *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
     }
-  }
-  if (VEC) asm volatile("cp.async.commit_group;\n" ::: "memory");
+    if (VEC) asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
 
-  // 2. a = x * s[j] on this CTA's K slice (zero past K), kept; its absmax.
-  //    Two k a thread have their loads in flight at once.
+  // 1. the first two chunks of the codes slab (the whole slab where it is
+  //    one chunk), in flight while x is quantized
+  stage(0, 0);
+  if (CHUNKED && nch > 1) stage(1, 1);
+
+  // 2. a = x * s[j] on this CTA's K slice (zero past K), kept with the
+  //    whole slab (else step 4 forms it again); its absmax.  Two k a thread
+  //    have their loads in flight at once.
   float amax[MMAX];
 #pragma unroll
   for (int m = 0; m < MMAX; ++m) amax[m] = 0.f;
@@ -248,7 +271,7 @@ __global__ void __launch_bounds__(kDecThreads, MMAX <= 4 ? 5 : 2)
         for (int m = 0; m < MMAX; ++m) {
           if (m < M) {
             const float a = k < K ? __fmul_rn(xv[i][m], sv[i]) : 0.f;
-            prod[m * KS + kk] = a;
+            if constexpr (keep) prod[m * KS + kk] = a;
             amax[m] = fmaxf(amax[m], fabsf(a));
           }
         }
@@ -288,20 +311,32 @@ __global__ void __launch_bounds__(kDecThreads, MMAX <= 4 ? 5 : 2)
   }
   __syncthreads();
 
-  // 4. the int8 codes of this K slice, four k to a word
+  // 4. the int8 codes of this K slice, four k to a word (a = x * s[j]
+  //    read back, or formed again with the same rounding as in step 2)
   for (int v = tid; v < M * KQ; v += kDecThreads) {
     const int m = v / KQ, q = v % KQ;
     const float inv = inv_s[m];
-    const float4 a4 = *reinterpret_cast<const float4*>(prod + m * KS + 4 * q);
-    a8w[m * KQ + q] = (uint32_t)(uint8_t)(int8_t)code_of(a4.x, inv) |
-                      (uint32_t)(uint8_t)(int8_t)code_of(a4.y, inv) << 8 |
-                      (uint32_t)(uint8_t)(int8_t)code_of(a4.z, inv) << 16 |
-                      (uint32_t)(uint8_t)(int8_t)code_of(a4.w, inv) << 24;
+    float a[4];
+    if constexpr (keep) {
+      const float4 a4 = *reinterpret_cast<const float4*>(prod + m * KS + 4 * q);
+      a[0] = a4.x, a[1] = a4.y, a[2] = a4.z, a[3] = a4.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = k0 + 4 * q + e;
+        a[e] = k < K ? __fmul_rn(to_f32(x[(long long)m * K + k]),
+                                 folded_scale(scales, k, j, nj, r))
+                     : 0.f;
+      }
+    }
+    a8w[m * KQ + q] = (uint32_t)(uint8_t)(int8_t)code_of(a[0], inv) |
+                      (uint32_t)(uint8_t)(int8_t)code_of(a[1], inv) << 8 |
+                      (uint32_t)(uint8_t)(int8_t)code_of(a[2], inv) << 16 |
+                      (uint32_t)(uint8_t)(int8_t)code_of(a[3], inv) << 24;
   }
-  if (VEC) asm volatile("cp.async.wait_all;\n" ::: "memory");
-  __syncthreads();
 
-  // 5. int32 products: thread = (column quad cq, part); part takes the
+  // 5. int32 products, chunk by chunk of the slab (the next chunk's copies
+  //    in flight): thread = (column quad cq, part); part takes the chunk's
   //    k-quads part, part + kParts, ...
   const int cq = tid % kQuads, part = tid / kQuads;
   int acc[MMAX][4];
@@ -309,25 +344,40 @@ __global__ void __launch_bounds__(kDecThreads, MMAX <= 4 ? 5 : 2)
   for (int m = 0; m < MMAX; ++m)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[m][c] = 0;
-  const uint32_t* words = reinterpret_cast<const uint32_t*>(slab);
-  for (int q = part; q < KQ; q += kParts) {
-    const uint32_t* p = words + 4 * q * kQuads + cq;
-    const uint32_t w0 = p[0], w1 = p[kQuads], w2 = p[2 * kQuads], w3 = p[3 * kQuads];
-    // rows k..k+3 x columns 4cq..4cq+3 -> per column the k-quad
-    const uint32_t t0 = __byte_perm(w0, w1, 0x5140), t1 = __byte_perm(w2, w3, 0x5140);
-    const uint32_t t2 = __byte_perm(w0, w1, 0x7362), t3 = __byte_perm(w2, w3, 0x7362);
-    const int col[4] = {(int)__byte_perm(t0, t1, 0x5410), (int)__byte_perm(t0, t1, 0x7632),
-                        (int)__byte_perm(t2, t3, 0x5410), (int)__byte_perm(t2, t3, 0x7632)};
-#pragma unroll
-    for (int m = 0; m < MMAX; ++m) {
-      if (m < M) {
-        const int a = (int)a8w[m * KQ + q];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[m][c] = __dp4a(col[c], a, acc[m][c]);
+  for (int ch = 0; ch < nch; ++ch) {
+    if (VEC) {
+      if (ch + 1 < nch) {
+        asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      } else {
+        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
       }
     }
+    __syncthreads();
+    const uint32_t* words =
+        reinterpret_cast<const uint32_t*>(slab + (size_t)(ch & 1) * KC * BC);
+    const int q0 = ch * (KC / 4), nq = min(KC, KS - ch * KC) / 4;
+    for (int qq = part; qq < nq; qq += kParts) {
+      const int q = q0 + qq;
+      const uint32_t* p = words + 4 * qq * kQuads + cq;
+      const uint32_t w0 = p[0], w1 = p[kQuads], w2 = p[2 * kQuads], w3 = p[3 * kQuads];
+      // rows k..k+3 x columns 4cq..4cq+3 -> per column the k-quad
+      const uint32_t t0 = __byte_perm(w0, w1, 0x5140), t1 = __byte_perm(w2, w3, 0x5140);
+      const uint32_t t2 = __byte_perm(w0, w1, 0x7362), t3 = __byte_perm(w2, w3, 0x7362);
+      const int col[4] = {(int)__byte_perm(t0, t1, 0x5410), (int)__byte_perm(t0, t1, 0x7632),
+                          (int)__byte_perm(t2, t3, 0x5410), (int)__byte_perm(t2, t3, 0x7632)};
+  #pragma unroll
+      for (int m = 0; m < MMAX; ++m) {
+        if (m < M) {
+          const int a = (int)a8w[m * KQ + q];
+  #pragma unroll
+          for (int c = 0; c < 4; ++c) acc[m][c] = __dp4a(col[c], a, acc[m][c]);
+        }
+      }
+    }
+    __syncthreads();  // every thread is done with buffer ch & 1
+    if (ch + 2 < nch) stage(ch + 2, ch & 1);
   }
-  __syncthreads();  // the slab is read: its space takes the parts' sums
+  // the slab is read: its space takes the parts' sums
   int* parts = reinterpret_cast<int*>(slab);     // [part][m][column]
 #pragma unroll
   for (int m = 0; m < MMAX; ++m) {
@@ -364,11 +414,14 @@ __global__ void __launch_bounds__(kDecThreads, MMAX <= 4 ? 5 : 2)
 
 // the decode tiling: cluster size CS (a power of two, <= 8, K rows a slice
 // >= 64), columns a CTA BC (128 where that still runs >= 2 waves of the
-// card's SMs, else 64), K rows a slice KS (a multiple of 4).  Measured on
+// card's SMs, else 64), K rows a slice KS (a multiple of 4), rows a slab
+// chunk KC (KS where the slab fits kDecSlabMax, as at gemma2-2b's K =
+// 2304; else two buffers in it: llama-3.2-vision's K = 8192 and 28672,
+// whose whole slab would not fit a CTA's shared memory).  Measured on
 // the H100 at gemma2-2b's shapes (PERF.md): clusters of 16 and 256-column
 // tiles (larger slabs, fewer CTAs an SM) ran up to 1.5x slower.
 struct DecPlan {
-  int cs, bc, ks, tiles_c;
+  int cs, bc, ks, kc, tiles_c;
 };
 
 inline DecPlan decode_plan(int K, int N, int nj) {
@@ -379,6 +432,9 @@ inline DecPlan decode_plan(int K, int N, int nj) {
   p.bc = (long long)nj * ((ncols + 127) / 128) * p.cs >= 2 * kSMs ? 128 : 64;
   p.tiles_c = (ncols + p.bc - 1) / p.bc;
   p.ks = ((K + p.cs - 1) / p.cs + 3) / 4 * 4;
+  p.kc = (size_t)p.ks * p.bc <= kDecSlabMax
+             ? p.ks
+             : (int)(kDecSlabMax / 2 / p.bc) / 4 * 4;
   return p;
 }
 
@@ -386,8 +442,9 @@ template <int MMAX, int BC, bool VEC, typename T, typename OutT>
 cudaError_t launch_decode_bc(const DecPlan& p, const T* x, const float* scales,
                              const int8_t* codes, OutT* out, int M, int K, int N, int nj,
                              int r, cudaStream_t st) {
-  auto* kern = q8mm_decode_kernel<MMAX, BC, VEC, T, OutT>;
-  const size_t smem = DecSmem(MMAX, p.ks, BC).total;
+  auto* kern = p.kc < p.ks ? q8mm_decode_kernel<MMAX, BC, VEC, true, T, OutT>
+                           : q8mm_decode_kernel<MMAX, BC, VEC, false, T, OutT>;
+  const size_t smem = DecSmem(MMAX, p.ks, BC, p.kc).total;
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
@@ -403,7 +460,7 @@ cudaError_t launch_decode_bc(const DecPlan& p, const T* x, const float* scales,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kern, x, scales, codes, out, M, K, N, nj, r, p.tiles_c,
-                           p.ks);
+                           p.ks, p.kc);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -999,6 +1056,7 @@ extern "C" int q8_matmul_launch(const void* x, int x_bf16, const void* codes, in
                                 int nj, int r, int Kp, int regime, void* stream) {
   if (M <= 0 || N <= 0) return (int)cudaSuccess;
   if (K <= 0 || nj <= 0 || N % nj != 0) return (int)cudaErrorInvalidValue;
+  (void)cudaGetLastError();  // an earlier call's error is not this launch's
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int8_t* c = reinterpret_cast<const int8_t*>(codes);
   if (regime != 1 && regime != 2) return (int)cudaErrorInvalidValue;

@@ -361,7 +361,9 @@ def parse_args(argv=None):
                     help="axis sizes DxM or PxDxM (pod, data, model) in "
                          "place of the production mesh")
     ap.add_argument("--layers", type=int, default=None,
-                    help="cut the config to this many layers")
+                    help="cut the config to this many layers (an "
+                         "encoder-decoder's two stacks each; a VLM's "
+                         "depth a multiple of its cross_attn_interval)")
     ap.add_argument("--batch", type=int, default=None,
                     help="with --seq: a train shape of this global batch "
                          "in place of --shape")
@@ -378,6 +380,18 @@ def _axis_sizes(spec: str | None):
     if names is None:
         raise ValueError(f"--mesh takes DxM or PxDxM, got {spec!r}")
     return dict(zip(names, sizes))
+
+
+def _depth(arch: str, layers: int) -> dict:
+    """The config fields ``--layers`` sets: ``n_layers``, and an
+    encoder-decoder's ``encoder_layers`` too (the reference's
+    ``_with_blocks`` cuts both stacks alike); a VLM depth that is not a
+    multiple of its interval raises in ``DecoderLM`` (an error row)."""
+    from ..configs import get_config
+
+    if get_config(arch).arch_type == "audio":
+        return {"n_layers": layers, "encoder_layers": layers}
+    return {"n_layers": layers}
 
 
 def main(argv=None) -> list[dict]:
@@ -425,7 +439,7 @@ def main(argv=None) -> list[dict]:
                 if args.optimized and arch in OPTIMIZED_PARALLEL:
                     ov["parallel"] = OPTIMIZED_PARALLEL[arch]
                 if args.layers is not None:
-                    ov["n_layers"] = args.layers
+                    ov.update(_depth(arch, args.layers))
                 r = run_one(arch, shape, multi_pod=args.multi_pod,
                             planner=args.planner,
                             calibrate=not args.no_calibrate,

@@ -1,7 +1,7 @@
 """Where the device time of one ZeRO-3 step (train or decode) goes.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_step \
-        [--config gemma2|qwen3-moe|qwen2.5-muon|xlstm|hymba] \
+        [--config gemma2|qwen3-moe|qwen2.5-muon|xlstm|hymba|seamless|vision] \
         [--store fp32|bf16|fp8_e4m3|fp8_e5m2|q8_block | --q8 | --serve
          | --schedule NAME] [--planner ragged|fsdp2|megatron|naive]
         [--ce-chunk N] [--microbatches N]
@@ -14,7 +14,13 @@ published width, depth cut to 2 layers, batch 1 x 2048, Muon
 (``train_muon_q8`` runs it with ``--store q8_block``); ``xlstm``:
 xlstm-125m at published width and depth (12 layers), batch 2 x 2048,
 AdamW; ``hymba``: hymba-1.5b at published width cut to 4 layers, batch 2
-x 2048, AdamW (``train_xlstm``, ``train_hymba``) -- with bf16 compute
+x 2048, AdamW (``train_xlstm``, ``train_hymba``); ``seamless``:
+seamless-m4t-medium at published width and depth (12 + 12 layers), batch
+2 x 2048 with 2,048 frames, AdamW (``train_encdec``); ``vision``:
+llama-3.2-vision-90b at published width cut to one block (4 self layers
+and a cross layer), batch 1 x 1024 with 1,024 patches, Adam8bit (give it
+``--store bf16``, ``train_vision``'s store; ``--serve`` is
+``serve_vision``'s int8 decode) -- with bf16 compute
 and the
 ``--store`` parameter store (fp32 by default; or, with ``--q8``, the
 q8_block store and the q8 gradient wire with error feedback on every
@@ -30,8 +36,10 @@ a decode step instead: the config on the q8_block store with
 4 x 512 tokens into a 1024-slot cache, two warm-up decode steps at batch
 4).  It prints JSON lines:
 the step's wall time, the summed device time of its kernels by category
-(matmul, optimizer kernel, q8 codec kernels, collective, other) and the device's idle share
-of the step, then the kernels with the most device time.  Needs a CUDA
+(matmul, optimizer kernel, q8 codec kernels, collective, other), the
+device's idle share of the step and the run's peak device memory
+(``max_memory_allocated``: set-up, warm-up and the step), then the
+kernels with the most device time.  Needs a CUDA
 card; it does not run on the CPU.
 """
 from __future__ import annotations
@@ -74,7 +82,9 @@ CONFIGS = {"gemma2": ("gemma2-2b", 4, 2, 2048, None),
            "qwen3-moe": ("qwen3-moe-235b-a22b", 1, 1, 2048, None),
            "qwen2.5-muon": ("qwen2.5-14b", 2, 1, 2048, "muon"),
            "xlstm": ("xlstm-125m", 12, 2, 2048, None),
-           "hymba": ("hymba-1.5b", 4, 2, 2048, None)}
+           "hymba": ("hymba-1.5b", 4, 2, 2048, None),
+           "seamless": ("seamless-m4t-medium", 12, 2, 2048, None),
+           "vision": ("llama-3.2-vision-90b", 5, 1, 1024, "adam8bit")}
 WARMUP, TOP = 2, 15
 NAMED = {**VARIANTS, **APPROX_VARIANTS}
 # the serve mode's batch, prompt length and cache length
@@ -117,6 +127,20 @@ def train_step(cfg, args):
     return run, name
 
 
+def serve_inputs(cfg, rng, batch: int, device) -> dict:
+    """A VLM's patches or an encoder-decoder's frames for a serve batch
+    (as ``launch.serve`` draws them), else nothing."""
+    if cfg.arch_type == "vlm":
+        shape = (batch, cfg.n_patches, cfg.d_model)
+    elif cfg.arch_type == "audio":
+        shape = (batch, cfg.n_frames, cfg.d_model)
+    else:
+        return {}
+    key = "patches" if cfg.arch_type == "vlm" else "frames"
+    return {key: torch.from_numpy(rng.normal(size=shape))
+            .to(torch.bfloat16).to(device)}
+
+
 def decode_step(cfg, args):
     """Prefill and warm a decode step up on the q8_block store with the
     int8 matmuls; returns a closure running one more decode step."""
@@ -130,13 +154,16 @@ def decode_step(cfg, args):
     rng = np.random.default_rng(0)
     tokens = torch.from_numpy(rng.integers(
         0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT))).to(rt.device)
+    extra = serve_inputs(cfg, rng, SERVE_BATCH, rt.device)
     cache = rt.init_cache(SERVE_BATCH, SERVE_LEN)
-    logits, cache = rt.make_prefill_step()(params, {"tokens": tokens}, cache)
+    logits, cache = rt.make_prefill_step()(
+        params, {"tokens": tokens, **extra}, cache)
     decode = rt.make_decode_step()
     state = {"tok": torch.argmax(logits, -1), "pos": SERVE_PROMPT}
 
     def run():
-        lg, _ = decode(params, {"tokens": state["tok"]}, cache, state["pos"])
+        lg, _ = decode(params, {"tokens": state["tok"], **extra}, cache,
+                       state["pos"])
         state["tok"] = torch.argmax(lg, -1)
         state["pos"] += 1
         return float(lg.float().abs().mean())
@@ -228,7 +255,9 @@ def main() -> None:
         "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
         "kernel_ms_by_category": {k: v / 1e3 for k, v in
                                   sorted(by_cat.items())},
-        "kernel_launches": len(kernels)}), flush=True)
+        "kernel_launches": len(kernels),
+        "max_memory_allocated": torch.cuda.max_memory_allocated()}),
+        flush=True)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP]
     for name, (us, count) in top:
         print(json.dumps({"kernel": name[:120], "category": category(name),

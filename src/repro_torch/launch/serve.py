@@ -18,6 +18,9 @@ cache does: a reduced config (as many KV heads as query heads) raises its
 ``ValueError``.  Every rank returns the whole vocabulary's logits, and
 holds its own part of the cache (``FSDPRuntime.init_cache``);
 ``--cache-bytes`` prints that part's bytes beside the global cache's.
+A VLM's prompt carries ``patches`` (B, n_patches, d_model) and an
+encoder-decoder's ``frames`` (B, n_frames, d_model), bf16 normals drawn
+after the tokens, as the reference's; every decode step gets them too.
 """
 from __future__ import annotations
 
@@ -87,6 +90,12 @@ def serve(cfg, args, group) -> list:
     dev = runtime.device
     batch = {"tokens": torch.from_numpy(
         rng.integers(0, cfg.vocab, (B, P))).to(dev)}
+    if cfg.arch_type == "vlm":
+        batch["patches"] = torch.from_numpy(rng.normal(
+            size=(B, cfg.n_patches, cfg.d_model))).to(torch.bfloat16).to(dev)
+    if cfg.arch_type == "audio":
+        batch["frames"] = torch.from_numpy(rng.normal(
+            size=(B, cfg.n_frames, cfg.d_model))).to(torch.bfloat16).to(dev)
     cache = runtime.init_cache(B, P + args.gen)
     say = print if rank == 0 else (lambda *a, **k: None)
 
@@ -104,8 +113,8 @@ def serve(cfg, args, group) -> list:
     out_tokens = [nxt]
     t0 = time.perf_counter()
     for i in range(args.gen - 1):
-        logits, cache = decode(params, {"tokens": nxt[:, None]}, cache,
-                               P + i)
+        logits, cache = decode(params, {**batch, "tokens": nxt[:, None]},
+                               cache, P + i)
         nxt = torch.argmax(logits[:, -1], dim=-1)
         out_tokens.append(nxt)
     sync()
@@ -125,8 +134,8 @@ def cache_bytes(cfg, args) -> dict:
     tensors on the meta device: ``global`` the whole cache, ``rank`` one
     rank's part (``core.fsdp.local_cache_shapes``: its rows of the batch
     split over the data axis, where it divides, and under tp one KV head
-    slot), per leaf (a nested cache's by its path, ``ssm/conv``) and in
-    total."""
+    slot), per leaf (a nested cache's by its path, ``ssm/conv``; the
+    encoder-decoder's ``memory`` beside its KV leaves) and in total."""
     import torch
 
     from ..configs import build_model

@@ -24,19 +24,26 @@ def _meta(shape, dtype) -> torch.Tensor:
 
 
 def batch_specs(cfg: ModelConfig, shape: ShapeConfig, runtime):
-    """The step's token batch for one (arch, shape) pair: int64 tokens (the
-    data stream's ``shard`` dtype), rank 0's rows of a train batch, the
-    global rows of a serve batch; one position a row for decode."""
-    if cfg.arch_type in ("vlm", "audio"):
-        raise NotImplementedError(
-            f"{cfg.arch_type} inputs (patches, frames) are not ported yet "
-            f"(ROADMAP Queue 1 item 14b)")
+    """The step's batch for one (arch, shape) pair: int64 tokens (the data
+    stream's ``shard`` dtype), a VLM's bf16 ``patches`` (B, n_patches,
+    d_model) and an encoder-decoder's bf16 ``frames`` (B, min(n_frames,
+    seq_len), d_model), as the reference's; rank 0's rows of a train
+    batch, the global rows of a serve batch; one position a row for
+    decode."""
     B = shape.global_batch
     T = shape.seq_len if shape.kind != "decode" else 1
     if shape.kind == "train":
         lo, hi = runtime.batch_slice(B)
         B = hi - lo
-    return {"tokens": _meta((B, T), torch.long)}
+    batch = {"tokens": _meta((B, T), torch.long)}
+    if cfg.arch_type == "vlm":
+        batch["patches"] = _meta((B, cfg.n_patches, cfg.d_model),
+                                 torch.bfloat16)
+    if cfg.arch_type == "audio":
+        batch["frames"] = _meta(
+            (B, min(cfg.n_frames, shape.seq_len), cfg.d_model),
+            torch.bfloat16)
+    return batch
 
 
 def cache_specs(cfg: ModelConfig, shape: ShapeConfig, runtime, model):

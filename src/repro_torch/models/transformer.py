@@ -1,5 +1,5 @@
-"""Decoder-only transformer LM, dense and MoE (port of
-``repro/models/transformer.py``).
+"""Decoder-only transformer LM: dense, MoE and the VLM cross-attention
+variant (port of ``repro/models/transformer.py``).
 
 The model is written against the ParamGetter protocol of
 ``core.fsdp``: ``pg.globals(group)`` returns the gathered, unpacked tensors
@@ -31,10 +31,19 @@ blocks are split over the sequence.  Under expert parallelism (``ep`` >
 tokens travel to them and back by two all-to-alls (``models.moe``).
 Under tensor parallelism the serve cache replicates the KV heads, one
 slot per rank of the model axis (``cache_shapes``, the global cache; a
-rank holds its own part, ``FSDPRuntime.init_cache``).  VLM cross-attention
-raises ``NotImplementedError`` naming its ROADMAP item.  The recurrent
-families (``models.recurrent``) build on this module's ``GroupDef`` and
-``spec``.
+rank holds its own part, ``FSDPRuntime.init_cache``).
+
+The VLM (llama-3.2-vision, ``cross_attn_interval`` k > 0): each scanned
+block holds k - 1 self layers, their tensors prefixed ``s{i}_``, then one
+cross layer -- cross-attention onto ``batch["patches"]`` (``x_*``) and
+an MLP (``c_*``), each added through the tanh of its gate (``x_gate``,
+``c_gate``, shape (1,)).  The window table is read as (n_blocks, k)[:, :k
+- 1] and the cache holds (n_blocks, k - 1) layers.  Without patches in
+the batch the cross layers are skipped, as the reference's are; serving
+recomputes the cross K/V from the patches at every call, as the
+reference does (the decode batch carries them).  The recurrent families
+(``models.recurrent``) and the encoder-decoder (``models.encdec``) build
+on this module's ``GroupDef`` and ``spec``.
 """
 from __future__ import annotations
 
@@ -78,41 +87,48 @@ def spec(cfg, name, shape) -> TensorSpec:
     return TensorSpec(name, tuple(shape), granularity=_gran(cfg, shape))
 
 
-def _check_supported(cfg) -> None:
-    if cfg.cross_attn_interval > 0:
-        raise NotImplementedError(
-            "VLM cross-attention is not ported yet (ROADMAP Queue 1 item "
-            "14b)")
-
-
 class DecoderLM:
     def __init__(self, cfg):
-        _check_supported(cfg)
         self.cfg = cfg
         self.tp = cfg.parallel.tp
         self.ep = cfg.parallel.ep
-        # no VLM cross-attention blocks: one self layer per scanned block
-        self.n_blocks = cfg.n_layers
-        self.selfs_per_block = 1
+        self.is_vlm = cfg.cross_attn_interval > 0
+        if self.is_vlm:
+            if cfg.n_layers % cfg.cross_attn_interval:
+                raise ValueError(
+                    f"n_layers={cfg.n_layers} not divisible by "
+                    f"cross_attn_interval={cfg.cross_attn_interval}")
+            self.n_blocks = cfg.n_layers // cfg.cross_attn_interval
+            self.selfs_per_block = cfg.cross_attn_interval - 1
+        else:
+            self.n_blocks = cfg.n_layers
+            self.selfs_per_block = 1
 
     # ---------------- specs ------------------------------------------------
-    def _self_layer_specs(self):
+    def _adder(self, sharded, replicated, outer, prefix=""):
+        """``add(name, shape, dim)``: under tp > 1 a tensor with a TP dim
+        is split on it, the rest is replicated; at tp = 1 every tensor is
+        in ``sharded``."""
+        cfg, tp = self.cfg, self.tp
+
+        def add(name, shape, dim=None):
+            s = spec(cfg, prefix + name, shape)
+            if tp > 1 and dim is not None:
+                outer[s.name] = ShardDim(dim, "model")
+            (replicated if tp > 1 and dim is None else sharded).append(s)
+
+        return add
+
+    def _self_layer_specs(self, prefix=""):
         """(specs split over the model axis, replicated specs, outer
-        dims): under tp > 1 a tensor with a TP dim is split on it, the
-        rest is replicated; at tp = 1 every tensor is in the first list
-        (the reference's ``_self_layer_specs``)."""
+        dims) of one self layer, its names prefixed (the reference's
+        ``_self_layer_specs``)."""
         cfg = self.cfg
         D, hd = cfg.d_model, cfg.hd
         Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
-        tp = self.tp
-        kv_dim = 1 if min(tp, Hkv) == tp else None
+        kv_dim = 1 if min(self.tp, Hkv) == self.tp else None
         sharded, replicated, outer = [], [], {}
-
-        def add(name, shape, dim=None):
-            s = spec(cfg, name, shape)
-            if tp > 1 and dim is not None:
-                outer[name] = ShardDim(dim, "model")
-            (replicated if tp > 1 and dim is None else sharded).append(s)
+        add = self._adder(sharded, replicated, outer, prefix)
 
         add("ln1", (D,))
         add("wq", (D, Hq * hd), dim=1)
@@ -126,7 +142,7 @@ class DecoderLM:
         if cfg.post_norms:
             add("post_ln1", (D,))
         add("ln2", (D,))
-        if cfg.n_experts:
+        if cfg.n_experts and not prefix:
             # the router lives in the layer group; the experts are a group
             # of their own (see groups())
             add("moe_router", (D, cfg.n_experts))
@@ -139,9 +155,40 @@ class DecoderLM:
             add("post_ln2", (D,))
         return sharded, replicated, outer
 
+    def _cross_layer_specs(self):
+        """The VLM's cross layer: the cross-attention (``x_*``) and its
+        MLP (``c_*``), each with a (1,) gate (the reference's)."""
+        cfg = self.cfg
+        D, hd = cfg.d_model, cfg.hd
+        Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
+        kv_dim = 1 if min(self.tp, Hkv) == self.tp else None
+        sharded, replicated, outer = [], [], {}
+        add = self._adder(sharded, replicated, outer)
+        add("x_lnq", (D,))
+        add("x_wq", (D, Hq * hd), dim=1)
+        add("x_wk", (D, Hkv * hd), dim=kv_dim)
+        add("x_wv", (D, Hkv * hd), dim=kv_dim)
+        add("x_wo", (Hq * hd, D), dim=0)
+        add("x_gate", (1,))
+        add("c_ln2", (D,))
+        add("c_w1", (D, cfg.d_ff), dim=1)
+        if cfg.mlp in ("swiglu", "geglu"):
+            add("c_w3", (D, cfg.d_ff), dim=1)
+        add("c_w2", (cfg.d_ff, D), dim=0)
+        add("c_gate", (1,))
+        return sharded, replicated, outer
+
     def groups(self) -> dict[str, GroupDef]:
         cfg = self.cfg
-        sharded, replicated, outer = self._self_layer_specs()
+        sharded, replicated, outer = [], [], {}
+        parts = [self._self_layer_specs(f"s{i}_" if self.is_vlm else "")
+                 for i in range(self.selfs_per_block)]
+        if self.is_vlm:
+            parts.append(self._cross_layer_specs())
+        for sh, rep, out in parts:
+            sharded += sh
+            replicated += rep
+            outer.update(out)
         groups = {"layers": GroupDef(tuple(sharded), n_layers=self.n_blocks,
                                      outer=outer)}
         if replicated:
@@ -180,8 +227,9 @@ class DecoderLM:
         return [GLOBAL_WINDOW] * cfg.n_layers
 
     def _self_block(self, pg, p, x, q_pos, window, cache=None,
-                    cache_index=0, sp=False):
-        """One layer; returns ``(x, aux)``, aux the MoE load-balance term
+                    cache_index=0, sp=False, prefix=""):
+        """One self layer (its tensors named ``prefix`` + the dense
+        layer's); returns ``(x, aux)``, aux the MoE load-balance term
         (0.0 for a dense layer).  With a ``cache`` (this layer's views) the
         attention writes its keys and values into it in place.  Under
         tensor parallelism the attention and the MLP run between
@@ -191,25 +239,44 @@ class DecoderLM:
         tpg = pg.tp_group
 
         def rep(name):
-            return L.share_grad(p[name], tpg, sp)
+            return L.share_grad(p[prefix + name], tpg, sp)
 
         h = L.gather_seq(L.rms_norm(x, rep("ln1"), cfg.norm_eps), tpg, sp)
         out, _ = L.attention(cfg, p, h, q_pos=q_pos, cache=cache,
                              cache_index=cache_index, window=window,
-                             tp_group=tpg, sp=sp)
+                             prefix=prefix, tp_group=tpg, sp=sp)
         if cfg.post_norms:
             out = L.rms_norm(out, rep("post_ln1"), cfg.norm_eps)
         x = x + out
         h = L.rms_norm(x, rep("ln2"), cfg.norm_eps)
-        if cfg.n_experts:
+        if cfg.n_experts and not prefix:
             out, aux = moe_ffn(cfg, {**p, "moe_router": rep("moe_router")},
                                h, ep=self.ep, ep_group=pg.ep_group)
         else:
-            out, aux = L.mlp(cfg, p, L.gather_seq(h, tpg, sp), tp_group=tpg,
-                             sp=sp), 0.0
+            out, aux = L.mlp(cfg, p, L.gather_seq(h, tpg, sp),
+                             prefix=prefix, tp_group=tpg, sp=sp), 0.0
         if cfg.post_norms:
             out = L.rms_norm(out, rep("post_ln2"), cfg.norm_eps)
         return x + out, aux
+
+    def _cross_block(self, pg, p, x, memory, sp=False):
+        """The VLM's cross layer: x + tanh(x_gate) * cross-attention onto
+        ``memory``, then x + tanh(c_gate) * the ``c_`` MLP.  Under tensor
+        parallelism both run between ``gather_seq`` and ``reduce_out``, as
+        the self layers do (the reference sums their outputs with a bare
+        ``psum``, without gathering the sequence: ROADMAP Queue 3); the
+        replicated norm and gates enter through ``share_grad``."""
+        cfg = self.cfg
+        tpg = pg.tp_group
+
+        def rep(name):
+            return L.share_grad(p[name], tpg, sp)
+
+        out = L.cross_attention(cfg, p, x, memory, tp_group=tpg, sp=sp)
+        x = x + torch.tanh(rep("x_gate").to(x.dtype)) * out
+        h = L.gather_seq(L.rms_norm(x, rep("c_ln2"), cfg.norm_eps), tpg, sp)
+        out = L.mlp(cfg, p, h, prefix="c_", tp_group=tpg, sp=sp)
+        return x + torch.tanh(rep("c_gate").to(x.dtype)) * out
 
     def _scan_groups(self) -> list[str]:
         names = ["layers"]
@@ -219,25 +286,42 @@ class DecoderLM:
             names.append("layers_experts")
         return names
 
-    def _backbone(self, pg, x, q_pos, caches=None, cache_index=0, sp=False):
+    def _backbone(self, pg, x, q_pos, memory=None, caches=None,
+                  cache_index=0, sp=False):
         """The layer stack; returns ``(x, aux)``, aux summed over layers in
-        fp32.  ``caches``: the full cache (leading dims n_blocks,
-        selfs_per_block), whose per-layer views each layer updates in
-        place."""
+        fp32.  ``memory``: the VLM's patches in the compute dtype (None:
+        the cross layers are skipped).  ``caches``: the full cache
+        (leading dims n_blocks, selfs_per_block), whose per-layer views
+        each layer updates in place."""
         def body(p, carry, xs):
             x, aux = carry
-            window, cache = xs
-            x, a = self._self_block(pg, p, x, q_pos, window, cache,
-                                    cache_index, sp)
-            return (x, aux + a), None
+            windows, cache = xs
+            for i, window in enumerate(windows):
+                x, a = self._self_block(
+                    pg, p, x, q_pos, window,
+                    None if cache is None
+                    else {k: t[i] for k, t in cache.items()},
+                    cache_index, sp, f"s{i}_" if self.is_vlm else "")
+                aux = aux + a
+            if self.is_vlm and memory is not None:
+                x = self._cross_block(pg, p, x, memory, sp)
+            return (x, aux), None
 
+        # the window table as (n_blocks, layers a block)[:, :selfs]
+        per = self.cfg.cross_attn_interval if self.is_vlm else 1
         windows = self._layer_windows()
-        xs = [(w, None if caches is None
-               else {k: t[i, 0] for k, t in caches.items()})
-              for i, w in enumerate(windows)]
+        xs = [(windows[b * per:b * per + self.selfs_per_block],
+               None if caches is None
+               else {k: t[b] for k, t in caches.items()})
+              for b in range(self.n_blocks)]
         aux0 = torch.zeros((), dtype=torch.float32, device=x.device)
         (x, aux), _ = pg.scan(self._scan_groups(), body, (x, aux0), xs)
         return x, aux
+
+    def _memory(self, pg, batch):
+        """The VLM's patches in the compute dtype, or None."""
+        patches = batch.get("patches") if self.is_vlm else None
+        return None if patches is None else patches.to(pg.compute_dtype)
 
     def _sp_active(self, T: int) -> bool:
         """Sequence parallelism: the residual stream split over the
@@ -286,7 +370,7 @@ class DecoderLM:
         sp = self._sp_active(T)
         q_pos = torch.arange(T, device=tokens.device)[None].expand(B, T)
         x, g, vstart = self._embed_in(pg, tokens, sp)
-        x, aux = self._backbone(pg, x, q_pos, sp=sp)
+        x, aux = self._backbone(pg, x, q_pos, self._memory(pg, batch), sp=sp)
         cfg = self.cfg
         tpg = pg.tp_group
         ones = torch.ones((B, T - 1), dtype=torch.float32,
@@ -368,8 +452,8 @@ class DecoderLM:
         sp = self._sp_active(T)
         q_pos = torch.arange(T, device=tokens.device)[None].expand(B, T)
         x, g, _ = self._embed_in(pg, tokens, sp)
-        x, _ = self._backbone(pg, x, q_pos, caches=cache, cache_index=0,
-                              sp=sp)
+        x, _ = self._backbone(pg, x, q_pos, self._memory(pg, batch),
+                              caches=cache, cache_index=0, sp=sp)
         # under sequence parallelism the last position lies on the last TP
         # rank: gather the sequence whole first (the reference's)
         x = L.gather_seq(x, pg.tp_group, sp)
@@ -388,5 +472,6 @@ class DecoderLM:
             q_pos = torch.full((B, 1), int(index), dtype=torch.int64,
                                device=tokens.device)
         x, g, _ = self._embed_in(pg, tokens)
-        x, _ = self._backbone(pg, x, q_pos, caches=cache, cache_index=index)
+        x, _ = self._backbone(pg, x, q_pos, self._memory(pg, batch),
+                              caches=cache, cache_index=index)
         return self._logits(pg, g, x), cache

@@ -63,7 +63,7 @@ def main(out_dir: str) -> None:
                                 "train_4k", *argv])[0]
     res["hymba_long"] = dryrun.main(["--arch", "hymba-1.5b", "--shape",
                                      "long_500k", *argv])[0]
-    res["unported"] = dryrun.main(["--arch", "seamless-m4t-medium",
+    res["seamless"] = dryrun.main(["--arch", "seamless-m4t-medium",
                                    "--shape", "train_4k", *argv])[0]
     res["skip"] = dryrun.main(["--arch", "qwen2.5-14b", "--shape",
                                "long_500k", "--multi-pod", *argv])[0]

@@ -29,6 +29,23 @@ TP_WIDTHS = dict(n_heads=4, n_kv_heads=2, head_dim=64, d_model=256,
                  d_ff=512, optimizer="adamw")
 
 
+# the VLM's gates (x_gate, c_gate): both packages' init starts them at 0,
+# where the cross layers' weights get no gradient at the first step; the
+# vision tests start them at this value in both (``gated_init``)
+GATE = 0.5
+
+
+def gated_init(init_tensor, value: float = GATE):
+    """``FSDPRuntime._init_tensor`` with the VLM's gates at ``value``: a
+    staticmethod for either package's runtime class."""
+    def init(spec, seed, layer):
+        if spec.name in ("x_gate", "c_gate"):
+            return np.full(spec.shape, value, np.float32)
+        return init_tensor(spec, seed, layer)
+
+    return staticmethod(init)
+
+
 def config(arch: str, par: dict, **fields):
     """``arch``'s reduced config at the lr above, its parallel config
     ``ParallelConfig(**par)`` and ``fields`` replaced (nemotron at the
@@ -147,7 +164,8 @@ def make_mesh(data, model):
 
 def rank_main(rank, world, init_file, out_prefix, runs, seq=32, batch=4,
               init=(), ref_init=None, functions=False, serve=None,
-              engine=None, cli=None, ckpt_dir=None, saves=None):
+              engine=None, cli=None, ckpt_dir=None, saves=None,
+              gates=False):
     """One spawned rank: ``runs`` is ``{name: (data, model, arch, par,
     fields, schedule)}``; saves ``<prefix><rank>.npz`` with keys
     ``name/metrics``, ``name/<tensor>`` (rank 0) and ``name/ef/<group>``,
@@ -165,8 +183,11 @@ def rank_main(rank, world, init_file, out_prefix, runs, seq=32, batch=4,
     ``cli``: ``(data, model, tp, kv)`` of one run of the serve command's
     ``launch.serve.serve`` (``cli``: its tokens).
     ``ckpt_dir``: the checkpoint and replan checks of ``ckpt_checks``.
-    ``saves``: ``{run: directory}`` runs whose final state is saved."""
+    ``saves``: ``{run: directory}`` runs whose final state is saved.
+    ``gates``: the VLM's gates start at ``GATE`` (``gated_init``)."""
     torch.set_num_threads(1)
+    if gates:
+        FSDPRuntime._init_tensor = gated_init(FSDPRuntime._init_tensor)
     init_local_group("gloo", rank=rank, world_size=world,
                      init_file=init_file)
     out = {}
@@ -616,7 +637,8 @@ def rel_l2(a, b):
 # masters whole (``name/copy_gap/<tensor>``: the largest gap between the
 # copies the outer rows hold of an unsplit tensor), ``name/ef/<group>``
 # residuals (global; ``ef1``: after the first step) and
-# ``init/<name>/<group>`` init_params state leaves (global).
+# ``init/<name>/<group>`` init_params state leaves (global).  A ninth
+# argument, a float other than 0, starts the VLM's gates there.
 REF_SCRIPT = r'''
 import dataclasses, json, os, sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
@@ -633,6 +655,16 @@ out_path, runs = sys.argv[2], json.loads(sys.argv[3])
 steps, seq, batch, lr = (int(sys.argv[4]), int(sys.argv[5]),
                          int(sys.argv[6]), float(sys.argv[7]))
 init_names = json.loads(sys.argv[8])
+gates = float(sys.argv[9]) if len(sys.argv) > 9 else 0.0
+if gates:
+    _init = FSDPRuntime._init_tensor
+
+    def _gated(spec, seed, layer):
+        if spec.name in ("x_gate", "c_gate"):
+            return np.full(spec.shape, gates, np.float32)
+        return _init(spec, seed, layer)
+
+    FSDPRuntime._init_tensor = staticmethod(_gated)
 TP_WIDTHS = dict(n_heads=4, n_kv_heads=2, head_dim=64, d_model=256,
                  d_ff=512, optimizer="adamw")
 
@@ -710,9 +742,10 @@ np.savez(out_path, **out)
 
 
 def start_reference(src: str, out: str, runs: dict, init=(), steps=STEPS,
-                    seq=32, batch=4):
+                    seq=32, batch=4, gates: float = 0.0):
     """Start the reference's ``runs`` (the ``rank_main`` format) in a JAX
-    subprocess; returns the ``Popen``."""
+    subprocess; returns the ``Popen``.  ``gates``: where the VLM's gates
+    start (0: the reference's init)."""
     import json
     import os
     import subprocess
@@ -722,7 +755,8 @@ def start_reference(src: str, out: str, runs: dict, init=(), steps=STEPS,
     env["JAX_PLATFORMS"] = "cpu"
     return subprocess.Popen(
         [sys.executable, "-c", REF_SCRIPT, src, out, json.dumps(runs),
-         str(steps), str(seq), str(batch), str(LR), json.dumps(list(init))],
+         str(steps), str(seq), str(batch), str(LR), json.dumps(list(init)),
+         str(gates)],
         env=env)
 
 

@@ -210,13 +210,28 @@ def test_full_width_row_is_the_reference_plan(runs):
 
 
 def test_error_and_skip_rows(runs):
-    """An unported family (seamless-m4t-medium: the cross-attention
-    families stay unported) is the reference's error row naming item 14b; a
-    pure full-attention arch at long_500k the reference's skip; --verify
-    waits for item 17; every row is appended to --out."""
-    bad = runs["unported"]
-    assert bad["ok"] is False and bad["note"].startswith(
-        "ERROR NotImplementedError") and "14b" in bad["note"]
+    """seamless-m4t-medium (once an unported family's error row) is an
+    ``ok`` row at published width and depth: its model FLOPs and wire
+    bytes the reference's, each of its 12 + 12 layers gathered twice and
+    reduce-scattered once; a pure full-attention arch at long_500k the
+    reference's skip; --verify waits for item 17; every row is appended
+    to --out."""
+    from repro.configs import build_model, get_config as ref_config
+    from repro.configs.base import SHAPES
+    from repro.core.policy import make_plan
+    from repro.launch.mesh import production_axis_sizes
+    from repro.launch.roofline import model_flops
+
+    row = runs["seamless"]
+    cfg = ref_config("seamless-m4t-medium")
+    plan = make_plan(build_model(cfg), production_axis_sizes(), None)
+    assert row["ok"] is True
+    assert row["model_gflops"] == round(
+        model_flops(cfg, SHAPES["train_4k"]) / 1e9, 1)
+    assert row["gather_wire_mb"] == round(plan.gather_wire_bytes() / 1e6, 3)
+    assert row["colls"] == {"all-gather": 49, "reduce-scatter": 25,
+                            "all-reduce": 2}
+    assert row["kernel_calls"] == {"adamw_store_update[fp32]": 3}
     skip = runs["skip"]
     assert skip["ok"] is False and skip["mesh"] == "pod2x16x16"
     assert skip["note"] == ("SKIP: pure full-attention arch: 500k dense KV "

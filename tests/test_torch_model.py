@@ -202,10 +202,25 @@ def test_decoder_groups_match_reference():
 
 
 def test_unported_model_options_raise():
-    """VLM cross-attention still raises; ``ce_chunk`` (ported) builds."""
+    """VLM cross-attention (ported) builds the reference's groups on any
+    decoder config, and a depth its interval does not divide raises the
+    reference's error; ``ce_chunk`` (ported) builds."""
+    from repro.configs import build_model as jax_build_model
+    from repro.configs import get_config as jax_get_config
+
     base = get_config("gemma2-2b").reduced()
-    for kw, item in ((dict(cross_attn_interval=2), "Queue 1 item 14b"),):
-        with pytest.raises(NotImplementedError, match=item):
-            build_model(dataclasses.replace(base, **kw))
+    kw = dict(cross_attn_interval=2, n_layers=4)
+    tm = build_model(dataclasses.replace(base, **kw))
+    jm = jax_build_model(dataclasses.replace(
+        jax_get_config("gemma2-2b").reduced(), **kw))
+    assert (tm.n_blocks, tm.selfs_per_block) == (jm.n_blocks,
+                                                 jm.selfs_per_block) == (2, 1)
+    for name, g in jm.groups().items():
+        assert [(s.name, s.shape) for s in g.specs] == \
+            [(s.name, s.shape) for s in tm.groups()[name].specs], name
+    with pytest.raises(ValueError, match="not divisible by "
+                       "cross_attn_interval=2"):
+        build_model(dataclasses.replace(base, cross_attn_interval=2,
+                                        n_layers=3))
     assert build_model(dataclasses.replace(base, ce_chunk=64)).cfg.ce_chunk \
         == 64

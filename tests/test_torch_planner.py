@@ -217,8 +217,15 @@ def test_unported_planners_and_configs_raise():
 
     for mode in ("fsdp2", "megatron", "naive"):
         assert get_planner(mode).__name__ == jax_get_planner(mode).__name__
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14b"):
-        get_config("seamless-m4t-medium")
+    # the cross-attention families are ported: seamless-m4t-medium
+    # builds, and its plan at the production mesh is the reference's
+    from repro.configs import build_model as jax_build_model
+    from repro.configs import get_config as jax_get_config
+    from repro.core.policy import make_plan as jax_make_plan
+    prod = {"data": 16, "model": 16}
+    assert plan(build_model(get_config("seamless-m4t-medium")), prod) \
+        .dumps() == jax_make_plan(jax_build_model(jax_get_config(
+            "seamless-m4t-medium")), prod, None).dumps()
     moe = get_config("qwen3-moe-235b-a22b")  # the config's own ep=16
     # expert parallelism is ported: the model builds with its experts split
     # over the model axis, and a runtime without that axis refuses it

@@ -234,10 +234,13 @@ def test_regime_is_chosen_by_m_alone():
 # (K, N, block) on the card: case A with nj = 1 (K % 32 != 0), nj = 3 with a
 # ragged last column tile of both regimes (group width 320), gemma2-2b's wq;
 # case B with r = 8, with trailing partial blocks (K % r != 0), N = 7; a
-# case-A group width of 8 (byte loads at decode, the aligned copy at prefill)
+# case-A group width of 8 (byte loads at decode, the aligned copy at
+# prefill); llama-3.2-vision's K = 8192 and 28672, whose decode slab streams
+# through two buffers in chunks
 CARD_SHAPES = ((300, 64, 64), (1000, 960, 320), (2304, 2048, 1024),
                (1000, 128, 1024), (1001, 128, 1024), (4097, 512, 1024),
-               (101, 7, 56), (97, 40, 8))
+               (101, 7, 56), (97, 40, 8), (8192, 1024, 1024),
+               (28672, 256, 1024))
 CARD_M = (1, 4, 16, 17, 64, 2048)
 
 

@@ -60,10 +60,14 @@ def test_supports_shape_on_every_reference_config():
 
 
 def test_unported_families_raise_naming_14b():
+    """No assigned family is left unported: every assigned id builds its
+    config, field for field the reference's."""
+    from repro.configs import get_config as ref_config
+
     for arch in ASSIGNED_ARCH_IDS:
-        if arch not in ARCH_IDS:
-            with pytest.raises(NotImplementedError, match="14b"):
-                get_config(arch)
+        assert arch in ARCH_IDS
+        assert dataclasses.asdict(get_config(arch)) == \
+            dataclasses.asdict(ref_config(arch))
 
 
 def test_collective_volume_is_the_reference_rule():
