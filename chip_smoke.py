@@ -43,15 +43,19 @@ non-zero):
                   step (8 times).
   6b. train_cli -- the training command: ``python -m
                   repro_torch.launch.train --arch gemma2-2b --full --steps 4
-                  --batch 8 --seq 128 --log-every 1`` through
-                  ``launch.train.main`` in this process (on its NCCL rank):
+                  --batch 8 --seq 128 --log-every 1 --verify`` through
+                  ``launch.train.main`` in this process (on its NCCL rank;
+                  ``--verify`` proves the plan's invariants on a meta twin
+                  in a child process that sees no card, so the launch
+                  counts below also show that verifying launched nothing):
                   published width and all 26 layers, bf16 compute, AdamW
                   on the fp32 store.  Finite losses and grad norms, the
                   flat ``adamw_store_update`` once per group per step and
                   no other kernel, no plain version called (each of
                   ``kernels.ops``' plain versions counted); printed: step
-                  ms (median of steps 1-3), tokens/s, set-up seconds and
-                  ``max_memory_allocated`` on a line of their own.
+                  ms (median of steps 1-3), tokens/s, set-up seconds,
+                  ``max_memory_allocated`` and the verification's seconds
+                  on a line of their own.
   7. train_q8  -- the q8 path: the same model and batch with the q8_block
                   store and the q8 gradient wire with error feedback on both
                   groups (``q8_both_wires``).  Every q8 kernel must launch as
@@ -291,7 +295,9 @@ The dry run, the roofline and the examples (slice 13; 6c, 6d and 25 after
                   ``train_4k`` at 16 x 16 = 256 ranks and
                   qwen3-moe-235b-a22b ``train_4k`` at 2 x 16 x 16 = 512
                   (``--multi-pod``; all the dry runs are children started
-                  after phase 2, beside the card's phases): ``ok``, and their
+                  after phase 2, beside the card's phases), each with
+                  ``--verify`` (the plan's invariants proved against the
+                  same meta step): ``ok``, and their
                   ``model_gflops``, ``gather_wire_mb`` and
                   ``reduce_wire_mb`` equal to the roofline's model FLOPs
                   and the plan's wire bytes; ``--plan-only --all``: the
@@ -402,8 +408,11 @@ line gives its seconds.  A CPU reference must not depend on what its
 process did before; in this process, after the full-width phases, its
 first run has been seen, rarely, to give a stream no fresh process gives.
 
-Then the script's seconds so far, the ``kernels`` line, the card's name
-and power limit as nvidia-smi reports them, and a last line ``{"ok":
+Then the script's seconds so far, the ``kernels`` line, a ``verify`` line
+(per verified run -- ``train_cli`` and each production dry run -- the
+invariants checked, errors, warnings and seconds; any error, or a run
+that checked nothing, fails the script), the card's name and power limit
+as nvidia-smi reports them, and a last line ``{"ok":
 true, "device": {...}}``.  The
 script imports only the port (never JAX or the JAX package).
 """
@@ -1939,8 +1948,8 @@ def start_dryruns(out_dir: Path) -> dict:
         "train_cli": ["--arch", "gemma2-2b", "--mesh", "1x1", "--batch",
                       str(CLI_BATCH), "--seq", str(CLI_SEQ)],
         **{f"{arch}/{shape}" + ("/multi_pod" if mp else ""):
-           ["--arch", arch, "--shape", shape] + (["--multi-pod"] if mp
-                                                  else [])
+           ["--arch", arch, "--shape", shape, "--verify"]
+           + (["--multi-pod"] if mp else [])
            for arch, shape, mp in DRYRUN_PRODUCTION},
         "plan_only": ["--plan-only", "--all"],
     }
@@ -3160,7 +3169,7 @@ def main() -> None:
 
     cli_argv = ["--arch", "gemma2-2b", "--full", "--steps", str(CLI_STEPS),
                 "--batch", str(CLI_BATCH), "--seq", str(CLI_SEQ),
-                "--log-every", "1"]
+                "--log-every", "1", "--verify"]
     torch.cuda.reset_peak_memory_stats()
     reset_launches(mods)
     plain_calls, restore_plain = count_plain(ops)
@@ -3182,7 +3191,10 @@ def main() -> None:
           "plain_calls": {k: v for k, v in plain_calls.items() if v}})
     emit({"phase": "train_cli_summary", "step_ms_median": cli_step_ms,
           "tokens_per_s": cli_tokens / (cli_step_ms / 1e3),
-          "setup_s": cli["setup_s"], "max_memory_allocated": cli_peak})
+          "setup_s": cli["setup_s"], "max_memory_allocated": cli_peak,
+          "verify_s": cli["verify"]["seconds"],
+          "command_s_without_verify": cli_s - cli["verify"]["seconds"]})
+    verify_runs = {"train_cli": cli["verify"]}
     want = {k: 0 for k in cli_launches}
     want["adamw_store_update"] = len(cli["groups"]) * CLI_STEPS
     if cli_launches != want:
@@ -3746,6 +3758,7 @@ def main() -> None:
                                         3)}
         emit({"phase": "dryrun_production", "run": name, "row": row,
               "dry_run_s": dry[name]["seconds"]})
+        verify_runs[name] = row.get("verify")
         if {k: row[k] for k in want} != want:
             fail(f"dryrun_production {name}: {row} against the plan {want}")
         if not row["colls"].get("all-gather") or \
@@ -4494,6 +4507,13 @@ def main() -> None:
               "src/repro/kernels/adam8bit_update.py:50",
               sa_launches["adam8bit_update"], fp8stats["adam8bit_update"]),
     ]})
+    # every plan verification of the run: train_cli's (a meta twin in a
+    # child process, no card) and each production dry run's
+    emit({"verify": verify_runs})
+    bad = {k: v for k, v in verify_runs.items()
+           if v is None or v["errors"] or not v["checked"]}
+    if bad:
+        fail(f"plan verification failed or did not run: {bad}")
     torch.distributed.destroy_process_group()
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

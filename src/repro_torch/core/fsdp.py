@@ -80,6 +80,11 @@ was given.
 mesh factoring or TP degree on the same process group (``core.reshard``'s
 extent map across outer rows; the classes of a checkpoint load).
 
+``verify=True`` proves the plan's declared invariants against one step
+of a meta twin of the runtime (``analysis.verify_runtime``; nothing runs
+on the card) before construction returns, and raises
+``VerificationError`` with the whole report on a violation.
+
 Entry points run on the card unless the caller passes ``device="cpu"``;
 without a card and without that, construction raises.  ``device="meta"``
 runs the same steps on shapes alone (``param_shapes``; ``kernels.ops``'
@@ -192,7 +197,7 @@ class FSDPRuntime:
                  schedule: CommSchedule | None = None,
                  group_schedules: Mapping[str, Any] | None = None,
                  policies=None, plan: ShardingPlan | None = None,
-                 cost_model=None):
+                 cost_model=None, verify: bool = False):
         self.device = _resolve_device(device)
         if group is None:
             if not dist.is_initialized():
@@ -299,6 +304,14 @@ class FSDPRuntime:
             raise ValueError(
                 f"the mesh's model axis ({model_size} ranks) carries "
                 f"neither tp, ep nor FSDP")
+        if verify:
+            # prove the plan's declared invariants against one step of a
+            # meta twin of this runtime (analysis.verify_runtime: nothing
+            # runs on the card) before the runtime is handed out; raises
+            # VerificationError with the whole report
+            from ..analysis import verify_runtime
+
+            verify_runtime(self).raise_if_failed()
 
     def sched_for(self, name: str) -> CommSchedule:
         return self._group_scheds.get(name, self.schedule)

@@ -331,6 +331,85 @@ class GroupPlanEntry:
         local = self.plan.shard_size if self.fsdp_axes else self.plan.total
         return int(local * per_elem * (self.n_layers or 1))
 
+    def invariants(self, compute_dtype) -> tuple[dict, ...]:
+        """The group's declared invariants: what ``analysis.verify`` proves
+        about the traced step under this policy.  Each is a plain dict
+        (name, group, class and parameters; dtypes by name) so that the
+        declaration serializes beside the plan: ``comm_bytes`` (the wire
+        legs of one gather copy, the reduce route and dtypes, the bytes
+        per copy), ``wire_dtype``, ``ring_chunk`` (the block-aligned snap
+        the declaration promises beside the unit-1 snap the gather
+        performs), ``no_f32_dequant`` and ``ef_threading``.  PARITY:
+        BITWISE -- the reference's dicts, ``==``."""
+        from .wire import _snap_chunk
+
+        sched = self.schedule()
+        cd = _torch_dtype(compute_dtype)
+        inv: list[dict] = []
+        if self.fsdp_axes and self.fsdp_world > 1:
+            shard = self.plan.shard_size
+            if self.store.quantized:
+                legs = (("int8", shard),
+                        ("float32", shard // self.quant_block))
+            elif self.store.fp8:
+                legs = ((dtype_name(self.store.fp8_dtype), shard),)
+            else:
+                legs = ((dtype_name(sched.wire_dtype(cd)), shard),)
+            rcodec = sched.reduce_codec(cd, self.quant_block)
+            ring_gather = sched.gather_mode == "ring"
+            ring_reduce = (sched.reduce_mode == "ring_acc"
+                           or (sched.reduce_mode == "match"
+                               and (rcodec.quantized or ring_gather)))
+            if rcodec.quantized:
+                rdtypes = ("int8", "float32")
+            else:
+                rdtypes = (dtype_name(sched.accum_dtype(cd)),)
+            inv.append({
+                "name": "comm_bytes", "group": self.name,
+                "class": "exact",
+                "gather_legs": legs,
+                "reduce_route": ("ring" if ring_reduce else "psum_scatter"),
+                "reduce_dtypes": rdtypes,
+                "gather_mb_per_copy": self.gather_wire_bytes(cd) / 1e6
+                / (self.n_layers or 1),
+                "reduce_mb_per_copy": self.reduce_wire_bytes(cd) / 1e6
+                / (self.n_layers or 1),
+            })
+            inv.append({
+                "name": "wire_dtype", "group": self.name, "class": "exact",
+                "legal": sorted({d for d, _ in legs} | set(rdtypes)),
+            })
+            if ring_gather or ring_reduce:
+                unit = self.quant_block if self.store.quantized else 1
+                declared = sched.ring_chunk_elems
+                inv.append({
+                    "name": "ring_chunk", "group": self.name,
+                    "class": "exact", "declared": declared,
+                    "snapped": _snap_chunk(shard, declared, unit),
+                    "wire": _snap_chunk(shard, declared),
+                    "unit": unit,
+                })
+        if self.store.quantized and cd != torch.float32:
+            inv.append({"name": "no_f32_dequant", "group": self.name,
+                        "class": "exact", "src_dtype": "int8",
+                        "gathered_elems": int(self.plan.total)})
+        if self.store.fp8 and cd != torch.float32:
+            # the fused gather decode is one fp8 -> compute cast
+            inv.append({"name": "no_f32_dequant", "group": self.name,
+                        "class": "exact",
+                        "src_dtype": dtype_name(self.store.fp8_dtype),
+                        "gathered_elems": int(self.plan.total)})
+        if sched.ef_enabled:
+            inv.append({"name": "ef_threading", "group": self.name,
+                        "class": "exact"})
+        return tuple(inv)
+
+
+def dtype_name(dtype) -> str:
+    """A dtype's bare name as the reference spells it ("bfloat16",
+    "float8_e4m3fn"), from a torch dtype, a numpy-like dtype or a name."""
+    return str(dtype).rsplit(".", 1)[-1]
+
 
 @dataclasses.dataclass(frozen=True)
 class ShardingPlan:
@@ -374,6 +453,40 @@ class ShardingPlan:
     def reduce_wire_bytes(self) -> int:
         return sum(e.reduce_wire_bytes(self.compute_dtype)
                    for e in self.groups.values())
+
+    def invariants(self) -> tuple[dict, ...]:
+        """The plan's declared invariants: every group's
+        (``GroupPlanEntry.invariants``) plus those only the whole plan can
+        state -- ``gathered_peak``, the slots of gathered layer buffers the
+        layer loop's structure bounds, and for a priced plan
+        ``profile_fresh`` (a warning).  ``analysis.verify`` checks them.
+        PARITY: BITWISE -- the reference's dicts, ``==``."""
+        inv: list[dict] = []
+        for e in self.groups.values():
+            inv.extend(e.invariants(self.compute_dtype))
+        sched = self.base_schedule()
+        layered = {n: e for n, e in self.groups.items()
+                   if e.n_layers and e.fsdp_axes and e.fsdp_world > 1}
+        if layered:
+            n = max(e.n_layers for e in layered.values())
+            if not sched.reshard_after_forward:
+                slots = n
+            else:
+                lp = sched.plan_layers(n, remat=True)
+                main_slots = (2 if lp.prefetch else 1) if lp.main else 0
+                slots = main_slots + int(lp.split_last)
+            inv.append({
+                "name": "gathered_peak", "group": "*", "class": "exact",
+                "max_slots": slots,
+                "groups": {name: {"elems": int(e.plan.total)}
+                           for name, e in layered.items()},
+            })
+        if self.profile_name != "none":
+            inv.append({
+                "name": "profile_fresh", "group": "*", "class": "warn",
+                "profile": self.profile_name, "hash": self.profile_hash,
+            })
+        return tuple(inv)
 
     def describe(self) -> str:
         """The audit table: per group the policy, shard size S, padding and

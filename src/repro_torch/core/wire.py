@@ -305,7 +305,7 @@ def payload_all_gather(x: torch.Tensor, group, mode: str = "xla",
     ``lax.all_gather``); pure data movement in ``x``'s dtype (float8
     codes travel as their uint8 bytes).  ``mode="ring"`` takes the ring
     route (``ring_chunk`` bounds its messages); a ``group`` of None
-    returns ``x``."""
+    returns ``x``.  PARITY: BITWISE (data movement)."""
     return start_all_gather(x, group, mode, ring_chunk).wait()
 
 
@@ -520,7 +520,8 @@ def dtype_reduce_scatter(g: torch.Tensor, group, mode: str = "xla",
     codec dtype): the accumulate-in-flight ring when ``reduce_mode`` says
     so, else the gather mode's match route (the backend's reduce-scatter,
     or the rank-order fp8 route, for xla; the order-exact ring for ring).
-    A ``group`` of None returns ``g``."""
+    A ``group`` of None returns ``g``.  PARITY: BITWISE -- route selection
+    only; each route carries its own class (the module docstring)."""
     if group is None:
         return g
     if reduce_mode == "ring_acc":
@@ -549,7 +550,9 @@ def codec_reduce_scatter(ct: torch.Tensor, ef: torch.Tensor | None,
     fresh quantization error into ``ef`` in place; without one encode
     ``ct.f32`` through ``codec.encode``.  Then the match or ring_acc q8
     route.  With one rank (or no group) the encode/decode round trip still
-    runs, so a one-card run has the wire numerics of a sharded one."""
+    runs, so a one-card run has the wire numerics of a sharded one.
+    PARITY: BITWISE -- the encode and route composition; each route and
+    kernel carries its own class."""
     if not codec.quantized:
         if ef is not None:
             raise ValueError(
@@ -659,7 +662,9 @@ def codec_gather(shard: torch.Tensor, grad_sink: torch.Tensor, group,
     ``ef``'s cotangent).  ``started``: the ``start_codec_gather`` of the
     same shard, issued earlier.  ``defer`` (``ef``'s shape, fp32): the
     backward adds the cotangent there instead, and neither encodes nor
-    reduces (the reference's ``codec_gather_defer_ef``)."""
+    reduces (the reference's ``codec_gather_defer_ef``).  PARITY: BITWISE
+    -- decode after a bitwise gather; the backward takes its route's
+    class."""
     _check_sink(shard, grad_sink)
     _check_ef(ef, group, shard)
     _check_ef(defer, group, shard)

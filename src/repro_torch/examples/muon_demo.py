@@ -65,7 +65,8 @@ def main(argv=None) -> dict:
           "we check Muon trains comparably (gap < 0.25) -- the distributed "
           "redistribute machinery itself is verified across ranks in "
           "tests/test_torch_optim.py and tests/test_torch_tp_optim.py")
-    assert muon[-1] <= adamw[-1] + 0.25, (muon[-1], adamw[-1])
+    if not muon[-1] <= adamw[-1] + 0.25:
+        raise RuntimeError((muon[-1], adamw[-1]))
     return {"adamw": adamw, "muon": muon}
 
 

@@ -64,7 +64,8 @@ def main(argv=None) -> dict:
     print(f"\nfinal-loss gap = {gap:.3f} "
           f"(paper Fig.10a: curves track closely; occasional spikes are "
           f"characteristic of reduced-precision states)")
-    assert gap < 0.3, "8-bit Adam diverged from fp32 AdamW"
+    if not gap < 0.3:
+        raise RuntimeError("8-bit Adam diverged from fp32 AdamW")
     return {"adamw": l32, "adam8bit": l8}
 
 

@@ -49,7 +49,10 @@ _LEDGER: list | None = None
 def recording(ledger: list):
     """Append each kernel call on meta tensors to ``ledger`` inside the
     ``with``: ``{"kernel", "bytes", "flops"}`` -- the bytes it reads and
-    writes, and for ``q8_matmul`` its 2 M K N int8 operations."""
+    writes, and for ``q8_matmul`` its 2 M K N int8 operations.  PARITY:
+    BITWISE -- bookkeeping, no values: a call on meta tensors returns
+    the kernel's output shapes and dtypes, as its call on the card
+    does."""
     global _LEDGER
     prev, _LEDGER = _LEDGER, ledger
     try:
@@ -140,8 +143,8 @@ def quantize(x: torch.Tensor, block: int = 1024):
     """Blockwise absmax INT8 encode: ``(codes int8 like x, scales f32
     (..., n // block))`` (store create, wire encode).
 
-    PARITY: the kernel is BITWISE against the plain version on the card;
-    the plain version is bitwise the reference's but for subnormal scales
+    PARITY: BITWISE -- the kernel against the plain version on the card;
+    the plain version against the reference's but for subnormal scales
     (``quant.blockwise``)."""
     kind = _device_kind(x)
     if kind == "cuda":
@@ -189,10 +192,10 @@ def encode_ef(ct: torch.Tensor, ef: torch.Tensor, block: int = 1024, *,
     new_ef)`` of ``comp = ct.f32 + ef``; ``out=(codes, scales, ef)``
     updates the residual in place.
 
-    PARITY: the kernel is BITWISE against the plain version on the card;
-    the plain version vs the reference: codes and scales bitwise (but for
-    subnormal scales), new_ef within XLA's FMA contraction of ``comp -
-    codes*scale`` (``kernels.ref.encode_ef_ref``)."""
+    PARITY: ALLCLOSE -- the plain version against the reference: codes
+    and scales bitwise (but for subnormal scales), new_ef within XLA's FMA
+    contraction of ``comp - codes*scale`` (``kernels.ref.encode_ef_ref``);
+    the kernel is bitwise the plain version on the card."""
     kind = _device_kind(ct, ef)
     if kind == "cuda":
         return _encode_ef.encode_ef(ct, ef, block, out=out)
@@ -213,10 +216,10 @@ def q8_matmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
     weight.  The reference's ``ValueError``s on the layout and the scale
     count come first, on every device.
 
-    PARITY: the kernel is BITWISE against the plain version on the card;
-    the plain version is BITWISE against the reference's interpreted
-    kernel on the tests' inputs (``kernels.ref.q8_matmul_ref``); both are
-    ALLCLOSE to the dense ``x @ dequantize(w)``."""
+    PARITY: BITWISE -- the kernel against the plain version on the card,
+    the plain version against the reference's interpreted kernel on the
+    tests' inputs (``kernels.ref.q8_matmul_ref``); both are allclose to
+    the dense ``x @ dequantize(w)``."""
     k, n = codes.shape
     _q8mm.check_args(k, n, block, scales.numel())
     out_dtype = x.dtype if out_dtype is None else out_dtype
@@ -236,9 +239,9 @@ def adamw_update(w, g, m, v, mask, *, lr, b1, b2, eps, wd, c1, c2,
     flat buffers of n % 128 == 0 elements, a full-size decay mask; returns
     fp32 ``(w', m', v')`` (``out=(w, m, v)`` updates in place).
 
-    PARITY: the CUDA kernel is BITWISE against the plain version on the
-    card; the plain version holds ``adamw_store_update``'s fp32 class
-    against the reference's interpreted ``_adamw_kernel``."""
+    PARITY: ALLCLOSE -- the plain version holds ``adamw_store_update``'s
+    fp32 class against the reference's interpreted ``_adamw_kernel``; the
+    CUDA kernel is bitwise the plain version on the card."""
     scalars = scalar_stack(lr, b1, b2, eps, wd, c1, c2)
     kind = _device_kind(w, g, m, v, mask)
     if kind == "cuda":
@@ -258,9 +261,9 @@ def adam8bit_update(w, g, m8, v8, ms, vs, mask, *, lr, b1, b2, eps, wd, c1,
     elements, n % block == 0; int8 moments of w's shape and their fp32
     scales (n / block); returns fp32 ``(w', m8', v8', ms', vs')``.
 
-    PARITY: the CUDA kernel is BITWISE against the plain version on the
-    card; the plain version holds ``adam8bit_store_update``'s class against
-    the reference's interpreted ``_adam8_kernel``."""
+    PARITY: ALLCLOSE -- the plain version holds ``adam8bit_store_update``'s
+    class against the reference's interpreted ``_adam8_kernel``; the CUDA
+    kernel is bitwise the plain version on the card."""
     scalars = scalar_stack(lr, b1, b2, eps, wd, c1, c2)
     kind = _device_kind(w, g, m8, v8, ms, vs, mask)
     if kind == "cuda":
@@ -298,10 +301,10 @@ def adamw_store_update(w, g, m, v, mask, *, lr, b1, b2, eps, wd, c1, c2,
     ``({"codes", "master", "scales"}, m', v')``, ``out=(codes, master,
     scales, m, v)``.
 
-    PARITY: the CUDA kernels are BITWISE against the plain version on the
-    card; the plain version is within a few ulp of the reference's
-    interpreted kernel (see ``kernels.ref``), its fp8 codes bitwise the
-    encode of its w'."""
+    PARITY: ALLCLOSE -- the plain version is within a few ulp of the
+    reference's interpreted kernel (see ``kernels.ref``), its fp8 codes
+    bitwise the encode of its w'; the CUDA kernels are bitwise the plain
+    version on the card."""
     scalars = scalar_stack(lr, b1, b2, eps, wd, c1, c2)
     kind = _device_kind(w, g, m, v, mask)
     if kind == "cuda":
@@ -331,10 +334,10 @@ def adam8bit_store_update(w, g, m8, v8, ms, vs, mask, *, lr, b1, b2, eps, wd,
     "scales"}, m8', v8', ms', vs')``, ``out=(codes, master, scales, m8, v8,
     ms, vs)``.
 
-    PARITY: the CUDA kernel is BITWISE against the plain version on the
-    card; the plain version is held to the reference's interpreted kernel
-    within the log codec's and the AdamW chain's classes (see
-    ``kernels.ref.adam8bit_update_ref``)."""
+    PARITY: ALLCLOSE -- the plain version is held to the reference's
+    interpreted kernel within the log codec's and the AdamW chain's
+    classes (see ``kernels.ref.adam8bit_update_ref``); the CUDA kernel is
+    bitwise the plain version on the card."""
     scalars = scalar_stack(lr, b1, b2, eps, wd, c1, c2)
     kind = _device_kind(w, g, m8, v8, ms, vs, mask)
     if kind == "cuda":
@@ -352,12 +355,14 @@ def adam8bit_store_update(w, g, m8, v8, ms, vs, mask, *, lr, b1, b2, eps, wd,
 def quantize_log(x: torch.Tensor, block: int = 1024):
     """Log-space blockwise quantize (8-bit Adam's v): the plain version on
     every device -- no standalone kernel, ``adam8bit_store_update`` fuses
-    it, as in the reference.  PARITY: see ``quant.blockwise``."""
+    it, as in the reference.  PARITY: ALLCLOSE -- XLA:CPU's own ``log``
+    (``quant.blockwise``)."""
     return quantize_blockwise_log(x, block)
 
 
 def dequantize_log(codes: torch.Tensor, scales: torch.Tensor,
                    block: int = 1024) -> torch.Tensor:
     """Log-space blockwise decode; a plain passthrough like
-    ``quantize_log``."""
+    ``quantize_log``.  PARITY: ALLCLOSE -- XLA:CPU's own ``exp``
+    (``quant.blockwise``)."""
     return dequantize_blockwise_log(codes, scales, block)

@@ -72,7 +72,7 @@ def adamw_update_ref(w, g, m, v, mask, scalars: np.ndarray):
     ``repro/kernels/adam_update.py``): the AdamW step of
     ``adamw_store_update_ref`` on flat buffers of n % 128 == 0 elements,
     every input cast to fp32 first, a full-size decay mask; returns fp32
-    ``(w', m', v')`` of w's shape.  PARITY: the class of
+    ``(w', m', v')`` of w's shape.  PARITY: ALLCLOSE -- the class of
     ``adamw_store_update_ref``'s fp32 epilogue (the same kernel body)."""
     _check_lanes(w, "adamw_update")
     return _adam_math(w.float(), g, m.float(), v.float(), mask.float(),
@@ -180,7 +180,8 @@ def adam8bit_store_update_ref(w, g, m8, v8, ms, vs, mask,
     ``_adam8_q8_kernel`` (q8_block): ``adam8bit_update_ref``, then w' in
     the store's format.
     Returns ``(core, m8', v8', ms', vs')`` with ``core`` as in
-    ``adamw_store_update_ref``.  PARITY: as ``adam8bit_update_ref``; a q8
+    ``adamw_store_update_ref``.  PARITY: ALLCLOSE, as
+    ``adam8bit_update_ref``; a q8
     code of w' inherits w''s class (it moves by one where w' sits within
     its difference of a rounding boundary)."""
     check_store_fmt(fmt)
@@ -208,7 +209,7 @@ def _check_block(shape, block: int, who: str) -> None:
 def quantize_ref(x: torch.Tensor, block: int):
     """Blockwise absmax INT8 encode, the reference's ``_quant_kernel``
     (and ``_requant``): ``(codes int8 like x, scales f32 (..., n/block))``.
-    PARITY: see ``quant.blockwise`` (bitwise but for subnormal scales)."""
+    PARITY: BITWISE but for subnormal scales (``quant.blockwise``)."""
     _check_blocking(x.shape[-1], block, "quantize")
     return quantize_blockwise(x, block)
 

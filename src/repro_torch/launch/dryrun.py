@@ -16,7 +16,9 @@ A dispatch mode (``StepRecorder``) records:
     the bytes its bound counts -- its meta branch, ``ops.recording``);
   * the collectives: each c10d op the wire issues, with its kind, its
     group's size and its largest buffer (``launch.roofline``'s volume
-    rule);
+    rule), and as the plan verifier's ``CollectiveEvent`` (the
+    reference's primitive, the mesh axes its group spans, the payload's
+    dtype and elements; ``analysis.trace``);
   * memory: the argument bytes (parameters, optimizer state and the
     optimizer's masks, the batch, the cache) and the peak of the bytes the
     step's own storages hold live beyond them (``temp``): the card's
@@ -25,6 +27,14 @@ A dispatch mode (``StepRecorder``) records:
     formulas (``gather``'s ``scatter_add``: the cross entropy's), which
     holds one more gradient-sized temporary than the card's in-place form;
     gemma2-2b's 4-layer step peaks there, at (2, 2047, 256000) fp32.
+    For the verifier it also keeps the peak count of live storages per
+    (elements, dtype) class, each int8/float8 -> fp32 copy and the
+    step's output shapes.
+
+``--verify`` proves the plan's declared invariants (``analysis.verify``)
+against this same step: one trace, not two.  A train row checks them
+all; a prefill or decode step has no reduce, so its row checks the
+static ones.  A violation makes the row an error row.
 
 Calibration: the reference compiles a rolled ``lax.scan``, whose body XLA's
 ``cost_analysis`` counts once, so it compiles 1- and 2-block variants and
@@ -43,6 +53,8 @@ cannot run is an error row (``ok: false``), never a run on real tensors.
 Usage:
     python -m repro_torch.launch.dryrun --arch qwen2.5-14b --shape train_4k
     python -m repro_torch.launch.dryrun --all [--multi-pod] [--planner ragged]
+    python -m repro_torch.launch.dryrun --arch gemma2-2b --shape train_4k \\
+        --verify                             # and prove the plan's invariants
     python -m repro_torch.launch.dryrun --plan-only --all [--multi-pod]
     python -m repro_torch.launch.dryrun --arch gemma2-2b --mesh 1x1 \\
         --layers 4 --batch 2 --seq 2048      # one card's step, as trained
@@ -54,13 +66,17 @@ import dataclasses
 import json
 import math
 import pathlib
+import sys
 import time
 import traceback
 import weakref
+from typing import Any
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
+
+from ..core.policy import dtype_name
 
 RESULTS = pathlib.Path(__file__).resolve().parents[3] / "results"
 
@@ -80,6 +96,16 @@ class StepRecord:
     arg_bytes: int = 0
     temp_peak: int = 0
     seconds: float = 0.0
+    # the plan verifier's view (``analysis.trace``): each collective as a
+    # ``CollectiveEvent``, the peak count of live storages per (elements,
+    # dtype) class, each int8 or float8 -> float32 conversion (``(src
+    # dtype, elements, path)``) and the step's output as shapes
+    events: list = dataclasses.field(default_factory=list)
+    class_peaks: dict = dataclasses.field(default_factory=dict)
+    conversions: list = dataclasses.field(default_factory=list)
+    out_shapes: Any = None
+    # ``--verify``: the report's counts and the seconds its checks took
+    verify: dict | None = None
 
     @property
     def peak_bytes(self) -> int:
@@ -102,16 +128,57 @@ def _tensors(tree):
     return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
 
 
+# c10d op -> the reference's collective primitive, and the argument that
+# holds its payload (one event per payload tensor)
+_PRIMITIVES = {
+    "_allgather_base_": ("all_gather", "input_tensor"),
+    "allgather_": ("all_gather", "input_tensors"),
+    "allgather_into_tensor_coalesced_": ("all_gather", "inputs"),
+    "_reduce_scatter_base_": ("psum_scatter", "input_tensor"),
+    "reduce_scatter_": ("psum_scatter", "input_tensors"),
+    "reduce_scatter_tensor_coalesced_": ("psum_scatter", "inputs"),
+    "allreduce_": ("psum", "tensors"),
+    "allreduce_coalesced_": ("psum", "tensors"),
+    "alltoall_base_": ("all_to_all", "input"),
+    "alltoall_": ("all_to_all", "input_tensors"),
+    "send": ("ppermute", "tensors"),
+}
+_CODE_DTYPES = frozenset({torch.int8, torch.float8_e4m3fn, torch.float8_e5m2})
+
+
+def _trail(depth: int = 8) -> str:
+    """The step's Python frames in the port below the dispatch (the dry
+    run's and the verifier's own left out), outermost first, as
+    ``module.function`` joined by ``/``: an event's ``path``."""
+    names = []
+    f = sys._getframe(2)
+    while f is not None and len(names) < depth:
+        co = f.f_code
+        if "repro_torch" in co.co_filename and \
+                not co.co_filename.endswith("dryrun.py") and \
+                "analysis" not in co.co_filename:
+            names.append(f"{pathlib.Path(co.co_filename).stem}."
+                         f"{co.co_name}")
+        f = f.f_back
+    return "/".join(reversed(names))
+
+
 class StepRecorder(TorchDispatchMode):
     """Bytes, collectives and live storage of the ops run inside it (on
     meta tensors).  ``add_args`` registers the step's inputs first: their
-    storages count as argument bytes, never as the step's own."""
+    storages count as argument bytes, never as the step's own.
+    ``add_mesh`` names each of the mesh's process groups by the axes it
+    spans, which each collective's event then carries."""
 
     def __init__(self, record: StepRecord):
         super().__init__()
         self.record = record
         self._args: set[int] = set()
         self._live_keys: set[int] = set()
+        self._live_class: dict[tuple, int] = {}
+        # storages of float8 tensors the wire moves as uint8 views
+        self._fp8: dict[int, str] = {}
+        self._axes: dict[str, tuple[str, ...]] = {}
         self.live = 0
 
     def add_args(self, *trees) -> None:
@@ -121,6 +188,11 @@ class StepRecorder(TorchDispatchMode):
             if key not in self._args:
                 self._args.add(key)
                 self.record.arg_bytes += st.nbytes()
+
+    def add_mesh(self, mesh) -> None:
+        for axes, g in mesh._groups.items():
+            if g is not None:
+                self._axes[g.group_name] = tuple(axes)
 
     def _track(self, t: torch.Tensor) -> None:
         if t.device.type != "meta":
@@ -133,25 +205,69 @@ class StepRecorder(TorchDispatchMode):
         self._live_keys.add(key)
         self.live += n
         self.record.temp_peak = max(self.record.temp_peak, self.live)
-        weakref.finalize(st, self._free, key, n)
+        cls = (n // t.element_size(), dtype_name(t.dtype))
+        count = self._live_class.get(cls, 0) + 1
+        self._live_class[cls] = count
+        if count > self.record.class_peaks.get(cls, 0):
+            self.record.class_peaks[cls] = count
+        weakref.finalize(st, self._free, key, n, cls)
 
-    def _free(self, key: int, n: int) -> None:
+    def _free(self, key: int, n: int, cls: tuple) -> None:
         self._live_keys.discard(key)
         self.live -= n
+        self._live_class[cls] -= 1
+        self._fp8.pop(key, None)
+
+    def _payload_dtype(self, t: torch.Tensor) -> str:
+        if t.dtype == torch.uint8:
+            name = self._fp8.get(t.untyped_storage()._cdata)
+            if name is not None:
+                return name
+        return dtype_name(t.dtype)
 
     def _collective(self, func, args, kwargs) -> None:
+        from ..analysis.trace import CollectiveEvent
         from .roofline import COLLECTIVE_KINDS
 
-        kind = COLLECTIVE_KINDS.get(func._schema.name.split("::")[-1])
+        op = func._schema.name.split("::")[-1]
+        kind = COLLECTIVE_KINDS.get(op)
         if kind is None:
             return
-        group = 1
+        pg, payload = None, None
+        prim, arg = _PRIMITIVES.get(op, (op, None))
         for a, v in zip(func._schema.arguments, args):
             if a.name == "process_group":
-                group = torch._C._distributed_c10d.ProcessGroup.unbox(
-                    v).size()
+                pg = torch._C._distributed_c10d.ProcessGroup.unbox(v)
+            elif a.name == arg:
+                payload = v
+        group = pg.size() if pg is not None else 1
         buf = max((_nbytes(t) for t in _tensors((args, kwargs))), default=0)
         self.record.collectives.append((kind, group, buf))
+        axes = self._axes.get(pg.group_name, ()) if pg is not None else ()
+        path = _trail()
+        items = payload if isinstance(payload, (list, tuple)) else [payload]
+        for item in items:
+            ts = _tensors(item)
+            if not ts:
+                continue
+            self.record.events.append(CollectiveEvent(
+                kind=prim, axes=axes, axis_size=group,
+                dtype=self._payload_dtype(ts[0]),
+                elems=sum(t.numel() for t in ts), trips=1, path=path))
+
+    def _conversion(self, name: str, args, out) -> None:
+        """An int8 or float8 tensor converted to float32 outside a kernel
+        (``kernels.ops``' calls are opaque here: their meta branch makes
+        empty outputs)."""
+        if name == "_to_copy":
+            src, dst = args[0], out
+        else:  # copy_
+            dst, src = args[0], args[1]
+        if (isinstance(src, torch.Tensor) and isinstance(dst, torch.Tensor)
+                and src.dtype in _CODE_DTYPES
+                and dst.dtype == torch.float32):
+            self.record.conversions.append(
+                (dtype_name(src.dtype), dst.numel(), _trail()))
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -159,9 +275,15 @@ class StepRecorder(TorchDispatchMode):
         if func.namespace == "c10d":
             self._collective(func, args, kwargs)
             return out
+        name = func._schema.name.split("::")[-1]
+        if name in ("_to_copy", "copy_"):
+            self._conversion(name, args, out)
+        elif name == "view" and func._overloadname == "dtype" and \
+                args[0].dtype in _CODE_DTYPES and args[0].dtype != torch.int8:
+            self._fp8[args[0].untyped_storage()._cdata] = \
+                dtype_name(args[0].dtype)
         outs = _tensors(out)
-        if not func.is_view and \
-                func._schema.name.split("::")[-1] not in _NO_BYTES:
+        if not func.is_view and name not in _NO_BYTES:
             for side in (_tensors((args, kwargs)), outs):
                 self.record.bytes += sum(
                     _nbytes(t) for t in {id(t): t for t in side}.values())
@@ -171,48 +293,83 @@ class StepRecorder(TorchDispatchMode):
 
 
 def dry_step(cfg, shape, axis_sizes, *, planner: str = "ragged",
-             policies=None, cost_model=None):
+             policies=None, cost_model=None, plan=None,
+             compute_dtype: torch.dtype = torch.bfloat16, model=None,
+             optimizer_cls=None, batch=None):
     """One step of ``shape.kind`` of rank 0 of a fake mesh of
-    ``axis_sizes`` on meta tensors: ``(StepRecord, ShardingPlan)``."""
-    from torch.utils.flop_counter import FlopCounterMode
+    ``axis_sizes`` on meta tensors: ``(StepRecord, ShardingPlan)``.  The
+    runtime takes ``plan`` when given (a twin of another runtime:
+    ``analysis.trace``), else resolves one; ``model`` defaults to
+    ``build_model(cfg)``, the optimizer to ``make_optimizer(cfg)`` (or
+    ``optimizer_cls(cfg)``), and ``batch`` (``{key: (global shape,
+    dtype)}``) to ``launch.specs``' batch of ``shape``.  A fake default
+    group of the mesh's size is made unless the process has one."""
+    from contextlib import nullcontext
+
+    import torch.distributed as dist
 
     from ..configs import build_model
     from ..core.fsdp import FSDPRuntime
-    from ..kernels import ops
-    from ..optim import make_optimizer
     from .mesh import fake_world, make_fake_mesh
-    from .specs import input_specs
 
     record = StepRecord()
     t0 = time.perf_counter()
-    with fake_world(math.prod(axis_sizes.values())):
-        model = build_model(cfg)
-        rt = FSDPRuntime(model, make_fake_mesh(axis_sizes), planner=planner,
-                         policies=policies, cost_model=cost_model,
-                         device="meta")
-        held = {}
-        if shape.kind == "train":
-            optimizer = make_optimizer(cfg)
-            args = input_specs(cfg, shape, rt, model, optimizer)
-            held = optimizer.held_tensors()
-            step = rt.make_train_step(optimizer)
-        else:
-            args = input_specs(cfg, shape, rt, model)
-            step = (rt.make_prefill_step() if shape.kind == "prefill"
-                    else rt.make_decode_step())
-        recorder = StepRecorder(record)
-        recorder.add_args(args, held)
-        flops = FlopCounterMode(display=False)
-        with ops.recording(record.kernels), flops, recorder:
-            out = step(*args)
-        del out
-        record.flops = float(flops.get_total_flops()) + sum(
-            k["flops"] for k in record.kernels)
-        record.bytes += sum(k["bytes"] for k in record.kernels)
+    world = math.prod(axis_sizes.values())
+    reuse = (dist.is_initialized() and "fake" in str(dist.get_backend())
+             and dist.get_world_size() == world)
+    with nullcontext() if reuse else fake_world(world):
+        model = build_model(cfg) if model is None else model
+        mesh = make_fake_mesh(axis_sizes)
+        kw = dict(plan=plan) if plan is not None else dict(
+            planner=planner, policies=policies, cost_model=cost_model)
+        rt = FSDPRuntime(model, mesh, compute_dtype=compute_dtype,
+                         device="meta", **kw)
         plan = rt.plan
-        del rt, args, step, held
+        _record_step(rt, model, cfg, shape, record, optimizer_cls, batch)
+        del rt
     record.seconds = time.perf_counter() - t0
     return record, plan
+
+
+def _record_step(rt, model, cfg, shape, record, optimizer_cls=None,
+                 batch=None) -> None:
+    """Run ``rt``'s step of ``shape.kind`` under a ``StepRecorder`` into
+    ``record`` (its output's shapes kept as ``record.out_shapes``)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from ..analysis.trace import leaf_specs
+    from ..kernels import ops
+    from ..optim import make_optimizer
+    from .specs import input_specs
+
+    held = {}
+    if shape.kind == "train":
+        optimizer = (make_optimizer(cfg) if optimizer_cls is None
+                     else optimizer_cls(cfg))
+        args = input_specs(cfg, shape, rt, model, optimizer)
+        if batch is not None:
+            lo, hi = rt.batch_slice(shape.global_batch)
+            args = args[:3] + ({
+                k: torch.empty((hi - lo,) + tuple(s[1:]), dtype=dt,
+                               device="meta")
+                for k, (s, dt) in batch.items()},)
+        held = optimizer.held_tensors()
+        step = rt.make_train_step(optimizer)
+    else:
+        args = input_specs(cfg, shape, rt, model)
+        step = (rt.make_prefill_step() if shape.kind == "prefill"
+                else rt.make_decode_step())
+    recorder = StepRecorder(record)
+    recorder.add_args(args, held)
+    recorder.add_mesh(rt.mesh)
+    flops = FlopCounterMode(display=False)
+    with ops.recording(record.kernels), flops, recorder:
+        out = step(*args)
+    record.out_shapes = leaf_specs(out)
+    del out
+    record.flops = float(flops.get_total_flops()) + sum(
+        k["flops"] for k in record.kernels)
+    record.bytes += sum(k["bytes"] for k in record.kernels)
 
 
 def _mesh_name(axis_sizes) -> str:
@@ -242,11 +399,6 @@ def run_one(arch: str, shape_name, *, multi_pod: bool = False,
     from .roofline import Roofline, analyze
 
     del calibrate
-    if verify:
-        raise NotImplementedError(
-            "--verify (the plan's invariants checked against the traced "
-            "step, repro.analysis) is not ported yet (ROADMAP Queue 1 item "
-            "17)")
     cfg = get_config(arch)
     if overrides:
         par = dataclasses.replace(cfg.parallel,
@@ -277,6 +429,8 @@ def run_one(arch: str, shape_name, *, multi_pod: bool = False,
                          policies=policies, cost_model=cost_model)
     if record is not None:
         record.append(rec)
+    if verify:
+        _verify(rec, plan, shape, axis_sizes, quiet)
     if not quiet:
         print(plan.describe())
         print({"flops": rec.flops, "bytes accessed": rec.bytes,
@@ -285,6 +439,30 @@ def run_one(arch: str, shape_name, *, multi_pod: bool = False,
     return analyze(rec, arch=arch, shape_cfg=shape, mesh_name=mesh_name,
                    chips=chips, cfg=cfg, plan=plan,
                    note=(why + f" dry_run={rec.seconds:.1f}s").strip())
+
+
+def _verify(rec: StepRecord, plan, shape, axis_sizes, quiet: bool) -> None:
+    """``--verify``: the plan's declared invariants proved against this
+    very step (``analysis.verify``; one trace, not two).  A train step
+    proves every invariant; a serve step has no reduce, so its report
+    holds the static checks only.  Raises ``VerificationError`` on a
+    violation; the counts go into ``rec.verify``."""
+    from ..analysis.trace import from_record
+    from ..analysis.verify import verify_plan_static, verify_trace
+
+    t0 = time.perf_counter()
+    report = verify_plan_static(plan)
+    if shape.kind == "train":
+        tr = from_record(rec, axis_sizes)
+        report = report.merged(verify_trace(plan, tr.comm, tr.buffers,
+                                            tr.out_shapes))
+    rec.verify = {"checked": len(report.checked),
+                  "errors": len(report.errors),
+                  "warnings": len(report.warnings),
+                  "seconds": time.perf_counter() - t0}
+    if not quiet:
+        print(report.summary())
+    report.raise_if_failed()
 
 
 def plan_only(arch: str, *, multi_pod: bool = False, planner: str = "ragged",
@@ -348,7 +526,7 @@ def parse_args(argv=None):
                          "the builtin roofline constants")
     ap.add_argument("--verify", action="store_true",
                     help="prove the plan's invariants against the traced "
-                         "step first (not ported yet)")
+                         "step (the same meta step the row records)")
     ap.add_argument("--no-calibrate", action="store_true",
                     help="accepted for the reference's command lines; the "
                          "port's counts need no calibration")
@@ -461,6 +639,8 @@ def main(argv=None) -> list[dict]:
                 row["kernel_calls"] = rec[0].kernel_calls()
                 row["peak_bytes_dev"] = rec[0].peak_bytes
                 row["arg_bytes_dev"] = rec[0].arg_bytes
+                if rec[0].verify is not None:
+                    row["verify"] = rec[0].verify
             print(json.dumps(row), flush=True)
             append_result(row, out)
             rows.append(row)

@@ -17,8 +17,10 @@ loss X gnorm Y tok/s Z`` and the checkpoint lines -- plus ``--device``
 process each (gloo on the CPU, NCCL with one card per rank, so a mesh of
 more ranks than cards is refused); rank 0 prints.  ``--tp`` sets the
 config's tensor-parallel degree (``configs.with_tp``: FSDP and the batch
-leave the model axis).  ``--verify`` (the reference's static check of the
-plan's invariants) is not ported yet.
+leave the model axis).  ``--verify`` proves the plan's declared invariants
+against one step of a meta twin of the runtime before the first step
+(``analysis.verify_runtime``: nothing runs on the card) and prints the
+report; a violation raises ``VerificationError``.
 """
 from __future__ import annotations
 
@@ -64,8 +66,7 @@ def parse_args(argv=None):
                          "(requires --model >= the degree)")
     ap.add_argument("--verify", action="store_true",
                     help="statically verify the plan's declared comm/memory/"
-                         "dtype invariants against the traced step (not "
-                         "ported yet)")
+                         "dtype invariants against the traced step")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=5)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
@@ -98,10 +99,11 @@ def train(cfg, args, group) -> dict:
     """One rank's run of ``cfg`` (``train_config(args)``) over ``group``;
     prints the reference's lines (rank 0) and returns ``{"loss": [...],
     "grad_norm": [...], "step_ms": [...], "setup_s": s, "start": step,
-    "groups": [...]}``: each step's metrics and host time (to a
-    synchronised end on the card), the seconds from the runtime's
-    construction to the first step, the step it started from and the
-    plan's groups."""
+    "groups": [...], "verify": {...} or None}``: each step's metrics and
+    host time (to a synchronised end on the card), the seconds from the
+    runtime's construction to the first step (verification included), the
+    step it started from, the plan's groups and, with ``--verify``, the
+    report's counts and seconds."""
     import torch
 
     from ..checkpoint import ckpt
@@ -126,6 +128,19 @@ def train(cfg, args, group) -> dict:
                           device=args.device)
     say(runtime.plan.describe())
     optimizer = make_optimizer(cfg)
+    verified = None
+    if args.verify:
+        from ..analysis import verify_runtime
+
+        t_v = time.perf_counter()
+        report = verify_runtime(runtime, optimizer,
+                                profile_path=args.profile)
+        say(report.summary())
+        report.raise_if_failed()
+        verified = {"checked": len(report.checked),
+                    "errors": len(report.errors),
+                    "warnings": len(report.warnings),
+                    "seconds": time.perf_counter() - t_v}
     params = runtime.init_params(args.seed)
     opt_state = optimizer.init(runtime)
     start = 0
@@ -152,7 +167,7 @@ def train(cfg, args, group) -> dict:
     sync()
     out = {"loss": [], "grad_norm": [], "step_ms": [], "start": start,
            "setup_s": time.perf_counter() - t_setup,
-           "groups": list(runtime.layouts)}
+           "groups": list(runtime.layouts), "verify": verified}
     step = start
     t0 = time.time()
     for i in range(start, args.steps):
@@ -217,11 +232,6 @@ def main(argv=None):
     process group when it has one) and returns ``train``'s result, on more
     in as many spawned processes (returns None)."""
     args = parse_args(argv)
-    if args.verify:
-        raise NotImplementedError(
-            "--verify (the plan's invariants checked against the traced "
-            "step, repro.analysis) is not ported yet (ROADMAP Queue 1 item "
-            "17)")
     _check_device(args)
     world = args.data * args.model
     if world == 1:

@@ -11,6 +11,13 @@ is admitted).
 Parameters stay sharded at rest and are gathered per layer inside the
 step.  Sampling (argmax by default) runs on the device; one host transfer
 of the pool's sampled tokens per iteration drives the bookkeeping.
+
+The engine runs decode steps only, so it refuses a model whose cache has a
+``memory`` leaf (the encoder-decoder's encoded frames, which only
+``prefill`` writes): it would attend to the empty cache's zero memory.
+The reference's engine serves that zero memory (ROADMAP Queue 3).  The
+VLM keeps no memory in its cache (each decode step re-encodes
+``batch["patches"]``), so the engine serves it.
 """
 from __future__ import annotations
 
@@ -44,6 +51,13 @@ class ServeEngine:
     def __init__(self, runtime, model, params, *, pool: int = 4,
                  max_len: int = 256, extras: dict | None = None,
                  sample: Callable | None = None):
+        if "memory" in model.cache_batch_dims():
+            raise ValueError(
+                f"ServeEngine runs decode steps only and no encoder: "
+                f"{type(model).__name__}'s cache holds a 'memory' leaf that "
+                f"only prefill writes, so every request would attend to a "
+                f"zero memory; serve it with make_prefill_step and "
+                f"make_decode_step")
         self.rt = runtime
         self.model = model
         self.params = params

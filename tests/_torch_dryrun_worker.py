@@ -57,8 +57,9 @@ def main(out_dir: str) -> None:
     res["xlstm_decode"] = record_of(*dryrun.dry_step(
         xlstm, ShapeConfig("decode_32k", 32768, 128, "decode"), prod))
     argv = ["--out", str(out)]
+    # the full-width row proves its plan's invariants from the same step
     res["full"] = dryrun.main(["--arch", "gemma2-2b", "--shape", "train_4k",
-                               *argv])[0]
+                               "--verify", *argv])[0]
     res["hymba"] = dryrun.main(["--arch", "hymba-1.5b", "--shape",
                                 "train_4k", *argv])[0]
     res["hymba_long"] = dryrun.main(["--arch", "hymba-1.5b", "--shape",
@@ -67,8 +68,6 @@ def main(out_dir: str) -> None:
                                    "--shape", "train_4k", *argv])[0]
     res["skip"] = dryrun.main(["--arch", "qwen2.5-14b", "--shape",
                                "long_500k", "--multi-pod", *argv])[0]
-    res["verify"] = dryrun.main(["--arch", "gemma2-2b", "--shape",
-                                 "train_4k", "--verify", *argv])[0]
     res["written"] = [json.loads(l) for l in out.read_text().splitlines()]
     print("RESULT " + json.dumps(res))
 

@@ -214,8 +214,9 @@ def test_error_and_skip_rows(runs):
     ``ok`` row at published width and depth: its model FLOPs and wire
     bytes the reference's, each of its 12 + 12 layers gathered twice and
     reduce-scattered once; a pure full-attention arch at long_500k the
-    reference's skip; --verify waits for item 17; every row is appended
-    to --out."""
+    reference's skip; the full-width gemma2-2b row, run with --verify, proved
+    its plan's nine invariants with no violation from its own step; every
+    row is appended to --out."""
     from repro.configs import build_model, get_config as ref_config
     from repro.configs.base import SHAPES
     from repro.core.policy import make_plan
@@ -236,10 +237,12 @@ def test_error_and_skip_rows(runs):
     assert skip["ok"] is False and skip["mesh"] == "pod2x16x16"
     assert skip["note"] == ("SKIP: pure full-attention arch: 500k dense KV "
                             "out of scope")
-    assert runs["verify"]["ok"] is False and "17" in runs["verify"]["note"]
+    assert runs["full"]["verify"]["checked"] == 9
+    assert runs["full"]["verify"]["errors"] == 0
+    assert runs["full"]["verify"]["warnings"] == 0
     assert [r["arch"] for r in runs["written"]] == [
         "gemma2-2b", "hymba-1.5b", "hymba-1.5b", "seamless-m4t-medium",
-        "qwen2.5-14b", "gemma2-2b"]
+        "qwen2.5-14b"]
 
 
 def _prod_plan(arch):

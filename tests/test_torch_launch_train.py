@@ -124,11 +124,12 @@ def test_checkpoint_and_resume_are_bitwise(tmp_path, capsys):
 
 
 def test_train_command_refusals():
-    """``--verify`` raises, naming its ROADMAP item; ``--tp 2`` goes
-    through ``configs.with_tp``; without a card the default device
-    raises before any rank is spawned."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 17"):
-        train_cli.main(["--verify", "--device", "cpu"])
+    """``--verify`` proves the plan before the first step (no step here:
+    ``--steps 0``) and reports clean; ``--tp 2`` goes through
+    ``configs.with_tp``; without a card the default device raises before
+    any rank is spawned."""
+    out = train_cli.main(["--verify", "--device", "cpu", "--steps", "0"])
+    assert out["verify"]["errors"] == 0 and out["loss"] == []
     cfg = train_cli.train_config(train_cli.parse_args(["--tp", "2"]))
     assert cfg.parallel.tp == 2 and "model" not in cfg.parallel.fsdp_axes
     if torch.cuda.is_available():
