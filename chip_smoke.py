@@ -399,6 +399,66 @@ The cross-attention families (slice 15; 31-33 after 29, 35 with 30):
                   16 with 8 teacher-forced decode steps (each call's logits
                   within PARITY_CROSS_SERVE_RTOL relative L2).
 
+The configurations first run on the card (slice 17; 36-41 after 33, each
+train phase's dry run a child started with the others after phase 2, the
+host masters of 38-40 drawn beside the reference phases' child process
+and awaited before phase 11, so that no timed phase shares the host with
+the draw; ``--only PHASE[,PHASE...]`` runs the named ones of 36-41 alone,
+after phases 1 and 2):
+
+ 36. train_granite -- granite-moe-1b-a400m at published width and depth
+                  (24 layers, d_model 1024, 16/8 heads x 64, 32 experts
+                  top-8, d_ff 512, vocab 49155; 1.38 G parameters), AdamW
+                  on the fp32 store, 2 x 2048.  Like each of 36-40: one
+                  NCCL rank, tp 1, ep 1, bf16 compute, a warm-up and three
+                  timed steps through ``train``; a ``_setup`` line whose
+                  ``cut`` lists every departure from the published config
+                  (depth, ep, store, optimizer, batch), a line a step,
+                  a ``_summary`` line (shard sizes, set-up s, median step
+                  ms, tokens/s, MFU, ``max_memory_allocated``, launches
+                  against the expected, the first loss the init implies:
+                  ``expected_first_loss``); finite losses and grad norms,
+                  the update kernel once per group per step and nothing
+                  else, no plain version, the first loss within 1.0, the
+                  peak under PUBLISHED_PEAK_LIMIT; the dry run's predicted
+                  peak within DRYRUN_PEAK_RTOL of the phase's own peak and
+                  its kernel calls the phase's update kernel once a group
+                  (a ``dryrun_vs_card`` row; a predicted peak above the
+                  limit halves the batch first, said in ``cut``); then the
+                  update kernel against its plain version at the phase's
+                  shards (``kernel_published``; the plain version in
+                  chunks of COMPARE_CHUNK).
+ 37. serve_granite -- the same model, all 24 layers, served from the
+                  q8_block store with ``serve_quant_matmul`` on 36's
+                  initial masters (host copies, repacked for the q8 plan):
+                  ``quantize`` once a group at init, then as ``serve``: a
+                  prefill of 4 x 512, 32 decode steps, the engine;
+                  ``q8_matmul`` once per eligible weight (wq, wk, wv, wo,
+                  the (1024, 32) router) per layer and call, by regime,
+                  ``dequantize_into`` per other tensor of a layer and per
+                  ``globals`` gather.
+ 38. train_qwen32b -- qwen1.5-32b (d_model 5120, 40/40 heads x 128 with
+                  qkv bias, d_ff 27392, vocab 152064) cut to 1 layer, AdamW
+                  on the fp32 store, 1 x 2048 (2.08 G parameters).
+ 39. train_llama70b -- llama3-70b (d_model 8192, 64/8 heads x 128, d_ff
+                  28672, vocab 128256) cut to 1 layer, AdamW on the bf16
+                  store (the fp32 store's state does not fit one card),
+                  1 x 2048 (2.96 G parameters).
+ 40. train_gptoss -- gpt-oss-120b (d_model 2880, 64/8 heads x 64, 128
+                  experts top-4, d_ff 2880, vocab 201088) cut to 1 layer,
+                  ep 16 -> 1, Adam8bit on the bf16 store (AdamW's state
+                  does not fit one card on any store), 1 x 2048 (4.37 G
+                  parameters).
+ 41. kernel_q8mm_nemotron -- nemotron-4-340b, whose one layer with its
+                  embedding and head (12.89 G parameters) trains on no
+                  single card: ``q8_matmul`` at its layer's weights (wq and
+                  wo (18432, 18432), up (18432, 73728), down (73728,
+                  18432): K = 73,728) at decode M = 4 and prefill M = 2048,
+                  bitwise against the plain version (in rows where its
+                  temporaries would not fit); wk and wv (18432, 1536),
+                  which no scale layout fits at block 1024, refused alike
+                  by both, and ``dequantize_into`` held there instead.
+
 The phases that hold the card against the CPU reference (10, 17, 20, 13,
 30, 26's ``examples_parity`` and 35, in that order) run where phase 10 stands,
 in a child process of their own: this script with ``--reference``, the
@@ -421,6 +481,8 @@ from __future__ import annotations
 import atexit
 import contextlib
 import dataclasses
+import functools
+import gc
 import json
 import math
 import os
@@ -429,6 +491,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -679,6 +742,198 @@ VISION_MEMORY_Q8MM, VISION_MEMORY_ROWS, VISION_MEMORY_CALLS = \
 # the plain quantize / dequantize_into at vision's shards, chunk by chunk
 VISION_PLAIN_CHUNK = 1 << 28
 
+# phases 36-41: the configurations first run on the card (slice 17), at
+# published width and tp 1 through ``train``'s loop (the quickstart's),
+# cut in depth, ep and batch only, and in store and optimizer where one
+# card cannot hold the published ones (PERF.md's reckoning: gpt-oss-120b's
+# AdamW state alone is ~87 GB on the fp32 store, llama3-70b's ~85 GB).
+# name -> (arch, layers (None: the published depth), batch, seq,
+# param_store, optimizer (None: the config's own)).  Each trains one
+# warm-up and TIMED_STEPS timed steps; its peak must stay under
+# PUBLISHED_PEAK_LIMIT, and where its dry run predicts more the batch is
+# halved before it runs (``halved``)
+PUBLISHED = {
+    "train_granite": ("granite-moe-1b-a400m", None, 2, 2048, "fp32", None),
+    "train_qwen32b": ("qwen1.5-32b", 1, 1, 2048, "fp32", None),
+    "train_llama70b": ("llama3-70b", 1, 1, 2048, "bf16", None),
+    "train_gptoss": ("gpt-oss-120b", 1, 1, 2048, "bf16", "adam8bit"),
+}
+PUBLISHED_PEAK_LIMIT = 75e9
+# the phases of slice 17 in the order they run (``--only`` takes any of
+# them): granite's trained masters are served from the q8_block store
+# (``serve_granite``), and nemotron-4-340b, whose one layer with its
+# 256,000-word embedding and head (12.89 G parameters) trains on no single
+# card, has its int8 GEMM shapes held (``kernel_q8mm_nemotron``)
+PUBLISHED_PHASES = ("train_granite", "serve_granite", "train_qwen32b",
+                    "train_llama70b", "train_gptoss", "kernel_q8mm_nemotron")
+ONLY_ARG = "--only"
+# the host masters of these phases (37.6 GB together) are drawn by this
+# process while the reference phases' child runs (``HostPrefetch``)
+PREFETCHED = ("train_qwen32b", "train_llama70b", "train_gptoss")
+DRY_STEP_ARG = "--dry-step"
+# q8_matmul calls of one nemotron-4-340b layer per serve call, (K, N) ->
+# (calls at decode M = SERVE_BATCH, at prefill M = SERVE_BATCH x
+# SERVE_PROMPT): wq and wo, the squared-ReLU MLP's up (w1) and down (w2)
+# projections.  wk and wv, (18432, 1536), have no separable scale layout
+# at quant block 1024 (1536 is neither a multiple nor a divisor of it):
+# ``q8_matmul`` refuses them as the reference's kernel does, and a serve
+# dequantizes them (``dequantize_into``), held there instead
+NEMOTRON = "nemotron-4-340b"
+NEMOTRON_LAYER_Q8MM = {(18432, 18432): (2, 2), (18432, 73728): (1, 1),
+                       (73728, 18432): (1, 1)}
+NEMOTRON_KV = (18432, 1536)
+
+
+def halved(batch: int, seq: int) -> tuple[int, int]:
+    """Half a phase's tokens: half the rows, or half the sequence of one."""
+    return (batch // 2, seq) if batch > 1 else (batch, seq // 2)
+
+
+def published_config(name: str):
+    """``(cfg, cut)``: the configuration phase ``name`` of PUBLISHED trains
+    and every departure from the published one (``cut``, field ->
+    [published, run]; the batch against ``train_4k``'s)."""
+    from repro_torch.configs import SHAPES, get_config
+
+    arch, layers, batch, seq, store, opt = PUBLISHED[name]
+    full = get_config(arch)
+    cfg = dataclasses.replace(
+        full, n_layers=layers or full.n_layers,
+        optimizer=opt or full.optimizer,
+        parallel=dataclasses.replace(full.parallel, ep=1,
+                                     param_store=store))
+    cut = {k: [getattr(full, k), getattr(cfg, k)]
+           for k in ("n_layers", "optimizer")
+           if getattr(full, k) != getattr(cfg, k)}
+    cut.update({k: [getattr(full.parallel, k), getattr(cfg.parallel, k)]
+                for k in ("ep", "param_store")
+                if getattr(full.parallel, k) != getattr(cfg.parallel, k)})
+    shape = SHAPES["train_4k"]
+    cut["batch"] = [[shape.global_batch, shape.seq_len], [batch, seq]]
+    return cfg, cut
+
+
+def expected_first_loss(cfg) -> float:
+    """The first loss the port's init implies: the final norm (its weight
+    as ``_init_tensor`` draws it, through ``rms_norm``) maps unit-RMS
+    activations to RMS ``gain``; a head of fan-in ``f`` drawn N(0, 1/f)
+    makes the logits ~ N(0, gain^2 d / f) -- f = d for an untied head,
+    the vocab for a tied one (the embedding's rows) -- and the mean of
+    log-sum-exp over V such logits is ln V + var / 2 (the target's logit
+    has mean 0)."""
+    import torch
+
+    from repro_torch.core.fsdp import FSDPRuntime
+    from repro_torch.core.ragged import TensorSpec
+    from repro_torch.models.layers import rms_norm
+
+    w = FSDPRuntime._init_tensor(TensorSpec("final_ln", (cfg.d_model,)), 0,
+                                 None)
+    gain2 = float(rms_norm(torch.ones(1, cfg.d_model), torch.from_numpy(w),
+                           cfg.norm_eps).square().mean())
+    fan_in = cfg.vocab if cfg.tie_embeddings else cfg.d_model
+    return math.log(cfg.vocab) + gain2 * cfg.d_model / fan_in / 2
+
+
+def dry_step_main(name: str) -> None:
+    """``chip_smoke.py --dry-step NAME``: the dry run of phase ``name``'s
+    train step -- its config, store, optimizer, depth and batch, one rank
+    of a 1 x 1 mesh on meta tensors (``launch.dryrun.dry_step``) -- one
+    JSON row a batch: the phase's, and where that predicts more than
+    PUBLISHED_PEAK_LIMIT the ``halved`` one the phase then runs.  A child
+    process of ``start_dryruns`` that sees no card."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.dryrun import dry_step
+
+    cfg, _ = published_config(name)
+    batch, seq = PUBLISHED[name][2:4]
+    for b, t in ((batch, seq), halved(batch, seq)):
+        rec, _ = dry_step(cfg, ShapeConfig(f"{name}_b{b}_s{t}", t, b,
+                                           "train"), {"data": 1, "model": 1})
+        print(json.dumps({
+            "arch": cfg.name, "run": name, "mesh": "1x1", "batch": [b, t],
+            "ok": True, "peak_bytes_dev": rec.peak_bytes,
+            "arg_bytes_dev": rec.arg_bytes,
+            "hlo_gflops_dev": rec.flops / 1e9, "hbm_gb_dev": rec.bytes / 1e9,
+            "colls": {k: sum(c[0] == k for c in rec.collectives)
+                      for k in sorted({c[0] for c in rec.collectives})},
+            "kernel_calls": rec.kernel_calls(),
+            "dry_run_s": rec.seconds}), flush=True)
+        if rec.peak_bytes <= PUBLISHED_PEAK_LIMIT:
+            break
+
+
+class HostPrefetch:
+    """The initial host masters of the runtimes ``runtimes`` (phase ->
+    an ``FSDPRuntime`` on the meta device: its layouts only), each drawn
+    by ``host_params(0)`` on a thread of this process of its own (numpy
+    releases the GIL while it draws), all started at once.  ``wait()``
+    joins them and returns the seconds it waited; ``init(name, timing)``
+    is then that phase's ``init(rt)`` for ``train``: it places the arrays
+    as ``init_params(0)`` does (``timing``'s ``host_draw_s``: their draw's
+    own seconds), its plan checked against the prefetch's."""
+
+    def __init__(self, runtimes: dict):
+        self.rts, self.done, self.errors = runtimes, {}, {}
+        self.threads = [threading.Thread(target=self._draw, args=(n,),
+                                         daemon=True) for n in runtimes]
+        for t in self.threads:
+            t.start()
+
+    def _draw(self, name: str) -> None:
+        t0 = time.perf_counter()
+        try:
+            self.done[name] = (self.rts[name].host_params(0),
+                               time.perf_counter() - t0)
+        except Exception as e:          # raised again by ``wait``
+            self.errors[name] = e
+
+    def wait(self) -> float:
+        t0 = time.perf_counter()
+        for t in self.threads:
+            t.join()
+        for name, e in self.errors.items():
+            raise RuntimeError(f"the host prefetch of {name} failed") from e
+        return time.perf_counter() - t0
+
+    def init(self, name: str, timing: dict):
+        def init(rt):
+            import torch
+
+            host, timing["host_draw_s"] = self.done.pop(name)
+            src = self.rts[name].layouts
+            if any(lo.plan != src[n].plan for n, lo in rt.layouts.items()):
+                fail(f"{name}: the prefetched masters' plan differs")
+            return {n: lo.store.create(torch.from_numpy(host.pop(n))
+                                       .to(rt.device).requires_grad_(True))
+                    for n, lo in rt.layouts.items()}
+        return init
+
+
+def dryrun_vs_card(name: str, dry_run: dict, measured: int,
+                   calls_want: dict, **extra) -> None:
+    """Phase 6c's row of run ``name``: its dry run's (``finish_dryruns``)
+    predicted peak against the card's ``measured`` peak, within
+    DRYRUN_PEAK_RTOL, and its kernel calls equal to ``calls_want``."""
+    row = dry_run["row"]
+    pred = row["peak_bytes_dev"]
+    emit({"phase": "dryrun_vs_card", "run": name, "mesh": row["mesh"],
+          **extra, "predicted_peak": pred,
+          "argument_bytes": row["arg_bytes_dev"],
+          "temp_bytes": pred - row["arg_bytes_dev"],
+          "max_memory_allocated": measured,
+          "rel_diff": pred / measured - 1.0,
+          "matmul_gflops": row["hlo_gflops_dev"], "hbm_gb": row["hbm_gb_dev"],
+          "colls": row["colls"], "kernel_calls": row["kernel_calls"],
+          "dry_run_s": dry_run["seconds"]})
+    if abs(pred / measured - 1.0) > DRYRUN_PEAK_RTOL:
+        fail(f"dryrun_vs_card {name}: predicted peak {pred} is "
+             f"{pred / measured - 1.0:+.3f} of the measured {measured}")
+    if row["kernel_calls"] != calls_want:
+        fail(f"dryrun_vs_card {name}: kernel calls {row['kernel_calls']}, "
+             f"expected {calls_want}")
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -714,6 +969,17 @@ def median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+@functools.cache
+def side_stream():
+    """The one side stream of ``graph_ms``' warm-ups: cuBLAS keeps a
+    workspace on every stream it has run on (32 MiB each on the H100)
+    until the process ends, so a new stream a call would hold one a call
+    past ``empty_cache``."""
+    import torch
+
+    return torch.cuda.Stream()
+
+
 def graph_ms(fn, reps: int = 20, iters: int = 10) -> float:
     """Device time of one ``fn()``: the median over ``iters`` replays of a
     CUDA graph of ``reps`` back-to-back calls, over ``reps``.  A call small
@@ -722,7 +988,7 @@ def graph_ms(fn, reps: int = 20, iters: int = 10) -> float:
     import torch
 
     fn()                                   # build, load, allocate first
-    side = torch.cuda.Stream()
+    side = side_stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
@@ -803,6 +1069,17 @@ def hold(name: str, case: dict, run_kernel, run_plain, bytes_moved: float,
     del got, want
     ms = median_ms(run_kernel, iters)
     plain_ms = median_ms(run_plain, iters)
+    return held_row(name, case, diff, err, ms, plain_ms, bytes_moved, flops,
+                    phase)
+
+
+def held_row(name: str, case: dict, diff: int, err: float, ms: float,
+             plain_ms: float, bytes_moved: float, flops: float,
+             phase: str) -> dict:
+    """A kernel's row against its plain version (``hold``,
+    ``hold_in_chunks``) with its bound; fails unless it is bitwise."""
+    import torch
+
     bound_ms = max(bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
     row = {"phase": phase, "name": name, **case,
            "max_int_view_diff": diff, "max_abs_err": err, "ms": ms,
@@ -1703,38 +1980,143 @@ def phase_kernel_q8mm_sliced(ops, ref) -> dict:
 
 def hold_update_at(path, rt, fused_update, ref,
                    phase: str = "kernel_recurrent"):
-    """Row 8a against its plain version at each group's shard of
-    ``path``'s runtime (the fp32 store's flat epilogue), on random
-    state: these launches compare, they are not the path's."""
+    """Each group's update kernel against its plain version at its shard
+    of ``path``'s runtime, in the store's epilogue, on random state: row
+    8a (AdamW, the fp32 or bf16 store's flat epilogue) or 9a (8-bit Adam,
+    the runtime's optimizer).  These launches compare, they are not the
+    path's.  The plain version never sees more than COMPARE_CHUNK
+    elements at once: a larger shard is held in pieces of a row
+    (``hold_in_chunks``), since its whole fp32 temporaries would not fit
+    beside it at the published shards."""
     import torch
+
+    from repro_torch.kernels import ops
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     scalars = ref.scalar_stack(3e-4, 0.9, 0.95, 1e-8, 0.1,
                                1 - 0.9 ** 3, 1 - 0.95 ** 3)
+    adam8 = rt.cfg.optimizer == "adam8bit"
+    block = rt.cfg.quant_block
     rows = {}
     for n, lo in rt.layouts.items():
-        shape = lo.local_shape()
+        shape, fmt = lo.local_shape(), lo.store.fmt
+        dtype = torch.bfloat16 if fmt == "bf16" else torch.float32
+        # the train step hands a bf16 store's gradient over unscaled
+        g_scale = torch.tensor(1 / 4094, device="cuda") \
+            if fmt == "bf16" else None
 
         def rnd(scale, shape=shape):
             return torch.randn(shape, generator=gen,
                                device="cuda") * scale
 
-        w, g, m, v = rnd(0.05), rnd(1e-3), rnd(1e-4), rnd(1e-4).square_()
-        mask = (torch.rand(shape, generator=gen, device="cuda")
-                < 0.8).float()
+        w, g = rnd(0.05).to(dtype), rnd(1e-3).to(dtype)
         numel = w.numel()
-        rows[n] = hold(
-            "adamw_store_update",
-            {"path": path, "group": n, "shape": list(shape),
-             "fmt": "fp32"},
-            lambda: fused_update.adamw_store_update(
-                w, g, m, v, mask, scalars, fmt="fp32"),
-            lambda: ref.adamw_store_update_ref(w, g, m, v, mask,
-                                               scalars, "fp32"),
-            BYTES_PER_ELEM["fp32"] * numel, FLOPS_PER_ELEM * numel,
-            iters=20, phase=phase)
-        del w, g, m, v, mask
+        if adam8:
+            m8, ms = ops.quantize(rnd(1e-4), block)
+            # v's log-space codes (a plain function, no kernel) a chunk of
+            # a row at a time: its temporaries at a whole shard would not
+            # fit; a block's codes depend on that block alone
+            v, S = rnd(3e-4).square_(), shape[-1]
+            v8, vs = torch.empty_like(m8), torch.empty_like(ms)
+            for r in range(numel // S):
+                for c in range(0, S, COMPARE_CHUNK):
+                    e = min(c + COMPARE_CHUNK, S)
+                    v8.view(-1, S)[r, c:e], \
+                        vs.view(-1, S // block)[r, c // block:e // block] = \
+                        ops.quantize_log(v.view(-1, S)[r, c:e], block)
+            del v
+            mask = (torch.rand(shape[-1], generator=gen, device="cuda")
+                    < 0.8).to(torch.uint8)
+            ins = (w, g, m8, v8, ms, vs, mask)
+            name = "adam8bit_store_update"
+            key = "adam8bit_bf16" if fmt == "bf16" else None
+            nbytes = (numel * (NEW_BYTES[key] if key else ADAM8_BYTES[fmt])
+                      + shape[-1] + numel // block * ADAM8_BLOCK_BYTES[fmt])
+            flops = numel * (NEW_FLOPS[key] if key else ADAM8_FLOPS[fmt])
+
+            def run_kernel(ins=ins, fmt=fmt, g_scale=g_scale):
+                return fused_update.adam8bit_store_update(
+                    *ins, scalars, fmt=fmt, block=block, g_scale=g_scale)
+
+            def plain(*x, fmt=fmt, g_scale=g_scale):
+                return ref.adam8bit_store_update_ref(*x, scalars, fmt, block,
+                                                     g_scale=g_scale)
+        else:
+            m, v = rnd(1e-4), rnd(1e-4).square_()
+            mask = (torch.rand(shape, generator=gen, device="cuda")
+                    < 0.8).float()
+            ins = (w, g, m, v, mask)
+            name = "adamw_store_update"
+            key = "adamw_bf16" if fmt == "bf16" else None
+            nbytes = numel * (NEW_BYTES[key] if key else BYTES_PER_ELEM[fmt])
+            flops = numel * (NEW_FLOPS[key] if key else FLOPS_PER_ELEM)
+
+            def run_kernel(ins=ins, fmt=fmt, g_scale=g_scale):
+                return fused_update.adamw_store_update(
+                    *ins, scalars, fmt=fmt, g_scale=g_scale)
+
+            def plain(*x, fmt=fmt, g_scale=g_scale):
+                return ref.adamw_store_update_ref(*x, scalars, fmt,
+                                                  g_scale=g_scale)
+        del w, g
+        case = {"path": path, "group": n, "shape": list(shape), "fmt": fmt}
+        if numel > COMPARE_CHUNK:
+            rows[n] = hold_in_chunks(name, case, run_kernel, plain, ins,
+                                     block, nbytes, flops, phase)
+        else:
+            rows[n] = hold(name, case, run_kernel, lambda: plain(*ins),
+                           nbytes, flops, iters=20, phase=phase)
+        del ins, run_kernel, plain
+        torch.cuda.empty_cache()
     return rows
+
+
+def hold_in_chunks(name: str, case: dict, run_kernel, plain, ins,
+                   block: int, bytes_moved: float, flops: float, phase: str,
+                   iters: int = 5) -> dict:
+    """``hold`` for a fused update whose plain version runs on COMPARE_CHUNK
+    elements of a row at a time: each chunk's result held against its part
+    of the kernel's one whole result (integer-view difference, must be 0).
+    A piece of each input: a tensor of w's shape by its elements, a
+    per-block scale by its blocks, the (S,) decay row every row shares by
+    its columns.  The kernel's time is a whole call's, the plain version's
+    one pass over the chunks (medians of ``iters``)."""
+    import torch
+
+    w = ins[0]
+    S = w.shape[-1]
+
+    def piece(t, r, c0, c1):
+        if t.shape == w.shape:
+            return t.reshape(-1, S)[r, c0:c1]
+        if t.dim() == 1 and t.numel() == S:
+            return t[c0:c1]
+        return t.reshape(-1, S // block)[r, c0 // block:c1 // block]
+
+    spans = [(r, c, min(c + COMPARE_CHUNK, S))
+             for r in range(w.numel() // S)
+             for c in range(0, S, COMPARE_CHUNK)]
+    got = flat_outputs(run_kernel())
+    torch.cuda.synchronize()
+    diff, err = 0, 0.0
+    for r, c0, c1 in spans:
+        want = flat_outputs(plain(*(piece(t, r, c0, c1) for t in ins)))
+        for a, b in zip(got, want):
+            a = piece(a, r, c0, c1)
+            diff = max(diff, int_view_diff(a, b))
+            err = max(err, abs_err(a, b))
+        del want
+    del got
+    torch.cuda.empty_cache()
+    ms = median_ms(run_kernel, iters, warmup=1)
+
+    def plain_pass():
+        for r, c0, c1 in spans:
+            plain(*(piece(t, r, c0, c1) for t in ins))
+
+    plain_ms = median_ms(plain_pass, iters, warmup=1)
+    return held_row(name, {**case, "chunks": len(spans)}, diff, err, ms,
+                    plain_ms, bytes_moved, flops, phase)
 
 
 @contextlib.contextmanager
@@ -1755,37 +2137,49 @@ def vision_gates(runtime_cls):
         runtime_cls._init_tensor = plain
 
 
-def phase_kernel_q8mm_vision(ops, ref, q8mm) -> dict:
-    """``q8_matmul`` against its plain version at the shapes
-    ``serve_vision`` gives it: llama-3.2-vision-90b's weights (K, N) at
-    decode M = 4 and prefill M = 2048, and the cross layer's K and V
-    products over 4 x 1,024 patch rows (M = 4096, K = 8192, N = 1024), bf16,
-    each bitwise.  The kernel's device time is the replays of a CUDA graph
-    of its calls; the plain version's (a whole fp32 dequantized weight a
-    call) an eager call's, timed with CUDA events.  Returns the summaries
-    the kernels line carries: one decode call's decode-regime launches
-    and one prefill call's launches of a vision block, summed."""
+def hold_q8mm_shapes(ops, ref, q8mm, phase: str, calls: dict,
+                     extra: dict, seed: int) -> dict:
+    """``q8_matmul`` against its plain version at the weights of ``calls``
+    ((K, N) -> its calls a decode call (M = 4) and a prefill call (M =
+    2048) make) and at ``extra``'s rows ((K, N) -> (M, calls a call)),
+    bf16, quant block 1024, each bitwise.  The kernel's device time is
+    the replays of a CUDA graph of its calls; the plain version's (a whole
+    fp32 dequantized weight a call) an eager call's, timed with CUDA
+    events.  Returns the summaries the kernels line carries: a decode
+    call's decode-regime launches and a prefill call's launches, summed
+    over the calls."""
     import torch
 
-    gen = torch.Generator(device="cuda").manual_seed(5)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     block = 1024
     summary = {r: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                    "max_abs_err": 0.0, "bound_by": b}
                for r, b in (("decode", "bytes"), ("prefill", "operations"))}
-    for (k, n), calls in VISION_BLOCK_Q8MM.items():
+    for (k, n), n_by_m in calls.items():
         n_scales = -(-(k * n) // block)
         codes = torch.randint(-127, 128, (k, n), generator=gen,
                               device="cuda", dtype=torch.int8)
         scales = torch.rand(n_scales, generator=gen, device="cuda") * 0.02 \
             + 1e-3
-        ms_by_m = [(m, c) for m, c in zip(Q8MM_M, calls)]
-        if (k, n) == VISION_MEMORY_Q8MM:
-            ms_by_m.append((VISION_MEMORY_ROWS, VISION_MEMORY_CALLS))
+        ms_by_m = [(m, c) for m, c in zip(Q8MM_M, n_by_m)]
+        if (k, n) in extra:
+            ms_by_m.append(extra[k, n])
+        # the plain version's rows at a time: its (column groups, rows, K)
+        # fp32 temporaries (and their float64 copy) at most 4 GB each; its
+        # rows are independent (each quantized by itself)
+        rows = max(1, (1 << 30) // (k * (n // block if n % block == 0
+                                         else 1)))
         for m, n_calls in ms_by_m:
             x = (torch.randn(m, k, generator=gen, device="cuda") * 2.0) \
                 .to(torch.bfloat16)
+
+            def plain(x=x):
+                return torch.cat([ref.q8_matmul_ref(x[r:r + rows], codes,
+                                                    scales, block)
+                                  for r in range(0, x.shape[0], rows)])
+
             got = ops.q8_matmul(x, codes, scales, block)
-            want = ref.q8_matmul_ref(x, codes, scales, block)
+            want = plain()
             torch.cuda.synchronize()
             diff = int_view_diff(got, want)
             err = abs_err(got, want)
@@ -1794,15 +2188,15 @@ def phase_kernel_q8mm_vision(ops, ref, q8mm) -> dict:
                 fail(f"q8_matmul differs from its plain version at M={m} "
                      f"({k}, {n}): {diff} integer-view steps")
             ms = graph_ms(lambda: ops.q8_matmul(x, codes, scales, block))
-            plain_ms = median_ms(lambda: ref.q8_matmul_ref(
-                x, codes, scales, block), iters=5, warmup=1)
+            plain_ms = median_ms(plain, iters=5, warmup=1)
             nbytes = m * k * 2 + k * n + 4 * n_scales + m * n * 2
             nops = 2 * m * k * n
             bound_ms = max(nbytes / HBM_BYTES_PER_S, nops / INT8_OPS) * 1e3
             regime = q8mm.regime_for(m)
-            emit({"phase": "kernel_q8mm_vision", "name": "q8_matmul",
+            emit({"phase": phase, "name": "q8_matmul",
                   "regime": regime, "M": m, "K": k, "N": n, "block": block,
-                  "dtype": "bfloat16", "calls_a_block": n_calls,
+                  "dtype": "bfloat16", "calls_a_call": n_calls,
+                  "plain_row_chunk": min(rows, m),
                   "max_int_view_diff": diff, "max_abs_err": err, "ms": ms,
                   "plain_ms": plain_ms, "bound_ms": bound_ms,
                   "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
@@ -1819,6 +2213,67 @@ def phase_kernel_q8mm_vision(ops, ref, q8mm) -> dict:
         del codes, scales
         torch.cuda.empty_cache()
     return summary
+
+
+def phase_kernel_q8mm_vision(ops, ref, q8mm) -> dict:
+    """``q8_matmul`` at the shapes ``serve_vision`` gives it:
+    llama-3.2-vision-90b's weights (K, N) at decode M = 4 and prefill M =
+    2048 (one vision block's calls), and the cross layer's K and V
+    products over 4 x 1,024 patch rows (M = 4096, K = 8192, N = 1024)."""
+    return hold_q8mm_shapes(
+        ops, ref, q8mm, "kernel_q8mm_vision", VISION_BLOCK_Q8MM,
+        {VISION_MEMORY_Q8MM: (VISION_MEMORY_ROWS, VISION_MEMORY_CALLS)}, 5)
+
+
+def phase_kernel_q8mm_nemotron(ops, ref, q8mm) -> dict:
+    """``q8_matmul`` at nemotron-4-340b's layer weights: wq and wo (18432,
+    18432), the up projection (18432, 73728) and the down projection
+    (73728, 18432) -- K = 73,728, the deepest the int32 accumulator has
+    taken, streamed by the decode kernel in chunks of its slab -- at
+    decode M = 4 and prefill M = 2048, bf16, bitwise.  wk and wv (18432,
+    1536) have no separable scale layout at block 1024: the kernel and the
+    plain version must both refuse them with the same ValueError, and
+    ``dequantize_into`` (the serve's route for them, bf16 out) is held
+    there bitwise instead.  Returns the summaries of a layer's calls, and
+    the refusal and the dequantization under ``"kv"``."""
+    import torch
+
+    out = hold_q8mm_shapes(ops, ref, q8mm, "kernel_q8mm_nemotron",
+                           NEMOTRON_LAYER_Q8MM, {}, 7)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    k, n = NEMOTRON_KV
+    x = (torch.randn(Q8MM_M[0], k, generator=gen, device="cuda") * 2.0) \
+        .to(torch.bfloat16)
+    codes = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                          dtype=torch.int8)
+    scales = torch.rand(k * n // 1024, generator=gen, device="cuda") * 0.02 \
+        + 1e-3
+    refused = {}
+    for who, fn in (("kernel", ops.q8_matmul), ("plain", ref.q8_matmul_ref)):
+        try:
+            fn(x, codes, scales, 1024)
+        except ValueError as e:
+            refused[who] = str(e)
+    emit({"phase": "kernel_q8mm_nemotron", "name": "q8_matmul", "K": k,
+          "N": n, "block": 1024, "refused": refused,
+          "eligible": q8mm.quant_eligible((k, n), 1024)})
+    if set(refused) != {"kernel", "plain"} \
+            or refused["kernel"] != refused["plain"]:
+        fail(f"q8_matmul at ({k}, {n}), block 1024: refusals {refused}")
+    flat = codes.reshape(-1)
+    numel = flat.numel()
+    out["kv"] = hold(
+        "dequantize_into", {"path": "kernel_q8mm_nemotron",
+                            "shape": [k, n], "out": "bfloat16",
+                            "block": 1024},
+        lambda: ops.dequantize_into(flat, scales, 1024,
+                                    out_dtype=torch.bfloat16),
+        lambda: ref.dequantize_into_ref(flat, scales, 1024, torch.bfloat16),
+        numel * 3 + 4 * numel / 1024, Q8_FLOPS["dequantize_into"] * numel,
+        iters=10, phase="kernel_q8mm_nemotron")
+    del x, codes, scales, flat
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_kernel_q8_vision(ops, ref, shards: dict) -> dict:
@@ -1937,28 +2392,37 @@ def expected_serve_launches(rt, calls: int, keys) -> dict:
     return want
 
 
-def start_dryruns(out_dir: Path) -> dict:
-    """The dry runs of phases 6c and 25, each in a child process of its
-    own (a dry run makes its own fake process group; this process holds
-    the NCCL one), all started at once: host only, on meta tensors."""
+def start_dryruns(out_dir: Path, only=None) -> dict:
+    """The dry runs of phases 6c and 25 (``python -m
+    repro_torch.launch.dryrun``) and of the PUBLISHED train phases
+    (``--dry-step``), each in a child process of its own (a dry run makes
+    its own fake process group; this process holds the NCCL one), all
+    started at once: host only, on meta tensors, no card visible.  With
+    ``only`` (``--only``'s train phases), the dry steps of those alone."""
+    dry = [sys.executable, "-m", "repro_torch.launch.dryrun"]
     runs = {
-        "train": ["--arch", "gemma2-2b", "--mesh", "1x1", "--layers",
-                  str(TRAIN_LAYERS), "--batch", str(TRAIN_BATCH), "--seq",
-                  str(TRAIN_SEQ)],
-        "train_cli": ["--arch", "gemma2-2b", "--mesh", "1x1", "--batch",
-                      str(CLI_BATCH), "--seq", str(CLI_SEQ)],
+        "train": dry + ["--arch", "gemma2-2b", "--mesh", "1x1", "--layers",
+                        str(TRAIN_LAYERS), "--batch", str(TRAIN_BATCH),
+                        "--seq", str(TRAIN_SEQ)],
+        "train_cli": dry + ["--arch", "gemma2-2b", "--mesh", "1x1",
+                            "--batch", str(CLI_BATCH), "--seq",
+                            str(CLI_SEQ)],
         **{f"{arch}/{shape}" + ("/multi_pod" if mp else ""):
-           ["--arch", arch, "--shape", shape, "--verify"]
+           dry + ["--arch", arch, "--shape", shape, "--verify"]
            + (["--multi-pod"] if mp else [])
            for arch, shape, mp in DRYRUN_PRODUCTION},
-        "plan_only": ["--plan-only", "--all"],
-    }
-    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+        "plan_only": dry + ["--plan-only", "--all"],
+    } if only is None else {}
+    runs.update({name: [sys.executable, str(Path(__file__).resolve()),
+                        DRY_STEP_ARG, name]
+                 for name in (PUBLISHED if only is None else only)})
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
     procs = {}
-    for i, (name, argv) in enumerate(runs.items()):
+    for i, (name, cmd) in enumerate(runs.items()):
         log = open(out_dir / f"{i}.log", "w")
-        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
-               "--out", str(out_dir / f"{i}.jsonl")]
+        if cmd[:3] == dry:
+            cmd = cmd + ["--out", str(out_dir / f"{i}.jsonl")]
         procs[name] = (subprocess.Popen(cmd, stdout=log,
                                         stderr=subprocess.STDOUT, env=env,
                                         cwd=str(ROOT)),
@@ -2003,8 +2467,9 @@ def stop_dryruns(procs: dict) -> None:
 
 def finish_dryruns(procs: dict) -> dict:
     """Wait for every dry run child (killing all of them on a failure):
-    ``{name: {"row": the last JSON row or None, "text": its output,
-    "seconds": its wall time, start to its last output}}``."""
+    ``{name: {"row": the last JSON row or None, "rows": every row,
+    "text": its output, "seconds": its wall time, start to its last
+    output}}``."""
     out = {}
     try:
         for name, (proc, log, path, t0) in procs.items():
@@ -2015,7 +2480,8 @@ def finish_dryruns(procs: dict) -> dict:
                 fail(f"dry run {name} exited {rc}: {text[-3000:]}")
             rows = [json.loads(l) for l in text.splitlines()
                     if l.startswith('{"arch"')]
-            out[name] = {"row": rows[-1] if rows else None, "text": text,
+            out[name] = {"row": rows[-1] if rows else None, "rows": rows,
+                         "text": text,
                          "seconds": path.stat().st_mtime - t0}
     finally:
         stop_dryruns(procs)
@@ -2023,6 +2489,16 @@ def finish_dryruns(procs: dict) -> dict:
 
 
 def main() -> None:
+    if DRY_STEP_ARG in sys.argv[1:]:
+        dry_step_main(sys.argv[sys.argv.index(DRY_STEP_ARG) + 1])
+        return
+    only = None
+    if ONLY_ARG in sys.argv[1:]:
+        only = sys.argv[sys.argv.index(ONLY_ARG) + 1].split(",")
+        if not set(only) <= set(PUBLISHED_PHASES) or (
+                "serve_granite" in only and "train_granite" not in only):
+            fail(f"{ONLY_ARG} takes phases of {PUBLISHED_PHASES} "
+                 f"(serve_granite with train_granite), got {only}")
     t_script = time.perf_counter()
     # the CPU reference's pins (MKL's reproducible mode, a fixed thread
     # count), set before torch loads MKL: the parity phases repeat the CPU
@@ -3042,6 +3518,303 @@ def main() -> None:
         torch.cuda.empty_cache()
         return out
 
+    def init_from(host):
+        """``init(rt)`` from host masters ``{group: (tensor, layout)}``,
+        cut to rt's layers (a layer's init does not depend on the depth)
+        and repacked tensor by tensor where rt's layout differs (the
+        fsdp2 and q8 plans): the values ``rt.init_params(0)`` gives,
+        without drawing them again."""
+        def init(rt):
+            out = {}
+            for n, lo in rt.layouts.items():
+                t, src = host[n]
+                t = t[:lo.n_layers] if lo.n_layers else t
+                if src.plan != lo.plan:
+                    rows = t.numpy().reshape(-1, src.plan.total)
+                    t = torch.from_numpy(np.stack([
+                        lo.buffer.pack(src.buffer.unpack_np(r))
+                        for r in rows]).reshape(lo.local_shape()))
+                out[n] = lo.store.create(
+                    t.to(rt.device).requires_grad_(True))
+            return out
+        return init
+
+    def serve_run(rt, model, params, prompts, requests):
+        """A warm-up prefill and a timed one (the cache's slots are simply
+        rewritten), SERVE_STEPS greedy decode steps at a scalar index, then
+        the engine; returns (metrics, prefill logits, step calls)."""
+        cache = rt.init_cache(SERVE_BATCH, SERVE_LEN)
+        prefill, decode = rt.make_prefill_step(), rt.make_decode_step()
+        prefill(params, {"tokens": prompts}, cache)        # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, {"tokens": prompts}, cache)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        tok = torch.argmax(logits, -1)
+        step_ms, gen = [], [tok]
+        for i in range(SERVE_STEPS):
+            t0 = time.perf_counter()
+            lg, cache = decode(params, {"tokens": tok}, cache,
+                               SERVE_PROMPT + i)
+            tok = torch.argmax(lg, -1)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            gen.append(tok)
+        if not bool(torch.isfinite(lg.float()).all()):
+            fail(f"non-finite decode logits on {rt.schedule}")
+        gen = torch.cat(gen, 1).cpu()
+        del cache
+        eng = ServeEngine(rt, model, params, pool=ENGINE_POOL,
+                          max_len=SERVE_LEN)
+        reqs = [Request(uid=i, prompt=p, max_new=ENGINE_NEW)
+                for i, p in enumerate(requests)]
+        for r in reqs:
+            eng.submit(r)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine_calls = 0
+        while eng.queue or any(sl.req for sl in eng.slots):
+            eng.step()
+            engine_calls += 1
+        engine_s = time.perf_counter() - t0
+        new_tokens = sum(len(r.out) for r in reqs)
+        if not all(r.done and len(r.out) == ENGINE_NEW for r in reqs):
+            fail("the engine left requests unfinished")
+        if not (0 <= int(gen.min()) and int(gen.max()) < model.cfg.vocab):
+            fail("decoded tokens out of the vocabulary")
+        decode_med = statistics.median(step_ms[1:])
+        return ({"prefill_ms": prefill_ms, "decode_step_ms": step_ms,
+                 "decode_step_ms_median": decode_med,
+                 "decode_tokens_per_s": SERVE_BATCH / (decode_med / 1e3),
+                 "engine_calls": engine_calls, "engine_s": engine_s,
+                 "engine_new_tokens": new_tokens,
+                 "engine_tokens_per_s": new_tokens / engine_s,
+                 "greedy_row0": gen[0].tolist()},
+                logits, 2 + SERVE_STEPS + engine_calls)
+
+    def train_published(name: str, dryrun: dict, keep_init=None,
+                        prefetch=None) -> dict:
+        """A phase of PUBLISHED (36, 38-40): its configuration at published
+        width through ``train`` on the NCCL rank, bf16 compute; the batch
+        its dry run settled on (halved where the phase's own was predicted
+        above PUBLISHED_PEAK_LIMIT); then the dry run's predicted peak and
+        kernel calls against the card's (``dryrun_vs_card``) and its update
+        kernel against the plain version at its shards (the plain version
+        in chunks).  ``keep_init`` receives the host masters; ``prefetch``
+        (a ``HostPrefetch``, awaited) drew them already.  Returns what the
+        kernels line carries."""
+        from repro_torch.configs import ShapeConfig
+        from repro_torch.launch import roofline
+
+        cfg, cut = published_config(name)
+        rows = dryrun["rows"]
+        if not rows or not all(r["ok"] for r in rows):
+            fail(f"{name}: no dry run row: {dryrun['text'][-2000:]}")
+        dr = rows[-1]
+        batch, seq = dr["batch"]
+        pred = dr["peak_bytes_dev"]
+        cut["batch"][1] = [batch, seq]
+        if len(rows) > 1:
+            cut["batch_halved"] = {"from": rows[0]["batch"],
+                                   "predicted_peak": rows[0]
+                                   ["peak_bytes_dev"]}
+        if pred > PUBLISHED_PEAK_LIMIT:
+            fail(f"{name}: the dry run predicts {pred} bytes at {batch} x "
+                 f"{seq}, above {PUBLISHED_PEAK_LIMIT}")
+        fmt = cfg.parallel.param_store
+        kernel = "adam8bit_store_update" if cfg.optimizer == "adam8bit" \
+            else "adamw_store_update"
+        stream = SyntheticStream(DataConfig(cfg.vocab, seq, batch), cfg)
+        loss0 = expected_first_loss(cfg)
+        emit({"phase": name + "_setup", "model": cfg.name, "cut": cut,
+              "d_model": cfg.d_model, "heads": [cfg.n_heads,
+                                                cfg.n_kv_heads],
+              "head_dim": cfg.hd, "d_ff": cfg.d_ff, "mlp": cfg.mlp,
+              "experts": [cfg.n_experts, cfg.top_k], "vocab": cfg.vocab,
+              "qkv_bias": cfg.qkv_bias, "rope_theta": cfg.rope_theta,
+              "layers": cfg.n_layers, "batch": [batch, seq],
+              "optimizer": cfg.optimizer, "store": fmt,
+              "compute": "bfloat16", "predicted_peak": pred})
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()    # what earlier phases hold
+        reset_launches(mods)
+        plain_calls, restore_plain = count_plain(ops)
+        timing = {}
+        t0 = time.perf_counter()
+        try:
+            metrics, times, rt = train(
+                cfg, "cuda", torch.bfloat16, stream, 1 + TIMED_STEPS,
+                timings=timing, keep_init=keep_init,
+                init=prefetch.init(name, timing) if prefetch else None)
+        finally:
+            restore_plain()
+        launches = launches_now(mods)
+        peak = torch.cuda.max_memory_allocated()
+        want = {k: 0 for k in launches}
+        want[kernel] = len(rt.layouts) * len(metrics)
+        tokens = batch * seq
+        for i, (m, ms) in enumerate(zip(metrics, times)):
+            emit({"phase": name, "step": i, "warmup": i == 0,
+                  "loss": m["loss"], "grad_norm": m["grad_norm"],
+                  "tokens": m["tokens"], "step_ms": ms,
+                  "tokens_per_s": tokens / (ms / 1e3)})
+        step_ms = statistics.median(times[1:])
+        emit({"phase": name + "_summary",
+              "shard_sizes": {n: lo.plan.shard_size
+                              for n, lo in rt.layouts.items()},
+              "params": sum(math.prod(lo.local_shape())
+                            for lo in rt.layouts.values()),
+              "setup_s": timing["setup_s"],
+              "host_draw_s": timing.get("host_draw_s"),
+              "setup_and_steps_s": time.perf_counter() - t0,
+              "step_ms_median": step_ms,
+              "tokens_per_s": tokens / (step_ms / 1e3),
+              "mfu": roofline.mfu(cfg, ShapeConfig(name, seq, batch,
+                                                   "train"), step_ms / 1e3),
+              "max_memory_allocated": peak, "allocated_before": base,
+              "own_peak": peak - base, "kernel_launches": launches,
+              "expected_launches": want,
+              "plain_calls": {k: v for k, v in plain_calls.items() if v},
+              "expected_first_loss": loss0})
+        if launches != want:
+            fail(f"{name} launched {launches}, expected {want}")
+        if any(plain_calls.values()):
+            fail(f"{name} ran plain versions {plain_calls}")
+        for m in metrics:
+            if not all(math.isfinite(m[k]) for k in ("loss", "grad_norm")):
+                fail(f"non-finite {name} metrics {m}")
+        if abs(metrics[0]["loss"] - loss0) > 1.0:
+            fail(f"first {name} loss {metrics[0]['loss']} far from {loss0}")
+        if peak >= PUBLISHED_PEAK_LIMIT:
+            fail(f"{name} peaked at {peak} bytes, limit "
+                 f"{PUBLISHED_PEAK_LIMIT}")
+        # 6c's row of this phase: the dry run's step against its own peak
+        dryrun_vs_card(name, dryrun, peak - base,
+                       {f"{kernel}[{fmt}]": len(rt.layouts)},
+                       batch=[batch, seq])
+        held = hold_update_at(name, rt, fused_update, ref,
+                              phase="kernel_published")
+        del rt
+        torch.cuda.empty_cache()
+        return {"kernel": kernel, "fmt": fmt, "launches": launches[kernel],
+                "held": {n: {k: h[k] for k in ("ms", "plain_ms", "bound_ms",
+                                               "max_abs_err")}
+                         for n, h in held.items()}}
+
+    def serve_granite(host: dict) -> dict:
+        """Phase 37: granite-moe-1b-a400m at published width and depth
+        served from the q8_block store with ``serve_quant_matmul``, its
+        masters ``train_granite``'s host copies repacked for the q8 plan
+        (``quantize`` once a group), as ``serve`` runs gemma2-2b: a prefill
+        of 4 x 512, 32 decode steps, the engine.  ``q8_matmul`` once per
+        eligible weight per layer and call (wq, wk, wv, wo and the (1024,
+        32) router), by regime; ``dequantize_into`` per other tensor of a
+        layer (its norms and three expert weights) and per ``globals``
+        gather.  Returns what the kernels line carries."""
+        gcfg, cut = published_config("train_granite")
+        del cut["batch"]
+        rng = np.random.default_rng(0)
+        prompts = torch.from_numpy(rng.integers(
+            0, gcfg.vocab, (SERVE_BATCH, SERVE_PROMPT))).to("cuda")
+        requests = [rng.integers(0, gcfg.vocab, (int(n),))
+                    for n in rng.integers(ENGINE_PROMPT[0],
+                                          ENGINE_PROMPT[1] + 1,
+                                          ENGINE_REQUESTS)]
+        emit({"phase": "serve_granite_setup", "model": gcfg.name,
+              "cut": cut, "layers": gcfg.n_layers,
+              "schedule": SERVE_SCHEDULE,
+              "prefill": [SERVE_BATCH, SERVE_PROMPT], "cache_len": SERVE_LEN,
+              "decode_steps": SERVE_STEPS,
+              "engine": {"pool": ENGINE_POOL, "requests": ENGINE_REQUESTS,
+                         "prompt_lens": [len(r) for r in requests],
+                         "max_new": ENGINE_NEW}})
+        model = build_model(gcfg)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_launches(mods)
+        plain_calls, restore_plain = count_plain(ops)
+        try:
+            t0 = time.perf_counter()
+            rt = FSDPRuntime(model, group, compute_dtype=torch.bfloat16,
+                             schedule=CommSchedule(**SERVE_SCHEDULE))
+            params = init_from(host)(rt)
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            init = launches_now(mods)
+            reset_launches(mods)
+            metrics, logits, calls = serve_run(rt, model, params, prompts,
+                                               requests)
+        finally:
+            restore_plain()
+        got = launches_now(mods)
+        want = expected_serve_launches(rt, calls, got)
+        init_want = {k: 0 for k in init}
+        init_want["quantize"] = len(rt.layouts)
+        per_call = want["q8_matmul"] // calls
+        regimes = {"decode": q8_matmul.q8_matmul.decode_launches,
+                   "prefill": q8_matmul.q8_matmul.prefill_launches}
+        regimes_want = {"decode": per_call * (calls - 2),
+                        "prefill": per_call * 2}
+        emit({"phase": "serve_granite", "model": gcfg.name,
+              "schedule": SERVE_SCHEDULE, "setup_s": setup_s, **metrics,
+              "max_memory_allocated": torch.cuda.max_memory_allocated(),
+              "allocated_before": base, "calls": calls,
+              "init_launches": {k: v for k, v in init.items() if v},
+              "kernel_launches": {k: v for k, v in got.items() if v},
+              "expected_launches": {k: v for k, v in want.items() if v},
+              "per_call": {k: v // calls for k, v in want.items() if v},
+              "q8_matmul_launches_by_regime": regimes,
+              "expected_by_regime": regimes_want,
+              "plain_calls": {k: v for k, v in plain_calls.items() if v}})
+        if init != init_want:
+            fail(f"serve_granite init launched {init}, expected "
+                 f"{init_want}")
+        if got != want:
+            fail(f"serve_granite launched {got}, expected {want}")
+        if regimes != regimes_want:
+            fail(f"serve_granite: q8_matmul regimes {regimes}, expected "
+                 f"{regimes_want}")
+        if any(plain_calls.values()):
+            fail(f"serve_granite ran plain versions {plain_calls}")
+        if tuple(logits.shape) != (SERVE_BATCH, 1, gcfg.vocab) \
+                or not bool(torch.isfinite(logits.float()).all()):
+            fail(f"serve_granite prefill logits {tuple(logits.shape)}, "
+                 f"finite {bool(torch.isfinite(logits.float()).all())}")
+        del rt, params, logits, prompts
+        torch.cuda.empty_cache()
+        return {"quantize": init["quantize"],
+                "dequantize_into": got["dequantize_into"],
+                "regimes": regimes}
+
+    def published_phases(names, dry: dict, prefetch=None) -> dict:
+        """Phases 36-41 (slice 17) of ``names``, in PUBLISHED_PHASES'
+        order: the configurations the card had never run.  ``dry`` holds
+        each train phase's dry-step rows (``finish_dryruns``), ``prefetch``
+        (a ``HostPrefetch``, awaited) the PREFETCHED phases' host masters;
+        without it each phase draws its own.  Returns what the kernels
+        line carries, by phase."""
+        out, host = {}, {}
+        for name in (n for n in PUBLISHED_PHASES if n in names):
+            # what earlier phases left in reference cycles goes first: a
+            # phase's peak is the card's, whatever it finds held
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            if name in PUBLISHED:
+                out[name] = train_published(
+                    name, dry[name], host if name == "train_granite"
+                    and "serve_granite" in names else None,
+                    prefetch if prefetch and name in PREFETCHED else None)
+            elif name == "serve_granite":
+                out[name] = serve_granite(host)
+                host.clear()
+            else:
+                out[name] = phase_kernel_q8mm_nemotron(ops, ref, q8_matmul)
+            emit({"phase": name + "_seconds",
+                  "seconds": time.perf_counter() - t0})
+        return out
+
     smi = nvidia_smi()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3069,6 +3842,24 @@ def main() -> None:
                           "ptxas": [l for l in v["log"].splitlines()
                                     if "registers" in l or "spill" in l]}
                       for k, v in built.items()}})
+
+    if only is not None:
+        # ``--only``: the named phases of slice 17 alone, their dry runs
+        # first
+        group = init_local_group("cpu:gloo,cuda:nccl")
+        dry_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+        try:
+            dry = finish_dryruns(start_dryruns(
+                dry_dir, [n for n in only if n in PUBLISHED]))
+        finally:
+            shutil.rmtree(dry_dir, ignore_errors=True)
+        published_phases(only, dry)
+        emit({"phase": "script", "seconds": time.perf_counter() - t_script})
+        torch.distributed.destroy_process_group()
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                     "count": torch.cuda.device_count()}})
+        return
 
     # ---- 6c, 25. the dry runs: children on the host from here on, beside
     # the card's phases (they use a core each and no card; xlstm-125m's
@@ -3251,27 +4042,6 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- 21. the schedule variants: gemma2-2b as in 6 -------------------
-    def init_from(host):
-        """``init(rt)`` from host masters ``{group: (tensor, layout)}``,
-        cut to rt's layers (a layer's init does not depend on the depth)
-        and repacked tensor by tensor where rt's layout differs (the
-        fsdp2 and q8 plans): the values ``rt.init_params(0)`` gives,
-        without drawing them again."""
-        def init(rt):
-            out = {}
-            for n, lo in rt.layouts.items():
-                t, src = host[n]
-                t = t[:lo.n_layers] if lo.n_layers else t
-                if src.plan != lo.plan:
-                    rows = t.numpy().reshape(-1, src.plan.total)
-                    t = torch.from_numpy(np.stack([
-                        lo.buffer.pack(src.buffer.unpack_np(r))
-                        for r in rows]).reshape(lo.local_shape()))
-                out[n] = lo.store.create(
-                    t.to(rt.device).requires_grad_(True))
-            return out
-        return init
-
     def gathers_per_step(rt, layers_only=False) -> int:
         """Gathers of one train step: a stacked group's layers in forward,
         and again in backward where the schedule reshards (not the
@@ -3316,7 +4086,9 @@ def main() -> None:
                 w1 - q8_init[n][0].to(w.device))) ** 2
             del w1
     mi_master_rel = math.sqrt(num / den)
-    del mi_keep, q8_init, q8_final
+    # the loop's last group state and master go too: they are the
+    # q8_both_wires globals group's (7.7 GB)
+    del mi_keep, q8_init, q8_final, p, w
     mi_want = expected_q8_launches(rt, len(mi_metrics), micro_launches,
                                    TRAIN_MICRO)
     for i, (m, ms) in enumerate(zip(mi_metrics, mi_times)):
@@ -3704,21 +4476,8 @@ def main() -> None:
         if row is None or not row["ok"]:
             fail(f"dryrun_vs_card {name}: no dry run row: "
                  f"{dry[name]['text'][-2000:]}")
-        pred = row["peak_bytes_dev"]
-        emit({"phase": "dryrun_vs_card", "run": name, "mesh": row["mesh"],
-              "predicted_peak": pred, "argument_bytes": row["arg_bytes_dev"],
-              "temp_bytes": pred - row["arg_bytes_dev"],
-              "max_memory_allocated": measured,
-              "rel_diff": pred / measured - 1.0,
-              "matmul_gflops": row["hlo_gflops_dev"],
-              "hbm_gb": row["hbm_gb_dev"], "colls": row["colls"],
-              "kernel_calls": row["kernel_calls"],
-              "dry_run_s": dry[name]["seconds"]})
-        if abs(pred / measured - 1.0) > DRYRUN_PEAK_RTOL:
-            fail(f"dryrun_vs_card {name}: predicted peak {pred} is "
-                 f"{pred / measured - 1.0:+.3f} of the measured {measured}")
-        if row["kernel_calls"] != {"adamw_store_update[fp32]": 2}:
-            fail(f"dryrun_vs_card {name}: kernel calls {row['kernel_calls']}")
+        dryrun_vs_card(name, dry[name], measured,
+                       {"adamw_store_update[fp32]": 2})
 
     # ---- 6d. mfu: model FLOPs over the card's peak for train, train_cli -
     mfu_rows = {}
@@ -4010,68 +4769,24 @@ def main() -> None:
 
     # ---- 10, 20, 13, 30, 26b, 35. the card against the CPU reference, in a
     # process of its own ---------------------------------------------
+    # the host masters of phases 38-40 are drawn beside it (its checks
+    # hold values, not times) and awaited before phase 11, so that no
+    # timed phase shares the host with the draw
+    prefetch = HostPrefetch({
+        n: FSDPRuntime(build_model(published_config(n)[0]), group,
+                       compute_dtype=torch.bfloat16, device="meta")
+        for n in PREFETCHED})
     emit({"phase": "reference", "process": "child",
           "seconds": run_reference()})
+    emit({"phase": "prefetch", "runs": list(PREFETCHED),
+          "wait_s": prefetch.wait(),
+          "draw_s": {n: d[1] for n, d in prefetch.done.items()}})
 
     # ---- 11. q8_matmul vs plain ----------------------------------------
     q8mm_stats = phase_kernel_q8mm(ops, ref, q8_matmul)
     q8mm_sliced = phase_kernel_q8mm_sliced(ops, ref)
 
     # ---- 12. serve path: gemma2-2b at full width, int8 and dense q8 ----
-    def serve_run(rt, model, params, prompts, requests):
-        """A warm-up prefill and a timed one (the cache's slots are simply
-        rewritten), SERVE_STEPS greedy decode steps at a scalar index, then
-        the engine; returns (metrics, prefill logits, step calls)."""
-        cache = rt.init_cache(SERVE_BATCH, SERVE_LEN)
-        prefill, decode = rt.make_prefill_step(), rt.make_decode_step()
-        prefill(params, {"tokens": prompts}, cache)        # warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, cache = prefill(params, {"tokens": prompts}, cache)
-        torch.cuda.synchronize()
-        prefill_ms = (time.perf_counter() - t0) * 1e3
-        tok = torch.argmax(logits, -1)
-        step_ms, gen = [], [tok]
-        for i in range(SERVE_STEPS):
-            t0 = time.perf_counter()
-            lg, cache = decode(params, {"tokens": tok}, cache,
-                               SERVE_PROMPT + i)
-            tok = torch.argmax(lg, -1)
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            gen.append(tok)
-        if not bool(torch.isfinite(lg.float()).all()):
-            fail(f"non-finite decode logits on {rt.schedule}")
-        gen = torch.cat(gen, 1).cpu()
-        del cache
-        eng = ServeEngine(rt, model, params, pool=ENGINE_POOL,
-                          max_len=SERVE_LEN)
-        reqs = [Request(uid=i, prompt=p, max_new=ENGINE_NEW)
-                for i, p in enumerate(requests)]
-        for r in reqs:
-            eng.submit(r)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        engine_calls = 0
-        while eng.queue or any(sl.req for sl in eng.slots):
-            eng.step()
-            engine_calls += 1
-        engine_s = time.perf_counter() - t0
-        new_tokens = sum(len(r.out) for r in reqs)
-        if not all(r.done and len(r.out) == ENGINE_NEW for r in reqs):
-            fail("the engine left requests unfinished")
-        if not (0 <= int(gen.min()) and int(gen.max()) < model.cfg.vocab):
-            fail("decoded tokens out of the vocabulary")
-        decode_med = statistics.median(step_ms[1:])
-        return ({"prefill_ms": prefill_ms, "decode_step_ms": step_ms,
-                 "decode_step_ms_median": decode_med,
-                 "decode_tokens_per_s": SERVE_BATCH / (decode_med / 1e3),
-                 "engine_calls": engine_calls, "engine_s": engine_s,
-                 "engine_new_tokens": new_tokens,
-                 "engine_tokens_per_s": new_tokens / engine_s,
-                 "greedy_row0": gen[0].tolist()},
-                logits, 2 + SERVE_STEPS + engine_calls)
-
     rng = np.random.default_rng(0)
     prompts = torch.from_numpy(rng.integers(
         0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT))).to("cuda")
@@ -4341,6 +5056,9 @@ def main() -> None:
     # ---- 31-33. the cross-attention families at published width -------
     cross = crossattn_phases()
 
+    # ---- 36-41. the configurations first run here (slice 17) ------------
+    pub = published_phases(PUBLISHED_PHASES, dry, prefetch)
+
     # ---- 26. the five examples on the card, then card vs CPU -----------
     from repro_torch.examples import (continuous_batching, muon_demo,
                                       quickstart, serve_moe, train_8bit_adam)
@@ -4412,9 +5130,15 @@ def main() -> None:
                               "train_xlstm": rec["train_xlstm"]["launches"],
                               "train_hymba": rec["train_hymba"]["launches"],
                               "train_encdec":
-                                  cross["train_encdec"]["launches"]},
+                                  cross["train_encdec"]["launches"],
+                              **{k: v["launches"] for k, v in pub.items()
+                                 if k in PUBLISHED
+                                 and v["kernel"] == "adamw_store_update"}},
          "held_at": {**{k: v["held"] for k, v in rec.items()},
-                     "train_encdec": cross["train_encdec"]["held"]}},
+                     "train_encdec": cross["train_encdec"]["held"],
+                     **{k: {"fmt": v["fmt"], **v["held"]}
+                        for k, v in pub.items() if k in PUBLISHED
+                        and v["kernel"] == "adamw_store_update"}}},
         {**entry("adamw_store_update_q8", "adamw_store_update.cu",
                  "src/repro/kernels/fused_update.py:102",
                  q8_launches["adamw_q8"], q8stats["adamw_q8"]),
@@ -4435,7 +5159,9 @@ def main() -> None:
                                   for v in sched_launches.values()),
                               "ckpt": ckpt_launches["quantize"],
                               "serve_vision":
-                                  cross["serve_vision"]["quantize"]},
+                                  cross["serve_vision"]["quantize"],
+                              "serve_granite":
+                                  pub["serve_granite"]["quantize"]},
          "by_path": {**q8stats["quantize"]["by_path"],
                      "serve_vision": cross["q8"]["init"]}},
         {**entry("dequantize_into", "blockwise_quant.cu",
@@ -4449,10 +5175,15 @@ def main() -> None:
                                 for v in sched_launches.values()),
              "ckpt": ckpt_launches["dequantize_into"],
              "serve_vision": cross["serve_vision"]["q8_serve_matmul"]
-             + cross["serve_vision"]["q8_dense"]},
+             + cross["serve_vision"]["q8_dense"],
+             "serve_granite": pub["serve_granite"]["dequantize_into"]},
          "by_path": {**q8stats["dequantize_into"]["by_path"],
                      "serve_vision_int8_call": cross["q8"]["int8_call"],
-                     "serve_vision_dense_call": cross["q8"]["dense_call"]}},
+                     "serve_vision_dense_call": cross["q8"]["dense_call"],
+                     "nemotron_wk_wv": {
+                         k: pub["kernel_q8mm_nemotron"]["kv"][k]
+                         for k in ("ms", "plain_ms", "bound_ms",
+                                   "max_abs_err")}}},
         {**entry("dequantize", "blockwise_quant.cu",
                  "src/repro/kernels/blockwise_quant.py:144",
                  q8_launches["dequantize"], q8stats["dequantize"]),
@@ -4473,7 +5204,10 @@ def main() -> None:
          "launches_by_path": {
              "train_moe": moe_launches["adam8bit_store_update"],
              "examples": ex_launches["train_8bit_adam"][
-                 "adam8bit_store_update"]}},
+                 "adam8bit_store_update"],
+             "train_gptoss": pub["train_gptoss"]["launches"]},
+         "held_at": {"train_gptoss": {"fmt": pub["train_gptoss"]["fmt"],
+                                      **pub["train_gptoss"]["held"]}}},
         entry("adam8bit_store_update_q8", "adam8bit_store_update.cu",
               "src/repro/kernels/fused_update.py:145",
               a8q_launches["adam8bit_q8"], a8stats["q8"]),
@@ -4482,17 +5216,21 @@ def main() -> None:
                  serve_launches["decode"], q8mm_stats["decode"]),
          "launches_by_path": {
              "serve": serve_launches["decode"],
-             "serve_vision": cross["serve_vision"]["regimes"]["decode"]},
+             "serve_vision": cross["serve_vision"]["regimes"]["decode"],
+             "serve_granite": pub["serve_granite"]["regimes"]["decode"]},
          "sliced": q8mm_sliced["decode"],
-         "vision": cross["q8mm"]["decode"]},
+         "vision": cross["q8mm"]["decode"],
+         "nemotron": pub["kernel_q8mm_nemotron"]["decode"]},
         {**entry("q8_matmul_prefill", "q8_matmul.cu",
                  "src/repro/kernels/q8_matmul.py:81",
                  serve_launches["prefill"], q8mm_stats["prefill"]),
          "launches_by_path": {
              "serve": serve_launches["prefill"],
-             "serve_vision": cross["serve_vision"]["regimes"]["prefill"]},
+             "serve_vision": cross["serve_vision"]["regimes"]["prefill"],
+             "serve_granite": pub["serve_granite"]["regimes"]["prefill"]},
          "sliced": q8mm_sliced["prefill"],
-         "vision": cross["q8mm"]["prefill"]},
+         "vision": cross["q8mm"]["prefill"],
+         "nemotron": pub["kernel_q8mm_nemotron"]["prefill"]},
         entry("adamw_store_update_fp8", "adamw_store_update.cu",
               "src/repro/kernels/fused_update.py:93",
               fp8_launches["train_fp8"]["adamw_fp8"], fp8stats["adamw_fp8"]),

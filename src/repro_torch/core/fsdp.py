@@ -170,8 +170,10 @@ class GroupLayout:
                      if s.name not in self.gdef.outer)
 
 
-# threads that draw a layer's initial tensors (``init_params``)
+# threads that draw the initial tensors (``init_params``), and the float64
+# elements a tensor's draw holds at a time (``_init_tensor``)
 INIT_THREADS = min(8, os.cpu_count() or 1)
+INIT_CHUNK = 1 << 20
 
 
 def _resolve_device(device) -> torch.device:
@@ -393,14 +395,24 @@ class FSDPRuntime:
              0 if layer is None else layer + 1]
         )
         if len(spec.shape) >= 2:
-            fan_in = spec.shape[0]
-            a = rng.normal(0, 1.0 / math.sqrt(max(fan_in, 1)),
-                           size=spec.shape)
-        elif any(t in spec.name for t in ("ln", "norm", "skip", "scale")):
-            a = np.ones(spec.shape)
-        else:
-            a = np.zeros(spec.shape)
-        return a.astype(np.float32)
+            # the reference's ``rng.normal(0, std, size).astype(float32)``,
+            # drawn INIT_CHUNK float64 values at a time: ``normal(0, s)``
+            # is ``0 + s * standard_normal()`` in float64 on the same
+            # stream, so the values are the same bit for bit
+            std = 1.0 / math.sqrt(max(spec.shape[0], 1))
+            a = np.empty(spec.shape, np.float32)
+            flat = a.reshape(-1)
+            z = np.empty(max(1, min(flat.size, INIT_CHUNK)))
+            for lo in range(0, flat.size, z.size):
+                c = z[:flat.size - lo]
+                rng.standard_normal(out=c)
+                c *= std
+                c += 0.0
+                flat[lo:lo + c.size] = c
+            return a
+        if any(t in spec.name for t in ("ln", "norm", "skip", "scale")):
+            return np.ones(spec.shape, np.float32)
+        return np.zeros(spec.shape, np.float32)
 
     def _block_index(self, lo: GroupLayout, coords=None) -> int:
         """This rank's (or the rank at ``coords``') column block of a
@@ -517,38 +529,48 @@ class FSDPRuntime:
         the reference's ``init_params`` (this rank's columns of it)."""
         if self.device.type == "meta":
             return self.param_shapes()
-        params = {}
-        # a layer's tensors are drawn and packed on threads (numpy releases
-        # the GIL while it fills or copies an array) straight into the
-        # group's buffer, each into its own place; each has its own
-        # generator, so the values do not depend on the order
+        host = self.host_params(seed)
+        return {name: lo.store.create(torch.from_numpy(host.pop(name))
+                                      .to(self.device).requires_grad_(True))
+                for name, lo in self.layouts.items()}
+
+    def host_params(self, seed: int = 0) -> dict[str, np.ndarray]:
+        """This rank's initial fp32 masters on the host, by group (a
+        ``(n_layers, cols)`` or ``(cols,)`` array each): what
+        ``init_params`` places on the device, drawn by INIT_THREADS
+        threads.  Every group's tensors are drawn and packed on the threads
+        (numpy releases the GIL while it fills or copies an array) straight
+        into their group's buffer, each into its own place, the largest
+        first: one tensor's draw cannot be split, so it takes about the
+        largest one's.  Each has its own generator, so the values do not
+        depend on the order."""
+        bufs, jobs = {}, []
+        for name, lo in self.layouts.items():
+            bufs[name] = np.zeros((lo.n_layers, lo.plan.total) if lo.n_layers
+                                  else (lo.plan.total,), dtype=np.float32)
+            jobs += [(lo, bufs[name] if li is None else bufs[name][li], s, li)
+                     for li in (range(lo.n_layers) if lo.n_layers
+                                else [None])
+                     for s in lo.gdef.specs]
+        jobs.sort(key=lambda job: -job[2].size)
+
+        def draw(lo, out, s, li):
+            a = self._init_tensor(s, seed, li)
+            sd = lo.gdef.outer.get(s.name)
+            if sd is not None and lo.outer_size > 1:
+                r = self.mesh.coords[lo.outer_axis]
+                a = np.split(a, lo.outer_size, axis=sd.dim)[r]
+            lo.buffer.pack_one(out, s.name, a)
+
         with ThreadPoolExecutor(max_workers=INIT_THREADS) as pool:
-            for name, lo in self.layouts.items():
-                r = self.mesh.coords[lo.outer_axis] if lo.outer_axis else 0
-                total = lo.plan.total
-                arr = np.zeros((lo.n_layers, total) if lo.n_layers
-                               else (total,), dtype=np.float32)
-
-                def draw(s, li, lo=lo, r=r, arr=arr):
-                    a = self._init_tensor(s, seed, li)
-                    sd = lo.gdef.outer.get(s.name)
-                    if sd is not None and lo.outer_size > 1:
-                        a = np.split(a, lo.outer_size, axis=sd.dim)[r]
-                    lo.buffer.pack_one(arr if li is None else arr[li],
-                                       s.name, a)
-
-                list(pool.map(lambda job: draw(*job),
-                              [(s, li) for li in (range(lo.n_layers)
-                                                  if lo.n_layers else [None])
-                               for s in lo.gdef.specs]))
-                n = self._local_cols(lo)
+            list(pool.map(lambda job: draw(*job), jobs))
+        for name, lo in self.layouts.items():
+            n = self._local_cols(lo)
+            if n != lo.plan.total:
                 f = self.mesh.index(lo.fsdp_axes) if lo.sharded else 0
-                mine = arr if n == total else np.ascontiguousarray(
-                    arr[..., f * n:(f + 1) * n])
-                params[name] = lo.store.create(
-                    torch.from_numpy(mine).to(self.device)
-                    .requires_grad_(True))
-        return params
+                bufs[name] = np.ascontiguousarray(
+                    bufs[name][..., f * n:(f + 1) * n])
+        return bufs
 
     # ------------------------------------------------------------------ #
     # in-job resharding
