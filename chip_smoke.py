@@ -86,8 +86,10 @@ non-zero):
                   OpenMP threads); the ``device`` line prints the pins.
  11. kernel_q8mm -- the int8 x int8 ``q8_matmul`` against its plain version,
                   bf16 x and out and fp32 x and out, at decode M = 4 (the
-                  one-launch regime) and prefill M = 2048 (row quantization
-                  + ``wgmma`` GEMM): gemma2-2b's case-A weights (2304,
+                  one-launch regime; and M = 1, the ``long_500k`` decode's
+                  batch, on gemma2-2b's three shapes) and prefill M = 2048
+                  (row quantization + ``wgmma`` GEMM): gemma2-2b's case-A
+                  weights (2304,
                   2048), (2304, 1024), (2304, 9216), qwen3-moe's case-B
                   (4096, 512) and (4096, 128), and a case-B shape with a
                   trailing partial block (1001, 512): integer-view
@@ -123,6 +125,40 @@ non-zero):
                   ``serve_quant_matmul``: prefill and 8 teacher-forced decode
                   steps for each of four seeds on the CPU and on the card;
                   the logits' relative L2 within PARITY_SERVE_RTOL.
+
+The long_500k decode (slice 18; 12b and 12c after 12, 13b in a child of
+its own beside the reference phases' child):
+
+ 12b. long500k_gemma2 -- gemma2-2b at published width and depth (26
+                  layers) served int8 from the q8_block store
+                  (``serve_quant_matmul``), bf16 compute, batch 1, its
+                  host masters drawn beside the reference phases' child:
+                  ``quantize`` once a group, an empty ``init_cache(1,
+                  524_288)`` (every layer a 4,096-slot ring, the
+                  sliding-window variant; its bytes against ``launch/
+                  serve.py --cache-bytes``), then LONG_STEPS greedy decode
+                  steps at indices 524,160 ... 524,287, no prefill: each
+                  step's ms, the median of the last LONG_TIMED and its
+                  tokens/s, set-up s; ``q8_matmul`` once per eligible
+                  weight per layer and step, in its decode regime,
+                  ``dequantize_into`` per other tensor and per ``globals``
+                  gather, no plain version; finite logits; the ring's
+                  positions the indices decoded; the decode's own peak
+                  within LONG_PEAK_RTOL of its dry run's (a ``--dry-step``
+                  child started after phase 2).
+ 12c. long500k_hymba -- hymba-1.5b at published width and depth (32
+                  layers, a 1,024-slot ring on every layer beside the
+                  Mamba state), the same steps and readings in the
+                  q8_block store's dense-dequant serve (Hymba's block
+                  multiplies its weights directly): ``dequantize_into``
+                  once per layer and ``globals`` gather a step.
+ 13b. parity_long500k -- ``rope_freqs`` of every (rope_theta, hd) of the
+                  configs on the card bitwise the CPU's; then 12b and 12c
+                  cut to LONG_PARITY_LAYERS layers at published width,
+                  fp32 compute, the same host masters on the CPU and the
+                  card, LONG_PARITY_STEPS teacher-forced decode steps
+                  ending at index 524,287 from an empty cache: each call's
+                  logits within LONG_PARITY_RTOL relative L2.
 
 The bf16 and fp8 stores and the standalone updates (14 runs after 5, 16
 and 15 after 9, 17 with 10):
@@ -403,12 +439,13 @@ The configurations first run on the card (slice 17; 36-41 after 33, each
 train phase's dry run a child started with the others after phase 2, the
 host masters of 38-40 drawn beside the reference phases' child process
 and awaited before phase 11, so that no timed phase shares the host with
-the draw; ``--only PHASE[,PHASE...]`` runs the named ones of 36-41 alone,
-after phases 1 and 2):
+the draw; ``--only PHASE[,PHASE...]`` runs the named ones of 36-41 and of
+12b and 12c (with 13b) alone, after phases 1 and 2):
 
- 36. train_granite -- granite-moe-1b-a400m at published width and depth
-                  (24 layers, d_model 1024, 16/8 heads x 64, 32 experts
-                  top-8, d_ff 512, vocab 49155; 1.38 G parameters), AdamW
+ 36. train_granite -- granite-moe-1b-a400m at published width cut to 12
+                  of its 24 layers (d_model 1024, 16/8 heads x 64, 32
+                  experts top-8, d_ff 512, vocab 49155; 0.74 G of its
+                  1.38 G parameters), AdamW
                   on the fp32 store, 2 x 2048.  Like each of 36-40: one
                   NCCL rank, tp 1, ep 1, bf16 compute, a warm-up and three
                   timed steps through ``train``; a ``_setup`` line whose
@@ -428,7 +465,7 @@ after phases 1 and 2):
                   update kernel against its plain version at the phase's
                   shards (``kernel_published``; the plain version in
                   chunks of COMPARE_CHUNK).
- 37. serve_granite -- the same model, all 24 layers, served from the
+ 37. serve_granite -- the same model and depth, served from the
                   q8_block store with ``serve_quant_matmul`` on 36's
                   initial masters (host copies, repacked for the q8 plan):
                   ``quantize`` once a group at init, then as ``serve``: a
@@ -462,7 +499,8 @@ after phases 1 and 2):
 The phases that hold the card against the CPU reference (10, 17, 20, 13,
 30, 26's ``examples_parity`` and 35, in that order) run where phase 10 stands,
 in a child process of their own: this script with ``--reference``, the
-same pins and card and nothing else of the run before it.  Its lines join
+same pins and card and nothing else of the run before it (13b beside it,
+in a second: ``--reference-long500k``).  Its lines join
 the output as they come, its failure fails the script, and a ``reference``
 line gives its seconds.  A CPU reference must not depend on what its
 process did before; in this process, after the full-width phases, its
@@ -556,6 +594,10 @@ ADAM8_Q8_SCHEDULE = {"param_store": "q8_block"}
 # NVIDIA's H100 SXM data sheet: dense int8 tensor cores at 1,979 TOP/s
 INT8_OPS = 1979e12
 Q8MM_M = (4, 2048)            # decode batch, prefill tokens (4 x 512)
+# the long_500k decode's batch: q8_matmul at M = 1, through the decode
+# kernel's MMAX = 4 instantiation with three rows masked; held on one
+# gemma2-2b layer's shapes (GEMMA_LAYER_Q8MM)
+Q8MM_LONG_M = 1
 # M either side of the decode / prefill crossover (q8_matmul.DECODE_MAX_M
 # = 16), both regimes timed where the decode kernel takes M
 Q8MM_CROSSOVER_M = (8, 16, 17, 32)
@@ -676,9 +718,11 @@ DRYRUN_PRODUCTION = (("gemma2-2b", "train_4k", False),
                      ("xlstm-125m", "train_4k", False),
                      ("hymba-1.5b", "train_4k", False))
 DRYRUN_TIMEOUT_S = 600
-# the argument that makes this script the child of ``run_reference``, which
-# runs only the phases that hold the card against the CPU reference
+# the arguments that make this script a child of ``run_reference``, which
+# runs only the phases that hold the card against the CPU reference (13b
+# in a child of its own, beside the others)
 REFERENCE_ARG = "--reference"
+REFERENCE_LONG_ARG = "--reference-long500k"
 # phases 27-30: the recurrent families.  xlstm-125m at published width and
 # depth; hymba-1.5b at published width cut to 4 layers (layers 0, 2 and 3
 # global, layer 1 windowed at 1,024: the 2,048-token rows reach past it);
@@ -753,7 +797,9 @@ VISION_PLAIN_CHUNK = 1 << 28
 # PUBLISHED_PEAK_LIMIT, and where its dry run predicts more the batch is
 # halved before it runs (``halved``)
 PUBLISHED = {
-    "train_granite": ("granite-moe-1b-a400m", None, 2, 2048, "fp32", None),
+    # 12 of its 24 layers: the script's clock (slice 18 added the
+    # long_500k phases; at 24 layers the whole script read 1,052 s)
+    "train_granite": ("granite-moe-1b-a400m", 12, 2, 2048, "fp32", None),
     "train_qwen32b": ("qwen1.5-32b", 1, 1, 2048, "fp32", None),
     "train_llama70b": ("llama3-70b", 1, 1, 2048, "bf16", None),
     "train_gptoss": ("gpt-oss-120b", 1, 1, 2048, "bf16", "adam8bit"),
@@ -767,8 +813,9 @@ PUBLISHED_PEAK_LIMIT = 75e9
 PUBLISHED_PHASES = ("train_granite", "serve_granite", "train_qwen32b",
                     "train_llama70b", "train_gptoss", "kernel_q8mm_nemotron")
 ONLY_ARG = "--only"
-# the host masters of these phases (37.6 GB together) are drawn by this
-# process while the reference phases' child runs (``HostPrefetch``)
+# the host masters of these phases (37.6 GB together; 16.5 GB more for
+# LONG500K's) are drawn by this process while the reference phases' child
+# runs (``HostPrefetch``)
 PREFETCHED = ("train_qwen32b", "train_llama70b", "train_gptoss")
 DRY_STEP_ARG = "--dry-step"
 # q8_matmul calls of one nemotron-4-340b layer per serve call, (K, N) ->
@@ -782,6 +829,31 @@ NEMOTRON = "nemotron-4-340b"
 NEMOTRON_LAYER_Q8MM = {(18432, 18432): (2, 2), (18432, 73728): (1, 1),
                        (73728, 18432): (1, 1)}
 NEMOTRON_KV = (18432, 1536)
+# slice 18: the long_500k decode (``SHAPES["long_500k"]``: 524,288
+# positions, batch 1) of the two families ``supports_shape`` admits there
+# whose cache depends on position -- gemma2-2b's sliding-window variant (a
+# 4,096-slot ring on every layer past 65,536 positions) and hymba-1.5b (a
+# 1,024-slot ring beside its Mamba state) -- at published width and depth
+# from the q8_block store: name -> (arch, serve schedule).  gemma2-2b
+# serves int8 (``q8_matmul``); Hymba's block multiplies its weights
+# directly (``models/recurrent.py``, as the reference's), so it serves
+# the dense-dequant q8 mode
+LONG500K = {"long500k_gemma2": ("gemma2-2b", SERVE_SCHEDULE),
+            "long500k_hymba": ("hymba-1.5b", SERVE_DENSE_SCHEDULE)}
+# LONG_STEPS greedy decode steps at the shape's last indices (524,160 ...
+# 524,287) from an empty cache, no prefill; the last LONG_TIMED give the
+# median step and tokens/s; the decode's own peak (after set-up) within
+# LONG_PEAK_RTOL of its dry run's
+LONG_SEQ, LONG_STEPS, LONG_TIMED = 524_288, 128, 64
+LONG_PEAK_RTOL = 0.01
+# the depth cut held against the CPU in the reference child: published
+# width at LONG_PARITY_LAYERS layers, fp32 compute, the last
+# LONG_PARITY_STEPS of the same indices; each call's logits within the
+# serve classes of the reduced phases (13's int8 limit for gemma2-2b,
+# 30's for Hymba)
+LONG_PARITY_LAYERS, LONG_PARITY_STEPS = 2, 16
+LONG_PARITY_RTOL = {"long500k_gemma2": PARITY_SERVE_RTOL["q8_matmul"],
+                    "long500k_hymba": PARITY_REC_SERVE_RTOL[HYMBA]}
 
 
 def halved(batch: int, seq: int) -> tuple[int, int]:
@@ -837,22 +909,26 @@ def expected_first_loss(cfg) -> float:
 
 def dry_step_main(name: str) -> None:
     """``chip_smoke.py --dry-step NAME``: the dry run of phase ``name``'s
-    train step -- its config, store, optimizer, depth and batch, one rank
-    of a 1 x 1 mesh on meta tensors (``launch.dryrun.dry_step``) -- one
-    JSON row a batch: the phase's, and where that predicts more than
-    PUBLISHED_PEAK_LIMIT the ``halved`` one the phase then runs.  A child
-    process of ``start_dryruns`` that sees no card."""
+    step -- one rank of a 1 x 1 mesh on meta tensors
+    (``launch.dryrun.dry_step``) -- one JSON row a batch.  A PUBLISHED
+    phase's train step (its config, store, optimizer, depth and batch):
+    the phase's row, and where that predicts more than
+    PUBLISHED_PEAK_LIMIT the ``halved`` one the phase then runs.  A
+    LONG500K phase's decode step: its plan (the serve schedule), a cache
+    of LONG_SEQ positions, batch 1.  A child process of ``start_dryruns``
+    that sees no card."""
     sys.path.insert(0, str(SRC))
-    from repro_torch.configs import ShapeConfig
+    import torch
+
+    from repro_torch.configs import ShapeConfig, build_model
+    from repro_torch.core.policy import plan
     from repro_torch.launch.dryrun import dry_step
 
-    cfg, _ = published_config(name)
-    batch, seq = PUBLISHED[name][2:4]
-    for b, t in ((batch, seq), halved(batch, seq)):
-        rec, _ = dry_step(cfg, ShapeConfig(f"{name}_b{b}_s{t}", t, b,
-                                           "train"), {"data": 1, "model": 1})
+    mesh = {"data": 1, "model": 1}
+
+    def row(cfg, batch, rec):
         print(json.dumps({
-            "arch": cfg.name, "run": name, "mesh": "1x1", "batch": [b, t],
+            "arch": cfg.name, "run": name, "mesh": "1x1", "batch": batch,
             "ok": True, "peak_bytes_dev": rec.peak_bytes,
             "arg_bytes_dev": rec.arg_bytes,
             "hlo_gflops_dev": rec.flops / 1e9, "hbm_gb_dev": rec.bytes / 1e9,
@@ -860,15 +936,42 @@ def dry_step_main(name: str) -> None:
                       for k in sorted({c[0] for c in rec.collectives})},
             "kernel_calls": rec.kernel_calls(),
             "dry_run_s": rec.seconds}), flush=True)
+
+    if name in LONG500K:
+        cfg, sched = long500k_runtime_args(name)
+        model = build_model(cfg)
+        rec, _ = dry_step(cfg, ShapeConfig(name, LONG_SEQ, 1, "decode"),
+                          mesh, plan=plan(model, mesh, sched,
+                                          compute_dtype=torch.bfloat16),
+                          model=model)
+        row(cfg, [1, LONG_SEQ], rec)
+        return
+    cfg, _ = published_config(name)
+    batch, seq = PUBLISHED[name][2:4]
+    for b, t in ((batch, seq), halved(batch, seq)):
+        rec, _ = dry_step(cfg, ShapeConfig(f"{name}_b{b}_s{t}", t, b,
+                                           "train"), mesh)
+        row(cfg, [b, t], rec)
         if rec.peak_bytes <= PUBLISHED_PEAK_LIMIT:
             break
+
+
+def long500k_runtime_args(name: str):
+    """``(cfg, schedule)`` of a LONG500K phase: the published config and
+    its serve schedule (a ``CommSchedule``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.schedule import CommSchedule
+
+    arch, sched = LONG500K[name]
+    return get_config(arch), CommSchedule(**sched)
 
 
 class HostPrefetch:
     """The initial host masters of the runtimes ``runtimes`` (phase ->
     an ``FSDPRuntime`` on the meta device: its layouts only), each drawn
     by ``host_params(0)`` on a thread of this process of its own (numpy
-    releases the GIL while it draws), all started at once.  ``wait()``
+    releases the GIL while it draws) at the lowest priority, all started
+    at once.  ``wait()``
     joins them and returns the seconds it waited; ``init(name, timing)``
     is then that phase's ``init(rt)`` for ``train``: it places the arrays
     as ``init_params(0)`` does (``timing``'s ``host_draw_s``: their draw's
@@ -882,6 +985,10 @@ class HostPrefetch:
             t.start()
 
     def _draw(self, name: str) -> None:
+        # the lowest priority for this thread and the pool it starts (a
+        # new thread inherits its creator's): the draw takes the cores the
+        # reference phases' child leaves idle
+        os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), 19)
         t0 = time.perf_counter()
         try:
             self.done[name] = (self.rts[name].host_params(0),
@@ -912,10 +1019,11 @@ class HostPrefetch:
 
 
 def dryrun_vs_card(name: str, dry_run: dict, measured: int,
-                   calls_want: dict, **extra) -> None:
+                   calls_want: dict, rtol: float = DRYRUN_PEAK_RTOL,
+                   **extra) -> None:
     """Phase 6c's row of run ``name``: its dry run's (``finish_dryruns``)
-    predicted peak against the card's ``measured`` peak, within
-    DRYRUN_PEAK_RTOL, and its kernel calls equal to ``calls_want``."""
+    predicted peak against the card's ``measured`` peak, within ``rtol``,
+    and its kernel calls equal to ``calls_want``."""
     row = dry_run["row"]
     pred = row["peak_bytes_dev"]
     emit({"phase": "dryrun_vs_card", "run": name, "mesh": row["mesh"],
@@ -923,16 +1031,25 @@ def dryrun_vs_card(name: str, dry_run: dict, measured: int,
           "argument_bytes": row["arg_bytes_dev"],
           "temp_bytes": pred - row["arg_bytes_dev"],
           "max_memory_allocated": measured,
-          "rel_diff": pred / measured - 1.0,
+          "rel_diff": pred / measured - 1.0, "rtol": rtol,
           "matmul_gflops": row["hlo_gflops_dev"], "hbm_gb": row["hbm_gb_dev"],
           "colls": row["colls"], "kernel_calls": row["kernel_calls"],
           "dry_run_s": dry_run["seconds"]})
-    if abs(pred / measured - 1.0) > DRYRUN_PEAK_RTOL:
+    if abs(pred / measured - 1.0) > rtol:
         fail(f"dryrun_vs_card {name}: predicted peak {pred} is "
              f"{pred / measured - 1.0:+.3f} of the measured {measured}")
     if row["kernel_calls"] != calls_want:
         fail(f"dryrun_vs_card {name}: kernel calls {row['kernel_calls']}, "
              f"expected {calls_want}")
+
+
+def host_mem_available() -> int:
+    """The host's available memory in bytes (``MemAvailable``)."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    return -1
 
 
 def emit(obj) -> None:
@@ -1789,11 +1906,12 @@ def rel_l2(a, b) -> float:
 
 
 def phase_kernel_q8mm(ops, ref, q8mm) -> dict:
-    """``q8_matmul`` against its plain version.  Returns the two summaries
+    """``q8_matmul`` against its plain version.  Returns the summaries
     the kernels line carries, summed over one gemma2-2b layer's calls (wq,
-    wk, wv, w1, w3; bf16): ``decode`` at M = 4 (one decode step) and
-    ``prefill`` at M = 2048 (one prefill).  Then the crossover rows: both
-    regimes forced at M around ``q8mm.DECODE_MAX_M`` on gemma2-2b's
+    wk, wv, w1, w3; bf16): ``decode`` at M = 4 (one decode step),
+    ``decode_m1`` at M = 1 (one ``long_500k`` decode step; fp32 held too)
+    and ``prefill`` at M = 2048 (one prefill).  Then the crossover rows:
+    both regimes forced at M around ``q8mm.DECODE_MAX_M`` on gemma2-2b's
     shapes, each bitwise against the plain version."""
     import torch
 
@@ -1801,7 +1919,8 @@ def phase_kernel_q8mm(ops, ref, q8mm) -> dict:
     block = 1024
     summary = {r: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                    "max_abs_err": 0.0, "bound_by": b}
-               for r, b in (("decode", "bytes"), ("prefill", "operations"))}
+               for r, b in (("decode", "bytes"), ("decode_m1", "bytes"),
+                            ("prefill", "operations"))}
 
     def check(got, want, what):
         torch.cuda.synchronize()
@@ -1827,7 +1946,8 @@ def phase_kernel_q8mm(ops, ref, q8mm) -> dict:
         padded[:k * n] = codes.reshape(-1).float()
         dense_w = (padded.reshape(n_scales, block) * scales[:, None]) \
             .reshape(-1)[:k * n].reshape(k, n)
-        for m in Q8MM_M:
+        long_m = (Q8MM_LONG_M,) if (k, n) in GEMMA_LAYER_Q8MM else ()
+        for m in long_m + Q8MM_M:
             for dtype in (torch.bfloat16, torch.float32):
                 x = (torch.randn(m, k, generator=gen, device="cuda")
                      * 2.0).to(dtype)
@@ -1871,7 +1991,8 @@ def phase_kernel_q8mm(ops, ref, q8mm) -> dict:
                 emit(row)
                 calls = GEMMA_LAYER_Q8MM.get((k, n), 0)
                 if dtype == torch.bfloat16 and calls:
-                    st = summary[regime]
+                    st = summary["decode_m1" if m == Q8MM_LONG_M
+                                 else regime]
                     st["max_abs_err"] = max(st["max_abs_err"], abs_err)
                     for key, val in (("ms", ms), ("plain_ms", plain_ms),
                                      ("bound_ms", bound_ms)):
@@ -2394,11 +2515,13 @@ def expected_serve_launches(rt, calls: int, keys) -> dict:
 
 def start_dryruns(out_dir: Path, only=None) -> dict:
     """The dry runs of phases 6c and 25 (``python -m
-    repro_torch.launch.dryrun``) and of the PUBLISHED train phases
-    (``--dry-step``), each in a child process of its own (a dry run makes
-    its own fake process group; this process holds the NCCL one), all
-    started at once: host only, on meta tensors, no card visible.  With
-    ``only`` (``--only``'s train phases), the dry steps of those alone."""
+    repro_torch.launch.dryrun``) and of the PUBLISHED train phases and
+    the LONG500K decodes (``--dry-step``), each in a child process of its
+    own (a dry run makes its own fake process group; this process holds
+    the NCCL one), all started at once at the lowest priority (the
+    phases beside them keep the host's cores): host only, on meta
+    tensors, no card visible.  With ``only`` (``--only``'s train and
+    long500k phases), the dry steps of those alone."""
     dry = [sys.executable, "-m", "repro_torch.launch.dryrun"]
     runs = {
         "train": dry + ["--arch", "gemma2-2b", "--mesh", "1x1", "--layers",
@@ -2415,7 +2538,8 @@ def start_dryruns(out_dir: Path, only=None) -> dict:
     } if only is None else {}
     runs.update({name: [sys.executable, str(Path(__file__).resolve()),
                         DRY_STEP_ARG, name]
-                 for name in (PUBLISHED if only is None else only)})
+                 for name in ([*PUBLISHED, *LONG500K] if only is None
+                              else only)})
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1",
                CUDA_VISIBLE_DEVICES="")
     procs = {}
@@ -2425,7 +2549,8 @@ def start_dryruns(out_dir: Path, only=None) -> dict:
             cmd = cmd + ["--out", str(out_dir / f"{i}.jsonl")]
         procs[name] = (subprocess.Popen(cmd, stdout=log,
                                         stderr=subprocess.STDOUT, env=env,
-                                        cwd=str(ROOT)),
+                                        cwd=str(ROOT),
+                                        preexec_fn=lambda: os.nice(19)),
                        log, out_dir / f"{i}.log", time.time())
     # a phase that fails before ``finish_dryruns`` still stops them
     atexit.register(stop_dryruns, procs)
@@ -2434,26 +2559,41 @@ def start_dryruns(out_dir: Path, only=None) -> dict:
 
 def run_reference() -> float:
     """Phases 10 (17 with it), 20, 13, 30, 26b and 35 in a child process
-    (this script with ``REFERENCE_ARG``, the same pins, the same card):
-    its lines join this script's output as they come, its failure is this
-    script's.  Returns its seconds."""
+    (this script with ``REFERENCE_ARG``, the same pins, the same card) and,
+    beside it, 13b in a second (``REFERENCE_LONG_ARG``: its CPU half at
+    published width takes the cores the small reduced runs leave idle):
+    the first's lines join this script's output as they come, the
+    second's when it ends, and a failure of either is this script's.
+    Returns their seconds."""
     t0 = time.perf_counter()
-    with tempfile.TemporaryFile("w+") as err:
-        proc = subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), REFERENCE_ARG],
-            stdout=subprocess.PIPE, stderr=err, text=True, cwd=str(ROOT))
+    script = str(Path(__file__).resolve())
+    with tempfile.TemporaryFile("w+") as err, \
+            tempfile.TemporaryFile("w+") as long_out, \
+            tempfile.TemporaryFile("w+") as long_err:
+        long = subprocess.Popen([sys.executable, script, REFERENCE_LONG_ARG],
+                                stdout=long_out, stderr=long_err, text=True,
+                                cwd=str(ROOT))
+        proc = subprocess.Popen([sys.executable, script, REFERENCE_ARG],
+                                stdout=subprocess.PIPE, stderr=err, text=True,
+                                cwd=str(ROOT))
         try:
             for line in proc.stdout:
                 print(line, end="", flush=True)
-            rc = proc.wait()
+            rc, long_rc = proc.wait(), long.wait()
         finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        err.seek(0)
-        text = err.read()
+            for p in (proc, long):
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        texts = []
+        for f in (long_out, err, long_err):
+            f.seek(0)
+            texts.append(f.read())
+    print(texts[0], end="", flush=True)
     if rc != 0:
-        fail(f"the reference phases exited {rc}: {text[-3000:]}")
+        fail(f"the reference phases exited {rc}: {texts[1][-3000:]}")
+    if long_rc != 0:
+        fail(f"phase 13b exited {long_rc}: {texts[2][-3000:]}")
     return time.perf_counter() - t0
 
 
@@ -2495,10 +2635,11 @@ def main() -> None:
     only = None
     if ONLY_ARG in sys.argv[1:]:
         only = sys.argv[sys.argv.index(ONLY_ARG) + 1].split(",")
-        if not set(only) <= set(PUBLISHED_PHASES) or (
+        if not set(only) <= {*PUBLISHED_PHASES, *LONG500K} or (
                 "serve_granite" in only and "train_granite" not in only):
             fail(f"{ONLY_ARG} takes phases of {PUBLISHED_PHASES} "
-                 f"(serve_granite with train_granite), got {only}")
+                 f"(serve_granite with train_granite) and {tuple(LONG500K)}"
+                 f", got {only}")
     t_script = time.perf_counter()
     # the CPU reference's pins (MKL's reproducible mode, a fixed thread
     # count), set before torch loads MKL: the parity phases repeat the CPU
@@ -3703,10 +3844,11 @@ def main() -> None:
                          for n, h in held.items()}}
 
     def serve_granite(host: dict) -> dict:
-        """Phase 37: granite-moe-1b-a400m at published width and depth
-        served from the q8_block store with ``serve_quant_matmul``, its
-        masters ``train_granite``'s host copies repacked for the q8 plan
-        (``quantize`` once a group), as ``serve`` runs gemma2-2b: a prefill
+        """Phase 37: granite-moe-1b-a400m as phase 36 trains it (published
+        width, 12 layers) served from the q8_block store with
+        ``serve_quant_matmul``, its masters ``train_granite``'s host
+        copies repacked for the q8 plan (``quantize`` once a group), as
+        ``serve`` runs gemma2-2b: a prefill
         of 4 x 512, 32 decode steps, the engine.  ``q8_matmul`` once per
         eligible weight per layer and call (wq, wk, wv, wo and the (1024,
         32) router), by regime; ``dequantize_into`` per other tensor of a
@@ -3787,6 +3929,206 @@ def main() -> None:
                 "dequantize_into": got["dequantize_into"],
                 "regimes": regimes}
 
+    def long500k(name: str, dryrun: dict, prefetch=None) -> dict:
+        """Phases 12b and 12c (slice 18): LONG500K ``name`` at published
+        width and depth from the q8_block store on its serve schedule,
+        bf16 compute, batch 1: ``quantize`` once a group at init, an empty
+        ``rt.init_cache(1, LONG_SEQ)`` (its bytes against ``launch/serve.py
+        --cache-bytes``), then LONG_STEPS greedy decode steps at the
+        shape's last indices (each step's ms; the median of the last
+        LONG_TIMED and its tokens/s); the kernels against the plan (by
+        regime), no plain version, finite logits, the ring's positions
+        the indices decoded, and the decode's own peak against its dry
+        run's (``dryrun_vs_card`` within LONG_PEAK_RTOL).  ``prefetch``
+        (a ``HostPrefetch``, awaited) drew the masters; without it the
+        phase draws its own (``init_params``).  Returns what the kernels
+        line carries."""
+        from repro_torch.launch import serve as serve_cli
+        from repro_torch.models.cache import leaves as leaves_of
+
+        cfg, sched = long500k_runtime_args(name)
+        first = LONG_SEQ - LONG_STEPS
+        argv = ["--arch", cfg.name, "--full", "--batch", "1", "--prompt-len",
+                str(first), "--gen", str(LONG_STEPS), "--cache-bytes"]
+        cli = serve_cli.parse_args(argv)
+        cli_bytes = serve_cli.cache_bytes(serve_cli.serve_config(cli),
+                                          cli)["rank"]["total"]
+        model = build_model(cfg)
+        window = model.cache_window(LONG_SEQ)
+        emit({"phase": name + "_setup", "model": cfg.name,
+              "layers": cfg.n_layers, "d_model": cfg.d_model,
+              "schedule": LONG500K[name][1], "shape": "long_500k",
+              "batch": 1,
+              "cache_len": LONG_SEQ, "ring_slots": window,
+              "sliding_window": cfg.sliding_window,
+              "decode_indices": [first, LONG_SEQ - 1],
+              "predicted_peak": dryrun["row"]["peak_bytes_dev"]})
+        tok = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab, (1, 1))).to("cuda")
+        base = torch.cuda.memory_allocated()    # what earlier phases hold
+        reset_launches(mods)
+        plain_calls, restore_plain = count_plain(ops)
+        timing = {}
+        try:
+            t0 = time.perf_counter()
+            rt = FSDPRuntime(model, group, compute_dtype=torch.bfloat16,
+                             schedule=sched)
+            params = (prefetch.init(name, timing)(rt) if prefetch
+                      else rt.init_params(0))
+            cache = rt.init_cache(1, LONG_SEQ)
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            init = launches_now(mods)
+            reset_launches(mods)
+            cache_bytes = sum(leaf.nbytes for _, leaf in leaves_of(cache))
+            torch.cuda.reset_peak_memory_stats()
+            decode = rt.make_decode_step()
+            step_ms = []
+            for i in range(LONG_STEPS):
+                t0 = time.perf_counter()
+                lg, cache = decode(params, {"tokens": tok}, cache, first + i)
+                tok = torch.argmax(lg, -1)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            restore_plain()
+        peak = torch.cuda.max_memory_allocated()
+        got = launches_now(mods)
+        want = expected_serve_launches(rt, LONG_STEPS, got)
+        regimes = {"decode": q8_matmul.q8_matmul.decode_launches,
+                   "prefill": q8_matmul.q8_matmul.prefill_launches}
+        regimes_want = {"decode": want["q8_matmul"], "prefill": 0}
+        init_want = {k: 0 for k in init}
+        init_want["quantize"] = len(rt.layouts)
+        pos = next(leaf for path, leaf in leaves_of(cache)
+                   if path[-1] == "pos").reshape(-1, window).cpu()
+        idx = torch.arange(first, LONG_SEQ)
+        ring_ok = bool((pos[:, idx % window] == idx).all()) and \
+            int((pos >= 0).sum()) == pos.shape[0] * LONG_STEPS
+        med = statistics.median(step_ms[-LONG_TIMED:])
+        emit({"phase": name, "model": cfg.name, "setup_s": setup_s,
+              "host_draw_s": timing.get("host_draw_s"),
+              "decode_step_ms": step_ms, "decode_step_ms_median": med,
+              "decode_tokens_per_s": 1 / (med / 1e3),
+              "timed_steps": LONG_TIMED, "cache_bytes": cache_bytes,
+              "cache_bytes_cli": cli_bytes,
+              "cache_bytes_cli_argv": argv,
+              "ring_positions_ok": ring_ok,
+              "max_memory_allocated": peak, "allocated_before": base,
+              "own_peak": peak - base,
+              "init_launches": {k: v for k, v in init.items() if v},
+              "kernel_launches": {k: v for k, v in got.items() if v},
+              "expected_launches": {k: v for k, v in want.items() if v},
+              "q8_matmul_launches_by_regime": regimes,
+              "plain_calls": {k: v for k, v in plain_calls.items() if v},
+              "greedy_last": int(tok)})
+        if init != init_want:
+            fail(f"{name} init launched {init}, expected {init_want}")
+        if got != want:
+            fail(f"{name} launched {got}, expected {want}")
+        if regimes != regimes_want:
+            fail(f"{name}: q8_matmul regimes {regimes}, expected "
+                 f"{regimes_want}")
+        if any(plain_calls.values()):
+            fail(f"{name} ran plain versions {plain_calls}")
+        if tuple(lg.shape) != (1, 1, cfg.vocab) \
+                or not bool(torch.isfinite(lg.float()).all()):
+            fail(f"{name} decode logits {tuple(lg.shape)}, finite "
+                 f"{bool(torch.isfinite(lg.float()).all())}")
+        if cache_bytes != cli_bytes:
+            fail(f"{name}: the cache holds {cache_bytes} bytes, "
+                 f"launch/serve.py --cache-bytes says {cli_bytes}")
+        if not ring_ok:
+            fail(f"{name}: the ring's positions are not the indices decoded")
+        dryrun_vs_card(name, dryrun, peak - base,
+                       {k: v // LONG_STEPS for k, v in want.items() if v},
+                       rtol=LONG_PEAK_RTOL, batch=[1, LONG_SEQ])
+        del rt, params, cache, lg, decode
+        torch.cuda.empty_cache()
+        return {"quantize": init["quantize"],
+                "dequantize_into": got["dequantize_into"],
+                "q8_matmul_decode": regimes["decode"]}
+
+    def long500k_phases(names, dry: dict, prefetch=None) -> dict:
+        """Phases 12b and 12c of ``names``, each after a collection (a
+        phase's peak is its own): what the kernels line carries, by
+        phase."""
+        out = {}
+        for name in (n for n in LONG500K if n in names):
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            out[name] = long500k(name, dry[name], prefetch)
+            emit({"phase": name + "_seconds",
+                  "seconds": time.perf_counter() - t0})
+        return out
+
+    def parity_long500k(names) -> None:
+        """Phase 13b: each LONG500K phase of ``names`` cut to
+        LONG_PARITY_LAYERS layers at published width, fp32 compute, its
+        serve schedule: the same host masters on the CPU (the plain
+        versions) and the card (the kernels), LONG_PARITY_STEPS
+        teacher-forced decode steps at the shape's last indices from an
+        empty ``init_cache(1, LONG_SEQ)``; each call's logits within
+        LONG_PARITY_RTOL relative L2.  First ``rope_freqs`` of every
+        ``(rope_theta, hd)`` of the configs, the card's bitwise the
+        CPU's (the tests hold the CPU's bitwise the reference's)."""
+        from repro_torch.configs import ARCH_IDS
+        from repro_torch.models.layers import rope_freqs
+
+        pairs = sorted({(c.rope_theta, c.hd) for c in map(get_config,
+                                                          ARCH_IDS)})
+        diffs = {f"{t:g}/{hd}": int_view_diff(
+            rope_freqs(hd // 2, t, "cuda").cpu(), rope_freqs(hd // 2, t))
+            for t, hd in pairs}
+        emit({"phase": "parity_rope_freqs", "int_view_diff": diffs})
+        if any(diffs.values()):
+            fail(f"rope_freqs differ between the card and the CPU: {diffs}")
+        for name in (n for n in LONG500K if n in names):
+            lcfg, lsched = long500k_runtime_args(name)
+            lcfg = dataclasses.replace(lcfg, n_layers=LONG_PARITY_LAYERS)
+            host = FSDPRuntime(build_model(lcfg), group,
+                               compute_dtype=torch.float32, device="meta",
+                               schedule=lsched).host_params(0)
+            first = LONG_SEQ - LONG_PARITY_STEPS
+            toks = torch.from_numpy(np.random.default_rng(first).integers(
+                0, lcfg.vocab, (1, LONG_PARITY_STEPS)))
+            outs, secs = {}, {}
+            for dev in ("cpu", "cuda"):
+                t0 = time.perf_counter()
+                lrt = FSDPRuntime(build_model(lcfg), group,
+                                  compute_dtype=torch.float32, device=dev,
+                                  schedule=lsched)
+                lparams = {n: lo.store.create(torch.from_numpy(host[n])
+                                              .to(lrt.device))
+                           for n, lo in lrt.layouts.items()}
+                cache = lrt.init_cache(1, LONG_SEQ)
+                decode = lrt.make_decode_step()
+                out = []
+                for i in range(LONG_PARITY_STEPS):
+                    lg, cache = decode(lparams, {"tokens": toks[:, i:i + 1]
+                                                 .to(lrt.device)},
+                                       cache, first + i)
+                    out.append(lg.float().cpu())
+                outs[dev] = torch.cat(out, 1)
+                secs[dev] = time.perf_counter() - t0
+                del lrt, lparams, cache, decode
+            del host
+            readings = [rel_l2(outs["cuda"][:, i], outs["cpu"][:, i])
+                        for i in range(LONG_PARITY_STEPS)]
+            rtol = LONG_PARITY_RTOL[name]
+            emit({"phase": "parity_long500k", "run": name,
+                  "config": lcfg.name, "layers": LONG_PARITY_LAYERS,
+                  "schedule": LONG500K[name][1], "compute": "float32",
+                  "decode_indices": [first, LONG_SEQ - 1],
+                  "rel_l2": readings, "rtol": rtol, "seconds": secs,
+                  "finite": bool(torch.isfinite(outs["cuda"]).all())})
+            if not (max(readings) <= rtol
+                    and bool(torch.isfinite(outs["cuda"]).all())):
+                fail(f"parity_long500k {name}: card and CPU logits differ "
+                     f"by {max(readings)} > {rtol}")
+        torch.cuda.empty_cache()
+
     def published_phases(names, dry: dict, prefetch=None) -> dict:
         """Phases 36-41 (slice 17) of ``names``, in PUBLISHED_PHASES'
         order: the configurations the card had never run.  ``dry`` holds
@@ -3819,10 +4161,13 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
-    if REFERENCE_ARG in sys.argv[1:]:
-        # the child of ``run_reference``: the kernels are built already
+    if {REFERENCE_ARG, REFERENCE_LONG_ARG} & set(sys.argv[1:]):
+        # a child of ``run_reference``: the kernels are built already
         group = init_local_group("cpu:gloo,cuda:nccl")
-        reference_phases()
+        if REFERENCE_LONG_ARG in sys.argv[1:]:
+            parity_long500k(LONG500K)
+        else:
+            reference_phases()
         torch.distributed.destroy_process_group()
         return
     emit({"phase": "device", "name": kind, "nvidia_smi": smi,
@@ -3850,10 +4195,13 @@ def main() -> None:
         dry_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
         try:
             dry = finish_dryruns(start_dryruns(
-                dry_dir, [n for n in only if n in PUBLISHED]))
+                dry_dir, [n for n in only
+                          if n in PUBLISHED or n in LONG500K]))
         finally:
             shutil.rmtree(dry_dir, ignore_errors=True)
         published_phases(only, dry)
+        long500k_phases(only, dry)
+        parity_long500k(only)
         emit({"phase": "script", "seconds": time.perf_counter() - t_script})
         torch.distributed.destroy_process_group()
         print(smi, flush=True)
@@ -4042,20 +4390,22 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- 21. the schedule variants: gemma2-2b as in 6 -------------------
+    def group_gathers(rt, lo) -> int:
+        """Gathers of group ``lo`` in one train step: a stacked group's
+        layers in forward, and again in backward where the schedule
+        reshards (not the split-out last layer); an unstacked group
+        once."""
+        if not lo.n_layers:
+            return 1
+        lp = rt.schedule.plan_layers(lo.n_layers)
+        return lo.n_layers + (lp.main if rt.schedule.reshard_after_forward
+                              else 0)
+
     def gathers_per_step(rt, layers_only=False) -> int:
-        """Gathers of one train step: a stacked group's layers in forward,
-        and again in backward where the schedule reshards (not the
-        split-out last layer); an unstacked group once."""
-        sched = rt.schedule
-        n = 0
-        for lo in rt.layouts.values():
-            if lo.n_layers:
-                lp = sched.plan_layers(lo.n_layers)
-                n += lo.n_layers + (lp.main if sched.reshard_after_forward
-                                    else 0)
-            elif not layers_only:
-                n += 1
-        return n
+        """Gathers of one train step over the groups (the stacked ones
+        alone with ``layers_only``)."""
+        return sum(group_gathers(rt, lo) for lo in rt.layouts.values()
+                   if lo.n_layers or not layers_only)
 
     def stream_of(ms):
         return [(m["loss"], m["grad_norm"]) for m in ms]
@@ -4293,18 +4643,24 @@ def main() -> None:
              f"{auto_plan.profile_hash}, base {auto_plan.base.describe()}")
 
     def auto_launches_want(rt, steps, keys):
-        """The kernels an auto plan's run launches: the fused update once
-        per group and step; a q8 gradient wire (one rank, ring_acc: one
-        encode and one decode per reduce) an encode_ef and a dequantize
-        per reduce; a q8 store as ``train_q8``."""
-        if any(lo.store.quantized for lo in rt.layouts.values()):
-            return expected_q8_launches(rt, steps, keys)
+        """The kernels an auto plan's run launches, group by group (the
+        measured prices may choose a store and a wire for each): the fused
+        update once per group and step, in its q8 epilogue on a q8 store,
+        whose ``quantize`` runs once at init and ``dequantize_into`` once
+        per gather (``group_gathers``: the plan's prefetch and keep_last);
+        a q8 gradient wire (one rank, ring_acc: one encode and one decode
+        per reduce) an encode_ef and a dequantize per reduce."""
         want = {k: 0 for k in keys}
-        want["adamw_store_update"] = len(rt.layouts) * steps
-        ef_reduces = sum(lo.n_layers or 1 for lo in rt.layouts.values()
-                         if lo.store.has_ef)
-        want.update(encode_ef=ef_reduces * steps,
-                    dequantize=ef_reduces * steps)
+        for lo in rt.layouts.values():
+            if lo.store.quantized:
+                want["adamw_q8"] += steps
+                want["quantize"] += 1
+                want["dequantize_into"] += group_gathers(rt, lo) * steps
+            else:
+                want["adamw_store_update"] += steps
+            if lo.store.has_ef:
+                want["encode_ef"] += (lo.n_layers or 1) * steps
+                want["dequantize"] += (lo.n_layers or 1) * steps
         return want
 
     # three runs on train's host init: the measured model's plan, the same
@@ -4769,18 +5125,24 @@ def main() -> None:
 
     # ---- 10, 20, 13, 30, 26b, 35. the card against the CPU reference, in a
     # process of its own ---------------------------------------------
-    # the host masters of phases 38-40 are drawn beside it (its checks
-    # hold values, not times) and awaited before phase 11, so that no
-    # timed phase shares the host with the draw
+    # the host masters of phases 38-40, 12b and 12c are drawn beside it
+    # (its checks hold values, not times) and awaited before phase 11, so
+    # that no timed phase shares the host with the draw
     prefetch = HostPrefetch({
-        n: FSDPRuntime(build_model(published_config(n)[0]), group,
-                       compute_dtype=torch.bfloat16, device="meta")
-        for n in PREFETCHED})
+        **{n: FSDPRuntime(build_model(published_config(n)[0]), group,
+                          compute_dtype=torch.bfloat16, device="meta")
+           for n in PREFETCHED},
+        **{n: FSDPRuntime(build_model(cfg), group,
+                          compute_dtype=torch.bfloat16, device="meta",
+                          schedule=sched)
+           for n, (cfg, sched) in ((n, long500k_runtime_args(n))
+                                   for n in LONG500K)}})
     emit({"phase": "reference", "process": "child",
           "seconds": run_reference()})
-    emit({"phase": "prefetch", "runs": list(PREFETCHED),
+    emit({"phase": "prefetch", "runs": [*PREFETCHED, *LONG500K],
           "wait_s": prefetch.wait(),
-          "draw_s": {n: d[1] for n, d in prefetch.done.items()}})
+          "draw_s": {n: d[1] for n, d in prefetch.done.items()},
+          "host_mem_available_gb": host_mem_available() / 1e9})
 
     # ---- 11. q8_matmul vs plain ----------------------------------------
     q8mm_stats = phase_kernel_q8mm(ops, ref, q8_matmul)
@@ -4860,6 +5222,9 @@ def main() -> None:
              f"q8 serve's (limit {SERVE_INT8_VS_DENSE})")
     del rt, serve_params, serve_logits
     torch.cuda.empty_cache()
+
+    # ---- 12b, 12c. the long_500k decode at published width and depth ---
+    long = long500k_phases(LONG500K, dry, prefetch)
 
     # ---- 27-29. the recurrent families: train and serve at published width
     from repro_torch.models.cache import leaves as cache_leaves
@@ -5161,7 +5526,8 @@ def main() -> None:
                               "serve_vision":
                                   cross["serve_vision"]["quantize"],
                               "serve_granite":
-                                  pub["serve_granite"]["quantize"]},
+                                  pub["serve_granite"]["quantize"],
+                              **{k: v["quantize"] for k, v in long.items()}},
          "by_path": {**q8stats["quantize"]["by_path"],
                      "serve_vision": cross["q8"]["init"]}},
         {**entry("dequantize_into", "blockwise_quant.cu",
@@ -5176,7 +5542,8 @@ def main() -> None:
              "ckpt": ckpt_launches["dequantize_into"],
              "serve_vision": cross["serve_vision"]["q8_serve_matmul"]
              + cross["serve_vision"]["q8_dense"],
-             "serve_granite": pub["serve_granite"]["dequantize_into"]},
+             "serve_granite": pub["serve_granite"]["dequantize_into"],
+             **{k: v["dequantize_into"] for k, v in long.items()}},
          "by_path": {**q8stats["dequantize_into"]["by_path"],
                      "serve_vision_int8_call": cross["q8"]["int8_call"],
                      "serve_vision_dense_call": cross["q8"]["dense_call"],
@@ -5217,7 +5584,10 @@ def main() -> None:
          "launches_by_path": {
              "serve": serve_launches["decode"],
              "serve_vision": cross["serve_vision"]["regimes"]["decode"],
-             "serve_granite": pub["serve_granite"]["regimes"]["decode"]},
+             "serve_granite": pub["serve_granite"]["regimes"]["decode"],
+             **{k: v["q8_matmul_decode"] for k, v in long.items()
+                if v["q8_matmul_decode"]}},
+         "long_m1": q8mm_stats["decode_m1"],
          "sliced": q8mm_sliced["decode"],
          "vision": cross["q8mm"]["decode"],
          "nemotron": pub["kernel_q8mm_nemotron"]["decode"]},

@@ -1,9 +1,11 @@
-"""The dry runs of ``tests/test_torch_dryrun.py``, in a process of their
+"""The dry runs of ``tests/test_torch_dryrun.py``, in processes of their
 own: a dry run makes its own fake default process group, which a test
-process that already holds a gloo group cannot.  Prints one JSON object on
-the line that starts with ``RESULT``.
+process that already holds a gloo group cannot.  ``PART`` (0, 1 or 2)
+picks a third of them by their host seconds, so that the test runs the
+three at once; each prints one JSON object on the line that starts with
+``RESULT`` and appends its rows to ``OUT_DIR/rows<PART>.jsonl``.
 
-    PYTHONPATH=src python tests/_torch_dryrun_worker.py OUT_DIR
+    PYTHONPATH=src python tests/_torch_dryrun_worker.py OUT_DIR PART
 """
 import dataclasses
 import json
@@ -25,12 +27,12 @@ def record_of(rec, plan) -> dict:
                        for n, e in plan.groups.items()}}
 
 
-def main(out_dir: str) -> None:
-    out = pathlib.Path(out_dir) / "rows.jsonl"
+def reduced_and_recurrent(res: dict, argv: list) -> None:
+    """The reduced 4 x 2 steps, qwen3-moe on a pod mesh, xLSTM at
+    published width, and the full-width gemma2-2b row."""
     gemma = get_config("gemma2-2b")
     reduced = dataclasses.replace(gemma.reduced(), parallel=gemma.parallel)
     mesh = {"data": 4, "model": 2}
-    res = {}
     for kind, T, B in (("train", 32, 8), ("prefill", 32, 8),
                        ("decode", 32, 8)):
         res[f"reduced_{kind}"] = record_of(*dryrun.dry_step(
@@ -56,21 +58,38 @@ def main(out_dir: str) -> None:
         xlstm, ShapeConfig("train_130", 130, 256, "train"), prod))
     res["xlstm_decode"] = record_of(*dryrun.dry_step(
         xlstm, ShapeConfig("decode_32k", 32768, 128, "decode"), prod))
-    argv = ["--out", str(out)]
     # the full-width row proves its plan's invariants from the same step
     res["full"] = dryrun.main(["--arch", "gemma2-2b", "--shape", "train_4k",
                                "--verify", *argv])[0]
+
+
+def hymba_rows(res: dict, argv: list) -> None:
+    """hymba-1.5b's train_4k and long_500k rows."""
     res["hymba"] = dryrun.main(["--arch", "hymba-1.5b", "--shape",
                                 "train_4k", *argv])[0]
     res["hymba_long"] = dryrun.main(["--arch", "hymba-1.5b", "--shape",
                                      "long_500k", *argv])[0]
+
+
+def seamless_and_skip(res: dict, argv: list) -> None:
+    """seamless-m4t-medium's train_4k row and a skip row."""
     res["seamless"] = dryrun.main(["--arch", "seamless-m4t-medium",
                                    "--shape", "train_4k", *argv])[0]
     res["skip"] = dryrun.main(["--arch", "qwen2.5-14b", "--shape",
                                "long_500k", "--multi-pod", *argv])[0]
+
+
+# in this order, their rows make the test's ``written`` list
+PARTS = (reduced_and_recurrent, hymba_rows, seamless_and_skip)
+
+
+def main(out_dir: str, part: int) -> None:
+    out = pathlib.Path(out_dir) / f"rows{part}.jsonl"
+    res = {}
+    PARTS[part](res, ["--out", str(out)])
     res["written"] = [json.loads(l) for l in out.read_text().splitlines()]
     print("RESULT " + json.dumps(res))
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    main(sys.argv[1], int(sys.argv[2]))

@@ -105,25 +105,46 @@ def full_tensors(rt, params, raw=False) -> dict[str, np.ndarray]:
     return out
 
 
+class _GradRecorder:
+    """An optimizer whose ``update`` first keeps each step's gradients, as
+    the optimizer sees them (scaled), whole: ``grad<i>/<tensor>``."""
+
+    def __init__(self, opt, out):
+        self.opt, self.out, self.i = opt, out, 0
+
+    def __getattr__(self, name):
+        return getattr(self.opt, name)
+
+    def update(self, runtime, params, grads, state, step, **kwargs):
+        for k, v in full_tensors(runtime, grads, raw=True).items():
+            self.out[f"grad{self.i}/{k}"] = v
+        self.i += 1
+        return self.opt.update(runtime, params, grads, state, step,
+                               **kwargs)
+
+
 def run(mesh_or_group, cfg, steps=STEPS, schedule=None, seq=32, batch=4,
-        keep_ef=False, save=None):
+        keep_ef=False, save=None, keep_grads=False):
     """``steps`` fp32 steps of ``cfg`` on ``mesh_or_group``; returns
     ``{"metrics": (steps, 2) loss and grad norm, tensor: master, ...}``
     (with ``keep_ef``, each q8 group's residual rows of this rank after
-    the last step as ``ef/<group>``, after the first as ``ef1/<group>``).
+    the last step as ``ef/<group>``, after the first as ``ef1/<group>``;
+    with ``keep_grads``, each step's gradients as ``grad<i>/<tensor>``).
     ``save``: a directory the run's state is checkpointed to at the end
     (``ckpt.save``, step ``steps``)."""
     rt = FSDPRuntime(build_model(cfg), mesh_or_group,
                      compute_dtype=torch.float32, device="cpu",
                      **schedule_kwargs(schedule))
     opt = make_optimizer(cfg)
+    out = {}
+    if keep_grads:
+        opt = _GradRecorder(opt, out)
     state = opt.init(rt)
     params = rt.init_params(0)
     fn = rt.make_train_step(opt)
     stream = SyntheticStream(DataConfig(cfg.vocab, seq, batch), cfg)
     metrics = []
     step = 0
-    out = {}
     for i in range(steps):
         params, state, step, m = fn(params, state, step,
                                     stream.shard(stream.batch(i), rt))
@@ -644,6 +665,8 @@ import dataclasses, json, os, sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
 import jax, jax.numpy as jnp, numpy as np
 sys.path.insert(0, sys.argv[1])
+sys.path.insert(0, os.path.join(os.path.dirname(sys.argv[1]), "tests"))
+from _torch_ref_step import first_step
 from repro.configs import build_model, get_config
 from repro.configs.base import ParallelConfig
 from repro.core.fsdp import FSDPRuntime
@@ -707,7 +730,7 @@ for name, spec in runs.items():
     state = opt.init(rt)
     fn = rt.make_train_step(opt)
     stream = SyntheticStream(DataConfig(cfg.vocab, seq, batch), cfg)
-    step, ms = jnp.int32(0), []
+    step, ms = first_step(rt), []
     for i in range(steps):
         params, state, step, m = fn(params, state, step,
                                     stream.shard(stream.batch(i), rt))
@@ -753,6 +776,7 @@ def start_reference(src: str, out: str, runs: dict, init=(), steps=STEPS,
 
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
     env["JAX_PLATFORMS"] = "cpu"
+    env["OPENBLAS_NUM_THREADS"] = "1"  # as _torch_train_worker.one_blas_thread
     return subprocess.Popen(
         [sys.executable, "-c", REF_SCRIPT, src, out, json.dumps(runs),
          str(steps), str(seq), str(batch), str(LR), json.dumps(list(init)),
@@ -833,6 +857,7 @@ def start_reference_extra(src: str, out: str, serve: dict, ckpt0=None):
 
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
     env["JAX_PLATFORMS"] = "cpu"
+    env["OPENBLAS_NUM_THREADS"] = "1"  # as _torch_train_worker.one_blas_thread
     return subprocess.Popen(
         [sys.executable, "-c", REF_EXTRA_SCRIPT, src, out,
          json.dumps({"serve": serve, "ckpt0": ckpt0})], env=env)

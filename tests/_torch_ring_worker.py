@@ -15,6 +15,12 @@ from repro_torch.launch.mesh import init_local_group
 ROUTE_N = 4096      # elements per rank's cotangent
 Q8_BLOCK = 64
 RING_CHUNK = 256    # a fixed ring_chunk_elems (snapped per route)
+# the train streams' chunked ring: snapped to 2,564 elements of a
+# ``layers`` shard (128 sub-chunks at 2 ranks, 64 at 4) and 3,648 / 2,056
+# of ``globals`` (18 / 16), so every message still splits into many
+# independent rings; RING_CHUNK there cut a 4-rank shard into 641 and took
+# ten times the hops
+TRAIN_RING_CHUNK = 4096
 # (case name, codec format, gather mode, reduce mode, ring chunk)
 ROUTE_CASES = [
     (f"{fmt}_{mode}_{rmode}_{chunk}", fmt, mode, rmode, chunk)
@@ -30,7 +36,7 @@ TRAIN_RUNS = {
     "ring": (VARIANTS["ring"], "ragged", None),
     "ring_overlap": (VARIANTS["ring_overlap"], "ragged", None),
     "ring_chunked": (dataclasses.replace(VARIANTS["ring"],
-                                         ring_chunk_elems=RING_CHUNK),
+                                         ring_chunk_elems=TRAIN_RING_CHUNK),
                      "ragged", None),
     "ring_acc": (APPROX_VARIANTS["ring_acc"], "ragged", None),
     "q8_store": (APPROX_VARIANTS["q8_store"], "ragged", None),

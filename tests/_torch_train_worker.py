@@ -1,6 +1,7 @@
 """The quickstart loop of the port, shared by tests/test_torch_train.py's
 in-process runs and its spawned multi-rank runs (this module imports no
 JAX, so spawned ranks start fast)."""
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -14,6 +15,23 @@ from repro_torch.optim import make_optimizer
 
 LR = 1e-2  # raised from 3e-4 so that five warmup steps move the weights
 SEQ, BATCH = 64, 8  # examples/quickstart.py
+
+
+@contextlib.contextmanager
+def one_blas_thread():
+    """OpenBLAS -- numpy's, and scipy's, which the JAX reference's CPU
+    ``eigh`` calls (Shampoo's factors) -- on one thread inside the
+    ``with``.  Its idle threads spin: a reference Shampoo run took 45.2
+    CPU seconds (11.4 s) with 8 threads and 21.6 (7.8 s) with one, on 8
+    cores alone; under a parallel test run the spinning takes cores from
+    every other test.  One thread also makes the reference's ``eigh`` the
+    same bits on every machine (its blocked sums follow the thread
+    count)."""
+    import scipy.linalg  # noqa: F401  -- loaded first, so the limit reaches it
+    from threadpoolctl import threadpool_limits
+
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
 
 
 def quickstart_config(arch="gemma2-2b", **overrides):

@@ -28,6 +28,7 @@ from repro.models import layers as JL
 from repro.optim import make_optimizer as jax_make_optimizer
 
 import _torch_train_worker as W
+from _torch_ref_step import first_step
 from repro_torch.launch.mesh import init_local_group
 from repro_torch.models import layers as L
 
@@ -130,7 +131,7 @@ def _jax_stream(chunk, steps):
     state = opt.init(rt)
     step_fn = rt.make_train_step(opt)
     stream = JaxStream(JaxDataConfig(cfg.vocab, W.SEQ, W.BATCH), cfg)
-    step = jnp.int32(0)
+    step = first_step(rt)
     out = []
     for i in range(steps):
         params, state, step, m = step_fn(params, state, step,

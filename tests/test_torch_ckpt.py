@@ -37,6 +37,9 @@ from repro.data.pipeline import SyntheticStream as JaxStream
 from repro.launch.mesh import make_local_mesh
 from repro.optim import make_optimizer as jax_make_optimizer
 
+import _torch_train_worker as W
+from _torch_ref_step import first_step
+
 from repro_torch.checkpoint import ckpt
 from repro_torch.configs import build_model, get_config
 from repro_torch.core.fsdp import FSDPRuntime
@@ -66,6 +69,7 @@ def _configs(over):
             dataclasses.replace(get_config("gemma2-2b").reduced(), **over))
 
 
+@W.one_blas_thread()
 def _ref_run(over, sched, steps=STEPS, extra=0):
     """The reference after ``steps`` steps (and its state), plus the
     losses of ``extra`` more."""
@@ -76,7 +80,7 @@ def _ref_run(over, sched, steps=STEPS, extra=0):
     params, state = rt.init_params(0), opt.init(rt)
     fn = rt.make_train_step(opt)
     stream = JaxStream(JaxDataConfig(jc.vocab, SEQ, BATCH), jc)
-    st, snap, losses = jnp.int32(0), None, []
+    st, snap, losses = first_step(rt), None, []
     for i in range(steps + extra):
         if i == steps:
             snap = (jax.tree.map(np.asarray, params),

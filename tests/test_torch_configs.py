@@ -35,6 +35,7 @@ from repro.launch.mesh import make_local_mesh
 from repro.optim import make_optimizer as jax_make_optimizer
 
 import _torch_train_worker as W
+from _torch_ref_step import first_step
 from repro_torch.configs import ARCH_IDS, build_model, get_config
 from repro_torch.core.fsdp import FSDPRuntime, _ParamGetter
 from repro_torch.core.policy import plan
@@ -133,7 +134,7 @@ def _jax_stream(arch, steps=STEPS):
     state = opt.init(rt)
     step_fn = rt.make_train_step(opt)
     stream = JaxStream(JaxDataConfig(cfg.vocab, W.SEQ, W.BATCH), cfg)
-    step = jnp.int32(0)
+    step = first_step(rt)
     losses, norms = [], []
     for i in range(steps):
         batch = stream.shard(stream.batch(i), rt)

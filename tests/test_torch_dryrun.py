@@ -1,9 +1,10 @@
 """The dry run (``repro_torch.launch.dryrun``, ``launch.specs``, the
 production mesh) against closed forms and the reference's plan.
 
-The dry runs execute in one subprocess (``tests/_torch_dryrun_worker.py``):
-each makes its own fake default process group, which a test process that
-holds a gloo group already cannot.  The reference's ``plan_only`` runs
+The dry runs execute in three subprocesses at once
+(``tests/_torch_dryrun_worker.py``, a third of them each): each makes its
+own fake default process group, which a test process that holds a gloo
+group already cannot.  The reference's ``plan_only`` runs
 in this process (host only; importing ``repro.launch.dryrun`` sets
 ``XLA_FLAGS`` for 512 host devices, which is put back at once, before
 anything here initialises a JAX backend).
@@ -39,15 +40,23 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
+    """The worker's three parts, run at once; their rows (``written``)
+    in part order."""
     out = tmp_path_factory.mktemp("dryrun")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    proc = subprocess.run(
-        [sys.executable, os.path.join(ROOT, "tests", "_torch_dryrun_worker.py"),
-         str(out)], capture_output=True, text=True, env=env, timeout=600)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    line = next(l for l in proc.stdout.splitlines()
-                if l.startswith("RESULT "))
-    return json.loads(line[len("RESULT "):])
+    worker = os.path.join(ROOT, "tests", "_torch_dryrun_worker.py")
+    procs = [subprocess.Popen([sys.executable, worker, str(out), str(part)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, env=env) for part in range(3)]
+    res = {"written": []}
+    for proc in procs:
+        stdout, stderr = proc.communicate(timeout=600)
+        assert proc.returncode == 0, stderr[-4000:]
+        line = next(l for l in stdout.splitlines() if l.startswith("RESULT "))
+        part = json.loads(line[len("RESULT "):])
+        res["written"] += part.pop("written")
+        res.update(part)
+    return res
 
 
 def _reference_dryrun():

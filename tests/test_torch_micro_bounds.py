@@ -5,7 +5,13 @@ readings of a sound accumulation and of two planted faults.
 compute, a 2 x 2048 batch, 4 steps) in 2 microbatches and holds its loss
 stream, its grad norms and its final masters to ``train_q8``'s.  Here the
 same comparison runs at gemma2-2b.reduced() on one CPU rank, at the
-published config's learning rate, from each of SEEDS:
+published config's learning rate, on 2 x 1024 tokens, from each of
+SEEDS.  That is half the card's rows, to halve the CPU's time: this test
+shows the limits at 1024 tokens a row, and at the card's 2048 they are
+shown only by the readings recorded in brackets below (not re-run here).
+At 1024 the loss fault's margin over ``TRAIN_MICRO_LOSS_RTOL`` is 2x
+(8.1e-4 against 4e-4), at 2048 3x (1.2e-3).
+
 
   * sound: the 2-microbatch stream against the one-batch stream;
   * half (only one microbatch trains): the one-batch stream on the first
@@ -14,11 +20,14 @@ published config's learning rate, from each of SEEDS:
     row's, so it is not read);
   * still (the state never changes): the stream at learning rate 0.
 
-Readings, seeds 0 / 1 (largest over the 4 steps):
-  * loss, relative:  sound 5.0e-5 / 1.3e-4, still 1.3e-3 / 1.4e-3;
-  * grad norm, relative:  sound 3.8e-4 / 6.7e-4, half 0.39 / 0.38;
-  * masters, ||W_micro - W_one|| / ||W_one - W_init||:  sound 0.017 /
-    0.018, half 0.72 / 0.70, still 1.0.
+Readings, seeds 0 / 1 (largest over the 4 steps), at 1024 tokens a row
+[and 2048]:
+  * loss, relative:  sound 7.7e-5 / 1.2e-4 [2.4e-5 / 4.3e-5], still
+    8.1e-4 / 1.0e-3 [1.2e-3 / 1.3e-3];
+  * grad norm, relative:  sound 1.1e-3 / 2.9e-4 [3.4e-4 / 8.9e-4], half
+    0.39 / 0.42 [0.40 / 0.38];
+  * masters, ||W_micro - W_one|| / ||W_one - W_init||:  sound 0.021 /
+    0.021 [0.020 / 0.018], half 0.76 / 0.74 [0.72 / 0.70], still 1.0.
 Each limit of ``chip_smoke.py`` must lie above the sound reading and below
 every fault's.
 """
@@ -40,7 +49,7 @@ from repro_torch.optim import make_optimizer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEEDS = (0, 1)
-BATCH, SEQ, STEPS = 2, 2048, 4
+BATCH, SEQ, STEPS = 2, 1024, 4
 
 
 def _smoke():

@@ -38,6 +38,8 @@ from repro.optim.common import matrix_mask_local as jax_mask
 from repro.optim.muon import newton_schulz as jax_ns
 from repro.optim.shampoo import _inv_4th_root as jax_inv4
 
+import _torch_train_worker as W
+
 from repro_torch.configs import build_model, get_config
 from repro_torch.core.fsdp import FSDPRuntime, load_reference_state
 from repro_torch.core.policy import plan
@@ -145,6 +147,7 @@ def _state(rt_shapes, seed):
     return out
 
 
+@W.one_blas_thread()
 def _jax_update(jcfg, store, params, grads, state, step):
     rt = JaxRuntime(jax_build_model(jcfg), make_local_mesh(1, 1),
                     compute_dtype=jnp.float32,

@@ -27,7 +27,8 @@ Parity classes, measured (bounds asserted per test):
     5e-4 (Hymba); two gloo ranks against one read 4.5e-5 (Hymba's grad
     norm) and 9.0e-6 (masters), under the same stream bounds and 1e-4;
   * serve logits: ALLCLOSE.  xLSTM (all fp32 state) within 1.4e-6
-    relative L2; Hymba within 4.0e-4, its bf16 KV cache's class (a key
+    relative L2; Hymba within 4.0e-4 (as before RoPE's frequencies
+    became the reference's bits), its bf16 KV cache's class (a key
     or value within rounding of a bf16 midpoint rounds the other way, as
     in tests/test_torch_serve.py).  Asserted: 1e-5 and 1.5e-3;
   * the incremental decode against a fresh prefill of each longer prefix
@@ -55,6 +56,7 @@ from repro.serve.engine import Request as JaxRequest
 from repro.serve.engine import ServeEngine as JaxEngine
 
 import _torch_train_worker as W
+from _torch_ref_step import first_step
 from repro_torch.configs import build_model, get_config, with_tp
 from repro_torch.core import policy
 from repro_torch.core.fsdp import FSDPRuntime, load_reference_state
@@ -187,7 +189,7 @@ def _jax_stream(arch):
     state = opt.init(rt)
     step_fn = rt.make_train_step(opt)
     stream = JaxStream(JaxDataConfig(cfg.vocab, W.SEQ, W.BATCH), cfg)
-    step = jnp.int32(0)
+    step = first_step(rt)
     losses, norms, snap = [], [], None
     for i in range(STEPS):
         if i == SNAP:

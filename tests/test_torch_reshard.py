@@ -313,6 +313,8 @@ _JAX_8DEV = textwrap.dedent("""
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
     import dataclasses, numpy as np, jax, jax.numpy as jnp
     sys.path.insert(0, sys.argv[1])
+    sys.path.insert(0, os.path.join(os.path.dirname(sys.argv[1]), "tests"))
+    from _torch_ref_step import first_step
     from repro.checkpoint import ckpt
     from repro.configs import build_model, get_config
     from repro.core.fsdp import FSDPRuntime
@@ -328,7 +330,7 @@ _JAX_8DEV = textwrap.dedent("""
     fn = rt.make_train_step(opt)
     stream = SyntheticStream(DataConfig(cfg.vocab, int(sys.argv[5]),
                                         int(sys.argv[6])), cfg)
-    st, losses = jnp.int32(0), []
+    st, losses = first_step(rt), []
     for i in range(3):
         if i == 2:
             ckpt.save(sys.argv[2], rt, params, state, step=2)

@@ -27,6 +27,7 @@ from repro.launch.mesh import make_local_mesh
 from repro.optim import make_optimizer as jax_make_optimizer
 
 import _torch_train_worker as W
+from _torch_ref_step import first_step
 from repro_torch.core.schedule import VARIANTS
 from repro_torch.launch.mesh import init_local_group
 
@@ -45,7 +46,7 @@ def _jax_run(sched):
     state = opt.init(rt)
     step_fn = rt.make_train_step(opt)
     stream = JaxStream(JaxDataConfig(cfg.vocab, W.SEQ, W.BATCH), cfg)
-    step = jnp.int32(0)
+    step = first_step(rt)
     out = []
     for i in range(STEPS):
         params, state, step, m = step_fn(params, state, step,

@@ -15,7 +15,9 @@ largest reading):
   * serve steps on the fp32 and q8_block stores: ALLCLOSE.  A cached key or
     value that lands within rounding of a bf16 midpoint can round the
     other way; with that, prefill and decode logits stay within 3.1e-4
-    relative L2 of the reference's.
+    relative L2 of the reference's (the same readings with RoPE's
+    frequencies the reference's bits: at these positions an ulp of a
+    frequency moves no logit past the bf16 cache's rounding).
   * the int8 serve mode (``serve_quant_matmul``): prefill logits within
     3.3e-7 (``q8_matmul`` is bitwise the reference's), and one decode step
     from the reference's own cache within 3.5e-7.  Over a decode stream the

@@ -201,6 +201,7 @@ def streams(tmp_path_factory):
     ref_out, ref_ckpt = str(tmp / "ref.npz"), str(tmp / "ref_ckpt")
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
     env["JAX_PLATFORMS"] = "cpu"
+    env["OPENBLAS_NUM_THREADS"] = "1"  # as _torch_train_worker.one_blas_thread
     ref = subprocess.Popen([sys.executable, "-c", REF_SCRIPT,
                             os.path.join(ROOT, "src"), ref_out, ref_ckpt],
                            env=env)

@@ -26,6 +26,7 @@ from repro.launch.mesh import make_local_mesh
 from repro.optim import make_optimizer as jax_make_optimizer
 
 import _torch_train_worker as W
+from _torch_ref_step import first_step
 from repro_torch.configs import build_model
 from repro_torch.core.fsdp import FSDPRuntime, load_reference_state
 from repro_torch.launch.mesh import init_local_group
@@ -50,7 +51,7 @@ def _jax_run(dtype):
     state = opt.init(rt)
     step_fn = rt.make_train_step(opt)
     stream = JaxStream(JaxDataConfig(cfg.vocab, W.SEQ, W.BATCH), cfg)
-    step = jnp.int32(0)
+    step = first_step(rt)
     losses, norms, snap = [], [], None
     for i in range(STEPS):
         if i == SNAP:

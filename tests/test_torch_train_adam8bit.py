@@ -29,6 +29,7 @@ from repro.launch.mesh import make_local_mesh
 from repro.optim import make_optimizer as jax_make_optimizer
 
 import _torch_train_worker as W
+from _torch_ref_step import first_step
 from repro_torch.core.dbuffer import DBuffer
 from repro_torch.core.fsdp import load_reference_state
 from repro_torch.core.policy import plan
@@ -84,7 +85,7 @@ def _jax_run(store, dtype, steps=STEPS):
     state = opt.init(rt)
     step_fn = rt.make_train_step(opt)
     stream = JaxStream(JaxDataConfig(cfg.vocab, W.SEQ, W.BATCH), cfg)
-    step = jnp.int32(0)
+    step = first_step(rt)
     losses, norms, snaps = [], [], {}
     for i in range(steps):
         if i == SNAP:

@@ -32,6 +32,7 @@ from repro.optim import make_optimizer as jax_make_optimizer
 
 import _torch_fp8_worker as FW
 import _torch_train_worker as W
+from _torch_ref_step import first_step
 from repro_torch.configs import build_model
 from repro_torch.core.fsdp import FSDPRuntime, load_reference_state
 from repro_torch.core.schedule import CommSchedule
@@ -108,7 +109,7 @@ def _jax_run(variant, dtype, steps=STEPS):
     state = optimizer.init(rt)
     step_fn = rt.make_train_step(optimizer)
     stream = JaxStream(JaxDataConfig(cfg.vocab, W.SEQ, W.BATCH), cfg)
-    step = jnp.int32(0)
+    step = first_step(rt)
     # host copies (the step donates its inputs): ml_dtypes arrays for the
     # reference's own bf16 and float8 leaves
     losses, norms, snaps = [], [], {"init": _np_state(params)}

@@ -30,6 +30,7 @@ from repro.optim import make_optimizer as jax_make_optimizer
 
 import _torch_optim_worker as OW
 import _torch_train_worker as W
+from _torch_ref_step import first_step
 from repro_torch.core.dbuffer import DBuffer
 from repro_torch.core.fsdp import load_reference_state
 from repro_torch.core.policy import plan
@@ -71,6 +72,7 @@ def _master(state):
     return state["master"] if isinstance(state, dict) else state
 
 
+@W.one_blas_thread()
 def _jax_run(opt, sched, steps=STEPS):
     cfg = dataclasses.replace(jax_get_config(ARCH).reduced(), optimizer=opt,
                               learning_rate=W.LR)
@@ -81,7 +83,7 @@ def _jax_run(opt, sched, steps=STEPS):
     state = o.init(rt)
     step_fn = rt.make_train_step(o)
     stream = JaxStream(JaxDataConfig(cfg.vocab, W.SEQ, W.BATCH), cfg)
-    step = jnp.int32(0)
+    step = first_step(rt)
     losses, norms, snap = [], [], None
     for i in range(steps):
         if i == SNAP:
@@ -139,6 +141,13 @@ def test_train_matches_reference(case, refs):
     assert losses[-1] != losses[0]
 
 
+# the noise's generator seeds on the q8_block store (the fp32 store: 5,
+# the sample this test drew alone), and how many of them may cascade (a
+# flip moves the later steps): 2 of the 22 do, 14 and 16
+NOISE_SEEDS = range(22)
+NOISE_CASCADES = (1, 4)
+
+
 @pytest.mark.parametrize("store", ["fp32", "q8_block"])
 def test_q8_store_turns_last_bit_noise_into_code_flips(store, monkeypatch):
     """The parity class of Muon on the q8_block store: three steps as
@@ -146,38 +155,51 @@ def test_q8_store_turns_last_bit_noise_into_code_flips(store, monkeypatch):
     once with each Newton-Schulz output multiplied by ``1 + 1e-6 n``
     (n ~ N(0, 1)), the size of the sum-order differences between two
     devices' fp32 products.  On the fp32 store the streams and masters
-    move by 6.0e-8 / 1.2e-7 (card vs CPU reads 1.19e-7 / 2.73e-7 on an
-    H100); on the q8_block store 48 weight codes
-    flip (a master within rounding of a code boundary requantizes the
-    other way) and the streams and masters move by 7.1e-6 / 3.5e-5, as
-    card vs CPU does there (7.5e-6 / 3.5e-5).  Asserted: the fp32 store
-    within 3e-7; on the q8_block store some code flips and the streams
-    and masters move by 1e-6-1e-4 / 1e-5-1e-3."""
+    move by 1.2e-7 / 1.1e-7 (card vs CPU reads 2.4e-7 / 3.6e-7 for Muon
+    on an H100 80GB HBM3 at 700 W).  On the q8_block store the noise
+    flips weight codes (a master within rounding of a code boundary
+    requantizes the other way).  Of the seeds 0-21, 20 then move the
+    streams and masters by at most 1.2e-7 / 1.3e-7 (seed 5: 13 codes,
+    6.0e-8 / 9.0e-8), and two (14 and 16: 40 and 49 codes; a flip at an
+    early rebuild moves every later step) by 6.9e-6 / 3.5e-5.  Card vs
+    CPU falls in one regime or the other with the trajectory: 7.5e-6 /
+    3.5e-5 while RoPE's frequencies were an ulp off the reference's,
+    3.0e-7 / 2.7e-7 since (on the same card; seed 5, the one sample this
+    test drew then, cascaded before and not since).  Asserted: the fp32
+    store within 3e-7; on the q8_block store every seed of
+    ``NOISE_SEEDS`` flips codes and stays within 1e-4 / 1e-3 (the
+    streams' and masters' class), and the number that move them by at
+    least 1e-6 / 1e-5 lies in ``NOISE_CASCADES``."""
     from repro_torch.optim.muon import Muon
 
     sched = {} if store == "fp32" else {"param_store": store}
     base = _port_run("muon", sched, steps=3)
     orthogonalize = Muon._orthogonalize
-    gen = torch.Generator().manual_seed(5)
+    readings = []
+    for seed in (5,) if store == "fp32" else NOISE_SEEDS:
+        gen = torch.Generator().manual_seed(seed)
 
-    def noisy(pl, mine):
-        o = orthogonalize(pl, mine)
-        return o * (1 + 1e-6 * torch.randn(o.shape, generator=gen))
+        def noisy(pl, mine, gen=gen):
+            o = orthogonalize(pl, mine)
+            return o * (1 + 1e-6 * torch.randn(o.shape, generator=gen))
 
-    monkeypatch.setattr(Muon, "_orthogonalize", staticmethod(noisy))
-    moved = _port_run("muon", sched, steps=3)
-    streams = max(abs(a - b) / abs(b) for i in (0, 1)
-                  for a, b in zip(moved[i], base[i]))
-    masters = max(_rel(_np(_master(moved[3][n])), _np(_master(p)))
-                  for n, p in base[3].items())
-    if store == "fp32":
-        assert streams <= 3e-7 and masters <= 3e-7, (streams, masters)
-        return
-    flips = sum(int((moved[3][n]["codes"] != p["codes"]).sum())
-                for n, p in base[3].items())
-    assert flips > 0
-    assert 1e-6 <= streams <= 1e-4, streams
-    assert 1e-5 <= masters <= 1e-3, masters
+        monkeypatch.setattr(Muon, "_orthogonalize", staticmethod(noisy))
+        moved = _port_run("muon", sched, steps=3)
+        streams = max(abs(a - b) / abs(b) for i in (0, 1)
+                      for a, b in zip(moved[i], base[i]))
+        masters = max(_rel(_np(_master(moved[3][n])), _np(_master(p)))
+                      for n, p in base[3].items())
+        if store == "fp32":
+            assert streams <= 3e-7 and masters <= 3e-7, (streams, masters)
+            return
+        flips = sum(int((moved[3][n]["codes"] != p["codes"]).sum())
+                    for n, p in base[3].items())
+        readings.append((seed, flips, streams, masters))
+        assert flips > 0, seed
+        assert streams <= 1e-4 and masters <= 1e-3, readings[-1]
+    cascades = sum(s >= 1e-6 and m >= 1e-5 for _, _, s, m in readings)
+    lo, hi = NOISE_CASCADES
+    assert lo <= cascades <= hi, readings
 
 
 @pytest.mark.parametrize("case", ["muon-fp32", "shampoo-fp32"])
@@ -216,29 +238,43 @@ def test_load_reference_state(case, refs):
         load_reference_state(rt, params_np, bad)
 
 
-def _spawn(tmp_path, world, steps, overrides):
+RANK_OPTS, RANK_STEPS = ("muon", "shampoo"), 3
+
+
+@pytest.fixture(scope="module")
+def rank_runs(tmp_path_factory):
+    """{world: {opt: each rank's npz}} of both optimizers, one spawn of
+    ``world`` ranks each (2 and 4, started at once), and {opt: the
+    one-rank run}."""
+    tmp = tmp_path_factory.mktemp("ranks")
     ctx = multiprocessing.get_context("spawn")
-    prefix = str(tmp_path / f"w{world}_rank")
-    procs = [ctx.Process(target=OW.rank_main,
-                         args=(r, world, str(tmp_path / f"store{world}"),
-                               prefix, steps, ARCH, overrides))
-             for r in range(world)]
-    for p in procs:
+    runs = {opt: dict(optimizer=opt, n_layers=3) for opt in RANK_OPTS}
+    procs = {world: [ctx.Process(target=OW.rank_main,
+                                 args=(r, world, str(tmp / f"store{world}"),
+                                       str(tmp / f"w{world}_"), RANK_STEPS,
+                                       ARCH, runs))
+                     for r in range(world)] for world in (2, 4)}
+    for p in (p for ps in procs.values() for p in ps):
         p.start()
-    for p in procs:
+    one = {opt: W.train(init_local_group("gloo"), torch.float32, RANK_STEPS,
+                        arch=ARCH, overrides=runs[opt]) for opt in RANK_OPTS}
+    for p in (p for ps in procs.values() for p in ps):
         p.join(timeout=240)
-    alive = [p.pid for p in procs if p.is_alive()]
-    for p in procs:
+    alive = [p.pid for ps in procs.values() for p in ps if p.is_alive()]
+    for p in (p for ps in procs.values() for p in ps):
         if p.is_alive():
             p.kill()
     assert not alive, f"ranks {alive} did not finish"
-    assert [p.exitcode for p in procs] == [0] * world
-    return [dict(np.load(f"{prefix}{r}.npz")) for r in range(world)]
+    assert all(p.exitcode == 0 for ps in procs.values() for p in ps)
+    outs = {world: {opt: [dict(np.load(tmp / f"w{world}_{opt}_{r}.npz"))
+                          for r in range(world)] for opt in RANK_OPTS}
+            for world in procs}
+    return outs, one
 
 
 @pytest.mark.parametrize("world", [2, 4])
 @pytest.mark.parametrize("opt", ["muon", "shampoo"])
-def test_ranks_track_one_rank(opt, world, tmp_path):
+def test_ranks_track_one_rank(opt, world, rank_runs):
     """qwen2.5-14b reduced at 3 layers on ``world`` gloo ranks against one
     rank, three steps (fp32, fp32 store).  Each rank gathers the momentum
     (Muon) or gradient (Shampoo) along the shard axis, preconditions its
@@ -251,13 +287,10 @@ def test_ranks_track_one_rank(opt, world, tmp_path):
     and the tensor is noise of the step's size on either run.  Measured:
     loss rtol up to 3.6e-7, grad-norm 6.0e-7, tensors relative L2 up to
     1.4e-5 (``wk_b`` 2.3e-3), Shampoo's factors 1.9e-5 (the padded layer's
-    exactly zero).  Asserted: 1e-5, 1e-5, 1e-4 (``wk_b`` 1e-2), 1e-4."""
-    steps = 3
-    overrides = dict(optimizer=opt, n_layers=3)
-    outs = _spawn(tmp_path, world, steps, overrides)
-    losses, norms, rt, params, state = W.train(
-        init_local_group("gloo"), torch.float32, steps, arch=ARCH,
-        overrides=overrides)
+    exactly zero).  Asserted: 1e-5, 1e-5, 1e-4 (``wk_b`` 1e-2), 1e-4.
+    Both optimizers run in one spawn of ranks a world size."""
+    outs = rank_runs[0][world][opt]
+    losses, norms, rt, params, state = rank_runs[1][opt]
     for out in outs:
         np.testing.assert_allclose(out["losses"], losses, rtol=1e-5)
         np.testing.assert_allclose(out["norms"], norms, rtol=1e-5)

@@ -30,6 +30,7 @@ from repro.optim import make_optimizer as jax_make_optimizer
 
 import _torch_q8_worker as QW
 import _torch_train_worker as W
+from _torch_ref_step import first_step
 from repro_torch.configs import build_model
 from repro_torch.core.fsdp import FSDPRuntime, load_reference_state
 from repro_torch.core.schedule import CommSchedule
@@ -81,7 +82,7 @@ def _jax_run(variant, dtype, steps=STEPS):
     state = opt.init(rt)
     step_fn = rt.make_train_step(opt)
     stream = JaxStream(JaxDataConfig(cfg.vocab, W.SEQ, W.BATCH), cfg)
-    step = jnp.int32(0)
+    step = first_step(rt)
     losses, norms, snaps = [], [], {}
     for i in range(steps):
         if i == SNAP:

@@ -48,8 +48,10 @@ REF_RUNS = {
 _XLA_TRAIN = textwrap.dedent("""
     import dataclasses, json, os, sys
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-    import jax.numpy as jnp, numpy as np
+    import jax, jax.numpy as jnp, numpy as np
     sys.path.insert(0, sys.argv[1])
+    sys.path.insert(0, os.path.join(os.path.dirname(sys.argv[1]), "tests"))
+    from _torch_ref_step import first_step
     from repro.configs import build_model, get_config
     from repro.core.fsdp import FSDPRuntime
     from repro.core.schedule import APPROX_VARIANTS, VARIANTS
@@ -71,7 +73,7 @@ _XLA_TRAIN = textwrap.dedent("""
         state = opt.init(rt)
         fn = rt.make_train_step(opt)
         stream = SyntheticStream(DataConfig(cfg.vocab, seq, batch), cfg)
-        step, m_out = jnp.int32(0), []
+        step, m_out = first_step(rt), []
         for i in range(steps):
             params, state, step, m = fn(params, state, step,
                                         stream.shard(stream.batch(i), rt))
